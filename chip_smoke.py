@@ -1,8 +1,9 @@
 """Smoke run of ``mxnet_tpu_torch`` on one NVIDIA GPU: build the CUDA
 kernels from source, hold each against its plain PyTorch version, serve
 a GPT-2-small-width transformer through the port's ``ModelServer`` with
-paged-KV continuous batching, and check the numbers against the dense
-reference.
+paged-KV continuous batching, check the numbers against the dense
+reference, and drive the imperative ``mx.nd`` / ``mx.autograd`` /
+``mx.rtc`` path at (4096, 4096) float32 against numpy in float64.
 
     python3 chip_smoke.py
 
@@ -19,6 +20,12 @@ Phases:
   kernel:flash_attention_fwd
            the kernel against the plain version at the prefill's
            shapes: error, kernel/plain/library times, bound
+  kernel:rtc_add
+           NVRTC compile of ``csrc/rtc/add.cu`` through
+           ``rtc.CudaModule`` (timed), the kernel against
+           ``rtc.add_reference`` at (8, 128), 2**20+3 and 2**26 float32
+           elements (exact) and 2**20+3 bfloat16; kernel/plain/library
+           (``torch.add``) times and the bound at 2**26
   serve    vocab 32000, 12 layers, d_model 768, 12 heads, d_ff 3072,
            bf16, random weights from seed 0; slots 8, KV blocks of 16
            tokens, prompts up to 512, context up to 1024, prefill
@@ -27,6 +34,14 @@ Phases:
   numerics the same width at 2 layers in float32: prefill logits through
            the kernel against ``apply`` with dense attention (1e-3
            abs), and greedy tokens against the dense greedy reference
+  ndarray  the imperative path on ``mx.gpu(0)``, twice (the first pass
+           pays one-time costs): (4096, 4096) float32 operands, the rtc
+           ``add`` kernel launched on them through ``CudaKernel.launch``,
+           one 4096**3 ``dot``, a chain of elementwise, broadcast,
+           reduce and matrix ops under ``autograd.record()`` and one
+           ``backward()``; every result against numpy in float64 (error
+           over the largest magnitude, 1e-4), ``nd.save``/``nd.load``
+           round trips bitwise
   kernels  every kernel and its status
 """
 from __future__ import annotations
@@ -35,7 +50,9 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -66,8 +83,10 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, iters: int = 25, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``iters`` runs (CUDA events)."""
+def time_ms(fn, iters: int = 25, warmup: int = 3, inner: int = 1) -> float:
+    """Median device time of ``fn`` over ``iters`` runs (CUDA events);
+    with ``inner`` > 1 each run is that many calls back to back, divided
+    out, so the host's launch overhead hides behind the device work."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -76,10 +95,11 @@ def time_ms(fn, iters: int = 25, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -186,6 +206,235 @@ def phase_kernel():
                                % (err, atol, row["shape"]))
         rows.append(row)
     return rows
+
+
+def _add_grid(n: int):
+    """Grid of the rtc add kernel: 256 threads a block, 4 elements a
+    thread, at most 8 blocks per SM (the loop strides over the rest)."""
+    return (max(1, min(-(-n // (256 * 4)), 132 * 8)), 1, 1), (256, 1, 1)
+
+
+def _add_source() -> str:
+    import mxnet_tpu_torch
+
+    return (Path(mxnet_tpu_torch.__file__).resolve().parent / "csrc"
+            / "rtc" / "add.cu").read_text()
+
+
+ADD_SIG = "const {0} *x, const {0} *y, {0} *out, long n"
+# (elements, dtype, kernel name, C type)
+RTC_ADD_SIZES = [
+    ((8, 128), torch.float32, "add", "float"),
+    ((2 ** 20 + 3,), torch.float32, "add", "float"),
+    ((2 ** 26,), torch.float32, "add", "float"),
+    ((2 ** 20 + 3,), torch.bfloat16, "add_bf16", "__nv_bfloat16"),
+]
+
+
+def phase_rtc_add():
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc
+
+    t0 = time.perf_counter()
+    mod = rtc.CudaModule(_add_source())
+    nvrtc_s = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for shape, dtype, name, ctype in RTC_ADD_SIZES:
+        k = mod.get_kernel(name, ADD_SIG.format(ctype))
+        x, y = (mx.nd.NDArray.from_raw(
+            torch.randn(shape, generator=g, device=dev).to(dtype),
+            mx.gpu(0)) for _ in range(2))
+        out = mx.nd.zeros(shape, ctx=mx.gpu(0), dtype=dtype)
+        n = x.size
+        grid, block = _add_grid(n)
+        n0 = rtc.launches[name]
+
+        def launch():
+            k.launch([x, y, out, n], mx.gpu(0), grid, block)
+
+        launch()
+        torch.cuda.synchronize()
+        if rtc.launches[name] != n0 + 1:
+            raise RuntimeError("rtc add did not count its launch")
+        want = rtc.add_reference(x._data, y._data)
+        err = (out._data.float() - want.float()).abs().max().item()
+        row = {"shape": list(shape), "dtype": str(dtype).replace(
+            "torch.", ""), "kernel": name, "grid": list(grid),
+            "max_err": err, "atol": 0.0,
+            "bitwise_equal": bool(torch.equal(out._data, want))}
+        if n == 2 ** 26:
+            row.update({
+                "kernel_ms": time_ms(launch, inner=10),
+                "plain_ms": time_ms(lambda: rtc.add_reference(
+                    x._data, y._data), inner=10),
+                "library_ms": time_ms(lambda: torch.add(x._data, y._data),
+                                      inner=10),
+                # bytes: x and y read once, out written once; one add a
+                # element is far below the card's operations per byte
+                "bound_ms": 3 * n * x._data.element_size()
+                / PEAK_BYTES_S * 1e3,
+                "bound_by": "bytes"})
+        emit(dict({"phase": "kernel:rtc_add"}, **row))
+        if not row["bitwise_equal"]:
+            raise RuntimeError("rtc add disagrees with add_reference at %s "
+                               "%s: max error %g" % (shape, dtype, err))
+        rows.append(row)
+    emit({"phase": "kernel:rtc_add", "nvrtc_s": nvrtc_s,
+          "nvrtc": rtc._nvrtc.path, "nvrtc_version": rtc._nvrtc.version(),
+          "arch": rtc.ARCH, "cubin_bytes": len(mod.cubin)})
+    return rows
+
+
+ND_N = 4096
+ND_RTOL = 1e-4
+
+
+def _rel_err(got, want):
+    """Largest error over the largest magnitude of ``want`` (float64)."""
+    got = np.asarray(got, dtype=np.float64)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    return float(np.abs(got - want).max()) / scale
+
+
+def phase_ndarray():
+    """The imperative path at (4096, 4096) float32 on the card: the rtc
+    add, a 4096**3 dot, elementwise/broadcast/reduce/matrix ops, one
+    recorded backward, save/load; numpy float64 on the host checks."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc
+
+    nd, n = mx.nd, ND_N
+    rng = np.random.RandomState(0)
+    a = rng.randn(n, n).astype(np.float32)
+    b = rng.randn(n, n).astype(np.float32)
+    bias = rng.randn(1, n).astype(np.float32)
+    ctx = mx.gpu(0)
+    mod = rtc.CudaModule(_add_source())      # cached by the kernel phase
+    add = mod.get_kernel("add", ADD_SIG.format("float"))
+
+    def drive():
+        """One pass of the path; returns its arrays, op count and the
+        host-clock seconds of the upload and of the ops (each synced)."""
+        ops = 0
+
+        def op(f, *args, **kw):
+            nonlocal ops
+            ops += 1
+            return f(*args, **kw)
+
+        t0 = time.perf_counter()
+        x = nd.array(a, ctx=ctx)
+        w = nd.array(b, ctx=ctx)
+        c = nd.array(bias, ctx=ctx)
+        x.attach_grad()
+        w.attach_grad()
+        nd.waitall()
+        t1 = time.perf_counter()
+        s = op(nd.zeros, (n, n), ctx=ctx)
+        grid, block = _add_grid(s.size)
+        op(add.launch, [x, w, s, s.size], ctx, grid, block)  # s = x + w
+        with mx.autograd.record():
+            h = op(nd.dot, x, w) / float(n // 64)             # 4096**3
+            ops += 1
+            g = op(nd.sigmoid, s)
+            z = op(nd.relu, op(nd.broadcast_add, h, c)) * g
+            ops += 1
+            m = op(z.mean, axis=1)
+            loss = op((m * m).sum)
+            ops += 1
+        loss.backward()
+        out = dict(x=x, w=w, s=s, h=h, z=z, m=m, loss=loss,
+                   zmax=op(z.max, axis=0), arg=op(nd.argmax, z, axis=1),
+                   zt=op(nd.transpose, z)[::3, 1:257],
+                   top=op(z.topk, axis=1, k=4, ret_typ="value"))
+        ops += 1
+        nd.waitall()
+        return out, ops, t1 - t0, time.perf_counter() - t1
+
+    torch.cuda.synchronize()
+    # the path, twice (the first pass pays one-time costs): counts start
+    # at 0 here and are read just after
+    rtc.launches.clear()
+    passes = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        res, ops, upload_s, ops_s = drive()
+        passes.append({"wall_s": time.perf_counter() - t0,
+                       "upload_s": upload_s, "ops_s": ops_s})
+    launches = dict(rtc.launches)
+    x, w, s, h, z, m, loss = (res[k] for k in "x w s h z m loss".split())
+    zmax, arg, zt, top = (res[k] for k in ("zmax", "arg", "zt", "top"))
+
+    # numpy float64 on the host
+    a64, b64, c64 = (v.astype(np.float64) for v in (a, b, bias))
+    s64 = a64 + b64
+    h64 = a64 @ b64 / (n // 64)
+    g64 = 1.0 / (1.0 + np.exp(-s64))
+    pre = h64 + c64
+    z64 = np.maximum(pre, 0.0) * g64
+    m64 = z64.mean(axis=1)
+    z32 = z.asnumpy()
+    dz = np.broadcast_to((2.0 * m64 / n)[:, None], z64.shape)
+    # relu's branch as the card took it (z > 0 exactly where h + c > 0):
+    # an element within float32 rounding of 0 may fall on the other side
+    # in float64, and one such flip moves a whole gradient row by ~1e-2
+    dh = dz * g64 * (z32 > 0) / (n // 64)
+    checks = {
+        "rtc_add": _rel_err(s.asnumpy(), s64),
+        "dot": _rel_err(h.asnumpy(), h64),
+        "z": _rel_err(z32, z64),
+        "mean": _rel_err(m.asnumpy(), m64),
+        "loss": _rel_err(loss.asnumpy(), np.asarray((m64 * m64).sum())),
+        "max": _rel_err(zmax.asnumpy(), z64.max(axis=0)),
+        "transpose_slice": _rel_err(zt.asnumpy(), z64.T[::3, 1:257]),
+        "topk": _rel_err(top.asnumpy(), -np.sort(-z64, axis=1)[:, :4]),
+        "grad_x": _rel_err(x.grad.asnumpy(), dh @ b64.T),
+        "grad_w": _rel_err(w.grad.asnumpy(), a64.T @ dh),
+    }
+    # argmax: ties aside, the float32 result's argmax must pick a value
+    # within the tolerance of the float64 row maximum
+    picked = z64[np.arange(n), arg.asnumpy().astype(np.int64)]
+    checks["argmax"] = _rel_err(picked, z64.max(axis=1))
+    rtc_exact = bool(np.array_equal(s.asnumpy(), a + b))
+
+    # save / load round trips, bitwise, in both formats
+    build = Path(mx.__file__).resolve().parent / "_build"
+    build.mkdir(parents=True, exist_ok=True)
+    saved = {}
+    with tempfile.TemporaryDirectory(dir=str(build)) as d:
+        for fmt in ("params", "npz"):
+            path = str(Path(d) / ("nd." + fmt))
+            payload = {"z": z, "w": w, "arg": arg,
+                       "bf16": s.astype("bfloat16")}
+            if fmt == "params":
+                payload.pop("bf16")      # the container has no bfloat16
+            t1 = time.perf_counter()
+            nd.save(path, payload)
+            back = nd.load(path, ctx=ctx)
+            saved[fmt] = {
+                "bitwise": all(torch.equal(back[k]._data, v._data)
+                               for k, v in payload.items()),
+                "bytes": Path(path).stat().st_size,
+                "seconds": time.perf_counter() - t1}
+    row = {"phase": "ndarray", "n": n, "dtype": "float32", "ops": ops,
+           "passes": passes, "rtol": ND_RTOL, "rel_err": checks,
+           "rtc_add_exact": rtc_exact, "rtc_launches": launches,
+           "save_load": saved}
+    emit(row)
+    bad = {k: v for k, v in checks.items() if not v <= ND_RTOL}
+    if bad:
+        raise RuntimeError("ndarray: results differ from numpy float64 "
+                           "beyond %g: %r" % (ND_RTOL, bad))
+    if not rtc_exact:
+        raise RuntimeError("ndarray: the rtc add is not x + y exactly")
+    if launches.get("add", 0) != len(passes):
+        raise RuntimeError("ndarray: the rtc add ran %r times on the path"
+                           % launches)
+    if not all(v["bitwise"] for v in saved.values()):
+        raise RuntimeError("ndarray: save/load is not bitwise: %r" % saved)
+    return row
 
 
 def _pct(xs, p):
@@ -349,9 +598,12 @@ def main() -> int:
     phase_device()
     phase_build()
     rows = phase_kernel()
+    add_rows = phase_rtc_add()
     serve = phase_serve()
     phase_numerics()
+    ndrow = phase_ndarray()
     main_row = rows[0]
+    add_row = next(r for r in add_rows if "kernel_ms" in r)
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -362,6 +614,16 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shape": main_row["shape"], "dtype": main_row["dtype"],
+    }, {
+        "name": "rtc_add", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/rtc/add.cu",
+        "replaces": "tests/test_parity_tail.py:148",
+        "launches": ndrow["rtc_launches"].get("add", 0),
+        "max_abs_err": max(r["max_err"] for r in add_rows),
+        "ms": add_row["kernel_ms"], "plain_ms": add_row["plain_ms"],
+        "bound_ms": add_row["bound_ms"], "bound_by": add_row["bound_by"],
+        "library_ms": add_row["library_ms"],
+        "shape": add_row["shape"], "dtype": add_row["dtype"],
     }]
     emit({"phase": "kernels",
           "kernels": {k["name"]: "checked" for k in kernels}})

@@ -4,17 +4,32 @@ Hopper (H100).
 The JAX package ``mxnet_tpu`` stays the reference: each module here
 names its counterpart there and is held against it by parity tests
 (``tests/test_torch_*.py``).  This package imports neither JAX nor
-``mxnet_tpu``.  Its entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``; without a CUDA device they raise.  Every
-kernel the JAX package wrote in Pallas is a hand-written CUDA C++
-kernel under ``csrc/``, built by ``nvcc`` at first use (``_build``).
+``mxnet_tpu``.  Its entry points run on the card unless the caller asks
+for the CPU (``device="cpu"``, ``ctx=mx.cpu()``); without a CUDA device
+they raise.  Every kernel the JAX package wrote in Pallas is a
+hand-written CUDA C++ kernel: ``csrc/*.cu`` built by ``nvcc`` at first
+use (``_build``), and ``csrc/rtc/*.cu`` compiled by NVRTC through
+``rtc.CudaModule``.  Nothing is built at import.
 
-Ported so far: the generation serving path — ``serving``
-(``ModelServer`` over a paged-KV continuous-batching
-``GenerationRuntime``), ``transformer.model`` (forward, prefill,
-decode), and ``parallel.attention`` with the flash-attention kernel
-that the prefill runs.
+Ported so far:
+
+* the generation serving path — ``serving`` (``ModelServer`` over a
+  paged-KV continuous-batching ``GenerationRuntime``),
+  ``transformer.model`` and ``parallel.attention`` with the
+  flash-attention kernel that the prefill runs;
+* the imperative path — ``nd`` (``NDArray``, the op registry's core
+  ops, save/load), ``autograd`` on ``torch.autograd``, ``engine`` and
+  ``rtc`` (``CudaModule`` / ``PallasModule``).
 """
-from . import convert, env, parallel, serving, transformer
+from . import base, context, convert, env, parallel, serving, transformer
+from . import autograd, engine, ndarray, rtc
+from . import ndarray as nd
+from .base import MXNetError
+from .context import (Context, cpu, cpu_pinned, current_context, gpu,
+                      num_gpus, tpu)
+from .ndarray import NDArray
 
-__all__ = ["convert", "env", "parallel", "serving", "transformer"]
+__all__ = ["convert", "env", "parallel", "serving", "transformer", "nd",
+           "ndarray", "autograd", "engine", "rtc", "base", "context",
+           "Context", "cpu", "cpu_pinned", "gpu", "tpu", "current_context",
+           "num_gpus", "NDArray", "MXNetError"]

@@ -65,6 +65,11 @@ def get_float(name: str) -> Optional[float]:
     return _get_num(name, float)
 
 
+# engine.py
+register("MXNET_MODULE_BULK_SIZE", "int", None,
+         "Opt a fit loop into K-step bulk dispatch; presence alone opts "
+         "in, the value is K (read by engine.fit_bulk_size).")
+
 # transformer/
 register("MXNET_ATTENTION_IMPL", "str", "flash",
          "Transformer attention implementation.  The port has 'flash' "

@@ -1,0 +1,17 @@
+"""Operator library: plain PyTorch bodies behind the MXNet op registry.
+
+Counterpart: ``mxnet_tpu/ops/``.  Importing this package registers every
+ported operator: the core modules (elementwise, reduce, matrix, init)
+and the softmax pair of ``nn``.
+"""
+from . import registry
+from .registry import Op, get, list_ops, register
+
+# registration side-effect imports
+from . import elemwise  # noqa: F401
+from . import reduce  # noqa: F401
+from . import matrix  # noqa: F401
+from . import init_ops  # noqa: F401
+from . import nn  # noqa: F401
+
+__all__ = ["Op", "get", "list_ops", "register", "registry"]

@@ -8,14 +8,28 @@ has only PyTorch and the CUDA toolkit:
     python -m pytest --noconftest -q tests/test_torch_kernels_on_card.py
 
 (``--noconftest`` because ``tests/conftest.py`` sets up JAX).
-Tolerances: float32 1e-4 abs (another summation order than the plain
-version's einsum); bfloat16 2e-2 abs against the plain version run in
-float32 on the same bfloat16 inputs (the output is rounded to bfloat16).
+Tolerances: flash attention float32 1e-4 abs (another summation order
+than the plain version's einsum), bfloat16 2e-2 abs against the plain
+version run in float32 on the same bfloat16 inputs (the output is
+rounded to bfloat16).  The ``mx.rtc`` add kernel (``csrc/rtc/add.cu``,
+compiled by NVRTC) exactly: one IEEE add per element, rounded to
+nearest even in bfloat16 as PyTorch's add does.  ``mx.nd`` ops on
+``gpu(0)`` against the same ops on ``cpu()``: exact for elementwise
+arithmetic and data movement, 1e-12 (float64) for sums and products,
+which the card takes in another order.
 """
+from pathlib import Path
+
+import numpy as np
 import pytest
 import torch
 
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import rtc
 from mxnet_tpu_torch.parallel import attention as tattn
+
+ADD_CU = Path(mx.__file__).resolve().parent / "csrc" / "rtc" / "add.cu"
+ADD_SIG = "const %s *x, const %s *y, %s *out, long n"
 
 # (B, Tq, Tk, H, D, causal)
 CASES = [
@@ -97,3 +111,157 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
         tattn.flash_attention_fwd(q, q, q)
     with pytest.raises(ValueError):
         tattn.flash_attention_fwd(q.cpu(), q, q)
+
+
+@pytest.fixture(scope="module")
+def add_module():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (NVRTC compiles for the card)")
+    return rtc.CudaModule(ADD_CU.read_text())
+
+
+def _launch_add(mod, kernel, ctype, x, y, out, n):
+    k = mod.get_kernel(kernel, ADD_SIG % (ctype, ctype, ctype))
+    blocks = max(1, min(-(-n // (256 * 4)), 132 * 8))
+    k.launch([x, y, out, n], mx.gpu(0), (blocks, 1, 1), (256, 1, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,ctype,dtype", [
+    ("add", "float", "float32"), ("add_bf16", "__nv_bfloat16", "bfloat16")])
+@pytest.mark.parametrize("shape", [(8, 128), (2 ** 20 + 3,), (1,), (37,)],
+                         ids=str)
+def test_rtc_add_matches_plain_exactly(add_module, kernel, ctype, dtype,
+                                       shape):
+    g = torch.Generator().manual_seed(0)
+    xs = [torch.randn(shape, generator=g) for _ in range(2)]
+    x, y = (mx.nd.array(t, ctx=mx.gpu(0), dtype=dtype) for t in xs)
+    out = mx.nd.zeros(shape, ctx=mx.gpu(0), dtype=dtype)
+    n0 = rtc.launches[kernel]
+    _launch_add(add_module, kernel, ctype, x, y, out, x.size)
+    torch.cuda.synchronize()
+    assert rtc.launches[kernel] == n0 + 1
+    want = rtc.add_reference(x._data, y._data)
+    assert torch.equal(out._data, want)
+
+
+@pytest.mark.cuda
+def test_rtc_add_unaligned_pointers_take_the_scalar_path(add_module):
+    # views at a 4-byte offset: no 16-byte vector access is legal
+    base = [torch.randn(1001, device="cuda") for _ in range(3)]
+    x, y, out = (mx.nd.NDArray.from_raw(t[1:], mx.gpu(0)) for t in base)
+    _launch_add(add_module, "add", "float", x, y, out, 1000)
+    torch.cuda.synchronize()
+    assert torch.equal(out._data, base[0][1:] + base[1][1:])
+
+
+@pytest.mark.cuda
+def test_rtc_launch_refuses_wrong_dtype_and_device(add_module):
+    k = add_module.get_kernel("add", ADD_SIG % (("float",) * 3))
+    x = mx.nd.ones((4,), ctx=mx.gpu(0))
+    h = mx.nd.ones((4,), ctx=mx.cpu())
+    d = mx.nd.ones((4,), ctx=mx.gpu(0), dtype="float64")
+    with pytest.raises(mx.MXNetError, match="argument 1 is torch.float64"):
+        k.launch([x, d, x, 4], mx.gpu(0), (1, 1, 1), (32, 1, 1))
+    with pytest.raises(mx.MXNetError, match="argument 2 lies on cpu"):
+        k.launch([x, x, h, 4], mx.gpu(0), (1, 1, 1), (32, 1, 1))
+    with pytest.raises(mx.MXNetError, match="cannot launch on cpu"):
+        k.launch([h, h, h, 4], mx.cpu(), (1, 1, 1), (32, 1, 1))
+    with pytest.raises(mx.MXNetError, match="cuLaunchKernel"):
+        k.launch([x, x, x, 4], mx.gpu(0), (1, 1, 1), (4096, 1, 1))
+
+
+@pytest.mark.cuda
+def test_rtc_cpp_exports_and_compile_errors(add_module):
+    src = """
+    template <typename T>
+    __global__ void axpby(const T* x, T* y, T a, T b, long n) {
+      long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
+      if (i < n) y[i] = a * x[i] + b * y[i];
+    }
+    """
+    mod = rtc.CudaModule(src, exports=["axpby<double>"])
+    k = mod.get_kernel("axpby<double>", "const double *x, double *y, "
+                       "double a, double b, long n")
+    xa, ya = np.arange(5.0), np.ones(5)
+    x = mx.nd.array(xa, ctx=mx.gpu(0))
+    y = mx.nd.array(ya, ctx=mx.gpu(0))
+    k.launch([x, y, 2.0, 3.0, 5], mx.gpu(0), (1, 1, 1), (32, 1, 1))
+    np.testing.assert_array_equal(y.asnumpy(), 2.0 * xa + 3.0 * ya)
+    with pytest.raises(mx.MXNetError, match="NVRTC compile"):
+        rtc.CudaModule("__global__ void broken( {")
+
+
+@pytest.mark.cuda
+def test_rtc_dynamic_shared_memory_above_48k(add_module):
+    # 64 KB of dynamic shared memory needs the function attribute set
+    src = """extern "C" __global__ void reverse(const float* x, float* y) {
+      extern __shared__ float buf[];
+      const int n = 16384;
+      for (int i = threadIdx.x; i < n; i += blockDim.x) buf[i] = x[i];
+      __syncthreads();
+      for (int i = threadIdx.x; i < n; i += blockDim.x) y[i] = buf[n - 1 - i];
+    }"""
+    k = rtc.CudaModule(src).get_kernel("reverse",
+                                       "const float *x, float *y")
+    x = mx.nd.array(np.arange(16384.0, dtype=np.float32), ctx=mx.gpu(0))
+    y = mx.nd.zeros((16384,), ctx=mx.gpu(0))
+    k.launch([x, y], mx.gpu(0), (1, 1, 1), (256, 1, 1),
+             shared_mem=16384 * 4)
+    np.testing.assert_array_equal(y.asnumpy(), x.asnumpy()[::-1])
+
+
+@pytest.mark.cuda
+def test_rtc_write_bumps_the_version_a_graph_saved(add_module):
+    x = mx.nd.ones((8,), ctx=mx.gpu(0))
+    x.attach_grad()
+    with mx.autograd.record():
+        y = (x * x).sum()
+    one = mx.nd.ones((8,), ctx=mx.gpu(0))
+    # the kernel writes into x's tensor, which the graph saved
+    _launch_add(add_module, "add", "float", one, one, x, 8)
+    np.testing.assert_array_equal(x.asnumpy(), 2.0)
+    with pytest.raises(RuntimeError, match="modified by an inplace"):
+        y.backward()
+
+
+@pytest.mark.cuda
+def test_nd_ops_on_the_card_equal_the_cpu(cuda_device):
+    rng = np.random.RandomState(0)
+    a, b = rng.randn(64, 48), rng.randn(48, 32)
+    res = {}
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        x = mx.nd.array(a, ctx=ctx)
+        w = mx.nd.array(b, ctx=ctx)
+        x.attach_grad()
+        with mx.autograd.record():
+            h = mx.nd.dot(x, w)
+            z = mx.nd.relu(h * 2.0 - 1.0) + mx.nd.broadcast_add(
+                h, mx.nd.ones((1, 32), ctx=ctx, dtype="float64"))
+            loss = (z.sum(axis=1) * z[:, 3]).mean()
+        loss.backward()
+        assert z.context == ctx and x.grad.context == ctx
+        res[ctx.device_type] = {
+            "elementwise": (x * 3.0 - x).asnumpy(),
+            "move": mx.nd.transpose(x, axes=(1, 0))[::2].asnumpy(),
+            "z": z.asnumpy(), "loss": loss.asnumpy(),
+            "grad": x.grad.asnumpy(),
+            "topk": x.topk(axis=1, k=3).asnumpy()}
+    for k in ("elementwise", "move", "topk"):
+        np.testing.assert_array_equal(res["gpu"][k], res["cpu"][k])
+    for k in ("z", "loss", "grad"):
+        np.testing.assert_allclose(res["gpu"][k], res["cpu"][k],
+                                   rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_rtc_long_is_64_bit_as_the_signature_parser_assumes(add_module):
+    # ``long`` in a signature is passed as int64: NVRTC's C++ must agree
+    src = """extern "C" __global__ void probe(int* out, long n) {
+      out[0] = (int)sizeof(long); out[1] = (int)(n >> 32);
+    }"""
+    out = mx.nd.zeros((2,), ctx=mx.gpu(0), dtype="int32")
+    rtc.CudaModule(src).get_kernel("probe", "int *out, long n").launch(
+        [out, (5 << 32) + 7], mx.gpu(0), (1, 1, 1), (1, 1, 1))
+    assert out.asnumpy().tolist() == [8, 5]
+    assert ".alt." not in rtc._nvrtc.path

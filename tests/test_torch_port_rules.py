@@ -1,7 +1,7 @@
 """The port's standing rules: ``mxnet_tpu_torch`` imports neither JAX
-nor the JAX package, builds nothing at import, and its entry points
-default to the card and raise without one instead of dropping to the
-CPU."""
+nor the JAX package (nor ``ml_dtypes``), builds and compiles nothing at
+import, and its entry points default to the card and raise without one
+instead of dropping to the CPU."""
 import ast
 import os
 import subprocess
@@ -13,7 +13,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "mxnet_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu", "ml_dtypes")
 
 
 def _forbidden(name):
@@ -24,10 +24,15 @@ def test_import_leaves_jax_and_the_jax_package_out():
     code = (
         "import sys, mxnet_tpu_torch\n"
         "import mxnet_tpu_torch.serving, mxnet_tpu_torch.transformer\n"
+        "import mxnet_tpu_torch.ndarray, mxnet_tpu_torch.autograd\n"
+        "import mxnet_tpu_torch.rtc, mxnet_tpu_torch.engine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'mxnet_tpu'))\n"
-        # kernels are built at first launch, never at import
-        "built = sorted(mxnet_tpu_torch._build._libs)\n"
+        "('jax', 'jaxlib', 'mxnet_tpu', 'ml_dtypes'))\n"
+        # kernels are built at first launch, never at import; NVRTC and
+        # the driver are loaded at the first CudaModule
+        "rtc = mxnet_tpu_torch.rtc\n"
+        "built = sorted(mxnet_tpu_torch._build._libs) + [n for n in "
+        "('_nvrtc', '_driver') if getattr(rtc, n) is not None]\n"
         "print(bad, built)\n"
         "raise SystemExit(1 if bad or built else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -73,3 +78,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                                    max_prompt=16, max_context=16)
     assert rt.device.type == "cpu"
     assert rt.kv.pages["k0"].device.type == "cpu"
+
+
+def test_arrays_default_to_the_card_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    import mxnet_tpu_torch as mx
+
+    assert mx.current_context() == mx.gpu(0) == mx.tpu(0)
+    for make in (lambda: mx.nd.array([1.0, 2.0]),
+                 lambda: mx.nd.zeros((2,)),
+                 lambda: mx.nd.ones((2,), ctx=mx.gpu(0))):
+        with pytest.raises(mx.MXNetError, match=r"ctx=mx\.cpu\(\)"):
+            make()
+    with mx.cpu():
+        assert mx.nd.array([1.0, 2.0]).context == mx.cpu()
+    assert mx.nd.zeros((2,), ctx=mx.cpu()).context == mx.cpu()
