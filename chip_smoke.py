@@ -16,10 +16,20 @@ imports nothing of JAX.
 
 Phases:
   device   card name, power limit (nvidia-smi), TF32 off
-  build    nvcc of every ``mxnet_tpu_torch/csrc/*.cu``, all at once
+  build    nvcc of every ``mxnet_tpu_torch/csrc/*.cu``, all at once;
+           ptxas's register report; ``cuobjdump -sass`` counts of HGMMA
+           (wgmma) and UTMALDG (TMA loads) and ``cuobjdump -res-usage``
+           per flash kernel (fails if the wgmma kernels have none, or
+           use local memory: a spill)
   kernel:flash_attention_fwd
            the kernel against the plain version at the prefill's
-           shapes: error, kernel/plain/library times, bound
+           shapes, bf16 on the ``wgmma`` route (D 64 and 128, ragged T,
+           the strided fused-projection view) and float32 on the
+           ``simt`` route: error (absolute, and row-scaled: each
+           row's error over that row's magnitude), route,
+           kernel/plain/library times
+           (10 calls back to back, hot L2), one call's time with the
+           host's launch, device time from a CUDA graph, bound
   kernel:rtc_add
            NVRTC compile of ``csrc/rtc/add.cu`` through
            ``rtc.CudaModule`` (timed), the kernel against
@@ -30,10 +40,12 @@ Phases:
            bf16, random weights from seed 0; slots 8, KV blocks of 16
            tokens, prompts up to 512, context up to 1024, prefill
            batches of 4; 16 requests with prompts over 16..512 and 32
-           new tokens each, through ``submit_generation``
+           new tokens each, through ``submit_generation``; every
+           prefill launch of the flash kernel on the ``wgmma`` route
   numerics the same width at 2 layers in float32: prefill logits through
-           the kernel against ``apply`` with dense attention (1e-3
-           abs), and greedy tokens against the dense greedy reference
+           the kernel (``simt`` route) against ``apply`` with dense
+           attention (1e-3 abs), and greedy tokens against the dense
+           greedy reference
   ndarray  the imperative path on ``mx.gpu(0)``, twice (the first pass
            pays one-time costs): (4096, 4096) float32 operands, the rtc
            ``add`` kernel launched on them through ``CudaKernel.launch``,
@@ -47,6 +59,8 @@ Phases:
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -69,13 +83,23 @@ SERVE = dict(slots=8, block_tokens=16, max_prompt=512, max_context=1024,
              prefill_batch=4, max_new=32)
 N_REQUESTS = 16
 
-# (B, Tq, Tk, H, D, causal, dtype, atol); the first is the serving
-# path's largest prefill cell (4 prompts padded to 512)
+# the largest error of an output row over the largest magnitude of that
+# row of the plain version, per dtype: bf16 rounding of the output (and
+# of P on the wgmma route) stays near 2**-9 of a row, where an absolute
+# limit would let a late causal row (magnitude ~0.1) be wrong by tens of
+# per cent; a row that should be all zero is held to zero
+ROW_RTOL = {torch.bfloat16: 1e-2, torch.float32: 1e-3}
+# (B, Tq, Tk, H, D, causal, dtype, atol, layout); the first is the
+# serving path's largest prefill cell (4 prompts padded to 512);
+# layout "fused": q, k and v are strided views of one fused projection
 KERNEL_SHAPES = [
-    (4, 512, 512, 12, 64, True, torch.bfloat16, 2e-2),
-    (1, 200, 200, 12, 64, True, torch.float32, 1e-4),
-    (2, 64, 192, 12, 64, True, torch.float32, 1e-4),
-    (2, 128, 128, 12, 64, False, torch.float32, 1e-4),
+    (4, 512, 512, 12, 64, True, torch.bfloat16, 2e-2, "dense"),
+    (4, 512, 512, 12, 128, True, torch.bfloat16, 2e-2, "dense"),
+    (2, 200, 200, 12, 64, True, torch.bfloat16, 2e-2, "dense"),
+    (4, 512, 512, 12, 64, True, torch.bfloat16, 2e-2, "fused"),
+    (1, 200, 200, 12, 64, True, torch.float32, 1e-4, "dense"),
+    (2, 64, 192, 12, 64, True, torch.float32, 1e-4, "dense"),
+    (2, 128, 128, 12, 64, False, torch.float32, 1e-4, "dense"),
 ]
 
 
@@ -101,6 +125,31 @@ def time_ms(fn, iters: int = 25, warmup: int = 3, inner: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def graph_ms(fn, inner: int = 10) -> float:
+    """Device time of one ``fn`` call: ``inner`` calls captured in a
+    CUDA graph, the replay timed as :func:`time_ms` does, divided by
+    ``inner``.  No host launch cost is in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    return time_ms(graph.replay) / inner
+
+
+def row_scaled_err(got, want) -> float:
+    """Largest error of a row of ``got`` (over its last dim) divided by
+    the largest magnitude of the same row of ``want``."""
+    err = (got.float() - want).abs().amax(-1)
+    return (err / want.abs().amax(-1).clamp_min(1e-30)).max().item()
 
 
 def attention_bound(B, Tq, Tk, H, D, causal, dtype):
@@ -136,36 +185,111 @@ def phase_device():
           "allow_tf32": False})
 
 
+def _kernel_label(mangled: str) -> str:
+    """``flash_fwd_wgmma<64>``, ``flash_fwd_kernel<bf16,128>`` and so on
+    from a mangled kernel name."""
+    m = re.search(r"(flash_fwd_\w+?)I(13__nv_bfloat16|f)?Li(\d+)E", mangled)
+    if not m:
+        return mangled
+    dt = {"13__nv_bfloat16": "bf16,", "f": "f32,"}.get(m.group(2), "")
+    return "%s<%s%s>" % (m.group(1), dt, m.group(3))
+
+
+def _cuobjdump(lib: Path, flag: str) -> str:
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, flag, str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+
+
+def _sass_counts(sass: str):
+    """{kernel: {"HGMMA": n, "UTMALDG": n, "UTMASTG": n}} from the
+    output of ``cuobjdump -sass``."""
+    out, cur = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = _kernel_label(m.group(1))
+            out[cur] = {"HGMMA": 0, "UTMALDG": 0, "UTMASTG": 0}
+        elif cur:
+            for op in out[cur]:
+                out[cur][op] += op in ln
+    return out
+
+
+def _res_usage(text: str):
+    """{kernel: {"REG": n, "STACK": n, "LOCAL": n}} from the output of
+    ``cuobjdump -res-usage`` (a spill lands in LOCAL and STACK)."""
+    out, cur = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function (\S+?):", ln)
+        if m:
+            cur = _kernel_label(m.group(1))
+            out[cur] = {}
+        if cur:
+            for key in ("REG", "STACK", "LOCAL"):
+                m = re.search(r"\b%s:(\d+)" % key, ln)
+                if m:
+                    out[cur][key] = int(m.group(1))
+    return out
+
+
 def phase_build():
     from mxnet_tpu_torch import _build
 
     t0 = time.perf_counter()
     secs = _build.build()
     wall = time.perf_counter() - t0
+    # ptxas speaks only when nvcc ran (printed, not read); cuobjdump
+    # reads any built library, a cached one too
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
              for n, log in _build.build_logs.items()}
+    lib = _build._lib_path(_build.sources()["flash_attn_fwd"])
+    sass = _sass_counts(_cuobjdump(lib, "-sass"))
+    usage = _res_usage(_cuobjdump(lib, "-res-usage"))
     emit({"phase": "build", "seconds": round(wall, 3),
           "per_source_s": {k: round(v, 3) for k, v in secs.items()},
-          "ptxas": ptxas})
+          "ptxas": ptxas, "flash_sass": sass, "flash_res_usage": usage})
+    wgmma = ["flash_fwd_wgmma<64>", "flash_fwd_wgmma<128>"]
+    if not all(sass.get(k, {}).get("HGMMA") and sass[k]["UTMALDG"]
+               for k in wgmma):
+        raise RuntimeError("build: the wgmma flash kernels lack HGMMA or "
+                           "UTMALDG instructions: %r" % sass)
+    spills = {k: usage.get(k) for k in wgmma
+              if usage.get(k, {}).get("LOCAL", 1) or usage[k].get("STACK", 1)}
+    if spills:
+        raise RuntimeError("build: the wgmma flash kernels spill (or their "
+                           "resource usage is unreadable): %r" % spills)
 
 
 def phase_kernel():
     from mxnet_tpu_torch.parallel.attention import (flash_attention,
-                                                    flash_attention_fwd)
+                                                    flash_attention_fwd,
+                                                    kernel_route)
 
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(0)
     rows = []
-    for B, Tq, Tk, H, D, causal, dtype, atol in KERNEL_SHAPES:
-        q, k, v = (torch.randn((B, T, H, D), generator=g).to(dev, dtype)
-                   for T in (Tq, Tk, Tk))
+    for B, Tq, Tk, H, D, causal, dtype, atol, layout in KERNEL_SHAPES:
+        if layout == "fused":
+            # the prefill's q/k/v: column blocks of one projection
+            qkv = torch.randn((B, Tq, 3 * H * D), generator=g).to(dev, dtype)
+            q, k, v = (x.reshape(B, Tq, H, D)
+                       for x in torch.split(qkv, H * D, dim=-1))
+        else:
+            q, k, v = (torch.randn((B, T, H, D), generator=g).to(dev, dtype)
+                       for T in (Tq, Tk, Tk))
         n0 = flash_attention_fwd.launches
+        by0 = dict(flash_attention_fwd.launches_by_route)
         out = flash_attention_fwd(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        if flash_attention_fwd.launches != n0 + 1:
-            raise RuntimeError("flash_attention_fwd did not count its "
-                               "launch")
+        route = [r for r, n in flash_attention_fwd.launches_by_route.items()
+                 if n != by0[r]]
+        want_route = kernel_route(dtype, D)
+        if flash_attention_fwd.launches != n0 + 1 or route != [want_route]:
+            raise RuntimeError("flash_attention_fwd did not count one "
+                               "launch on the %s route: %r"
+                               % (want_route, route))
         qf, kf, vf = q.float(), k.float(), v.float()
         want = flash_attention(qf, kf, vf, causal=causal)
         if out.shape != q.shape or out.dtype != dtype:
@@ -174,6 +298,7 @@ def phase_kernel():
         if not torch.isfinite(out).all():
             raise RuntimeError("kernel output is not finite")
         err = (out.float() - want).abs().max().item()
+        row_err = row_scaled_err(out, want)
         # the library yardstick: one PyTorch call for the same function
         # (BHTD layout; an explicit mask for the aligned diagonal)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -188,22 +313,33 @@ def phase_kernel():
         lib_err = (lib().transpose(1, 2).float() - want).abs().max().item()
         bound_ms, bound_by = attention_bound(B, Tq, Tk, H, D, causal,
                                              dtype)
+        kern = lambda: flash_attention_fwd(q, k, v,  # noqa: E731
+                                           causal=causal)
+        # device times over runs of 10 back-to-back calls on inputs that
+        # stay in the 50 MB L2 (hot); single_call_ms is one call between
+        # two events, host launch cost included, as serving pays it
         row = {
             "shape": [B, Tq, Tk, H, D], "causal": causal,
-            "dtype": str(dtype).replace("torch.", ""),
-            "max_err": err, "atol": atol,
-            "kernel_ms": time_ms(lambda: flash_attention_fwd(
-                q, k, v, causal=causal)),
+            "dtype": str(dtype).replace("torch.", ""), "layout": layout,
+            "route": want_route, "max_err": err, "atol": atol,
+            "row_err": row_err, "row_rtol": ROW_RTOL[dtype], "l2": "hot",
+            "kernel_ms": time_ms(kern, inner=10),
             "plain_ms": time_ms(lambda: flash_attention(
-                qf, kf, vf, causal=causal)),
-            "library_ms": time_ms(lib), "library_max_err": lib_err,
+                qf, kf, vf, causal=causal), inner=10),
+            "library_ms": time_ms(lib, inner=10),
+            "single_call_ms": time_ms(kern),
+            "library_single_call_ms": time_ms(lib),
+            "graph_ms": graph_ms(kern), "library_graph_ms": graph_ms(lib),
+            "library_max_err": lib_err,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
         emit(dict({"phase": "kernel:flash_attention_fwd"}, **row))
-        if not err <= atol:
+        if not (err <= atol and row_err <= ROW_RTOL[dtype]):
             raise RuntimeError("flash_attention_fwd disagrees with the "
-                               "plain version: %g > %g at %s"
-                               % (err, atol, row["shape"]))
+                               "plain version at %s: error %g (limit %g), "
+                               "row-scaled %g (limit %g)"
+                               % (row["shape"], err, atol, row_err,
+                                  ROW_RTOL[dtype]))
         rows.append(row)
     return rows
 
@@ -271,6 +407,7 @@ def phase_rtc_add():
                     x._data, y._data), inner=10),
                 "library_ms": time_ms(lambda: torch.add(x._data, y._data),
                                       inner=10),
+                "single_call_ms": time_ms(launch),
                 # bytes: x and y read once, out written once; one add a
                 # element is far below the card's operations per byte
                 "bound_ms": 3 * n * x._data.element_size()
@@ -462,6 +599,7 @@ def phase_serve():
     prompts = [rng.randint(1, cfg.vocab_size, size=n) for n in lens]
     # the serving path: counts start at 0 here and are read just after
     flash_attention_fwd.launches = 0
+    flash_attention_fwd.launches_by_route = {"wgmma": 0, "simt": 0}
     batches0 = rt.engine.prefill_batches
     t0 = time.perf_counter()
     reqs = [srv.submit_generation("gpt2_small", p,
@@ -471,6 +609,7 @@ def phase_serve():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = flash_attention_fwd.launches
+    by_route = dict(flash_attention_fwd.launches_by_route)
     batches = rt.engine.prefill_batches - batches0
     kv = rt.kv.stats()
     drain = srv.drain(timeout_s=60.0)
@@ -491,6 +630,7 @@ def phase_serve():
         "warmup_cells": len(rt.prefill_plan) + len(rt.decode_plan),
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "prefill_batches": batches, "flash_launches": launches,
+        "flash_launches_by_route": by_route,
         "decode_ticks": rt.engine.ticks, "kv": kv, "drain": drain,
     }
     emit(row)
@@ -501,6 +641,9 @@ def phase_serve():
         raise RuntimeError("serve: %d flash launches for %d prefill "
                            "batches of %d layers" % (launches, batches,
                                                      cfg.n_layers))
+    if by_route["wgmma"] != launches:
+        raise RuntimeError("serve: the prefill's bf16 attention left the "
+                           "wgmma route: %r" % by_route)
     if kv["blocks_live"] != 0 or not drain["drained"]:
         raise RuntimeError("serve: leaked KV blocks or undrained: %r %r"
                            % (kv, drain))
@@ -540,10 +683,11 @@ def phase_numerics():
         plens[i] = len(p)
         rt.kv.alloc("n%d" % i, len(p))
         tables[i] = rt.kv.block_table("n%d" % i, tb // bt)
-    n0 = flash_attention_fwd.launches
+    n0 = flash_attention_fwd.launches_by_route["simt"]
     got = rt.prefill(tokens, plens, tables)[:len(prompts)]
-    if flash_attention_fwd.launches - n0 != cfg.n_layers:
-        raise RuntimeError("numerics: prefill did not run the kernel")
+    if flash_attention_fwd.launches_by_route["simt"] - n0 != cfg.n_layers:
+        raise RuntimeError("numerics: the float32 prefill did not run the "
+                           "simt kernel")
     want = torch.stack([dense_logits(p) for p in prompts])
     for i in range(len(prompts)):
         rt.kv.free("n%d" % i)
@@ -606,16 +750,21 @@ def main() -> int:
     add_row = next(r for r in add_rows if "kernel_ms" in r)
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
+        "kernel_route": main_row["route"],
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "mxnet_tpu/parallel/attention.py:126",
         "launches": serve["flash_launches"],
+        "launches_by_route": serve["flash_launches_by_route"],
         "max_abs_err": max(r["max_err"] for r in rows),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "single_call_ms": main_row["single_call_ms"],
+        "graph_ms": main_row["graph_ms"],
+        "library_graph_ms": main_row["library_graph_ms"],
         "shape": main_row["shape"], "dtype": main_row["dtype"],
     }, {
-        "name": "rtc_add", "route": "cuda",
+        "name": "rtc_add", "route": "cuda", "kernel_route": "nvrtc",
         "source": "mxnet_tpu_torch/csrc/rtc/add.cu",
         "replaces": "tests/test_parity_tail.py:148",
         "launches": ndrow["rtc_launches"].get("add", 0),
@@ -623,6 +772,7 @@ def main() -> int:
         "ms": add_row["kernel_ms"], "plain_ms": add_row["plain_ms"],
         "bound_ms": add_row["bound_ms"], "bound_by": add_row["bound_by"],
         "library_ms": add_row["library_ms"],
+        "single_call_ms": add_row["single_call_ms"],
         "shape": add_row["shape"], "dtype": add_row["dtype"],
     }]
     emit({"phase": "kernels",

@@ -12,21 +12,26 @@ head_dim) — "BTHD" — tensors:
     package's scan formulation (aligned causal diagonal, ragged-tail
     masking, ``l == 0`` guard).
   * ``flash_attention_fwd`` — the wrapper of the hand-written Hopper
-    kernel ``csrc/flash_attn_fwd.cu``, the counterpart of
+    kernels in ``csrc/flash_attn_fwd.cu``, the counterpart of
     ``pallas_flash_attention``.  A CPU tensor takes ``flash_attention``;
-    a CUDA tensor launches the kernel or raises.
+    a CUDA tensor launches a kernel or raises.  Two routes, chosen on
+    dtype and head dim (:func:`kernel_route`): ``wgmma`` (bf16 with
+    head_dim 64 or 128, the serving prefill: tensor cores fed by TMA)
+    and ``simt`` (float32, and bf16 with other head dims: CUDA-core
+    FMAs in f32).
 """
 from __future__ import annotations
 
 import ctypes
-import math
+import struct
 
 import torch
 import torch.nn.functional as F
 
 from .. import _build
 
-__all__ = ["attention_reference", "flash_attention", "flash_attention_fwd"]
+__all__ = ["attention_reference", "flash_attention", "flash_attention_fwd",
+           "kernel_route"]
 
 _NEG_INF = -1e30
 
@@ -104,42 +109,89 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, block_size=512):
 
 
 # ---------------------------------------------------------------------------
-# the Hopper kernel (csrc/flash_attn_fwd.cu)
+# the Hopper kernels (csrc/flash_attn_fwd.cu)
 # ---------------------------------------------------------------------------
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_BLOCK_Q = 64  # q rows per thread block in the kernel
+_BLOCK_Q = 64  # q rows per thread block in both kernels
+_WGMMA_HEAD_DIMS = (64, 128)
+# TMA box of the wgmma kernel over (D, H, T, B): 64 columns (128 bytes,
+# the swizzle span) of one head, 64 rows, one batch
+_TMA_BOX = (64, 1, 64, 1)
+
+
+def kernel_route(dtype, head_dim) -> str:
+    """The kernel a CUDA call takes: ``"wgmma"`` for bfloat16 with head
+    dim 64 or 128, ``"simt"`` for every other input the kernels take
+    (float32 stays off the tensor cores, which would round it to
+    TF32)."""
+    if dtype == torch.bfloat16 and head_dim in _WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
+
+
+def _tma_map(t, ptr):
+    """The 11 TMA map numbers of the wgmma kernel for a (B, T, H, D) bf16
+    tensor at base address ``ptr``, read in place through its strides, in
+    the order the kernel's ``make_map`` reads them: the dims innermost
+    first ``(D, H, T, B)``, the byte strides of H, T and B, and
+    :data:`_TMA_BOX`.  The stride of a size-1 dim is never read and is
+    given as the packed one.  Raises ``ValueError`` where TMA cannot take
+    the tensor: a last dim that is not contiguous, or a base address or
+    stride that is not a multiple of 16 bytes."""
+    B, T, H, D = t.shape
+    sb, st, sh, sd = t.stride()
+    es = 2  # bf16, the wgmma route's one dtype
+    hs = sh * es if H > 1 else D * es
+    ts = st * es if T > 1 else hs * H
+    bs = sb * es if B > 1 else ts * T
+    if sd != 1:
+        raise ValueError("flash_attention_fwd: the last dim must be "
+                         "contiguous for TMA (stride %d)" % sd)
+    if ptr & 15:
+        raise ValueError("flash_attention_fwd: TMA needs a 16-byte "
+                         "aligned base address, got %#x" % ptr)
+    if (hs | ts | bs) & 15:
+        raise ValueError("flash_attention_fwd: TMA needs byte strides that "
+                         "are multiples of 16, got element strides %s of %d "
+                         "bytes, shape %s" % (t.stride(), es, tuple(t.shape)))
+    return (D, H, T, B, hs, ts, bs) + _TMA_BOX
 
 
 def _kernel_lib():
     lib = _build.load("flash_attn_fwd")
-    fn = lib.mxt_flash_attn_fwd
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-            ctypes.c_int, ctypes.c_void_p]
-    return fn
+    if lib.mxt_flash_attn_fwd.argtypes is None:
+        for fn in (lib.mxt_flash_attn_fwd, lib.mxt_flash_attn_fwd_wgmma):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_char_p, ctypes.c_float]
+    return lib
 
 
 def _check_kernel_args(q, k, v):
+    # the common case in a few cheap reads; the messages are built only
+    # on the way to raising
+    dev = q.get_device()
+    if not (q.is_cuda and k.is_cuda and v.is_cuda) \
+            or k.get_device() != dev or v.get_device() != dev:
+        name, t = next((n, t) for n, t in (("k", k), ("v", v), ("q", q))
+                       if not t.is_cuda or t.device != q.device)
+        raise ValueError(
+            "flash_attention_fwd: q, k and v must all lie on one CUDA "
+            "device or all on the CPU (got q on %s, %s on %s)"
+            % (q.device, name, t.device))
+    dt = q.dtype
+    if dt not in _KERNEL_DTYPES or k.dtype != dt or v.dtype != dt:
+        raise TypeError(
+            "flash_attention_fwd: the kernel takes float32 or bfloat16 "
+            "q/k/v of one dtype (got q %s, k %s, v %s)"
+            % (dt, k.dtype, v.dtype))
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(
-                "flash_attention_fwd: q, k and v must all lie on one CUDA "
-                "device or all on the CPU (got q on %s, %s on %s)"
-                % (q.device, name, t.device))
-        if t.dtype not in _KERNEL_DTYPES or t.dtype != q.dtype:
-            raise TypeError(
-                "flash_attention_fwd: the kernel takes float32 or bfloat16 "
-                "q/k/v of one dtype (got q %s, %s %s)"
-                % (q.dtype, name, t.dtype))
         if t.dim() != 4:
             raise ValueError("flash_attention_fwd: %s must be (B, T, H, D), "
                              "got shape %s" % (name, tuple(t.shape)))
-        if t.stride(-1) != 1:
+        if t.stride(3) != 1:
             raise ValueError("flash_attention_fwd: the last dim of %s must "
                              "be contiguous (stride %d)"
-                             % (name, t.stride(-1)))
+                             % (name, t.stride(3)))
     B, Tq, H, D = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (H, D):
         raise ValueError(
@@ -152,9 +204,33 @@ def _check_kernel_args(q, k, v):
     if Tq < 1 or k.shape[1] < 1 or B < 1 or H < 1:
         raise ValueError("flash_attention_fwd: empty input %s / %s"
                          % (tuple(q.shape), tuple(k.shape)))
-    if B * H * math.ceil(Tq / _BLOCK_Q) >= 2 ** 31:
+    if B * H * -(-Tq // _BLOCK_Q) >= 2 ** 31:
         raise ValueError("flash_attention_fwd: grid of B*H*ceil(Tq/64) "
                          "blocks exceeds the launch limit")
+
+
+def _launch_args(route, q, k, v, o, causal, stream, device) -> bytes:
+    """Every integer argument of one kernel launch, packed as the C
+    interface of ``csrc/flash_attn_fwd.cu`` reads it: one int64 array,
+    packed with ``struct`` (a ctypes array of the same numbers takes
+    longer to build than the kernel runs on the card).  The 12-number
+    head: the four base addresses, B, H, Tq, Tk, D, causal, the stream
+    and the device; then, for ``wgmma``, the 11 TMA map numbers of q,
+    k, v and o (:func:`_tma_map`; raises where TMA cannot take one), for
+    ``simt`` the dtype code and the (batch, seq, head) element strides
+    of q, k, v and o."""
+    B, Tq, H, D = q.shape
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    head = ptrs + (B, H, Tq, k.shape[1], D, int(bool(causal)), stream,
+                   device)
+    if route == "wgmma":
+        maps = ()
+        for t, ptr in zip((q, k, v, o), ptrs):
+            maps += _tma_map(t, ptr)
+        return struct.pack("56q", *head, *maps)
+    strides = q.stride()[:3] + k.stride()[:3] + v.stride()[:3] + \
+        o.stride()[:3]
+    return struct.pack("25q", *head, _KERNEL_DTYPES[q.dtype], *strides)
 
 
 def flash_attention_fwd(q, k, v, causal=False, sm_scale=None):
@@ -162,32 +238,38 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None):
     ``v`` (B, Tk, H, D); causal masking aligns the diagonal at
     ``q_pos = i + Tk - Tq``.  Returns (B, Tq, H, D) in q's dtype.
 
-    CPU tensors run :func:`flash_attention`.  CUDA tensors launch the
-    Hopper kernel (float32 or bfloat16, head_dim a multiple of 8 up to
-    128, last dim contiguous) on the current stream, or raise."""
-    if q.device.type == "cpu" and k.device.type == "cpu" \
-            and v.device.type == "cpu":
+    CPU tensors run :func:`flash_attention`.  CUDA tensors launch a
+    Hopper kernel on the current stream, or raise: float32 or bfloat16,
+    head_dim a multiple of 8 up to 128, last dim contiguous; the
+    ``wgmma`` route (:func:`kernel_route`) also needs 16-byte aligned
+    bases and strides (:func:`_tma_map`).  The bf16 ``wgmma`` route
+    rounds the probabilities to bf16 for P·V, as the TPU kernel does;
+    the ``simt`` route keeps them in f32."""
+    if q.is_cpu and k.is_cpu and v.is_cpu:
         return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
     _check_kernel_args(q, k, v)
     B, Tq, H, D = q.shape
-    Tk = k.shape[1]
     if sm_scale is None:
         sm_scale = D ** -0.5
-    o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 12)(
-        *(t.stride(i) for t in (q, k, v, o) for i in range(3)))
-    with torch.cuda.device(q.device):
-        fn = _kernel_lib()
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 _KERNEL_DTYPES[q.dtype], B, H, Tq, Tk, D, strides,
-                 float(sm_scale), int(bool(causal)),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+    route = kernel_route(q.dtype, D)
+    o = q.new_empty((B, Tq, H, D))
+    dev = q.get_device()
+    args = _launch_args(route, q, k, v, o, causal,
+                        torch._C._cuda_getCurrentRawStream(dev), dev)
+    lib = _kernel_lib()
+    if route == "wgmma":
+        err = lib.mxt_flash_attn_fwd_wgmma(args, sm_scale)
+    else:
+        err = lib.mxt_flash_attn_fwd(args, sm_scale)
     if err != 0:
-        raise RuntimeError("flash_attention_fwd: kernel launch failed with "
-                           "CUDA error %d" % err)
+        raise RuntimeError("flash_attention_fwd: %s kernel launch failed "
+                           "with CUDA error %d" % (route, err))
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_by_route[route] += 1
     return o
 
 
-#: kernel launches since the last reset (CPU calls are not launches)
+#: kernel launches since the last reset (CPU calls are not launches), in
+#: all and by route
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_route = {"wgmma": 0, "simt": 0}

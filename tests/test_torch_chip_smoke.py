@@ -1,0 +1,118 @@
+"""The host-side helpers of ``chip_smoke.py``, on the CPU: the parsing
+of ``cuobjdump -sass`` and ``-res-usage`` output that the ``build``
+phase checks the wgmma kernels with, the rtc add's grid, the row-scaled
+error the flash rows are held to, and the attention bound.  The script itself needs a card and refuses to run
+without one."""
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import chip_smoke as cs
+
+REPO = Path(__file__).resolve().parent.parent
+
+WG64 = ("_ZN50_GLOBAL__N__d04745e8_17_flash_attn_fwd_cu_3c61d8562wg15"
+        "flash_fwd_wgmmaILi64EEEv14CUtensorMap_stS2_S2_S2_iiiiifi")
+SIMT = ("_ZN50_GLOBAL__N__d04745e8_17_flash_attn_fwd_cu_3c61d85616"
+        "flash_fwd_kernelI13__nv_bfloat16Li128EEEvPKT_S4_S4_PS2_iiiiiil")
+
+
+@pytest.mark.parametrize("mangled,label", [
+    (WG64, "flash_fwd_wgmma<64>"),
+    (SIMT, "flash_fwd_kernel<bf16,128>"),
+    ("_ZN1_16flash_fwd_kernelIfLi64EEEvPKT_", "flash_fwd_kernel<f32,64>"),
+    ("some_other_kernel", "some_other_kernel")])
+def test_kernel_labels(mangled, label):
+    assert cs._kernel_label(mangled) == label
+
+
+def test_sass_counts_per_kernel():
+    sass = "\n".join([
+        "\t\tFunction : %s" % WG64,
+        "        /*0a10*/  UTMALDG.4D [UR8], [UR4] ;",
+        "        /*0b20*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;",
+        "        /*0b30*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], R24 ;",
+        "        /*0c00*/  UTMASTG.4D [UR4], [UR6] ;",
+        "\t\tFunction : %s" % SIMT,
+        "        /*0010*/  FFMA R1, R2, R3, R1 ;"])
+    assert cs._sass_counts(sass) == {
+        "flash_fwd_wgmma<64>": {"HGMMA": 2, "UTMALDG": 1, "UTMASTG": 1},
+        "flash_fwd_kernel<bf16,128>": {"HGMMA": 0, "UTMALDG": 0,
+                                       "UTMASTG": 0}}
+
+
+def test_res_usage_reads_registers_stack_and_local():
+    text = "\n".join([
+        "Resource usage:", " Common:", "  GLOBAL:0",
+        " Function %s:" % WG64,
+        "  REG:104 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:1012 TEXTURE:0",
+        " Function %s:" % SIMT,
+        "  REG:168 STACK:16 SHARED:0 LOCAL:16 CONSTANT[0]:520"])
+    assert cs._res_usage(text) == {
+        "flash_fwd_wgmma<64>": {"REG": 104, "STACK": 0, "LOCAL": 0},
+        "flash_fwd_kernel<bf16,128>": {"REG": 168, "STACK": 16,
+                                       "LOCAL": 16}}
+
+
+@pytest.mark.parametrize("n,blocks", [
+    (1, 1), (1024, 1), (1025, 2), (2 ** 20 + 3, 1025), (2 ** 26, 132 * 8),
+    (8 * 128, 1)])
+def test_add_grid_is_resident_and_strides(n, blocks):
+    # at most 8 blocks of 256 an SM; 4 elements a thread up to that
+    grid, block = cs._add_grid(n)
+    assert grid == (blocks, 1, 1) and block == (256, 1, 1)
+
+
+def _attn(T, D, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((1, T, 2, D), generator=g) for _ in range(3))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * D ** -0.5
+    s = s.masked_fill(torch.ones(T, T, dtype=torch.bool).triu(1), -1e30)
+    return torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), v), s, v
+
+
+def test_row_scaled_err_passes_bf16_rounding():
+    want, _, _ = _attn(512, 64)
+    got = want.to(torch.bfloat16)
+    assert (got.float() - want).abs().max() > 0
+    assert cs.row_scaled_err(got, want) < cs.ROW_RTOL[torch.bfloat16]
+
+
+def test_row_scaled_err_catches_a_dropped_last_tile():
+    # a late causal row that lost its last 64 keys: small in absolute
+    # terms next to the early rows, large against its own magnitude
+    want, s, v = _attn(512, 64)
+    p = s.softmax(-1)
+    p[..., 448:, 448:] = 0
+    p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    got = torch.einsum("bhqk,bkhd->bqhd", p, v)
+    assert cs.row_scaled_err(got, want) > cs.ROW_RTOL[torch.bfloat16]
+
+
+def test_row_scaled_err_holds_zero_rows_to_zero():
+    want = torch.zeros((1, 4, 2, 64))
+    assert cs.row_scaled_err(want.clone(), want) == 0
+    got = want.clone()
+    got[0, 1, 0, 3] = 1e-3
+    assert cs.row_scaled_err(got, want) > 1
+
+
+def test_attention_bound_at_the_serving_cell():
+    ms, by = cs.attention_bound(4, 512, 512, 12, 64, True, torch.bfloat16)
+    assert by == "bytes"
+    assert ms == pytest.approx(2 * 4 * 12 * 64 * 4 * 512 / 3.35e12 * 1e3)
+    ms, by = cs.attention_bound(1, 200, 200, 12, 64, True, torch.float32)
+    assert by == "operations"
+
+
+def test_the_script_refuses_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                          cwd=str(REPO), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -11,7 +11,10 @@ has only PyTorch and the CUDA toolkit:
 Tolerances: flash attention float32 1e-4 abs (another summation order
 than the plain version's einsum), bfloat16 2e-2 abs against the plain
 version run in float32 on the same bfloat16 inputs (the output is
-rounded to bfloat16).  The ``mx.rtc`` add kernel (``csrc/rtc/add.cu``,
+rounded to bfloat16, and the ``wgmma`` route also rounds the
+probabilities to bfloat16 for P·V).  Every flash case asserts the route
+it took: bf16 with head_dim 64 or 128 on ``wgmma``, the rest on
+``simt``.  The ``mx.rtc`` add kernel (``csrc/rtc/add.cu``,
 compiled by NVRTC) exactly: one IEEE add per element, rounded to
 nearest even in bfloat16 as PyTorch's add does.  ``mx.nd`` ops on
 ``gpu(0)`` against the same ops on ``cpu()``: exact for elementwise
@@ -72,14 +75,79 @@ def test_flash_kernel_matches_plain(cuda_device, case, dtype, atol):
                                                           dtype)
                for T in (Tq, Tk, Tk))
     before = tattn.flash_attention_fwd.launches
+    route = tattn.kernel_route(dtype, D)
+    by_route = tattn.flash_attention_fwd.launches_by_route[route]
     out = tattn.flash_attention_fwd(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert tattn.flash_attention_fwd.launches == before + 1
+    assert tattn.flash_attention_fwd.launches_by_route[route] == by_route + 1
     want = tattn.flash_attention(q.float(), k.float(), v.float(),
                                  causal=causal)
     assert out.dtype == dtype and out.shape == q.shape
     err = (out.float() - want).abs().max().item()
     assert err <= atol, err
+
+
+# (B, Tq, Tk, H, causal) for the wgmma route, at D 64 and 128
+WGMMA_CASES = [(2, T, T, 3, True) for T in (1, 15, 64, 200, 513)] + [
+    (2, 64, 192, 3, True),     # Tq < Tk: aligned causal diagonal
+    (2, 100, 60, 3, True),     # Tq > Tk: the first 40 rows see no key
+    (2, 200, 200, 3, False),
+    (1, 513, 300, 2, False),
+    (4, 512, 512, 12, True),   # B*H = 48 at T = 512, the serving cell
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case", WGMMA_CASES,
+                         ids=lambda c: "B%dTq%dTk%dH%d%s" % (
+                             c[:4] + ("causal" if c[4] else "full",)))
+def test_flash_wgmma_route_matches_plain(cuda_device, case, D):
+    B, Tq, Tk, H, causal = case
+    g = torch.Generator(device="cpu").manual_seed(2)
+    q, k, v = (torch.randn((B, T, H, D), generator=g).to(cuda_device,
+                                                          torch.bfloat16)
+               for T in (Tq, Tk, Tk))
+    n0 = tattn.flash_attention_fwd.launches_by_route["wgmma"]
+    out = tattn.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_fwd.launches_by_route["wgmma"] == n0 + 1
+    want = tattn.flash_attention(q.float(), k.float(), v.float(),
+                                 causal=causal)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - want).abs().max().item() <= 2e-2
+    if causal and Tq > Tk:
+        assert torch.count_nonzero(out[:, :Tq - Tk]) == 0
+
+
+@pytest.mark.cuda
+def test_flash_wgmma_route_reads_the_fused_projection(cuda_device):
+    # the prefill's q/k/v at the serving width: column blocks of one
+    # (B, T, 3 * H * D) bf16 projection, read in place by TMA
+    B, T, H, D = 2, 200, 12, 64
+    g = torch.Generator(device="cpu").manual_seed(3)
+    qkv = torch.randn((B, T, 3 * H * D), generator=g).to(cuda_device,
+                                                          torch.bfloat16)
+    q, k, v = (x.reshape(B, T, H, D)
+               for x in torch.split(qkv, H * D, dim=-1))
+    assert not q.is_contiguous()
+    n0 = tattn.flash_attention_fwd.launches_by_route["wgmma"]
+    out = tattn.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_fwd.launches_by_route["wgmma"] == n0 + 1
+    want = tattn.flash_attention(q.float(), k.float(), v.float(),
+                                 causal=True)
+    assert (out.float() - want).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_flash_wgmma_route_refuses_what_tma_cannot_read(cuda_device):
+    q = torch.zeros((1, 8, 2, 64), device=cuda_device, dtype=torch.bfloat16)
+    odd = torch.zeros(1 + 8 * 2 * 64, device=cuda_device,
+                      dtype=torch.bfloat16)[1:].view(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="aligned base"):
+        tattn.flash_attention_fwd(q, q, odd)
 
 
 @pytest.mark.cuda
@@ -92,7 +160,9 @@ def test_flash_kernel_reads_strided_views(cuda_device):
     q, k, v = (x.reshape(B, T, H, D)
                for x in torch.split(qkv, H * D, dim=-1))
     assert not v.is_contiguous()
+    n0 = tattn.flash_attention_fwd.launches_by_route["simt"]
     out = tattn.flash_attention_fwd(q, k, v, causal=True)
+    assert tattn.flash_attention_fwd.launches_by_route["simt"] == n0 + 1
     want = tattn.flash_attention(q.contiguous(), k.contiguous(),
                                  v.contiguous(), causal=True)
     assert (out - want).abs().max().item() <= 1e-4
@@ -120,25 +190,36 @@ def add_module():
     return rtc.CudaModule(ADD_CU.read_text())
 
 
-def _launch_add(mod, kernel, ctype, x, y, out, n):
+def _launch_add(mod, kernel, ctype, x, y, out, n, grid="resident"):
+    # "resident": at most 8 blocks of 256 an SM, the grid-stride loop
+    # covering the rest, as chip_smoke.py launches it; "oneshot": one
+    # 16-byte vector a thread in 128-thread blocks
     k = mod.get_kernel(kernel, ADD_SIG % (ctype, ctype, ctype))
-    blocks = max(1, min(-(-n // (256 * 4)), 132 * 8))
-    k.launch([x, y, out, n], mx.gpu(0), (blocks, 1, 1), (256, 1, 1))
+    if grid == "oneshot":
+        per = 128 * 16 // x._data.element_size()
+        dims = ((max(1, -(-n // per)), 1, 1), (128, 1, 1))
+    else:
+        dims = ((max(1, min(-(-n // (256 * 4)), 132 * 8)), 1, 1),
+                (256, 1, 1))
+    k.launch([x, y, out, n], mx.gpu(0), *dims)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("grid", ["oneshot", "resident"])
 @pytest.mark.parametrize("kernel,ctype,dtype", [
     ("add", "float", "float32"), ("add_bf16", "__nv_bfloat16", "bfloat16")])
-@pytest.mark.parametrize("shape", [(8, 128), (2 ** 20 + 3,), (1,), (37,)],
-                         ids=str)
+# 2**23 + 5 gives the resident grid's threads 3 to 8 vectors each: the
+# unrolled loop, its single-vector remainder and the scalar tail
+@pytest.mark.parametrize("shape", [(8, 128), (2 ** 20 + 3,), (2 ** 23 + 5,),
+                                   (1,), (37,)], ids=str)
 def test_rtc_add_matches_plain_exactly(add_module, kernel, ctype, dtype,
-                                       shape):
+                                       shape, grid):
     g = torch.Generator().manual_seed(0)
     xs = [torch.randn(shape, generator=g) for _ in range(2)]
     x, y = (mx.nd.array(t, ctx=mx.gpu(0), dtype=dtype) for t in xs)
     out = mx.nd.zeros(shape, ctx=mx.gpu(0), dtype=dtype)
     n0 = rtc.launches[kernel]
-    _launch_add(add_module, kernel, ctype, x, y, out, x.size)
+    _launch_add(add_module, kernel, ctype, x, y, out, x.size, grid)
     torch.cuda.synchronize()
     assert rtc.launches[kernel] == n0 + 1
     want = rtc.add_reference(x._data, y._data)

@@ -58,6 +58,23 @@ def test_no_package_file_imports_jax_or_the_jax_package():
             assert not bad, "%s imports %s" % (path.relative_to(REPO), bad)
 
 
+@pytest.mark.parametrize("script", ["chip_smoke.py",
+                                    "tools/torch_kernel_ab.py",
+                                    "tools/torch_nd_profile.py",
+                                    "tools/torch_serve_profile.py"])
+def test_card_scripts_import_no_jax(script):
+    # the scripts run on the machine with the card, which has no JAX
+    tree = ast.parse((REPO / script).read_text(), filename=script)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not [n for n in names if _forbidden(n)], (script, names)
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
