@@ -2,8 +2,10 @@
 kernels from source, hold each against its plain PyTorch version, serve
 a GPT-2-small-width transformer through the port's ``ModelServer`` with
 paged-KV continuous batching, check the numbers against the dense
-reference, and drive the imperative ``mx.nd`` / ``mx.autograd`` /
-``mx.rtc`` path at (4096, 4096) float32 against numpy in float64.
+reference, drive the imperative ``mx.nd`` / ``mx.autograd`` / ``mx.rtc``
+path at (4096, 4096) float32 against numpy in float64, and train
+ResNet-50 v1 at full width through ``FusedTrainStep`` (bf16 timed,
+float64 and float32 held against the CPU in float64).
 
     python3 chip_smoke.py
 
@@ -54,6 +56,29 @@ Phases:
            ``backward()``; every result against numpy in float64 (error
            over the largest magnitude, 1e-4), ``nd.save``/``nd.load``
            round trips bitwise
+  train    ResNet-50 v1 training at full width and depth (1000 classes,
+           224x224, Xavier from numpy seed 0, SoftmaxCrossEntropyLoss,
+           SGD lr 0.05 momentum 0.9) through ``FusedTrainStep.run_steps``
+           in bf16 at batch 32 and at batch 128: 3 warm-up steps, then
+           10 timed steps (synchronized); images/s, step ms, first and
+           last losses (finite), peak memory, achieved TFLOP/s (3
+           forwards of 2 x 4.09 G multiply-adds an image against the
+           989 TFLOP/s bf16 peak); one float32
+           step at batch 128 from the same weights and batch, whose loss
+           the bf16 first loss must match within 2e-2 relative.  This
+           path runs no hand-written kernel: convolutions and GEMMs are
+           cuDNN/cuBLAS through torch, as the JAX package left them to XLA
+  train_numerics
+           ResNet-50 v1 at batch 4, 224x224: two ``FusedTrainStep``
+           steps on the card and the same port on the CPU in float64
+           from the same weights and batches.  The card in float64:
+           losses within 1e-10 relative and the parameters' update
+           within 1e-8 of its size, where a skipped step 2 or a step 2
+           without momentum reads ~0.3-0.7 (checked from the reference
+           trajectory).  The card in float32 (TF32 off): step 1's loss
+           within 1e-4 relative; step 2's loss and the update within 5
+           times the distance of the CPU's own float32 run from float64
+           (see ``NUMERICS_FP32_FACTOR``)
   kernels  every kernel and its status
 """
 from __future__ import annotations
@@ -82,6 +107,41 @@ GPT2_SMALL = dict(vocab_size=32000, n_layers=12, d_model=768, n_heads=12,
 SERVE = dict(slots=8, block_tokens=16, max_prompt=512, max_context=1024,
              prefill_batch=4, max_new=32)
 N_REQUESTS = 16
+
+# the repo's headline training row (bench.py:111 batch 32, :132 batch 128;
+# bench_model at bench.py:283-305)
+RESNET_BATCHES = (32, 128)
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+TRAIN_LR, TRAIN_MOMENTUM = 0.05, 0.9
+# ResNet-50 v1 does 4.09 G multiply-adds a 224x224 forward (He et al.
+# 2015, table 1; bench.py:185 lists them as GFLOP): 2 FLOP each
+RESNET50_GFLOP = 2 * 4.09    # forward GFLOP a 224x224 image
+TRAIN_FLOP_FACTOR = 3.0     # forward + dgrad + wgrad
+BF16_LOSS_RTOL = 2e-2       # bf16 activations against float32, step 1
+NUMERICS_BATCH = 4
+# train_numerics holds the card's SGD-momentum trajectory, two steps in
+# float64, against the same port on the CPU in float64: cuDNN's and the
+# CPU's convolutions sum in other orders, and the gradients below the
+# last block amplify that ~1e5-fold (the folded BatchNorm, below), so
+# float64 agrees to ~1e-11 where float32 cannot tell a fault from its
+# own rounding.  Errors: losses relative; parameters as ||card - cpu||
+# over ||cpu - start|| (the size of the update) after each step
+TRAJ_LOSS_RTOL = 1e-10
+TRAJ_UPDATE_TOL = 1e-8
+# the same two steps in float32 on the card are held to the CPU float64
+# run too.  Step 1's loss is one forward: 1e-4 relative.  After that the
+# float32 gradient of this net at this initialisation is ill-conditioned:
+# the reference's BatchNorm folds its normalisation into a scale and a
+# shift (ops/nn.py:465-471), so d/dscale = sum(dy*x) - mean*sum(dy), a
+# difference of two large sums; on the CPU, float32 lies 1-3 % (norm)
+# from float64 in the gradients below the last block, and the JAX
+# package's float32 further (tools/resnet_fp32_conditioning.py).  So the
+# float32 update and step 2's float32 loss are held to
+# NUMERICS_FP32_FACTOR times how far the CPU's own float32 run of the
+# same steps lies from float64, and never looser than these floors
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_UPDATE_TOL = 1e-3
+NUMERICS_FP32_FACTOR = 5.0
 
 # the largest error of an output row over the largest magnitude of that
 # row of the plain version, per dtype: bf16 rounding of the output (and
@@ -732,6 +792,271 @@ def phase_numerics():
     return row
 
 
+def resnet50(ctx, seed=0):
+    """ResNet-50 v1 as ``bench_model`` builds it (``get_model``, Xavier
+    from numpy's generator seeded with ``seed``) on ``ctx``, its deferred
+    shapes settled by one inference forward at batch 2."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    np.random.seed(seed)
+    net = vision.get_model("resnet50_v1", classes=1000, prefix="resnet50_")
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    with mx.autograd.pause():
+        net(mx.nd.zeros((2, 3, 224, 224), ctx=ctx))
+    return net
+
+
+def train_batch(batch, ctx, seed=0):
+    """A batch as ``bench_model`` draws it: ``nd.random.uniform`` images
+    and ``np.random.randint(0, 1000)`` labels."""
+    import mxnet_tpu_torch as mx
+
+    mx.random.seed(seed)
+    data = mx.nd.random.uniform(shape=(batch, 3, 224, 224), ctx=ctx)
+    label = mx.nd.array(np.random.RandomState(seed).randint(
+        0, 1000, batch).astype("float32"), ctx=ctx)
+    return data, label
+
+
+def train_tflops(batch, step_s):
+    """Achieved TFLOP/s of a ResNet-50 train step: 3 forwards of 2 x 4.09
+    G multiply-adds an image over the step time."""
+    return TRAIN_FLOP_FACTOR * RESNET50_GFLOP * 1e9 * batch / step_s / 1e12
+
+
+def _kernel_counts():
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.parallel.attention import flash_attention_fwd
+
+    return {"flash_attention_fwd": flash_attention_fwd.launches,
+            "rtc_add": sum(rtc.launches.values())}
+
+
+def _reset_kernel_counts():
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.parallel.attention import flash_attention_fwd
+
+    flash_attention_fwd.launches = 0
+    flash_attention_fwd.launches_by_route = {"wgmma": 0, "simt": 0}
+    rtc.launches.clear()
+
+
+def phase_train():
+    """ResNet-50 v1 bf16 training at batch 32 and 128 through
+    ``FusedTrainStep``, and one float32 step at batch 128 from the same
+    weights and batch."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import convert, gluon
+    from mxnet_tpu_torch.parallel.dp import FusedTrainStep
+
+    ctx = mx.gpu(0)
+    t0 = time.perf_counter()
+    net = resnet50(ctx)
+    w0 = {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+    build_s = time.perf_counter() - t0
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    big = train_batch(max(RESNET_BATCHES), ctx)
+    f32 = FusedTrainStep(net, loss_fn, learning_rate=TRAIN_LR,
+                         momentum=TRAIN_MOMENTUM)
+    f32_loss = float(f32.run_steps(*big, steps=1).asnumpy()[0])
+    del f32
+    rows = []
+    for batch in RESNET_BATCHES:
+        data, label = big if batch == max(RESNET_BATCHES) else             train_batch(batch, ctx)
+        net.cast("float32")
+        convert.load_block_params(net, w0)
+        step = FusedTrainStep(net, loss_fn, learning_rate=TRAIN_LR,
+                              momentum=TRAIN_MOMENTUM, dtype="bfloat16")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the path: counts start at 0 here and are read just after
+        _reset_kernel_counts()
+        t0 = time.perf_counter()
+        warm = step.run_steps(data, label, steps=TRAIN_WARMUP).asnumpy()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = step.run_steps(data, label, steps=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = losses.asnumpy()
+        step_s = wall / TRAIN_STEPS
+        rows.append({
+            "batch": batch, "dtype": "bfloat16",
+            "images_per_s": batch / step_s, "step_ms": step_s * 1e3,
+            "warmup_s": warm_s, "first_loss": float(warm[0]),
+            "last_loss": float(losses[-1]),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "tflops": train_tflops(batch, step_s),
+            "tflops_frac_of_bf16_peak":
+                train_tflops(batch, step_s) * 1e12 / PEAK_BF16_FLOPS,
+            "kernel_launches": _kernel_counts()})
+        del step
+    row = {"phase": "train", "model": "resnet50_v1", "classes": 1000,
+           "image": 224, "init": "Xavier, numpy seed 0",
+           "optimizer": {"lr": TRAIN_LR, "momentum": TRAIN_MOMENTUM},
+           "build_s": build_s, "runs": rows,
+           "tflops_basis": "3 x 2 x 4.09 G multiply-adds an image "
+                           "(He et al. 2015) against the 989 TFLOP/s "
+                           "bf16 peak",
+           "float32_first_loss": f32_loss,
+           "bf16_first_loss_rel_err":
+               abs(rows[-1]["first_loss"] - f32_loss) / abs(f32_loss),
+           "bf16_loss_rtol": BF16_LOSS_RTOL}
+    emit(row)
+    bad = [r for r in rows if not (np.isfinite(r["first_loss"])
+                                   and np.isfinite(r["last_loss"]))]
+    if bad or not np.isfinite(f32_loss):
+        raise RuntimeError("train: a loss is not finite: %r" % (bad,))
+    if not row["bf16_first_loss_rel_err"] <= BF16_LOSS_RTOL:
+        raise RuntimeError("train: bf16 first loss %g against float32 %g"
+                           % (rows[-1]["first_loss"], f32_loss))
+    return row
+
+
+def _update_err(got, want, w0):
+    """Error of a parameter trajectory over the size of the update:
+    ||got - want|| / ||want - w0||, over every parameter at once."""
+    num = sum(float(np.sum((np.asarray(got[k], np.float64) - w) ** 2))
+              for k, w in want.items())
+    den = sum(float(np.sum((w - np.asarray(w0[k], np.float64)) ** 2))
+              for k, w in want.items())
+    return (num / den) ** 0.5
+
+
+def numerics_run(net, w0, data, label, dtype, momentum=TRAIN_MOMENTUM):
+    """Load ``w0`` into ``net`` and take one ``FusedTrainStep`` step for
+    each batch of ``data`` / ``label`` (a leading step dim) in ``dtype``
+    on the net's device.  Returns the losses and the parameters after
+    each step."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import convert, gluon
+    from mxnet_tpu_torch.parallel.dp import FusedTrainStep
+
+    ctx = next(iter(net.collect_params().values())).list_ctx()[0]
+    net.cast("float32")
+    convert.load_block_params(net, w0)
+    step = FusedTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                          learning_rate=TRAIN_LR, momentum=momentum,
+                          dtype=dtype)
+    losses, params = [], []
+    for k in range(len(data)):
+        losses.append(float(step.run_steps(
+            mx.nd.array(data[k:k + 1].astype(dtype or "float32"), ctx=ctx),
+            mx.nd.array(label[k:k + 1], ctx=ctx)).asnumpy()[0]))
+        params.append({n: p.data().asnumpy()
+                       for n, p in net.collect_params().items()})
+    return np.array(losses), params
+
+
+def trajectory_errors(got, got_p, ref, ref_p, w0):
+    """Per-step relative loss errors and update errors of one trajectory
+    against another from the same start ``w0``."""
+    return (np.abs(got - ref) / np.abs(ref),
+            np.array([_update_err(g, r, w0) for g, r in zip(got_p, ref_p)]))
+
+
+def check_trajectory(got, got_p, ref, ref_p, w0):
+    """Raise unless the trajectory ``got`` follows ``ref`` to
+    ``TRAJ_LOSS_RTOL`` / ``TRAJ_UPDATE_TOL``; returns the errors."""
+    loss_err, upd_err = trajectory_errors(got, got_p, ref, ref_p, w0)
+    if not (np.isfinite(got).all() and (loss_err <= TRAJ_LOSS_RTOL).all()):
+        raise RuntimeError("train_numerics: float64 losses %r differ by %r "
+                           "(limit %g)" % (got.tolist(), loss_err.tolist(),
+                                           TRAJ_LOSS_RTOL))
+    if not (upd_err <= TRAJ_UPDATE_TOL).all():
+        raise RuntimeError("train_numerics: the float64 parameters' update "
+                           "differs by %r of its size (limit %g)"
+                           % (upd_err.tolist(), TRAJ_UPDATE_TOL))
+    return loss_err, upd_err
+
+
+def fault_update_errs(ref_p, w0, aux):
+    """What the update check reads at step 2 for two faults of the
+    trajectory ``ref_p`` (SGD-momentum, no weight decay): step 2 not
+    applied (the parameters stay at step 1's), and step 2 without
+    momentum (its update lacks momentum x step 1's update; the aux
+    states ``aux`` do not depend on it)."""
+    p1, p2 = ref_p
+    no_mom = {k: v if k in aux else v - TRAIN_MOMENTUM * (p1[k] - w0[k])
+              for k, v in p2.items()}
+    return {"step2_skipped": _update_err(p1, p2, w0),
+            "step2_without_momentum": _update_err(no_mom, p2, w0)}
+
+
+def phase_train_numerics():
+    """ResNet-50 v1 on the card against the same port in float64 on the
+    CPU, two steps from the same weights and batches: the card in
+    float64 to ``TRAJ_*`` (the check of the SGD-momentum trajectory), and
+    in float32 to limits scaled by the CPU's own float32 distance (see
+    ``NUMERICS_FP32_FACTOR``)."""
+    import mxnet_tpu_torch as mx
+
+    rng = np.random.RandomState(7)
+    data = rng.uniform(0, 1, (2, NUMERICS_BATCH, 3, 224, 224))
+    label = rng.randint(0, 1000, (2, NUMERICS_BATCH)).astype(np.float64)
+    net = resnet50(mx.gpu(0))
+    w0 = {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+    aux = {k for k, p in net.collect_params().items()
+           if p.grad_req == "null"}
+    t0 = time.perf_counter()
+    card64, card64_p = numerics_run(net, w0, data, label, "float64")
+    card64_s = time.perf_counter() - t0
+    card, card_p = numerics_run(net, w0, data, label, None)
+    cnet = resnet50(mx.cpu())
+    t0 = time.perf_counter()
+    ref, ref_p = numerics_run(cnet, w0, data, label, "float64")
+    cpu_s = time.perf_counter() - t0
+    f32, f32_p = numerics_run(cnet, w0, data, label, None)
+
+    loss64_err, upd64_err = trajectory_errors(card64, card64_p, ref, ref_p,
+                                              w0)
+    faults = fault_update_errs(ref_p, w0, aux)
+    loss_err, upd_err = trajectory_errors(card, card_p, ref, ref_p, w0)
+    f32_loss_err, f32_upd_err = trajectory_errors(f32, f32_p, ref, ref_p, w0)
+    loss_tol = np.maximum(TRAIN_LOSS_RTOL,
+                          NUMERICS_FP32_FACTOR * f32_loss_err)
+    loss_tol[0] = TRAIN_LOSS_RTOL          # step 1: one forward
+    upd_tol = np.maximum(TRAIN_UPDATE_TOL, NUMERICS_FP32_FACTOR * f32_upd_err)
+    row = {"phase": "train_numerics", "model": "resnet50_v1",
+           "batch": NUMERICS_BATCH, "steps": 2, "allow_tf32": False,
+           "reference": "the port on the CPU, float64",
+           "cpu_losses": ref.tolist(),
+           "float64": {"card_losses": card64.tolist(),
+                       "loss_rel_err": loss64_err.tolist(),
+                       "loss_rtol": TRAJ_LOSS_RTOL,
+                       "update_rel_err": upd64_err.tolist(),
+                       "update_tol": TRAJ_UPDATE_TOL,
+                       "fault_update_err": faults},
+           "float32": {"card_losses": card.tolist(),
+                       "cpu_float32_losses": f32.tolist(),
+                       "loss_rel_err": loss_err.tolist(),
+                       "cpu_float32_loss_rel_err": f32_loss_err.tolist(),
+                       "loss_rtol": loss_tol.tolist(),
+                       "update_rel_err": upd_err.tolist(),
+                       "cpu_float32_update_rel_err": f32_upd_err.tolist(),
+                       "update_tol": upd_tol.tolist()},
+           "card_float64_s": card64_s, "cpu_float64_s": cpu_s}
+    emit(row)
+    check_trajectory(card64, card64_p, ref, ref_p, w0)
+    if not min(faults.values()) > TRAJ_UPDATE_TOL:
+        raise RuntimeError("train_numerics: the float64 check cannot tell "
+                           "a fault of step 2 from the reference: %r"
+                           % (faults,))
+    if not np.isfinite(card).all():
+        raise RuntimeError("train_numerics: bad card losses %r" % (card,))
+    if not (loss_err <= loss_tol).all():
+        raise RuntimeError("train_numerics: float32 losses differ by %r "
+                           "(limits %r)" % (loss_err.tolist(),
+                                            loss_tol.tolist()))
+    if not (upd_err <= upd_tol).all():
+        raise RuntimeError("train_numerics: the float32 parameters' update "
+                           "differs by %r of its size (limits %r)"
+                           % (upd_err.tolist(), upd_tol.tolist()))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -746,6 +1071,8 @@ def main() -> int:
     serve = phase_serve()
     phase_numerics()
     ndrow = phase_ndarray()
+    phase_train()
+    phase_train_numerics()
     main_row = rows[0]
     add_row = next(r for r in add_rows if "kernel_ms" in r)
     kernels = [{

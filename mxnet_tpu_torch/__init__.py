@@ -19,17 +19,33 @@ Ported so far:
   flash-attention kernel that the prefill runs;
 * the imperative path — ``nd`` (``NDArray``, the op registry's core
   ops, save/load), ``autograd`` on ``torch.autograd``, ``engine`` and
-  ``rtc`` (``CudaModule`` / ``PallasModule``).
+  ``rtc`` (``CudaModule`` / ``PallasModule``);
+* ResNet training — ``random``, the ``nn`` ops, ``initializer``,
+  ``gluon`` (blocks, layers, losses, ``Trainer``, the ResNet zoo),
+  ``optimizer`` (SGD, the fused SGD-momentum update), ``kvstore``
+  (``local`` / ``device``) and ``parallel.dp.FusedTrainStep`` on one
+  device.
 """
 from . import base, context, convert, env, parallel, serving, transformer
 from . import autograd, engine, ndarray, rtc
 from . import ndarray as nd
+from . import random
+from . import initializer
+from . import initializer as init
+from . import optimizer
+from . import kvstore
+from . import kvstore as kv
+from . import gluon
 from .base import MXNetError
 from .context import (Context, cpu, cpu_pinned, current_context, gpu,
                       num_gpus, tpu)
+from .initializer import Normal, Uniform, Xavier
 from .ndarray import NDArray
+
+rnd = random
 
 __all__ = ["convert", "env", "parallel", "serving", "transformer", "nd",
            "ndarray", "autograd", "engine", "rtc", "base", "context",
-           "Context", "cpu", "cpu_pinned", "gpu", "tpu", "current_context",
-           "num_gpus", "NDArray", "MXNetError"]
+           "random", "initializer", "init", "optimizer", "kvstore", "kv",
+           "gluon", "Context", "cpu", "cpu_pinned", "gpu", "tpu",
+           "current_context", "num_gpus", "NDArray", "MXNetError"]

@@ -3,8 +3,10 @@
 Both packages key a transformer's parameters by the names of
 ``param_shapes`` and store matrices in ``(in, out)`` orientation, so
 conversion is a per-array copy: nothing is transposed or renamed.
-Arrays cross as numpy (``np.asarray`` of a JAX array), which keeps the
-port free of any JAX import.
+A Gluon block's parameters cross by their names in
+``collect_params()`` (:func:`load_block_params`).  Arrays cross as
+numpy (``np.asarray`` of a JAX array), which keeps the port free of any
+JAX import.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 
 from ._device import resolve_device
 
-__all__ = ["params_from_jax", "params_to_numpy"]
+__all__ = ["params_from_jax", "params_to_numpy", "load_block_params"]
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
@@ -55,3 +57,25 @@ def params_to_numpy(params: Dict[str, torch.Tensor]
             t = t.to(torch.float32)
         out[name] = t.numpy().copy()
     return out
+
+
+def load_block_params(block, np_params: Dict[str, np.ndarray]) -> None:
+    """Set every parameter of ``block.collect_params()`` from
+    ``np_params`` (``{name: p.data().asnumpy()}`` of the JAX package's
+    block), by name, on the device and in the dtype each parameter
+    already has.  The two name sets and every shape must be equal; the
+    block's parameters must be initialised (shapes settled)."""
+    params = block.collect_params()
+    have, got = set(params.keys()), set(np_params)
+    if have != got:
+        raise ValueError("parameter names differ: only in the block %s, "
+                         "only in the dict %s"
+                         % (sorted(have - got), sorted(got - have)))
+    for name, p in params.items():
+        cell = p.data()
+        t = _to_tensor(np.asarray(np_params[name]))
+        if tuple(t.shape) != cell.shape:
+            raise ValueError("parameter %s: shape %s, the dict has %s"
+                             % (name, cell.shape, tuple(t.shape)))
+        cell._set_data(t.to(device=cell._data.device,
+                            dtype=cell._data.dtype))

@@ -113,3 +113,11 @@ register("MXNET_SERVE_GEN_BLOCKS", "int", 0,
          "hold a full max-context sequence.")
 register("MXNET_SERVE_GEN_PREFILL_BATCH", "int", 4,
          "Largest batched prefill (sequences admitted per tick).")
+
+# parallel/dp.py: FusedTrainStep refuses what it does not port
+register("MXNET_REMAT_POLICY", "str", "none",
+         "Per-scope rematerialization policy; the port runs 'none' only "
+         "(remat is queued) and refuses any other.")
+register("MXNET_GRAD_ACCUM_STEPS", "int", 1,
+         "Microbatch gradient accumulation inside the train step; the "
+         "port runs 1 only (queued) and refuses more.")

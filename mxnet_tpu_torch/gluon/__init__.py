@@ -1,0 +1,14 @@
+"""Gluon — the imperative NN API.
+
+Counterpart: ``mxnet_tpu/gluon/__init__.py``.  Ported: parameters,
+blocks, ``nn`` layers, losses, ``Trainer`` and the ResNet zoo.
+``gluon.rnn``, ``gluon.data`` and ``gluon.utils`` are queued (ROADMAP
+A12).
+"""
+from .parameter import (Parameter, Constant, ParameterDict,
+                        DeferredInitializationError)
+from .block import Block, HybridBlock, SymbolBlock
+from .trainer import Trainer
+from . import nn
+from . import loss
+from . import model_zoo

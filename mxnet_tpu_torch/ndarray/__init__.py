@@ -1,13 +1,16 @@
 """``mx.nd`` — the imperative tensor namespace, dense part.
 
-Counterpart: ``mxnet_tpu/ndarray/__init__.py``.  ``sparse``, ``linalg``
-and ``random`` are not ported yet.
+Counterpart: ``mxnet_tpu/ndarray/__init__.py``.  ``sparse`` and
+``linalg`` are not ported yet.
 """
 from .ndarray import (NDArray, invoke, array, zeros, ones, full, empty,
                       arange, eye, zeros_like, ones_like, concatenate,
                       moveaxis, maximum, minimum, waitall)
 from .utils import save, load, load_frombuffer
 from . import register as _register
+
+# imperative random namespace: mx.nd.random.uniform(...)
+from .. import random  # noqa: F401
 
 # one function per registered op name
 _register.populate(globals())

@@ -24,6 +24,7 @@ Ops return at once (CUDA launches are asynchronous); ``asnumpy()``,
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as _np
@@ -545,6 +546,13 @@ def invoke(op: Union[str, _op_registry.Op], inputs: Sequence[NDArray],
     recording = (autograd.is_recording() and not op.nondiff
                  and any(t.requires_grad for t in raw))
     fn = op.bound(**params)
+    if op.rng:
+        # the device's generator stands where the JAX package passes a
+        # PRNG key
+        from .. import random as _random
+
+        fn = functools.partial(fn, _random.generator(
+            raw[0].device if raw else out_ctx.torch_device()))
     with contextlib.ExitStack() as stack:
         stack.enter_context(torch.enable_grad() if recording
                             else torch.no_grad())

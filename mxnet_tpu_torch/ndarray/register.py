@@ -23,7 +23,11 @@ def _make_wrapper(op: _registry.Op):
         out = kwargs.pop("out", None)
         ctx = kwargs.pop("ctx", None)
         kwargs.pop("name", None)  # symbol-layer arg, ignored imperatively
+        # a trailing optional input passed as None (Dense's bias with
+        # use_bias=False) is absent, not a value
         inputs = list(args)
+        while inputs and inputs[-1] is None:
+            inputs.pop()
         # MXNet's most common convention passes tensor inputs by keyword
         # (data=..., weight=...): bind them positionally in the op body's
         # declared order, after any positional inputs

@@ -1,8 +1,9 @@
 """Operator library: plain PyTorch bodies behind the MXNet op registry.
 
 Counterpart: ``mxnet_tpu/ops/``.  Importing this package registers every
-ported operator: the core modules (elementwise, reduce, matrix, init)
-and the softmax pair of ``nn``.
+ported operator: the core modules (elementwise, reduce, matrix, init),
+``nn`` up to ``Pad``, three samplers of ``random_ops`` and the two SGD
+updates of ``optimizer_ops``.
 """
 from . import registry
 from .registry import Op, get, list_ops, register
@@ -13,5 +14,7 @@ from . import reduce  # noqa: F401
 from . import matrix  # noqa: F401
 from . import init_ops  # noqa: F401
 from . import nn  # noqa: F401
+from . import random_ops  # noqa: F401
+from . import optimizer_ops  # noqa: F401
 
 __all__ = ["Op", "get", "list_ops", "register", "registry"]

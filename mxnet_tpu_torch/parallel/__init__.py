@@ -1,5 +1,6 @@
 """Parallel primitives of the port.  Counterpart: ``mxnet_tpu/parallel/``
-(only the single-device attention is ported so far)."""
+(the single-device attention, and ``dp.FusedTrainStep`` on one device;
+``import mxnet_tpu_torch.parallel.dp`` for it)."""
 from .attention import (attention_reference, flash_attention,
                         flash_attention_fwd)
 

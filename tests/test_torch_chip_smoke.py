@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -116,3 +117,90 @@ def test_the_script_refuses_to_run_without_a_card():
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_train_tflops_counts_three_forwards_an_image():
+    # 3 forwards of 4.09 G multiply-adds (2 FLOP each) an image: batch 128
+    # in 0.1 s
+    assert cs.train_tflops(128, 0.1) == pytest.approx(
+        3 * 2 * 4.09e9 * 128 / 0.1 / 1e12)
+
+
+def test_update_err_is_relative_to_the_update():
+    w0 = {"a": np.zeros(4), "b": np.ones(2)}
+    want = {"a": np.full(4, 0.5), "b": np.full(2, 2.0)}   # norm sqrt(3)
+    assert cs._update_err(want, want, w0) == 0
+    got = dict(want, a=want["a"] + np.array([0.02, 0, 0, 0]))
+    assert cs._update_err(got, want, w0) == pytest.approx(0.02 / 3 ** 0.5)
+
+
+def test_the_training_phases_run_before_the_kernel_line():
+    src = (REPO / "chip_smoke.py").read_text()
+    main = src[src.index("def main()"):]
+    order = [main.index(p) for p in ("phase_ndarray()", "phase_train()",
+                                     "phase_train_numerics()",
+                                     '"phase": "kernels"')]
+    assert order == sorted(order)
+
+
+def _numerics_net(seed=0):
+    """A small conv net with BatchNorm on the CPU, its shapes settled."""
+    import mxnet_tpu_torch as mx
+
+    nn = mx.gluon.nn
+    np.random.seed(seed)
+    net = nn.HybridSequential(prefix="num_")
+    with net.name_scope():
+        net.add(nn.Conv2D(8, 3, padding=1), nn.BatchNorm(),
+                nn.Activation("relu"), nn.MaxPool2D(2),
+                nn.Conv2D(8, 3, padding=1), nn.BatchNorm(),
+                nn.Activation("relu"), nn.GlobalAvgPool2D(), nn.Dense(5))
+    with mx.cpu():
+        net.initialize(mx.init.Xavier())
+        with mx.autograd.pause():
+            net(mx.nd.zeros((2, 3, 8, 8)))
+    return net
+
+
+def _numerics_reference():
+    rng = np.random.RandomState(3)
+    data = rng.uniform(0, 1, (2, 4, 3, 8, 8))
+    label = rng.randint(0, 5, (2, 4)).astype(np.float64)
+    net = _numerics_net()
+    w0 = {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+    aux = {k for k, p in net.collect_params().items()
+           if p.grad_req == "null"}
+    ref, ref_p = cs.numerics_run(net, w0, data, label, "float64")
+    return net, w0, aux, data, label, ref, ref_p
+
+
+def test_the_float64_trajectory_check_passes_a_rerun():
+    net, w0, _, data, label, ref, ref_p = _numerics_reference()
+    got, got_p = cs.numerics_run(_numerics_net(), w0, data, label,
+                                 "float64")
+    loss_err, upd_err = cs.check_trajectory(got, got_p, ref, ref_p, w0)
+    assert (loss_err <= cs.TRAJ_LOSS_RTOL).all()
+    assert (upd_err <= cs.TRAJ_UPDATE_TOL).all()
+
+
+@pytest.mark.parametrize("fault", ["step2_skipped",
+                                   "step2_without_momentum"])
+def test_the_float64_trajectory_check_fails_a_step_two_fault(fault):
+    # the faults run for real: the reading matches fault_update_errs,
+    # which chip_smoke checks on the card's reference run, and the
+    # trajectory check refuses it
+    net, w0, aux, data, label, ref, ref_p = _numerics_reference()
+    if fault == "step2_skipped":
+        got, got_p = ref, [ref_p[0], ref_p[0]]
+    else:
+        # momentum 0 from the start: step 1 has no momentum to apply,
+        # so only step 2 differs
+        got, got_p = cs.numerics_run(_numerics_net(), w0, data, label,
+                                     "float64", momentum=0.0)
+        np.testing.assert_allclose(got[0], ref[0], rtol=1e-12)
+    _, upd_err = cs.trajectory_errors(got, got_p, ref, ref_p, w0)
+    assert upd_err[1] == pytest.approx(
+        cs.fault_update_errs(ref_p, w0, aux)[fault], rel=1e-9)
+    assert upd_err[1] > 1e3 * cs.TRAJ_UPDATE_TOL
+    with pytest.raises(RuntimeError, match="float64 parameters' update"):
+        cs.check_trajectory(got, got_p, ref, ref_p, w0)

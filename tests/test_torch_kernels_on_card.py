@@ -346,3 +346,63 @@ def test_rtc_long_is_64_bit_as_the_signature_parser_assumes(add_module):
         [out, (5 << 32) + 7], mx.gpu(0), (1, 1, 1), (1, 1, 1))
     assert out.asnumpy().tolist() == [8, 5]
     assert ".alt." not in rtc._nvrtc.path
+
+
+# the ResNet-50 path's ops (cuDNN/cuBLAS through torch, and the port's
+# BatchNorm and Pooling bodies) on the card against the same ops on the
+# CPU, float64, at ResNet-50 shapes (batch cut to 2): forward and the
+# gradients of a seeded cotangent, 1e-10 relative to the largest
+# magnitude (another summation order on each side)
+RESNET_OPS = [
+    ("Convolution", [(2, 3, 224, 224), (64, 3, 7, 7)],
+     dict(kernel=(7, 7), stride=(2, 2), pad=(3, 3), num_filter=64,
+          no_bias=True)),
+    ("Convolution", [(2, 64, 56, 56), (64, 64, 3, 3)],
+     dict(kernel=(3, 3), pad=(1, 1), num_filter=64, no_bias=True)),
+    ("Convolution", [(2, 256, 56, 56), (512, 256, 1, 1)],
+     dict(kernel=(1, 1), stride=(2, 2), num_filter=512, no_bias=True)),
+    ("Pooling", [(2, 64, 112, 112)],
+     dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="max")),
+    ("Pooling", [(2, 64, 111, 111)],
+     dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="max",
+          pooling_convention="full")),
+    ("Pooling", [(2, 64, 111, 111)],
+     dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="avg",
+          pooling_convention="full")),
+    ("Pooling", [(2, 2048, 7, 7)],
+     dict(kernel=(1, 1), global_pool=True, pool_type="avg")),
+    ("BatchNorm", [(4, 256, 56, 56), (256,), (256,), (256,), (256,)],
+     dict(eps=1e-5, momentum=0.9, fix_gamma=False, _training=True)),
+    ("BatchNorm", [(4, 2048, 7, 7), (2048,), (2048,), (2048,), (2048,)],
+     dict(eps=1e-5, momentum=0.9, fix_gamma=False, _training=True)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shapes,params", RESNET_OPS,
+                         ids=["conv7x7s2", "conv3x3", "conv1x1s2",
+                              "maxpool", "maxpool_full", "avgpool_full",
+                              "globalavg", "bn56", "bn7"])
+def test_resnet_ops_on_the_card_equal_the_cpu(cuda_device, name, shapes,
+                                              params):
+    from mxnet_tpu_torch.ops import registry
+
+    fn = registry.get(name).bound(**params)
+    rng = np.random.RandomState(0)
+    ins = [rng.uniform(0.5, 1.5, s) if name == "BatchNorm" and i in (1, 4)
+           else rng.randn(*s) for i, s in enumerate(shapes)]
+    n_diff = 3 if name == "BatchNorm" else len(ins)
+    res = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        ts = [torch.tensor(a, device=dev, requires_grad=i < n_diff)
+              for i, a in enumerate(ins)]
+        outs = fn(*ts)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        cot = torch.tensor(np.random.RandomState(1).randn(*outs[0].shape),
+                           device=dev)
+        grads = torch.autograd.grad(outs[0], ts[:n_diff], cot)
+        res[dev.type] = [o.detach().cpu().numpy() for o in outs] + \
+            [g.cpu().numpy() for g in grads]
+    for got, want in zip(res["cuda"], res["cpu"]):
+        scale = max(float(np.abs(want).max()), 1e-30)
+        assert float(np.abs(got - want).max()) <= 1e-10 * scale

@@ -26,6 +26,10 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import mxnet_tpu_torch.serving, mxnet_tpu_torch.transformer\n"
         "import mxnet_tpu_torch.ndarray, mxnet_tpu_torch.autograd\n"
         "import mxnet_tpu_torch.rtc, mxnet_tpu_torch.engine\n"
+        "import mxnet_tpu_torch.gluon, mxnet_tpu_torch.optimizer\n"
+        "import mxnet_tpu_torch.kvstore, mxnet_tpu_torch.parallel.dp\n"
+        "import mxnet_tpu_torch.random, mxnet_tpu_torch.initializer\n"
+        "import mxnet_tpu_torch.gluon.model_zoo.vision\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mxnet_tpu', 'ml_dtypes'))\n"
         # kernels are built at first launch, never at import; NVRTC and
@@ -61,7 +65,8 @@ def test_no_package_file_imports_jax_or_the_jax_package():
 @pytest.mark.parametrize("script", ["chip_smoke.py",
                                     "tools/torch_kernel_ab.py",
                                     "tools/torch_nd_profile.py",
-                                    "tools/torch_serve_profile.py"])
+                                    "tools/torch_serve_profile.py",
+                                    "tools/torch_train_profile.py"])
 def test_card_scripts_import_no_jax(script):
     # the scripts run on the machine with the card, which has no JAX
     tree = ast.parse((REPO / script).read_text(), filename=script)
