@@ -1,8 +1,10 @@
 """Smoke run of ``mxnet_tpu_torch`` on one NVIDIA GPU: build the CUDA
 kernels from source, hold each against its plain PyTorch version, serve
 a GPT-2-small-width transformer through the port's ``ModelServer`` with
-paged-KV continuous batching, check the numbers against the dense
-reference, drive the imperative ``mx.nd`` / ``mx.autograd`` / ``mx.rtc``
+paged-KV continuous batching (in process, then over HTTP beside a
+predictor, under the load generator, through a live reload and through
+``python -m mxnet_tpu_torch.serving``), check the numbers against the
+dense reference, drive the imperative ``mx.nd`` / ``mx.autograd`` / ``mx.rtc``
 path at (4096, 4096) float32 against numpy in float64, and train
 ResNet-50 v1 at full width through ``FusedTrainStep`` (bf16 timed,
 float64 and float32 held against the CPU in float64).
@@ -44,6 +46,36 @@ Phases:
            batches of 4; 16 requests with prompts over 16..512 and 32
            new tokens each, through ``submit_generation``; every
            prefill launch of the flash kernel on the ``wgmma`` route
+  serve_http
+           the same generator and 16 prompts through ``ModelServer`` +
+           ``HttpFrontend`` on 127.0.0.1 (SIGTERM hook installed), 8
+           streamed (one client resets after 4 tokens) and 8 blocking,
+           beside the ``bench_serve`` predictor (dim 64, hidden 128,
+           max batch 32: bench.py:758); then ``:predict`` of 32
+           instances.  15/15 full replies, stream tokens = terminal
+           count, the reset one ``cancelled`` and its blocks freed,
+           ``:predict`` = ``runtime.execute``, probes 200, ``/metrics``
+           valid with the request counters at the counts sent, every
+           prefill flash launch on ``wgmma``; tokens/s, TTFT and TPOT
+           p50/p99 (server side, as ``serve``; and at the streaming
+           client) beside the ``serve`` phase's
+  loadgen  ``gen_tokens_at_slo`` on the same generator (p99 TPOT SLO
+           200 ms, bench.py:835; 4 req/s doubling to 64, 1.5 s
+           windows): tokens/s at the SLO, TTFT p50/p99 there, the p99
+           attribution of the ramp's slowest requests; then the
+           continuous vs whole-batch A/B of bench.py:866-892 (16
+           requests, every 8th at 32 new tokens, the rest 4-8) against
+           a ``continuous=False`` twin sharing the weights, best of 3
+  reload   the predictor under ``BackgroundLoad`` (300 req/s): weights
+           of step 2 saved with ``checkpoint.save_checkpoint`` and
+           reloaded (canary 50 %, 8 batches) must promote with zero
+           dropped or failed requests; step 3 under chaos
+           ``bad_version`` for version 3 must roll back while version
+           2 keeps serving; time to promote, canary counts
+  serve_cli
+           ``python -m mxnet_tpu_torch.serving --self-test`` on the card
+           (``"self_test_ok": true``), then ``--serve --port 0``: one
+           ``:generate`` over HTTP, SIGTERM, exit code 83
   numerics the same width at 2 layers in float32: prefill logits through
            the kernel (``simt`` route) against ``apply`` with dense
            attention (1e-3 abs), and greedy tokens against the dense
@@ -707,6 +739,522 @@ def phase_serve():
     if kv["blocks_live"] != 0 or not drain["drained"]:
         raise RuntimeError("serve: leaked KV blocks or undrained: %r %r"
                            % (kv, drain))
+    return row, rt, prompts
+
+
+# ---------------------------------------------------------------------
+# the serving tier over HTTP, the load generator, live reload, the CLI
+# ---------------------------------------------------------------------
+def _flash_counts_reset():
+    from mxnet_tpu_torch.parallel.attention import flash_attention_fwd
+
+    flash_attention_fwd.launches = 0
+    flash_attention_fwd.launches_by_route = {"wgmma": 0, "simt": 0}
+
+
+def _flash_counts():
+    from mxnet_tpu_torch.parallel.attention import flash_attention_fwd
+
+    return (flash_attention_fwd.launches,
+            dict(flash_attention_fwd.launches_by_route))
+
+
+def _stream_generate(host, port, model, body, stop_after=None):
+    """POST a streaming ``:generate`` on a raw socket and de-chunk the
+    reply: returns ``(t_sent, [(t_arrival, line_obj), ...])``.  With
+    ``stop_after`` the client reads that many token lines and then
+    resets the connection (a client that went away)."""
+    import socket
+    import struct
+
+    data = json.dumps(dict(body, stream=True)).encode()
+    sk = socket.create_connection((host, port), timeout=600)
+    buf = b""
+    lines = []
+    t_sent = time.perf_counter()
+    sk.sendall(b"POST /v1/models/%s:generate HTTP/1.1\r\nHost: smoke\r\n"
+               b"Content-Type: application/json\r\nContent-Length: %d"
+               b"\r\n\r\n" % (model.encode(), len(data)) + data)
+
+    def fill():
+        chunk = sk.recv(65536)
+        if not chunk:
+            raise RuntimeError("stream closed early")
+        return chunk
+
+    while b"\r\n\r\n" not in buf:
+        buf += fill()
+    head, buf = buf.split(b"\r\n\r\n", 1)
+    if not head.startswith(b"HTTP/1.0 200") and \
+            not head.startswith(b"HTTP/1.1 200"):
+        raise RuntimeError("stream: %r" % head[:200])
+    while True:
+        while b"\r\n" not in buf:
+            buf += fill()
+        size_line, buf = buf.split(b"\r\n", 1)
+        size = int(size_line, 16)
+        if size == 0:
+            break
+        while len(buf) < size + 2:
+            buf += fill()
+        obj = json.loads(buf[:size])
+        buf = buf[size + 2:]
+        lines.append((time.perf_counter(), obj))
+        if stop_after is not None and len(lines) >= stop_after:
+            sk.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                          struct.pack("ii", 1, 0))  # close sends RST
+            break
+    sk.close()
+    return t_sent, lines
+
+
+def _post_json(base, path, payload, timeout=600):
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def _get(base, path):
+    import urllib.request
+
+    with urllib.request.urlopen(base + path, timeout=60) as resp:
+        return resp.status, resp.read().decode()
+
+
+def _counter_values(diag, prefix="mxnet_serve_requests_total"):
+    return {k: v["value"] for k, v in diag.metrics.dump_json()[
+        "metrics"].items() if k.startswith(prefix)}
+
+
+def http_clients(host, port, model, prompts, max_new):
+    """One client thread a prompt against ``:generate``: even ones
+    stream (the first resets after 4 tokens), odd ones block.  Returns
+    the JSON-able ``{"results", "errors", "wall_s"}``; times are this
+    process's ``perf_counter``."""
+    import threading
+
+    base = "http://%s:%d" % (host, port)
+    results = [None] * len(prompts)
+    errors = []
+
+    def client(i, p):
+        try:
+            body = {"prompt": p, "max_new": max_new, "deadline_ms": None}
+            if i % 2 == 0:   # streamed
+                results[i] = ("stream",) + _stream_generate(
+                    host, port, model, body,
+                    stop_after=4 if i == 0 else None)
+            else:
+                t0 = time.perf_counter()
+                st, out = _post_json(base, "/v1/models/%s:generate"
+                                     % model, body)
+                results[i] = ("blocking", t0, (time.perf_counter(), st, out))
+        except Exception as e:  # reported to the caller
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i, p))
+               for i, p in enumerate(prompts)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    return {"results": results, "errors": errors,
+            "wall_s": time.perf_counter() - t0}
+
+
+def phase_serve_http(rt, prompts, serve_row):
+    """The serve phase's generator and 16 prompts through
+    ``ModelServer`` + ``HttpFrontend`` on 127.0.0.1: 8 streamed (one
+    client resets after 4 tokens), 8 blocking, sent from a client
+    process, then one ``:predict`` of 32 instances to the
+    ``bench_serve`` predictor beside it."""
+    from mxnet_tpu_torch import diagnostics as diag
+    from mxnet_tpu_torch import serving
+
+    pred = serving.demo_runtime("bench_serve", dim=64, hidden=128,
+                                max_batch=32)
+    srv = serving.ModelServer()
+    srv.add_model(pred)
+    srv.add_generator(rt)          # already warm
+    srv.install_preemption_hook()
+    fe = serving.HttpFrontend(srv, host="127.0.0.1", port=0)
+    host, port = fe.start()
+    base = "http://%s:%d" % (host, port)
+    name = rt.name
+    max_new = SERVE["max_new"]
+    try:
+        ready0 = _get(base, "/readyz")[0]
+        healthy = _get(base, "/healthz")[0]
+        # the server side of each request: the same TTFT/TPOT clock as
+        # the serve phase (enqueue -> emitted token)
+        gen_reqs = []
+        submit = srv.submit_generation
+
+        def recording_submit(*a, **k):
+            r = submit(*a, **k)
+            gen_reqs.append(r)
+            return r
+        srv.submit_generation = recording_submit
+        counts0 = _counter_values(diag)
+        batches0 = rt.engine.prefill_batches
+        # the clients run in a process of their own, as callers do: in
+        # this one they would wait on the interpreter lock behind the
+        # engine thread, and their late sends would read as latency
+        _flash_counts_reset()
+        args = {"host": host, "port": port, "model": name,
+                "prompts": [[int(t) for t in p] for p in prompts],
+                "max_new": max_new}
+        proc = subprocess.run(
+            [sys.executable, "-c", "import json, sys, chip_smoke; print("
+             "json.dumps(chip_smoke.http_clients(**json.loads("
+             "sys.argv[1]))))", json.dumps(args)],
+            cwd=str(Path(__file__).resolve().parent), capture_output=True,
+            text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError("serve_http: clients failed:\n%s"
+                               % proc.stderr[-4000:])
+        clients = json.loads(proc.stdout.strip().splitlines()[-1])
+        results, errors, wall = (clients["results"], clients["errors"],
+                                 clients["wall_s"])
+        torch.cuda.synchronize()
+        launches, by_route = _flash_counts()
+        if errors:
+            raise RuntimeError("serve_http: client errors %r" % errors)
+        batches = rt.engine.prefill_batches - batches0
+        # the reset client's request is reaped on the next tick
+        deadline = time.monotonic() + 30.0
+        while (rt.kv.stats()["blocks_live"]
+               or not all(r.done() for r in gen_reqs)) and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        kv = rt.kv.stats()
+        x = np.random.RandomState(5).randn(32, 64).astype(np.float32)
+        st, pred_out = _post_json(base, "/v1/models/bench_serve:predict",
+                                  {"instances": x.tolist()})
+        want_cls, want_logits = pred.execute(x)
+        got_logits = np.asarray(pred_out["predictions"][1])
+        pred_err = float(np.abs(got_logits - want_logits).max() /
+                         np.abs(want_logits).max())
+        prom = _get(base, "/metrics")[1]
+        counts1 = _counter_values(diag)
+    finally:
+        srv.submit_generation = submit
+        drain = srv.drain(timeout_s=60.0)
+        srv.uninstall_preemption_hook()
+        fe.stop()
+
+    full, stream_ok, ttft_c, tpot_c = 0, True, [], []
+    for i, res in enumerate(results):
+        if res[0] == "stream":
+            _, t_sent, lines = res
+            toks = [o for _, o in lines if "token" in o]
+            if i == 0:
+                continue
+            done = lines[-1][1]
+            ok = done.get("done") is True and done["tokens"] == len(toks) \
+                == max_new
+            stream_ok &= ok
+            full += ok
+            ts = [t for t, o in lines if "token" in o]
+            ttft_c.append((ts[0] - t_sent) * 1e3)
+            tpot_c += [(b - a) * 1e3 for a, b in zip(ts, ts[1:])]
+        else:
+            _, _, (_, st_, out) = res
+            full += st_ == 200 and len(out["tokens"]) == max_new
+    delta = {k: counts1.get(k, 0.0) - counts0.get(k, 0.0)
+             for k in counts1}
+
+    def count(model, outcome):
+        return delta.get('mxnet_serve_requests_total{model="%s",outcome='
+                         '"%s",version="v1"}' % (model, outcome), 0.0)
+    cancelled = [r for r in gen_reqs
+                 if type(r.error).__name__ == "Cancelled"]
+    ttft = [r.ttft_s() * 1e3 for r in gen_reqs if r.ttft_s() is not None]
+    tpot = [d * 1e3 for r in gen_reqs for d in r.tpot_s()]
+    tokens = sum(len(r.tokens) for r in gen_reqs
+                 if r.error is None)
+    # the server's own wall, first admission to last reply: the clients'
+    # connects spread the arrivals, which the in-process phase has not
+    first_in = min(r.enqueue_ts for r in gen_reqs)
+    server_wall = max(r.done_ts for r in gen_reqs) - first_in
+    row = {
+        "phase": "serve_http", "requests": len(prompts),
+        "streamed": len(prompts) // 2, "full_replies": int(full),
+        "wall_s": wall, "tokens_out": tokens,
+        "tokens_per_s": tokens / wall,
+        "server_wall_s": server_wall,
+        "server_tokens_per_s": tokens / server_wall,
+        "arrival_spread_ms": (max(r.enqueue_ts for r in gen_reqs)
+                              - first_in) * 1e3,
+        "ttft_ms_p50": _pct(ttft, 50), "ttft_ms_p99": _pct(ttft, 99),
+        "tpot_ms_p50": _pct(tpot, 50), "tpot_ms_p99": _pct(tpot, 99),
+        "client_stream_ttft_ms_p50": _pct(ttft_c, 50),
+        "client_stream_ttft_ms_p99": _pct(ttft_c, 99),
+        "client_stream_tpot_ms_p50": _pct(tpot_c, 50),
+        "client_stream_tpot_ms_p99": _pct(tpot_c, 99),
+        "serve_phase": {k: serve_row[k] for k in (
+            "tokens_per_s", "ttft_ms_p50", "ttft_ms_p99", "tpot_ms_p50",
+            "tpot_ms_p99")},
+        "cancelled": len(cancelled), "kv": kv,
+        "readyz_before": ready0, "healthz": healthy,
+        "predict_status": st, "predict_max_rel_err": pred_err,
+        "prom_problems": diag.validate_prom_text(prom),
+        "requests_total_delta": {
+            "generate_ok": count(name, "ok"),
+            "generate_cancelled": count(name, "cancelled"),
+            "predict_ok": count("bench_serve", "ok")},
+        "prefill_batches": batches, "flash_launches": launches,
+        "flash_launches_by_route": by_route, "drain": drain,
+    }
+    emit(row)
+    n = len(prompts)
+    if full != n - 1 or not stream_ok:
+        raise RuntimeError("serve_http: %d of %d full replies (streams "
+                           "consistent: %s)" % (full, n - 1, stream_ok))
+    if len(cancelled) != 1 or row["requests_total_delta"] != {
+            "generate_ok": n - 1, "generate_cancelled": 1,
+            "predict_ok": 1}:
+        raise RuntimeError("serve_http: outcome counts %r, cancelled %d"
+                           % (row["requests_total_delta"],
+                              len(cancelled)))
+    if kv["blocks_live"] != 0 or not drain["drained"]:
+        raise RuntimeError("serve_http: KV or drain: %r %r" % (kv, drain))
+    if (ready0, healthy, st) != (200, 200, 200) or row["prom_problems"]:
+        raise RuntimeError("serve_http: probes/metrics: %r" % row)
+    if not np.array_equal(np.asarray(pred_out["predictions"][0]),
+                          want_cls) or pred_err > 2.0 ** -8:
+        raise RuntimeError("serve_http: :predict != runtime.execute "
+                           "(rel err %r)" % pred_err)
+    if launches == 0 or launches != rt.cfg.n_layers * batches or \
+            by_route["wgmma"] != launches:
+        raise RuntimeError("serve_http: flash launches %d (%r) for %d "
+                           "prefill batches" % (launches, by_route,
+                                                batches))
+    return row, pred
+
+
+LOAD_SLO_TPOT_MS = 200.0     # bench.py:835 bench_generation's default
+LOAD_MAX_QPS = 64.0          # the ramp's cap: 4, 8, 16, 32, 64
+AB_REPEATS = 3
+
+
+def phase_loadgen(rt):
+    """``gen_tokens_at_slo`` over the full-width generator (p99 TPOT SLO
+    200 ms, from 4 req/s doubling to the cap, 1.5 s windows), then the
+    continuous vs whole-batch A/B of bench.py:866-892 on its
+    mixed-length work list through a ``continuous=False`` twin that
+    shares the weights."""
+    import random
+
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.serving import reqtrace
+
+    reqtrace.reset(capacity=512, topk=16)
+    srv = serving.ModelServer(queue_max=256, default_deadline_ms=30000)
+    srv.add_generator(rt)
+    _flash_counts_reset()
+    t0 = time.perf_counter()
+    rep = serving.gen_tokens_at_slo(
+        srv, rt.name, slo_p99_tpot_ms=LOAD_SLO_TPOT_MS, start_qps=4.0,
+        max_qps=LOAD_MAX_QPS, window_s=1.5)
+    ramp_s = time.perf_counter() - t0
+    launches, by_route = _flash_counts()
+    slowest = reqtrace.top_slowest()
+    shares = reqtrace.attribution_shares(slowest)
+    slowest_line = reqtrace.attribution(slowest[0]) if slowest else None
+    reqtrace.reset()
+    drain = srv.drain(timeout_s=120.0)
+
+    # the A/B: one work list, each engine driven to idle on this thread
+    t0 = time.perf_counter()
+    whole = serving.GenerationRuntime(
+        rt.name + "_whole", rt._params, rt.cfg, continuous=False, **SERVE)
+    whole.compile()
+    twin_warm_s = time.perf_counter() - t0
+    rng = random.Random(0)
+    work = [([rng.randrange(1, rt.cfg.vocab_size)
+              for _ in range(rng.randint(2, SERVE["max_prompt"]))],
+             SERVE["max_new"] if i % SERVE["slots"] == 0
+             else rng.randint(4, 8)) for i in range(16)]
+
+    def drive_once(r):
+        before = r.engine.tokens_out
+        for prompt, max_new in work:
+            r.engine.enqueue(serving.GenRequest(r.name, prompt, max_new))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        while not r.engine.idle():
+            r.engine.step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, r.engine.tokens_out - before
+
+    walls = {"whole": [], "continuous": []}
+    for _ in range(AB_REPEATS):
+        walls["whole"].append(drive_once(whole))
+        walls["continuous"].append(drive_once(rt))
+    whole_s, ab_tokens = min(walls["whole"])
+    cont_s, _ = min(walls["continuous"])
+    row = {
+        "phase": "loadgen", "slo_p99_tpot_ms": LOAD_SLO_TPOT_MS,
+        "max_qps": LOAD_MAX_QPS,
+        "tokens_per_s_at_slo": rep["tokens_per_s_at_slo"],
+        "tpot_p99_ms_at_slo": rep["tpot_p99_ms_at_slo"],
+        "ttft_p50_ms_at_slo": rep["ttft_p50_ms_at_slo"],
+        "ttft_p99_ms_at_slo": rep["ttft_p99_ms_at_slo"],
+        "ramp": rep["ramp"], "ramp_s": ramp_s,
+        "p99_attribution": shares, "slowest": slowest_line,
+        "flash_launches": launches, "flash_launches_by_route": by_route,
+        "continuous_vs_whole_batch": {
+            "work": len(work), "tokens": ab_tokens,
+            "whole_s": whole_s, "continuous_s": cont_s,
+            "whole_tokens_per_s": ab_tokens / whole_s,
+            "continuous_tokens_per_s": ab_tokens / cont_s,
+            "speedup": whole_s / cont_s, "repeats": AB_REPEATS,
+            "twin_warmup_s": twin_warm_s},
+        "kv": rt.kv.stats(), "drain": drain,
+    }
+    emit(row)
+    if not rep["ramp"] or not rep["ramp"][0]["met_slo"]:
+        raise RuntimeError("loadgen: the first ramp step missed the SLO")
+    if rt.kv.stats()["blocks_live"] or whole.kv.stats()["blocks_live"] \
+            or not drain["drained"]:
+        raise RuntimeError("loadgen: leaked KV blocks or undrained")
+    if by_route["wgmma"] != launches or launches == 0:
+        raise RuntimeError("loadgen: flash left the wgmma route: %r"
+                           % by_route)
+    return row
+
+
+def phase_reload(pred):
+    """Live reload of the ``bench_serve`` predictor under
+    ``BackgroundLoad``: step 2 from a checkpoint promotes with zero
+    dropped or failed requests; step 3 under chaos ``bad_version`` for
+    version 3 rolls back while version 2 keeps serving."""
+    import os
+    import shutil
+
+    from mxnet_tpu_torch import chaos, checkpoint, serving
+
+    ckdir = tempfile.mkdtemp(prefix="smoke-reload-")
+    srv = serving.ModelServer(max_batch=32, queue_max=256,
+                              batch_deadline_ms=2,
+                              default_deadline_ms=10_000, canary_pct=50,
+                              canary_min_n=8)
+    srv.add_model(pred)
+    x = np.random.RandomState(6).randn(1, 64).astype(np.float32)
+    want = serving.demo_runtime("v2", dim=64, hidden=128, max_batch=32,
+                                seed=2).execute(x)[1]
+    try:
+        out = {}
+        for version, seed, chaos_spec in (
+                (2, 2, None),
+                (3, 3, "bad_version:model=bench_serve,version=3,"
+                 "count=100000")):
+            d = os.path.join(ckdir, "v%d" % version)
+            checkpoint.save_checkpoint(d, version,
+                                       params=serving.demo_params(
+                                           dim=64, hidden=128, seed=seed))
+            if chaos_spec:
+                os.environ["MXNET_CHAOS"] = chaos_spec
+            chaos.reset()
+            try:
+                load = serving.BackgroundLoad(srv, "bench_serve", qps=300,
+                                              duration_s=3.0).start()
+                time.sleep(0.3)
+                srv.reload("bench_serve", d)
+                st = srv.wait_reload("bench_serve", timeout_s=60.0)
+                res = load.join(120.0)
+                injected = chaos.injected_total("bad_version")
+            finally:
+                os.environ.pop("MXNET_CHAOS", None)
+                chaos.reset()
+            serving_v = srv.stats()["bench_serve"]["version"]
+            same_as_v2 = bool(np.array_equal(
+                srv.predict("bench_serve", x)[1], want))
+            out["v%d" % version] = {
+                "state": st["state"], "swap_s": st.get("swap_s"),
+                "canary_stats": st.get("canary_stats"),
+                "stable_stats": st.get("stable_stats"),
+                "serving_version": serving_v, "serves_v2": same_as_v2,
+                "bad_version_injected": injected,
+                "load": {k: res[k] for k in (
+                    "offered", "admitted", "ok", "errors", "expired",
+                    "hung", "shed_total", "p50_ms", "p99_ms")}}
+    finally:
+        drain = srv.drain(timeout_s=30.0)
+        shutil.rmtree(ckdir, ignore_errors=True)
+    row = dict({"phase": "reload", "drain": drain}, **out)
+    emit(row)
+    v2, v3 = out["v2"], out["v3"]
+    for tag, v in out.items():
+        ld = v["load"]
+        if ld["ok"] != ld["admitted"] or ld["errors"] or ld["hung"] or \
+                ld["expired"]:
+            raise RuntimeError("reload %s: requests dropped or failed: %r"
+                               % (tag, ld))
+    if v2["state"] != "promoted" or v2["serving_version"] != 2 or \
+            not v2["serves_v2"]:
+        raise RuntimeError("reload: step 2 did not promote: %r" % v2)
+    if v3["state"] != "rolled_back" or v3["serving_version"] != 2 or \
+            not v3["serves_v2"] or not v3["bad_version_injected"]:
+        raise RuntimeError("reload: version 3 did not roll back: %r" % v3)
+    return row
+
+
+def phase_serve_cli():
+    """``python -m mxnet_tpu_torch.serving --self-test`` on the card,
+    then ``--serve --port 0``: one ``:generate`` over HTTP, SIGTERM,
+    exit code 83."""
+    import os
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.serving"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd + ["--self-test"], capture_output=True,
+                         text=True, env=env, timeout=300)
+    self_test_s = time.perf_counter() - t0
+    try:
+        payload = json.loads(res.stdout.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        payload = {}
+    failed = sorted(k for k, v in payload.get("checks", {}).items()
+                    if not v)
+    proc = subprocess.Popen(cmd + ["--serve", "--port", "0"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+    try:
+        banner = json.loads(proc.stdout.readline())
+        st, out = _post_json("http://127.0.0.1:%d" % banner["port"],
+                             "/v1/models/demo_gen:generate",
+                             {"prompt": [5, 9, 2], "max_new": 6}, 120)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err = proc.stderr.read()
+    row = {"phase": "serve_cli", "self_test_rc": res.returncode,
+           "self_test_ok": payload.get("self_test_ok"),
+           "self_test_checks": len(payload.get("checks", {})),
+           "self_test_failed": failed, "self_test_s": self_test_s,
+           "serve_device": banner.get("device"), "generate_status": st,
+           "generate_tokens": len(out.get("tokens", [])),
+           "sigterm_rc": rc}
+    emit(row)
+    if res.returncode != 0 or payload.get("self_test_ok") is not True:
+        raise RuntimeError("serve_cli: self-test failed: %r\n%s"
+                           % (failed, res.stderr[-4000:]))
+    if st != 200 or row["generate_tokens"] != 6 or rc != 83 or \
+            not str(banner.get("device")).startswith("cuda"):
+        raise RuntimeError("serve_cli: --serve: %r\n%s"
+                           % (row, err[-4000:]))
     return row
 
 
@@ -1068,7 +1616,12 @@ def main() -> int:
     phase_build()
     rows = phase_kernel()
     add_rows = phase_rtc_add()
-    serve = phase_serve()
+    serve, served_rt, prompts = phase_serve()
+    http, pred = phase_serve_http(served_rt, prompts, serve)
+    load = phase_loadgen(served_rt)
+    del served_rt
+    phase_reload(pred)
+    phase_serve_cli()
     phase_numerics()
     ndrow = phase_ndarray()
     phase_train()
@@ -1082,6 +1635,9 @@ def main() -> int:
         "replaces": "mxnet_tpu/parallel/attention.py:126",
         "launches": serve["flash_launches"],
         "launches_by_route": serve["flash_launches_by_route"],
+        "launches_by_path": {"serve": serve["flash_launches"],
+                             "serve_http": http["flash_launches"],
+                             "loadgen": load["flash_launches"]},
         "max_abs_err": max(r["max_err"] for r in rows),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

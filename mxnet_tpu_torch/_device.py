@@ -6,7 +6,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "bind_device"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -21,3 +21,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "no CUDA device is available (device=%r); pass device='cpu' "
             "to run on the CPU" % (str(dev),))
     return dev
+
+
+def bind_device(device) -> None:
+    """Make ``device`` the calling thread's current CUDA device
+    (``torch.cuda``'s current device is per thread).  ``cuda`` without
+    an index means the current one; CPU devices need nothing."""
+    if isinstance(device, torch.device) and device.type == "cuda" \
+            and device.index is not None:
+        torch.cuda.set_device(device.index)

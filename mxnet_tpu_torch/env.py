@@ -11,13 +11,15 @@ import os
 from typing import Any, Dict, NamedTuple, Optional
 
 __all__ = ["EnvVar", "register", "var", "get_str", "get_int",
-           "get_float"]
+           "get_float", "get_bool"]
+
+_FALSE_SPELLINGS = ("0", "false", "no", "off")
 
 
 class EnvVar(NamedTuple):
     """One registered knob: declaration == documentation."""
     name: str
-    kind: str          # 'int' | 'float' | 'str'
+    kind: str          # 'int' | 'float' | 'str' | 'bool'
     default: Any
     doc: str
 
@@ -26,7 +28,7 @@ _REGISTRY: Dict[str, EnvVar] = {}
 
 
 def register(name: str, kind: str, default: Any, doc: str) -> EnvVar:
-    if kind not in ("int", "float", "str"):
+    if kind not in ("int", "float", "str", "bool"):
         raise ValueError("unknown env kind %r for %s" % (kind, name))
     v = EnvVar(name, kind, default, doc)
     _REGISTRY[name] = v
@@ -65,6 +67,15 @@ def get_float(name: str) -> Optional[float]:
     return _get_num(name, float)
 
 
+def get_bool(name: str) -> bool:
+    """Any value but an empty one or a false spelling (0/false/no/off)
+    is true; unset or empty reads the registered default."""
+    raw = os.environ.get(name)
+    if raw in (None, ""):
+        return bool(var(name).default)
+    return raw.lower() not in _FALSE_SPELLINGS
+
+
 # engine.py
 register("MXNET_MODULE_BULK_SIZE", "int", None,
          "Opt a fit loop into K-step bulk dispatch; presence alone opts "
@@ -93,6 +104,69 @@ register("MXNET_SERVE_BREAKER_N", "int", 5,
          "breaker opens (0 disables the breaker).")
 register("MXNET_SERVE_BREAKER_RESET_S", "float", 5.0,
          "How long an open breaker waits before one half-open probe.")
+register("MXNET_SERVE_BATCH_DEADLINE_MS", "float", 5.0,
+         "How long the predictor's dynamic batcher holds the first "
+         "queued request open for co-riders before dispatching a "
+         "partial batch.")
+register("MXNET_SERVE_PORT", "int", 8000,
+         "HTTP front-end port of python -m mxnet_tpu_torch.serving "
+         "--serve.")
+register("MXNET_SERVE_CANARY_PCT", "float", 25.0,
+         "During ModelServer.reload, the percentage of batches (or "
+         "generation sequences) routed to the new version while it is "
+         "canaried; 0 skips the canary and swaps once the new version "
+         "is warm.")
+register("MXNET_SERVE_CANARY_MIN_N", "int", 20,
+         "Canary batches (or decode ticks) observed before the "
+         "promote-vs-rollback decision.")
+register("MXNET_SERVE_ROLLBACK_ERR_RATIO", "float", 2.0,
+         "Roll back when the canary's error rate exceeds the stable "
+         "version's over the same window times this ratio (a canary "
+         "that errors while stable is clean always rolls back).")
+register("MXNET_SERVE_REQTRACE_SIZE", "int", 256,
+         "Request-trace ring capacity (serving/reqtrace.py); 0 "
+         "disables recording.")
+register("MXNET_SERVE_REQTRACE_TOPK", "int", 8,
+         "Slowest completed requests kept per sliding window for the "
+         "tail-latency autopsy.")
+register("MXNET_SERVE_REQTRACE_WINDOW_S", "float", 60.0,
+         "Sliding window (s) of the reqtrace top-K and exemplars; also "
+         "rate-limits the blown-deadline auto-dump.")
+
+# chaos.py
+register("MXNET_CHAOS", "str", None,
+         "Fault-injection spec: semicolon-separated rules "
+         "'kind:k=v,k=v'; the port reads the serving kinds "
+         "slow_request / fail_execute / bad_version / cancel_request / "
+         "stall_decode_tick.")
+
+# diagnostics.py
+register("MXNET_DUMP_DIR", "str", None,
+         "Directory for relative-path artifacts (reqtrace_rank*.json, "
+         "metrics expositions); unset writes to the CWD.")
+register("MXNET_METRICS_FILE", "str", None,
+         "Path for periodic Prometheus-text metric flushes.")
+register("MXNET_METRICS_INTERVAL_S", "float", 30.0,
+         "Period of the metrics file flush (s).")
+register("MXNET_ELASTIC_HEARTBEAT_DIR", "str", None,
+         "Directory of per-rank heartbeat files (hb_rank{K}) an "
+         "elastic supervisor watches; touched by the serving workers.")
+register("MXNET_ELASTIC_GENERATION", "int", 0,
+         "Fleet incarnation, stamped into checkpoint sidecars and "
+         "manifests.")
+register("MXNET_PROCESS_ID", "int", 0,
+         "This process's rank in the pod launch contract.")
+register("MXNET_NUM_PROCESSES", "int", 1,
+         "Number of processes in the pod launch contract.")
+
+# checkpoint.py
+register("MXNET_CKPT_KEEP", "int", 3,
+         "Completed checkpoint steps retained per directory; older "
+         "steps are garbage-collected after each save. 0 keeps all.")
+register("MXNET_CKPT_VERIFY", "bool", True,
+         "Verify shard sha256 digests against the step's MANIFEST.json "
+         "on load; a corrupt newest step falls back to the newest "
+         "verified one (an explicitly requested step fails fast).")
 
 # serving/generate.py
 register("MXNET_SERVE_KV_BLOCK_TOKENS", "int", 16,

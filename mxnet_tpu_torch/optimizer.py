@@ -244,6 +244,13 @@ class Updater:
             self.states[index] = \
                 self.optimizer.create_state_multi_precision(index, weight)
             self.states_synced[index] = True
+        elif not self.states_synced.get(index, True):
+            # states from set_states were rebuilt from float32 numpy (a
+            # bf16 state's asnumpy is float32, exactly) on the current
+            # context: give them the weight's dtype and device, or the
+            # next update promotes a bf16 run to float32 for good
+            self.states[index] = _state_like(self.states[index], weight)
+            self.states_synced[index] = True
         self.optimizer.update_multi_precision(index, weight, grad,
                                               self.states[index])
 
@@ -268,6 +275,18 @@ def _state_to_np(state):
     if isinstance(state, (list, tuple)):
         return tuple(_state_to_np(s) for s in state)
     return state.asnumpy()
+
+
+def _state_like(state, weight):
+    if state is None:
+        return None
+    if isinstance(state, (list, tuple)):
+        return tuple(_state_like(s, weight) for s in state)
+    if state.dtype != weight.dtype:
+        state = state.astype(weight.dtype)
+    if state.context != weight.context:
+        state = state.as_in_context(weight.context)
+    return state
 
 
 def _state_from_np(state):

@@ -1,8 +1,10 @@
 """Autoregressive generation serving: prefill/decode split over a
 paged KV cache, with continuous (per-slot) batching.
 
-Counterpart: ``mxnet_tpu/serving/generate.py``, without the request
-tracer, chaos injection and live reload.
+Counterpart: ``mxnet_tpu/serving/generate.py``: the same plans,
+engine, request tracer and chaos hooks, the whole-batch comparator
+(``continuous=False``), the reload successor and the host-only
+:class:`StubGenerationRuntime`.
 
   * **prefill** runs once per sequence over the whole prompt, in a
     bucketed ``(batch, prompt_len)`` shape, through the flash-attention
@@ -21,7 +23,9 @@ token blocks, gathered through its block table inside the decode
 forward, so slot churn never copies or compacts cache memory.
 Continuous batching rides on top: a finished (or cancelled, or
 evicted) sequence's slot and blocks are reclaimed on the NEXT tick and
-refilled from the queue without draining the co-riding sequences.
+refilled from the queue without draining the co-riding sequences —
+the whole-batch comparator mode (``continuous=False``) admits only
+into an empty engine, so a load run can measure what that buys.
 
 Numerics contract, pinned by tests/test_torch_serving.py: greedy decode
 through this engine is token-for-token identical to the JAX package's
@@ -39,15 +43,17 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import bind_device, resolve_device
 from ..transformer import model as _model
+from . import reqtrace as _reqtrace
 from .batching import Request
 from .bucket_ladder import bucket_for, ladder
 from .errors import Cancelled, DeadlineExceeded, ExecutorFailure
 from .kvcache import CacheExhausted, PagedKVCache
 
 __all__ = ["GenRequest", "GenerationRuntime", "GenerationEngine",
-           "demo_generation_runtime"]
+           "demo_generation_runtime", "StubGenerationRuntime",
+           "stub_greedy_reference"]
 
 _log = logging.getLogger(__name__)
 
@@ -122,7 +128,8 @@ class GenRequest(Request):
 
 
 class _Slot(object):
-    __slots__ = ("req", "seq_id", "pos", "next_token")
+    __slots__ = ("req", "seq_id", "pos", "next_token", "decode_s",
+                 "ticks")
 
     def __init__(self, req: GenRequest, seq_id: str, pos: int,
                  next_token: int):
@@ -130,14 +137,30 @@ class _Slot(object):
         self.seq_id = seq_id
         self.pos = int(pos)          # cache cursor: where next_token
         self.next_token = int(next_token)  # ...will be written
+        # decode residency accumulates here and flushes to the request
+        # recorder once at retire (a per-tick recorder call would
+        # dominate the recorder's cost)
+        self.decode_s = 0.0
+        self.ticks = 0
+
+
+def _argmax(logits) -> np.ndarray:
+    """Greedy next tokens as host ints: the one device->host read of a
+    prefill or decode tick."""
+    if isinstance(logits, torch.Tensor):
+        return logits.argmax(dim=-1).cpu().numpy()
+    return np.asarray(logits).argmax(axis=-1)
 
 
 class GenerationRuntime:
     """One served generator: transformer params on ``device`` (default
     ``cuda``) + the 2-D bucket plans + the paged cache + the
-    continuous-batching engine."""
+    continuous-batching engine.  Presents the surface ``ModelServer``
+    expects of a runtime (name/version/sample_shape/plan/compiled/
+    compile/max_batch), so breakers, drain, probes and live reload
+    carry over unchanged."""
 
-    def __init__(self, name: str, params: Dict[str, torch.Tensor], cfg, *,
+    def __init__(self, name: str, params: Dict[str, Any], cfg, *,
                  slots: Optional[int] = None,
                  block_tokens: Optional[int] = None,
                  max_prompt: Optional[int] = None,
@@ -145,6 +168,8 @@ class GenerationRuntime:
                  max_new: Optional[int] = None,
                  num_blocks: Optional[int] = None,
                  prefill_batch: Optional[int] = None,
+                 continuous: bool = True,
+                 source: str = "inline",
                  device=None):
         from .. import env as _env
 
@@ -153,7 +178,10 @@ class GenerationRuntime:
 
         self.device = resolve_device(device)
         self.name = str(name)
+        self.version = 1
+        self.source = source
         self.cfg = cfg
+        self.continuous = bool(continuous)
         self.slots = max(knob(slots, "MXNET_SERVE_GEN_SLOTS"), 1)
         self.block_tokens = max(
             knob(block_tokens, "MXNET_SERVE_KV_BLOCK_TOKENS"), 1)
@@ -174,6 +202,9 @@ class GenerationRuntime:
         nb = knob(num_blocks, "MXNET_SERVE_GEN_BLOCKS")
         if nb <= 0:  # auto: every slot can hold a full context
             nb = self.slots * (self.max_context // bt) + 1
+        #: ModelServer compatibility surface
+        self.sample_shape = (self.max_prompt,)
+        self.max_batch = self.slots
         # -- the four ladders -> two 2-D plans ------------------------
         self.batch_plan = ladder(self.slots)
         self.cache_plan = tuple(
@@ -185,13 +216,19 @@ class GenerationRuntime:
             for b in self.prompt_plan)
         self.decode_plan: Tuple[Tuple[int, int], ...] = tuple(
             (a, b) for a in self.batch_plan for b in self.cache_plan)
-        self._params = {k: v.to(self.device) for k, v in params.items()}
+        self.plan = self.decode_plan  # what stats()/dashboards show
+        self._params = {k: torch.as_tensor(v).to(self.device)
+                        for k, v in params.items()}
         self.kv = PagedKVCache(
             n_layers=cfg.n_layers, n_heads=cfg.n_heads,
             head_dim=cfg.head_dim, num_blocks=nb, block_tokens=bt,
             dtype=_model._dtype(cfg.dtype), device=self.device,
             name=self.name)
         self._warm: set = set()
+        #: forwards run per plan cell, ``(kind, (batch, len))`` -> n:
+        #: every cell traffic reaches must be a warmed plan cell
+        self.cell_calls: Dict[Tuple[str, Tuple[int, int]], int] = {}
+        self._compile_ms: Dict[str, float] = {}
         self._lock = threading.Lock()
         self.engine = GenerationEngine(self)
 
@@ -204,9 +241,15 @@ class GenerationRuntime:
                 tables: np.ndarray) -> torch.Tensor:
         """Prefill one ``(batch, prompt_len)`` plan cell; writes the
         prompts' K/V into the cache and returns last-token logits."""
-        if tuple(tokens.shape) not in self.prefill_plan:
+        cell = tuple(int(d) for d in tokens.shape)
+        if cell not in self.prefill_plan:
             raise KeyError("prefill shape %s is not a cell of %s"
-                           % (tokens.shape, self.prefill_plan))
+                           % (cell, self.prefill_plan))
+        key = ("prefill", cell)
+        self.cell_calls[key] = self.cell_calls.get(key, 0) + 1
+        return self._prefill_forward(tokens, prompt_lens, tables)
+
+    def _prefill_forward(self, tokens, prompt_lens, tables):
         logits, self.kv.pages = _model.apply_prefill(
             self._params, self._tensor(tokens), self._tensor(prompt_lens),
             self.cfg, pages=self.kv.pages, block_tables=self._tensor(tables),
@@ -222,6 +265,11 @@ class GenerationRuntime:
         if cell not in self.decode_plan:
             raise KeyError("decode cell %s is not in %s"
                            % (cell, self.decode_plan))
+        key = ("decode", cell)
+        self.cell_calls[key] = self.cell_calls.get(key, 0) + 1
+        return self._decode_forward(tokens, positions, tables)
+
+    def _decode_forward(self, tokens, positions, tables):
         logits, self.kv.pages = _model.apply_decode(
             self._params, self._tensor(tokens), self._tensor(positions),
             self.cfg, pages=self.kv.pages, block_tables=self._tensor(tables),
@@ -238,30 +286,85 @@ class GenerationRuntime:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def compile(self) -> None:
+    def compile(self, warmup: bool = True) -> Dict[str, float]:
         """Run every cell of BOTH plans once (every write lands in the
         garbage block), so the first request pays neither the kernel
-        build nor a first-shape cost.  Idempotent."""
+        build nor a first-shape cost — the eager counterpart of the JAX
+        package's per-cell AOT compile.  ``warmup=False`` marks the
+        cells ready without running them.  Idempotent; returns
+        ``{cell name: warmup ms}``."""
         with self._lock:
+            bind_device(self.device)
             bt = self.block_tokens
             cells = [("prefill", c) for c in self.prefill_plan] + \
                 [("decode", c) for c in self.decode_plan]
             for kind, (bb, tb) in cells:
-                nm = "gen_%s:%s:%dx%d" % (kind, self.name, bb, tb)
+                nm = "gen_%s:%s:v%d:%dx%d" % (kind, self.name,
+                                              self.version, bb, tb)
                 if nm in self._warm:
                     continue
-                zeros = np.zeros((bb,), dtype=np.int64)
-                table = np.zeros((bb, tb // bt), dtype=np.int64)
-                if kind == "prefill":
-                    self.prefill(np.zeros((bb, tb), dtype=np.int64),
-                                 zeros, table)
-                else:
-                    self.decode(zeros, zeros, table)
-                self._sync()
+                t0 = time.perf_counter()
+                if warmup:
+                    zeros = np.zeros((bb,), dtype=np.int64)
+                    table = np.zeros((bb, tb // bt), dtype=np.int64)
+                    if kind == "prefill":
+                        self.prefill(np.zeros((bb, tb), dtype=np.int64),
+                                     zeros, table)
+                    else:
+                        self.decode(zeros, zeros, table)
+                    self._sync()
+                self._compile_ms[nm] = (time.perf_counter() - t0) * 1e3
                 self._warm.add(nm)
+                self._feed_compile_metrics(self._compile_ms[nm])
             _log.info("serving: warmed generator %r — %d prefill + %d "
-                      "decode plan cells", self.name,
-                      len(self.prefill_plan), len(self.decode_plan))
+                      "decode plan cells (warmup=%s)", self.name,
+                      len(self.prefill_plan), len(self.decode_plan),
+                      warmup)
+            return dict(self._compile_ms)
+
+    def _feed_compile_metrics(self, dur_ms: float) -> None:
+        try:
+            from .. import diagnostics as _diag
+
+            _diag.metrics.counter(
+                "mxnet_serve_compiles_total",
+                help="AOT-compiled serving executors",
+                labels={"model": self.name}).inc()
+            _diag.metrics.gauge(
+                "mxnet_serve_compile_ms_last",
+                labels={"model": self.name}).set(dur_ms)
+        except Exception:
+            pass
+
+    def compile_stats(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self._compile_ms)
+
+    # -- reload support ------------------------------------------------
+    def successor_from_checkpoint(self, directory: str,
+                                  step: Optional[int] = None
+                                  ) -> "GenerationRuntime":
+        """A NEW version of this generator from a (verified)
+        checkpoint: same config, plans, cache geometry and device —
+        only the weights change (what :meth:`ModelServer.reload`
+        canaries)."""
+        from .. import checkpoint as _ckpt
+
+        payload = _ckpt.load_checkpoint(directory, step=step)
+        params = payload.get("params") or {}
+        if not params:
+            raise ValueError(
+                "checkpoint step %s under %r holds no params"
+                % (payload.get("step"), directory))
+        return type(self)(
+            self.name, params, self.cfg, slots=self.slots,
+            block_tokens=self.block_tokens, max_prompt=self.max_prompt,
+            max_context=self.max_context, max_new=self.max_new,
+            num_blocks=self.kv.num_blocks,
+            prefill_batch=self.prefill_batch,
+            continuous=self.continuous, device=self.device,
+            source="checkpoint:%s@step%s" % (directory,
+                                             payload.get("step")))
 
 
 class GenerationEngine:
@@ -279,6 +382,24 @@ class GenerationEngine:
         self.ticks = 0
         self.tokens_out = 0
         self.prefill_batches = 0
+        # stable physical slot indices (not positions in ``active``):
+        # the reqtrace slot timeline needs one lane per slot
+        self._slot_idx: Dict[str, int] = {}
+        self._free_idx: List[int] = list(range(runtime.slots))
+        _reqtrace.set_slots(runtime.name, runtime.slots)
+
+    def _slot_on(self, seq_id: str) -> None:
+        idx = self._free_idx.pop(0) if self._free_idx \
+            else len(self._slot_idx)
+        self._slot_idx[seq_id] = idx
+        _reqtrace.slot_acquire(self.rt.name, idx, seq_id)
+
+    def _slot_off(self, seq_id: str) -> None:
+        idx = self._slot_idx.pop(seq_id, None)
+        if idx is not None:
+            self._free_idx.append(idx)
+            self._free_idx.sort()
+            _reqtrace.slot_release(self.rt.name, idx)
 
     # -- server-facing surface ----------------------------------------
     def enqueue(self, req: GenRequest) -> None:
@@ -291,8 +412,25 @@ class GenerationEngine:
     def idle(self) -> bool:
         return not self.active and not self.waiting
 
+    def abort_all(self, make_error) -> List[tuple]:
+        """Fail every waiting + active sequence (rollback of a canary
+        engine).  Returns the outcome tuples."""
+        outcomes = []
+        for req in list(self.waiting):
+            self._finish(req, "error", make_error(req))
+            outcomes.append((req, "error", None))
+        self.waiting.clear()
+        for s in list(self.active):
+            self.kv.free(s.seq_id)
+            self._slot_off(s.seq_id)
+            self._flush_trace(s)
+            self._finish(s.req, "error", make_error(s.req))
+            outcomes.append((s.req, "error", None))
+        self.active = []
+        return outcomes
+
     # -- one engine tick ----------------------------------------------
-    def step(self) -> Dict[str, Any]:
+    def step(self, is_canary: bool = False) -> Dict[str, Any]:
         """Reap, admit, decode — one tick.  Returns {outcomes:
         [(req, outcome, exc)], ticked, exec_error, tokens}."""
         rep: Dict[str, Any] = {"outcomes": [], "ticked": False,
@@ -301,9 +439,10 @@ class GenerationEngine:
         self._reap(rep)
         try:
             self._admit(rep)
-            self._decode(rep)
+            self._decode(rep, is_canary)
         except ExecutorFailure as e:
             rep["exec_error"] = e
+        self.kv.feed_metrics()
         return rep
 
     def _finish(self, req: GenRequest, outcome: str,
@@ -316,24 +455,41 @@ class GenerationEngine:
                 req.set_error(error)
         req._close_stream()
 
+    def _flush_trace(self, slot: _Slot) -> None:
+        """Fold the slot's accumulated decode residency into the
+        request's trace — before the terminal set_result/set_error
+        pops the open record."""
+        if slot.ticks:
+            _reqtrace.phase(slot.req.id, "decode", slot.decode_s)
+            _reqtrace.event(slot.req.id, "decode_ticks", n=slot.ticks)
+            slot.decode_s, slot.ticks = 0.0, 0
+
     def _retire(self, rep, slot: _Slot, outcome: str,
                 error: Optional[BaseException] = None,
                 evicted: bool = False) -> None:
         self.kv.free(slot.seq_id, evicted=evicted)
+        self._slot_off(slot.seq_id)
+        self._flush_trace(slot)
         self._finish(slot.req, outcome, error)
         rep["outcomes"].append((slot.req, outcome, error))
 
     def _reap(self, rep) -> None:
-        """Cancellations and deadline expiry — slot + blocks reclaimed
-        NOW, co-riders untouched."""
+        """Cancellations (client or chaos ``cancel_request``), deadline
+        expiry — slot + blocks reclaimed NOW, co-riders untouched."""
+        from .. import chaos as _chaos
+
         now = time.monotonic()
         keep_w: "deque[GenRequest]" = deque()
         for req in self.waiting:
             if req.cancelled:
+                _reqtrace.phase(req.id, "queue", now - req.enqueue_ts)
                 self._finish(req, "cancelled", Cancelled(
                     "request %s cancelled while waiting" % req.id))
                 rep["outcomes"].append((req, "cancelled", None))
             elif req.expired(now):
+                # the whole life was queue residency: the autopsy says
+                # "died waiting", not just "expired"
+                _reqtrace.phase(req.id, "queue", now - req.enqueue_ts)
                 self._finish(req, "expired", DeadlineExceeded(
                     "request %s: deadline expired before a slot freed"
                     % req.id))
@@ -341,8 +497,11 @@ class GenerationEngine:
             else:
                 keep_w.append(req)
         self.waiting = keep_w
+        chaos_on = _chaos.enabled()
         keep: List[_Slot] = []
         for s in self.active:
+            if chaos_on and _chaos.should_cancel_request(self.rt.name):
+                s.req.cancel()
             if s.req.cancelled:
                 self._retire(rep, s, "cancelled", Cancelled(
                     "request %s cancelled mid-stream after %d tokens"
@@ -357,22 +516,37 @@ class GenerationEngine:
 
     def _admit(self, rep) -> None:
         """Batched prefill for up to ``prefill_batch`` waiting
-        sequences.  Cache-exhausted admissions stay waiting; their
-        deadline keeps running."""
+        sequences (whole-batch comparator mode only admits into an
+        EMPTY engine — that is the A/B).  Cache-exhausted admissions
+        stay waiting; their deadline keeps running."""
+        from .. import chaos as _chaos
+
         rt = self.rt
+        if not rt.continuous and self.active:
+            return
         room = rt.slots - len(self.active)
         group: List[GenRequest] = []
+        admit_t = time.monotonic()
         while self.waiting and len(group) < min(room, rt.prefill_batch):
             req = self.waiting[0]
             try:
                 self.kv.alloc(req.id, len(req.prompt))
             except CacheExhausted:
+                # admitted-blocked: "Nms waiting on CacheExhausted" is
+                # a traced phase
+                _reqtrace.cache_wait(req.id)
                 break  # blocks free as riders finish; stay waiting
             self.waiting.popleft()
+            _reqtrace.phase(req.id, "queue", admit_t - req.enqueue_ts)
             group.append(req)
         if not group:
             return
+        prefill_t0 = time.monotonic()
         try:
+            if _chaos.enabled() and _chaos.should_fail_execute(rt.name):
+                raise ExecutorFailure(
+                    "chaos fail_execute injected for generator %r"
+                    % rt.name)
             bb = bucket_for([a for a, _ in rt.prefill_plan], len(group))
             tb = bucket_for(rt.prompt_plan,
                             max(len(r.prompt) for r in group))
@@ -385,34 +559,45 @@ class GenerationEngine:
                 tokens[i, :p] = req.prompt
                 plens[i] = p
                 tables[i] = self.kv.block_table(req.id, tb // bt)
-            logits = rt.prefill(tokens, plens, tables)
-            first = logits.argmax(dim=-1).cpu().numpy()
+            first = _argmax(rt.prefill(tokens, plens, tables))
         except Exception as e:
-            err = ExecutorFailure("prefill for %r failed: %r"
-                                  % (rt.name, e))
+            err = e if isinstance(e, ExecutorFailure) else \
+                ExecutorFailure("prefill for %r failed: %r"
+                                % (rt.name, e))
             for req in group:
                 self.kv.free(req.id)
                 self._finish(req, "error", err)
                 rep["outcomes"].append((req, "error", err))
-            raise err from e
+            raise err
         self.prefill_batches += 1
         rep["ticked"] = True
+        prefill_dur = time.monotonic() - prefill_t0
+        rider_ids = [r.id for r in group]
         for i, req in enumerate(group):
+            _reqtrace.phase(req.id, "prefill", prefill_dur,
+                            bucket="%dx%d" % (bb, tb))
+            _reqtrace.event(req.id, "batch_formed",
+                            bucket="%dx%d" % (bb, tb),
+                            co_riders=[r for r in rider_ids
+                                       if r != req.id])
             tok = int(first[i])
             req._emit(tok)
             rep["tokens"] += 1
             self.tokens_out += 1
             slot = _Slot(req, req.id, pos=len(req.prompt), next_token=tok)
+            self._slot_on(req.id)
             if len(req.tokens) >= req.max_new:
                 self._retire(rep, slot, "ok")
             else:
                 self.active.append(slot)
 
-    def _decode(self, rep) -> None:
+    def _decode(self, rep, is_canary: bool) -> None:
         """One decode tick for every rider: grow cache coverage (a
         sequence that cannot get its next block is EVICTED, counted),
         pick the (batch, cache_len) plan cell, run the step, stream the
         new tokens, retire the finished."""
+        from .. import chaos as _chaos
+
         rt = self.rt
         if not self.active:
             return
@@ -428,6 +613,23 @@ class GenerationEngine:
         self.active = riders
         if not riders:
             return
+        trace_on = _reqtrace.recorder.enabled
+        tick_t0 = time.monotonic() if trace_on else 0.0
+        injected = None
+        if _chaos.enabled():
+            if _chaos.should_fail_execute(rt.name):
+                raise self._fail_riders(rep, ExecutorFailure(
+                    "chaos fail_execute injected for generator %r"
+                    % rt.name))
+            if is_canary and _chaos.should_fail_version(
+                    rt.name, rt.version):
+                raise self._fail_riders(rep, ExecutorFailure(
+                    "chaos bad_version injected for %r v%d"
+                    % (rt.name, rt.version)))
+            # a seeded tick stall sleeps here (inside the measured
+            # tick) and comes back tagged, so the autopsy pins it on
+            # chaos rather than an organically slow decode step
+            injected = _chaos.maybe_stall_decode_tick(rt.name)
         bb = bucket_for(rt.batch_plan, len(riders))
         lb = bucket_for(rt.cache_plan, max(s.pos + 1 for s in riders))
         bt = rt.block_tokens
@@ -439,13 +641,22 @@ class GenerationEngine:
             positions[i] = s.pos
             tables[i] = self.kv.block_table(s.seq_id, lb // bt)
         try:
-            logits = rt.decode(tokens, positions, tables)
-            nxt = logits.argmax(dim=-1).cpu().numpy()
+            nxt = _argmax(rt.decode(tokens, positions, tables))
         except Exception as e:
             raise self._fail_riders(rep, ExecutorFailure(
                 "decode tick for %r (bucket %dx%d) failed: %r"
                 % (rt.name, bb, lb, e))) from e
         rep["ticked"] = True
+        if trace_on:
+            tick_dur = time.monotonic() - tick_t0
+            if injected is not None:
+                _reqtrace.tick(rt.name, tick_dur,
+                               [s.req.id for s in riders],
+                               injected=injected)
+            else:
+                for s in riders:
+                    s.decode_s += tick_dur
+                    s.ticks += 1
         keep: List[_Slot] = []
         for i, s in enumerate(riders):
             tok = int(nxt[i])
@@ -467,6 +678,8 @@ class GenerationEngine:
         caller to raise (the breaker's food)."""
         for s in self.active:
             self.kv.free(s.seq_id)
+            self._slot_off(s.seq_id)
+            self._flush_trace(s)
             self._finish(s.req, "error", err)
             rep["outcomes"].append((s.req, "error", err))
         self.active = []
@@ -485,3 +698,73 @@ def demo_generation_runtime(name: str = "gen", seed: int = 0, *,
     params = _model.init_params(torch.Generator().manual_seed(seed), cfg,
                                 device=device)
     return GenerationRuntime(name, params, cfg, device=device, **kw)
+
+
+class _StubGenConfig:
+    """Minimal config surface StubGenerationRuntime needs (the paged
+    cache geometry + vocab for the arithmetic token rule)."""
+
+    vocab_size = 64
+    n_layers = 1
+    n_heads = 1
+    head_dim = 1
+    dtype = "float32"
+
+
+def stub_greedy_reference(prompt, n_new: int, vocab: int = 64):
+    """The dense reference for :class:`StubGenerationRuntime`'s token
+    rule: ``next = sum(history) % vocab`` over the raw token ids."""
+    hist = [int(t) for t in prompt]
+    out: List[int] = []
+    for _ in range(n_new):
+        nxt = sum(hist) % int(vocab)
+        out.append(nxt)
+        hist.append(nxt)
+    return out
+
+
+class StubGenerationRuntime(GenerationRuntime):
+    """Host-only generator for the self-tests: the REAL engine, plans,
+    paged allocator and per-cell dispatch, on the CPU — but each
+    forward is a numpy function that scatters the new tokens into the
+    pages and gathers the history back THROUGH THE BLOCK TABLE
+    (``next = sum(gathered history) % vocab``).  A broken allocator,
+    table or garbage-block contract therefore diverges from
+    :func:`stub_greedy_reference` exactly like a broken kernel would,
+    in milliseconds.  The real-model numerics pins live in
+    tests/test_torch_serving.py."""
+
+    def __init__(self, name: str, **kw):
+        kw["device"] = "cpu"
+        super().__init__(name, {}, _StubGenConfig(), **kw)
+
+    def _pages(self) -> np.ndarray:
+        # a numpy view of the CPU pool: writes land in the cache
+        return self.kv.pages["k0"].numpy()
+
+    def _prefill_forward(self, tokens, prompt_lens, tables):
+        k = self._pages()
+        bt, vocab = self.block_tokens, self.cfg.vocab_size
+        bb = int(tokens.shape[0])
+        logits = np.zeros((bb, vocab), dtype=np.float32)
+        for i in range(bb):
+            p = int(prompt_lens[i])
+            for j in range(p):
+                k[tables[i, j // bt], j % bt, 0, 0] = tokens[i, j]
+            hist = k[tables[i], :, 0, 0].reshape(-1)[:p]
+            logits[i, int(hist.sum()) % vocab] = 1.0
+        k[0] = 0.0  # padded rows wrote here; garbage stays garbage
+        return logits
+
+    def _decode_forward(self, tokens, positions, tables):
+        k = self._pages()
+        bt, vocab = self.block_tokens, self.cfg.vocab_size
+        bb = int(tokens.shape[0])
+        logits = np.zeros((bb, vocab), dtype=np.float32)
+        for i in range(bb):
+            pos = int(positions[i])
+            k[tables[i, pos // bt], pos % bt, 0, 0] = tokens[i]
+            hist = k[tables[i], :, 0, 0].reshape(-1)[:pos + 1]
+            logits[i, int(hist.sum()) % vocab] = 1.0
+        k[0] = 0.0
+        return logits

@@ -24,6 +24,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from . import reqtrace as _reqtrace
+
 __all__ = ["CacheExhausted", "PagedKVCache"]
 
 
@@ -86,6 +88,9 @@ class PagedKVCache:
             got = [self._free.pop() for _ in range(need)]
             self._blocks[seq_id] = got
             self._lengths[seq_id] = int(n_tokens)
+        # seq_id IS the request id: KV allocations land in the
+        # request's lifecycle trace
+        _reqtrace.event(seq_id, "kv_alloc", blocks=len(got))
         return list(got)
 
     def extend(self, seq_id: str, new_len: int) -> List[int]:
@@ -103,12 +108,15 @@ class PagedKVCache:
                 held.append(self._free.pop())
             self._lengths[seq_id] = max(self._lengths[seq_id],
                                         int(new_len))
-            return list(held)
+            out = list(held)
+        if need > 0:
+            _reqtrace.event(seq_id, "kv_extend", blocks=need)
+        return out
 
     def free(self, seq_id: str, evicted: bool = False) -> int:
         """Return a sequence's blocks to the free list (idempotent);
         ``evicted`` marks an under-pressure early retirement for the
-        stats.  Returns the number of blocks released."""
+        stats feed.  Returns the number of blocks released."""
         with self._lock:
             held = self._blocks.pop(seq_id, None)
             self._lengths.pop(seq_id, None)
@@ -117,6 +125,8 @@ class PagedKVCache:
             self._free.extend(held)
             if evicted:
                 self.evictions += 1
+        _reqtrace.event(seq_id, "evicted" if evicted else "kv_free",
+                        blocks=len(held))
         return len(held)
 
     def block_table(self, seq_id: str, width: int) -> np.ndarray:
@@ -156,3 +166,31 @@ class PagedKVCache:
                 "fragmentation": round(frag, 4),
                 "evictions": self.evictions,
             }
+
+    def feed_metrics(self) -> None:
+        """Push allocator gauges/counters into diagnostics.metrics —
+        best-effort, the serving convention (a metrics hiccup must not
+        fail a decode tick)."""
+        try:
+            from .. import diagnostics as _diag
+
+            st = self.stats()
+            lab = {"model": self.name}
+            _diag.metrics.gauge("mxnet_serve_kv_blocks_live",
+                                help="paged KV-cache blocks allocated",
+                                labels=lab).set(st["blocks_live"])
+            _diag.metrics.gauge("mxnet_serve_kv_blocks_free",
+                                help="paged KV-cache blocks free",
+                                labels=lab).set(st["blocks_free"])
+            _diag.metrics.gauge(
+                "mxnet_serve_kv_fragmentation",
+                help="unused fraction of allocated KV token slots",
+                labels=lab).set(st["fragmentation"])
+            c = _diag.metrics.counter(
+                "mxnet_serve_kv_evictions_total",
+                help="sequences evicted under cache pressure",
+                labels=lab)
+            if st["evictions"] > c.value:
+                c.inc(st["evictions"] - c.value)
+        except Exception:
+            pass

@@ -5,6 +5,7 @@ error the flash rows are held to, and the attention bound.  The script itself ne
 without one."""
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -204,3 +205,47 @@ def test_the_float64_trajectory_check_fails_a_step_two_fault(fault):
     assert upd_err[1] > 1e3 * cs.TRAJ_UPDATE_TOL
     with pytest.raises(RuntimeError, match="float64 parameters' update"):
         cs.check_trajectory(got, got_p, ref, ref_p, w0)
+
+
+def test_the_serving_phases_follow_serve_and_precede_the_kernel_line():
+    src = (REPO / "chip_smoke.py").read_text()
+    main = src[src.index("def main()"):]
+    order = [main.index(p) for p in ("phase_serve()", "phase_serve_http(",
+                                     "phase_loadgen(", "phase_reload(",
+                                     "phase_serve_cli()",
+                                     '"phase": "kernels"')]
+    assert order == sorted(order)
+
+
+def test_stream_client_dechunks_and_resets_a_live_server():
+    """The raw-socket streaming client the serve_http phase drives,
+    against the port's HTTP front end on the CPU: a full stream ends in
+    the terminal line, and a client that resets after 2 tokens leaves
+    no KV blocks behind."""
+    from mxnet_tpu_torch import serving
+
+    rt = serving.demo_generation_runtime(
+        "g_smoke", n_layers=1, slots=2, block_tokens=16, max_prompt=16,
+        max_context=64, max_new=40, prefill_batch=2, device="cpu")
+    srv = serving.ModelServer(default_deadline_ms=30_000)
+    srv.add_generator(rt)
+    fe = serving.HttpFrontend(srv, port=0)
+    host, port = fe.start()
+    try:
+        t0, lines = cs._stream_generate(host, port, "g_smoke",
+                                        {"prompt": [3, 4], "max_new": 5})
+        toks = [o["token"] for _, o in lines if "token" in o]
+        assert lines[-1][1] == {"done": True, "tokens": 5, "prompt_len": 2}
+        assert len(toks) == 5 and all(t >= t0 for t, _ in lines)
+        _, cut = cs._stream_generate(host, port, "g_smoke",
+                                     {"prompt": [3, 4], "max_new": 40},
+                                     stop_after=2)
+        assert len(cut) == 2
+        deadline = time.monotonic() + 60.0
+        while rt.kv.stats()["blocks_live"] and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert rt.kv.stats()["blocks_live"] == 0
+    finally:
+        srv.drain(timeout_s=10.0)
+        fe.stop()

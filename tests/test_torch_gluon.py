@@ -23,6 +23,7 @@ from mxnet_tpu.gluon.model_zoo import vision as jvision
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import autograd as tag
 from mxnet_tpu_torch import convert, gluon
+from mxnet_tpu_torch.base import dtype_name
 from mxnet_tpu_torch.gluon.model_zoo import vision
 
 jnd, tnd = jmx.nd, mx.nd
@@ -487,3 +488,76 @@ def test_dense_without_bias_runs():
             d(x).asnumpy(), x.asnumpy() @ d.weight.data().asnumpy().T,
             rtol=1e-6)
     assert list(d.collect_params().keys()) == ["nb_weight"]
+
+
+def test_bf16_trainer_state_roundtrip(tmp_path):
+    """A bf16 Trainer (SGD, momentum 0.9) saved and reloaded mid-run
+    keeps its momentum in bf16, as the JAX package's does, and goes on
+    bitwise on the trajectory of a run that was never interrupted."""
+    rng = np.random.RandomState(11)
+    x = rng.randn(4, 6).astype(np.float32)
+    y = rng.randint(0, 3, (4,)).astype(np.float32)
+    w0 = {"d_weight": rng.randn(3, 6).astype(np.float32) * 0.3,
+          "d_bias": rng.randn(3).astype(np.float32) * 0.1}
+    opts = {"learning_rate": 0.1, "momentum": 0.9}
+
+    def jax_states():
+        net = jgluon.nn.Dense(3, in_units=6, prefix="d_")
+        net.initialize(ctx=jmx.cpu())
+        net.cast("bfloat16")
+        for k, p in net.collect_params().items():
+            p.set_data(jnd.array(w0[k], ctx=jmx.cpu()).astype("bfloat16"))
+        tr = jgluon.Trainer(net.collect_params(), "sgd", opts)
+        loss = jgluon.loss.SoftmaxCrossEntropyLoss()
+
+        def step(trainer):
+            with jag.record():
+                out = loss(net(jnd.array(x, ctx=jmx.cpu()).astype(
+                    "bfloat16")), jnd.array(y, ctx=jmx.cpu()).astype(
+                        "bfloat16"))
+            out.backward()
+            trainer.step(4)
+        step(tr)
+        tr.save_states(str(tmp_path / "j.states"))
+        tr2 = jgluon.Trainer(net.collect_params(), "sgd", opts)
+        tr2.load_states(str(tmp_path / "j.states"))
+        step(tr2)
+        return {i: str(s.dtype) for i, s in
+                tr2._kvstore._opt_updater.states.items()}
+
+    def port_run(interrupt):
+        with mx.cpu():
+            net = gluon.nn.Dense(3, in_units=6, prefix="d_")
+            net.initialize()
+            net.cast("bfloat16")
+            for k, p in net.collect_params().items():
+                p.set_data(tnd.array(w0[k]).astype("bfloat16"))
+            tr = gluon.Trainer(net.collect_params(), "sgd", opts)
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()
+
+            def step(trainer):
+                with tag.record():
+                    out = loss(net(tnd.array(x).astype("bfloat16")),
+                               tnd.array(y).astype("bfloat16"))
+                out.backward()
+                trainer.step(4)
+            step(tr)
+            if interrupt:
+                tr.save_states(str(tmp_path / "t.states"))
+                tr = gluon.Trainer(net.collect_params(), "sgd", opts)
+                tr.load_states(str(tmp_path / "t.states"))
+            for _ in range(2):
+                step(tr)
+            states = {i: dtype_name(s.dtype) for i, s in
+                      tr._kvstore._opt_updater.states.items()}
+            return states, {k: p.data()._data.clone() for k, p in
+                            net.collect_params().items()}
+
+    want_dtypes = jax_states()
+    got_dtypes, resumed = port_run(interrupt=True)
+    _, control = port_run(interrupt=False)
+    assert set(want_dtypes.values()) == {"bfloat16"}
+    assert got_dtypes == want_dtypes
+    for k in control:
+        assert resumed[k].dtype == torch.bfloat16
+        assert torch.equal(resumed[k], control[k]), k

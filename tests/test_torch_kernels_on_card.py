@@ -406,3 +406,71 @@ def test_resnet_ops_on_the_card_equal_the_cpu(cuda_device, name, shapes,
     for got, want in zip(res["cuda"], res["cpu"]):
         scale = max(float(np.abs(want).max()), 1e-30)
         assert float(np.abs(got - want).max()) <= 1e-10 * scale
+
+
+# --------------------------------------------------------- serving tier
+@pytest.mark.cuda
+def test_http_generate_prefill_reaches_the_wgmma_route(cuda_device):
+    """One ``:generate`` over HTTP on the card: its prefill launches the
+    flash kernel, on the ``wgmma`` route (bf16, head_dim 64), and the
+    streamed tokens equal the terminal line's count."""
+    import json
+    import urllib.request
+
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.transformer import model as tm
+
+    cfg = tm.TransformerConfig(vocab_size=512, n_layers=2, d_model=128,
+                               n_heads=2, d_ff=256, dtype="bfloat16",
+                               param_dtype="bfloat16")
+    rt = serving.GenerationRuntime(
+        "gen_card", tm.init_params(torch.Generator().manual_seed(0), cfg),
+        cfg, slots=2, block_tokens=16, max_prompt=64, max_context=128,
+        max_new=8, prefill_batch=2)
+    srv = serving.ModelServer(default_deadline_ms=60_000)
+    srv.add_generator(rt)
+    fe = serving.HttpFrontend(srv, port=0)
+    host, port = fe.start()
+    try:
+        tattn.flash_attention_fwd.launches = 0
+        tattn.flash_attention_fwd.launches_by_route = {"wgmma": 0,
+                                                       "simt": 0}
+        req = urllib.request.Request(
+            "http://%s:%d/v1/models/gen_card:generate" % (host, port),
+            data=json.dumps({"prompt": list(range(1, 40)), "max_new": 8,
+                             "stream": True}).encode())
+        lines = [json.loads(ln) for ln in urllib.request.urlopen(
+            req, timeout=120).read().decode().splitlines() if ln]
+        by_route = dict(tattn.flash_attention_fwd.launches_by_route)
+    finally:
+        srv.drain(timeout_s=30.0)
+        fe.stop()
+    assert lines[-1]["done"] and lines[-1]["tokens"] == 8
+    assert len(lines) == 9
+    assert by_route == {"wgmma": cfg.n_layers, "simt": 0}, by_route
+    assert rt.kv.stats()["blocks_live"] == 0
+
+
+@pytest.mark.cuda
+def test_model_runtime_bf16_on_the_card_matches_cpu_float32(cuda_device):
+    """The predictor runtime's bf16 execute on the card against its
+    float32 run on the CPU: logits within 2e-2 of the batch's largest
+    magnitude (bf16 rounds the input, both weights, the hidden layer
+    and the logits: ~1e-2 measured on the CPU), the classes equal where
+    the top-2 gap is twice that; results come back as numpy."""
+    from mxnet_tpu_torch import serving
+
+    card = serving.demo_runtime("m", dim=64, hidden=128, max_batch=32)
+    cpu = serving.demo_runtime("m", dim=64, hidden=128, max_batch=32,
+                               compute_dtype=None, device="cpu")
+    card.compile()
+    x = np.random.RandomState(0).randn(32, 64).astype(np.float32)
+    cls, logits = card.execute(x[:27])
+    want_cls, want = cpu.execute(x[:27])
+    assert isinstance(logits, np.ndarray) and logits.dtype == np.float32
+    tol = 2e-2 * np.abs(want).max()
+    assert np.abs(logits - want).max() <= tol
+    top2 = np.sort(want, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * tol
+    assert clear.sum() >= 10
+    np.testing.assert_array_equal(cls[clear], want_cls[clear])

@@ -30,6 +30,11 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import mxnet_tpu_torch.kvstore, mxnet_tpu_torch.parallel.dp\n"
         "import mxnet_tpu_torch.random, mxnet_tpu_torch.initializer\n"
         "import mxnet_tpu_torch.gluon.model_zoo.vision\n"
+        "import mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.diagnostics\n"
+        "import mxnet_tpu_torch.chaos, mxnet_tpu_torch.serving.runtime\n"
+        "import mxnet_tpu_torch.serving.http\n"
+        "import mxnet_tpu_torch.serving.loadgen\n"
+        "import mxnet_tpu_torch.serving.__main__\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mxnet_tpu', 'ml_dtypes'))\n"
         # kernels are built at first launch, never at import; NVRTC and
@@ -100,6 +105,35 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                                    max_prompt=16, max_context=16)
     assert rt.device.type == "cpu"
     assert rt.kv.pages["k0"].device.type == "cpu"
+    # the predictor tier: runtime, checkpoint-loaded runtime, the CLI
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving.demo_runtime()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving.ModelRuntime("m", lambda p, a, x: x, {},
+                             sample_shape=(2,))
+    assert serving.demo_runtime(device="cpu").device.type == "cpu"
+
+
+def test_serving_entry_points_default_to_cuda_and_raise_without_it(
+        tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from mxnet_tpu_torch import checkpoint, serving
+    from mxnet_tpu_torch.serving import __main__ as cli
+
+    d = str(tmp_path)
+    checkpoint.save_checkpoint(d, 1, params=serving.demo_params())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving.ModelRuntime.from_checkpoint(
+            "m", d, lambda p, a, x: x, sample_shape=(16,))
+    rt = serving.ModelRuntime.from_checkpoint(
+        "m", d, lambda p, a, x: x, sample_shape=(16,), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving.demo_generation_runtime("g").successor_from_checkpoint(d)
+    assert rt.successor_from_checkpoint(d).device.type == "cpu"
+    for argv in (["--serve", "--port", "0"], ["--self-test"]):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            cli.main(argv)
 
 
 def test_arrays_default_to_the_card_and_raise_without_it():
