@@ -5,15 +5,19 @@ paged-KV continuous batching (in process, then over HTTP beside a
 predictor, under the load generator, through a live reload and through
 ``python -m mxnet_tpu_torch.serving``), check the numbers against the
 dense reference, drive the imperative ``mx.nd`` / ``mx.autograd`` / ``mx.rtc``
-path at (4096, 4096) float32 against numpy in float64, and train
+path at (4096, 4096) float32 against numpy in float64, train
 ResNet-50 v1 at full width through ``FusedTrainStep`` (bf16 timed,
-float64 and float32 held against the CPU in float64).
+float64 and float32 held against the CPU in float64), and train the
+GPT-2-small-width transformer LM through ``TransformerTrainStep``
+(the flash-attention forward and backward kernels on every layer;
+``fit`` with a checkpoint resumed bit for bit; float32 held against
+the CPU in float64).
 
     python3 chip_smoke.py
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero.  The line before the last is ``{"kernels": [...]}`` (per
-kernel: launches on the serving path, error, times, bound); the last
+kernel: launches on its path, error, times, bound); the last
 line is ``{"ok": true, "device": {...}}``.  Needs a CUDA device, the
 CUDA toolkit (``nvcc``) and the rest of this repository beside it; it
 imports nothing of JAX.
@@ -24,7 +28,7 @@ Phases:
            ptxas's register report; ``cuobjdump -sass`` counts of HGMMA
            (wgmma) and UTMALDG (TMA loads) and ``cuobjdump -res-usage``
            per flash kernel (fails if the wgmma kernels have none, or
-           use local memory: a spill)
+           if they or the backward kernels use local memory: a spill)
   kernel:flash_attention_fwd
            the kernel against the plain version at the prefill's
            shapes, bf16 on the ``wgmma`` route (D 64 and 128, ragged T,
@@ -34,6 +38,21 @@ Phases:
            kernel/plain/library times
            (10 calls back to back, hot L2), one call's time with the
            host's launch, device time from a CUDA graph, bound
+  kernel:flash_attention_bwd
+           the backward kernels (``csrc/flash_attn_bwd.cu``, from the
+           forward kernel's output and log-sum-exp; the ``mma`` route
+           for bf16, ``simt`` for float32) against their plain
+           version ``flash_attention_bwd_reference`` and against
+           autograd of ``attention_reference`` in float32, at the
+           train_lm shape (8, 1024, 1024, 12, 64) causal bf16 (the
+           wgmma forward), D 128, ragged T 1000, Tq 384 < Tk 512, full,
+           the strided fused-projection views, float32 (simt) and Tq >
+           Tk (fully masked rows: dq exactly 0); errors over each
+           head's largest magnitude (``BWD_*_RTOL``); at the first
+           shape the kernel (10 calls), CUDA-graph, plain and library
+           (SDPA's backward alone) times, the bound (5 products over
+           the unmasked pairs, or the bytes), and the forward with and
+           without the log-sum-exp
   kernel:rtc_add
            NVRTC compile of ``csrc/rtc/add.cu`` through
            ``rtc.CudaModule`` (timed), the kernel against
@@ -111,6 +130,27 @@ Phases:
            within 1e-4 relative; step 2's loss and the update within 5
            times the distance of the CPU's own float32 run from float64
            (see ``NUMERICS_FP32_FACTOR``)
+  train_lm GPT-2-small width (vocab 32000, 12 layers, d_model 768, 12
+           heads, d_ff 3072), bf16 compute over float32 parameters,
+           ``TransformerTrainStep`` (SGD lr 0.01 momentum 0.9, remat
+           none) on ``LMTokenIter`` batches of 8 x 1024 tokens: 3 warm
+           steps, 5 timed windows of 4 steps (tokens/s and step ms from
+           the median window, peak memory, TFLOP/s of 6 x N x tokens
+           plus attention), 12 forward (all ``wgmma``) and 12 backward
+           (all ``mma``) kernel launches a step; 2 steps under
+           torch.profiler after a traced warm-up step (device busy ms
+           and the idle share of the untraced step, device ms by kernel
+           group); ``fit`` for 20 steps
+           (finite, the last loss below the first), then 10 steps
+           writing a checkpoint at step 10 and a fresh step resuming it
+           to step 20: losses and parameters bitwise the 20-step run's
+  train_lm_numerics
+           2 layers, d_model 128, 2 heads, d_ff 512, vocab 512, batch 4
+           x 256: 3 steps on the card in float32 (both kernels on the
+           simt route) against the port on the CPU in float64 from the
+           same parameters (``LM_NUM_*`` limits, the CPU's own float32
+           distance beside); one bf16 step, its loss within 2e-2 of the
+           float32 first loss
   kernels  every kernel and its status
 """
 from __future__ import annotations
@@ -280,7 +320,8 @@ def phase_device():
 def _kernel_label(mangled: str) -> str:
     """``flash_fwd_wgmma<64>``, ``flash_fwd_kernel<bf16,128>`` and so on
     from a mangled kernel name."""
-    m = re.search(r"(flash_fwd_\w+?)I(13__nv_bfloat16|f)?Li(\d+)E", mangled)
+    m = re.search(r"(flash_(?:fwd|bwd)_\w+?)I(13__nv_bfloat16|f)?Li(\d+)E",
+                  mangled)
     if not m:
         return mangled
     dt = {"13__nv_bfloat16": "bf16,", "f": "f32,"}.get(m.group(2), "")
@@ -339,9 +380,12 @@ def phase_build():
     lib = _build._lib_path(_build.sources()["flash_attn_fwd"])
     sass = _sass_counts(_cuobjdump(lib, "-sass"))
     usage = _res_usage(_cuobjdump(lib, "-res-usage"))
+    bwd_lib = _build._lib_path(_build.sources()["flash_attn_bwd"])
+    bwd_usage = _res_usage(_cuobjdump(bwd_lib, "-res-usage"))
     emit({"phase": "build", "seconds": round(wall, 3),
           "per_source_s": {k: round(v, 3) for k, v in secs.items()},
-          "ptxas": ptxas, "flash_sass": sass, "flash_res_usage": usage})
+          "ptxas": ptxas, "flash_sass": sass, "flash_res_usage": usage,
+          "flash_bwd_res_usage": bwd_usage})
     wgmma = ["flash_fwd_wgmma<64>", "flash_fwd_wgmma<128>"]
     if not all(sass.get(k, {}).get("HGMMA") and sass[k]["UTMALDG"]
                for k in wgmma):
@@ -349,9 +393,17 @@ def phase_build():
                            "UTMALDG instructions: %r" % sass)
     spills = {k: usage.get(k) for k in wgmma
               if usage.get(k, {}).get("LOCAL", 1) or usage[k].get("STACK", 1)}
+    bwd = ["flash_bwd_%s<%s,%d>" % (part, dt, d) for part in ("dq", "dkv")
+           for dt in ("f32", "bf16") for d in (64, 128)] + \
+        ["flash_bwd_%s_mma<%d>" % (part, d) for part in ("dq", "dkv")
+         for d in (64, 128)]
+    spills.update({k: bwd_usage.get(k) for k in bwd
+                   if bwd_usage.get(k, {}).get("LOCAL", 1)
+                   or bwd_usage[k].get("STACK", 1)})
     if spills:
-        raise RuntimeError("build: the wgmma flash kernels spill (or their "
-                           "resource usage is unreadable): %r" % spills)
+        raise RuntimeError("build: the wgmma or backward flash kernels "
+                           "spill (or their resource usage is unreadable): "
+                           "%r" % spills)
 
 
 def phase_kernel():
@@ -433,6 +485,164 @@ def phase_kernel():
                                % (row["shape"], err, atol, row_err,
                                   ROW_RTOL[dtype]))
         rows.append(row)
+    return rows
+
+
+# (B, Tq, Tk, H, D, causal, dtype, layout); the first is the train_lm
+# phase's attention (GPT-2-small width, batch 8, seq 1024, bf16: the
+# wgmma forward); layout "fused": q, k and v are the strided views of
+# one fused projection that transformer/model.py _qkv makes
+BWD_SHAPES = [
+    (8, 1024, 1024, 12, 64, True, torch.bfloat16, "dense"),
+    (2, 512, 512, 12, 128, True, torch.bfloat16, "dense"),
+    (2, 1000, 1000, 12, 64, True, torch.bfloat16, "dense"),
+    (2, 384, 512, 12, 64, True, torch.bfloat16, "dense"),
+    (2, 512, 512, 12, 64, False, torch.bfloat16, "dense"),
+    (8, 1024, 1024, 12, 64, True, torch.bfloat16, "fused"),
+    (2, 512, 512, 12, 64, True, torch.float32, "dense"),
+    (2, 300, 200, 12, 64, True, torch.float32, "dense"),
+]
+# a gradient's error over the largest magnitude of its head (each (b, h)
+# slice): the scale of its rounding (a row can cancel to ~0, as causal
+# row 0 of dq does exactly, so a row's own magnitude is no scale).
+# Against the plain backward on the same inputs (the kernel's own o and
+# lse): float32 is another summation order; bf16 (the mma route) rounds
+# P and dS to bf16 for their products and the gradients on output.
+# Against autograd of attention_reference in float32: bf16 also carries
+# the wgmma forward's bf16 P in o
+BWD_HEAD_RTOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+BWD_AUTOGRAD_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def head_scaled_err(got, want) -> float:
+    """Largest error of a (B, T, H, D) tensor within each (b, h) head
+    over the largest magnitude of ``want`` in that head."""
+    err = (got.float() - want.float()).abs().amax(dim=(1, 3))
+    return (err / want.float().abs().amax(dim=(1, 3)).clamp_min(1e-30)
+            ).max().item()
+
+
+def causal_pairs(Tq, Tk, causal):
+    if not causal:
+        return Tq * Tk
+    shift = Tk - Tq
+    return sum(max(min(Tk, i + shift + 1), 0) for i in range(Tq))
+
+
+def attention_bwd_bound(B, Tq, Tk, H, D, causal, dtype):
+    """(bound_ms, bound_by) of the attention backward: the larger of the
+    bytes (q, k, v, o, dO and lse read once, dq, dk and dv written once)
+    over the memory rate, and five products of 2*D FLOPs over the
+    unmasked (q, k) pairs over the input type's peak."""
+    elem = torch.finfo(dtype).bits // 8
+    nbytes = elem * B * H * D * (4 * Tq + 4 * Tk) + 4 * B * H * Tq
+    flops = 5 * 2.0 * B * H * D * causal_pairs(Tq, Tk, causal)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def phase_kernel_bwd():
+    """The backward kernel against its plain version and against
+    autograd of ``attention_reference``, at the training path's shape
+    and the edge cases; times at the first shape."""
+    from mxnet_tpu_torch.parallel.attention import (
+        attention_reference, bwd_route, flash_attention_bwd,
+        flash_attention_bwd_reference, flash_attention_fwd, kernel_route)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(1)
+    rows = []
+    for i, (B, Tq, Tk, H, D, causal, dtype, layout) in enumerate(BWD_SHAPES):
+        if layout == "fused":
+            qkv = torch.randn((B, Tq, 3 * H * D), generator=g).to(dev, dtype)
+            q, k, v = (x.reshape(B, Tq, H, D)
+                       for x in torch.split(qkv, H * D, dim=-1))
+        else:
+            q, k, v = (torch.randn((B, T, H, D), generator=g).to(dev, dtype)
+                       for T in (Tq, Tk, Tk))
+        do = torch.randn((B, Tq, H, D), generator=g).to(dev, dtype)
+        o, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                     return_lse=True)
+        route = bwd_route(q, k, v, o, do)
+        want_route = "mma" if dtype == torch.bfloat16 else "simt"
+        n0 = flash_attention_bwd.launches_by_route[route]
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        if route != want_route or \
+                flash_attention_bwd.launches_by_route[route] != n0 + 1:
+            raise RuntimeError("flash_attention_bwd did not count one "
+                               "launch on the %s route (%s)"
+                               % (want_route, route))
+        f32 = [t.float() for t in (q, k, v, o, do)]
+        want = flash_attention_bwd_reference(f32[0], f32[1], f32[2], f32[3],
+                                             lse, f32[4], causal=causal)
+        leaves = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+        # attention_reference gives a row that sees no key (causal, Tq >
+        # Tk) the mean of V where flash attention gives 0: no gradient
+        # flows from such a row in the function the kernel computes
+        do_ref = f32[4].clone()
+        if causal and Tq > Tk:
+            do_ref[:, :Tq - Tk] = 0
+        ref = torch.autograd.grad(
+            attention_reference(*leaves, causal=causal), leaves, do_ref)
+        del leaves, do_ref
+        bad = [n for n, t in zip(("dq", "dk", "dv"), got)
+               if t.dtype != dtype or t.shape != (q if n == "dq" else k).shape
+               or not torch.isfinite(t).all()]
+        if bad:
+            raise RuntimeError("flash_attention_bwd: bad %s at %s"
+                               % (bad, (B, Tq, Tk, H, D)))
+        row = {"shape": [B, Tq, Tk, H, D], "causal": causal,
+               "dtype": str(dtype).replace("torch.", ""), "layout": layout,
+               "forward_route": kernel_route(dtype, D), "route": route,
+               "max_err": max((a.float() - b).abs().max().item()
+                              for a, b in zip(got, want)),
+               "head_err": {n: head_scaled_err(a, b) for n, a, b in
+                            zip(("dq", "dk", "dv"), got, want)},
+               "head_rtol": BWD_HEAD_RTOL[dtype],
+               "autograd_head_err": {n: head_scaled_err(a, b) for n, a, b in
+                                     zip(("dq", "dk", "dv"), got, ref)},
+               "autograd_head_rtol": BWD_AUTOGRAD_RTOL[dtype]}
+        if causal and Tq > Tk:
+            row["masked_rows_dq_nonzero"] = int(
+                torch.count_nonzero(got[0][:, :Tq - Tk]))
+        if i == 0:
+            bound_ms, bound_by = attention_bwd_bound(B, Tq, Tk, H, D,
+                                                     causal, dtype)
+            kern = lambda: flash_attention_bwd(  # noqa: E731
+                q, k, v, o, lse, do, causal=causal)
+            # the library yardstick: SDPA's backward alone (BHTD), its
+            # forward run once outside the timing
+            qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
+                          for t in (q, k, v))
+            out_t = F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=causal)
+            do_t = do.transpose(1, 2)
+            lib = lambda: torch.autograd.grad(  # noqa: E731
+                out_t, (qt, kt, vt), do_t, retain_graph=True)
+            row.update({
+                "kernel_ms": time_ms(kern, iters=10),
+                "graph_ms": graph_ms(kern, inner=3),
+                "plain_ms": time_ms(lambda: flash_attention_bwd_reference(
+                    f32[0], f32[1], f32[2], f32[3], lse, f32[4],
+                    causal=causal), iters=5, warmup=1),
+                "library_ms": time_ms(lib, iters=10),
+                "fwd_lse_ms": time_ms(lambda: flash_attention_fwd(
+                    q, k, v, causal=causal, return_lse=True), inner=10),
+                "fwd_ms": time_ms(lambda: flash_attention_fwd(
+                    q, k, v, causal=causal), inner=10),
+                "bound_ms": bound_ms, "bound_by": bound_by})
+            del out_t, qt, kt, vt
+        emit(dict({"phase": "kernel:flash_attention_bwd"}, **row))
+        if max(row["head_err"].values()) > BWD_HEAD_RTOL[dtype] or \
+                max(row["autograd_head_err"].values()) > \
+                BWD_AUTOGRAD_RTOL[dtype] or row.get("masked_rows_dq_nonzero"):
+            raise RuntimeError("flash_attention_bwd disagrees at %s: %r"
+                               % (row["shape"], row))
+        rows.append(row)
+        del q, k, v, o, lse, do, got, want, ref, f32
     return rows
 
 
@@ -1375,18 +1585,27 @@ def train_tflops(batch, step_s):
 
 def _kernel_counts():
     from mxnet_tpu_torch import rtc
-    from mxnet_tpu_torch.parallel.attention import flash_attention_fwd
+    from mxnet_tpu_torch.parallel.attention import (flash_attention_bwd,
+                                                    flash_attention_fwd)
 
     return {"flash_attention_fwd": flash_attention_fwd.launches,
+            "flash_attention_fwd_by_route":
+                dict(flash_attention_fwd.launches_by_route),
+            "flash_attention_bwd": flash_attention_bwd.launches,
+            "flash_attention_bwd_by_route":
+                dict(flash_attention_bwd.launches_by_route),
             "rtc_add": sum(rtc.launches.values())}
 
 
 def _reset_kernel_counts():
     from mxnet_tpu_torch import rtc
-    from mxnet_tpu_torch.parallel.attention import flash_attention_fwd
+    from mxnet_tpu_torch.parallel.attention import (flash_attention_bwd,
+                                                    flash_attention_fwd)
 
     flash_attention_fwd.launches = 0
     flash_attention_fwd.launches_by_route = {"wgmma": 0, "simt": 0}
+    flash_attention_bwd.launches = 0
+    flash_attention_bwd.launches_by_route = {"mma": 0, "simt": 0}
     rtc.launches.clear()
 
 
@@ -1605,6 +1824,354 @@ def phase_train_numerics():
     return row
 
 
+# ---------------------------------------------------------------------
+# transformer-LM training: GPT-2-small width through TransformerTrainStep
+# ---------------------------------------------------------------------
+# the serve phase's widths (GPT2_SMALL), bf16 compute over float32
+# parameters, batch 8 of 1024 tokens from LMTokenIter, SGD lr 0.01 (the
+# class default) momentum 0.9, remat none
+LM = dict(batch=8, seq=1024, lr=0.01, momentum=0.9, remat="none")
+LM_SEQUENCES = 256          # 32 batches: every run below stays in epoch 1
+LM_WARMUP = 3
+LM_WINDOWS, LM_WINDOW_STEPS = 5, 4
+LM_PROFILE_STEPS = 2
+LM_FIT_STEPS, LM_CKPT_STEP = 20, 10
+# train_lm_numerics: 2 layers, d_model 128, 2 heads (head_dim 64), d_ff
+# 512, vocab 512, batch 4 of 256 tokens, 3 steps at lr 0.05
+LM_NUM = dict(vocab_size=512, n_layers=2, d_model=128, n_heads=2, d_ff=512)
+LM_NUM_BATCH, LM_NUM_SEQ, LM_NUM_STEPS, LM_NUM_LR = 4, 256, 3, 0.05
+# the card in float32 (TF32 off; both attention kernels on the simt
+# route) against the port on the CPU in float64 from the same
+# parameters: float32 rounding of the forward and of the gradients,
+# ~5e-8 of the loss and 1.3e-5 of the update, as the CPU's own float32
+# run (reported beside).  The update limit sits 7.5x above that.  The
+# phase also reads the update check on faults planted in the float64
+# reference and fails unless every one exceeds the limit: step 2
+# skipped (0.64), step 2 without momentum (0.38), the attention's
+# gradient of v dropped (0.19) and of k dropped (5.7e-3, the smallest)
+LM_NUM_LOSS_RTOL = 1e-5
+LM_NUM_UPDATE_TOL = 1e-4
+
+
+def lm_config(**over):
+    from mxnet_tpu_torch.transformer import TransformerConfig
+
+    kw = dict(GPT2_SMALL, dtype="bfloat16", param_dtype="float32")
+    kw.update(over)
+    return TransformerConfig(**kw)
+
+
+def lm_iter(cfg, batch, seq, num_sequences, seed=0):
+    from mxnet_tpu_torch.transformer import LMTokenIter
+
+    return LMTokenIter(batch_size=batch, seq_len=seq,
+                       vocab_size=cfg.vocab_size,
+                       num_sequences=num_sequences, seed=seed)
+
+
+def lm_step_flops(cfg, n_params, batch, seq):
+    """Model FLOPs of one training step: 6 x N x tokens (N counts every
+    parameter, the tied embedding once, as the head's product) plus the
+    attention's two score products, 2 x 2 x D FLOPs over the unmasked
+    (q, k) pairs a head, 3 times (forward + backward), every layer."""
+    attn = 3 * 4.0 * batch * cfg.n_heads * cfg.head_dim * \
+        causal_pairs(seq, seq, True) * cfg.n_layers
+    return 6.0 * n_params * batch * seq + attn
+
+
+def lm_kernel_group(name: str) -> str:
+    n = name.lower()
+    if "flash_bwd" in n:
+        return "attention_bwd"
+    if "flash_fwd" in n:
+        return "attention_fwd"
+    if "gemm" in n or "cutlass" in n or "xmma" in n or "nvjet" in n:
+        # the step's only float32 products are the tied head's (logits
+        # in f32, as the JAX package computes them); the rest are bf16
+        return "gemm_f32_head" if "sgemm" in n or "f32f32" in n \
+            else "gemm_bf16"
+    if "softmax" in n or "logsumexp" in n or "reduce" in n:
+        return "reduction"
+    if "elementwise" in n or "vectorized" in n:
+        return "elementwise"
+    if "memcpy" in n or "memset" in n or "copy" in n or "cat" in n:
+        return "copy"
+    return "other"
+
+
+def lm_profile(step, it, steps, untraced_ms):
+    """``steps`` train steps under torch.profiler, after one traced
+    warm-up step: device busy ms a step, the idle share against the
+    untraced step time ``untraced_ms`` (and against the traced wall,
+    which carries the profiler's own host cost), device ms a step by
+    kernel group and the top kernels."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    batches = [it.next() for _ in range(steps + 1)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps)) as prof:
+        for i, b in enumerate(batches):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            step.step(b.data[0], b.label[0])
+            if i == steps:
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            else:
+                # (a step() after the last active step would end the
+                # cycle, and the profiler drops a finished cycle's events)
+                prof.step()
+    kernels = [(ev.name, ev.device_time_total) for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA
+               and not getattr(ev, "is_user_annotation", False)]
+    groups, per_kernel = defaultdict(float), defaultdict(float)
+    for name, us in kernels:
+        groups[lm_kernel_group(name)] += us / 1e3 / steps
+        per_kernel[name] += us / 1e3 / steps
+    busy = sum(us for _, us in kernels) / 1e3 / steps
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
+    return {"steps": steps, "traced_wall_ms_per_step": wall * 1e3 / steps,
+            "device_busy_ms_per_step": busy,
+            "idle_share": 1.0 - busy / untraced_ms,
+            "idle_share_traced": 1.0 - busy / (wall * 1e3 / steps),
+            "launches_per_step": len(kernels) / steps,
+            "device_ms_by_group": dict(groups),
+            "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
+
+
+def phase_train_lm():
+    """GPT-2-small width transformer-LM training on the card through
+    ``TransformerTrainStep``: timed windows, a profile, then ``fit`` for
+    20 steps and a checkpoint at step 10 resumed to step 20, bitwise
+    equal to the uninterrupted run."""
+    from mxnet_tpu_torch.transformer import (TransformerTrainStep,
+                                             param_shapes)
+
+    cfg = lm_config()
+    B, T = LM["batch"], LM["seq"]
+
+    def new_step():
+        return TransformerTrainStep(cfg, learning_rate=LM["lr"],
+                                    momentum=LM["momentum"],
+                                    remat=LM["remat"], seed=0)
+
+    t0 = time.perf_counter()
+    step = new_step()
+    it = lm_iter(cfg, B, T, LM_SEQUENCES)
+    step.bucket_plan_meta()         # builds: the parameters on the card
+    n_params = sum(int(np.prod(shape)) for _, shape, _ in param_shapes(cfg))
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = [float(step.step(b.data[0], b.label[0]))
+            for b in (it.next() for _ in range(LM_WARMUP))]
+    warm_s = time.perf_counter() - t0
+    # the path: counts start at 0 here and are read just after
+    _reset_kernel_counts()
+    windows, losses = [], []
+    for _ in range(LM_WINDOWS):
+        batches = [it.next() for _ in range(LM_WINDOW_STEPS)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = [step.step(b.data[0], b.label[0]) for b in batches]
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / LM_WINDOW_STEPS * 1e3)
+        losses += [float(x) for x in out]
+    counts = _kernel_counts()
+    n_steps = LM_WINDOWS * LM_WINDOW_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(windows)
+    prof = lm_profile(step, it, LM_PROFILE_STEPS, step_ms)
+    del step
+    flops = lm_step_flops(cfg, n_params, B, T)
+
+    # fit: 20 steps uninterrupted; 10 steps writing a checkpoint at
+    # step 10; that checkpoint resumed to step 20
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    try:
+        control = new_step()
+        t0 = time.perf_counter()
+        fit_losses = control.fit(lm_iter(cfg, B, T, LM_SEQUENCES),
+                                 LM_FIT_STEPS)
+        fit_s = time.perf_counter() - t0
+        want = control.params_numpy()
+        del control
+        first = new_step()
+        t0 = time.perf_counter()
+        first_losses = first.fit(lm_iter(cfg, B, T, LM_SEQUENCES),
+                                 LM_CKPT_STEP,
+                                 checkpoint_every_n=LM_CKPT_STEP,
+                                 checkpoint_dir=ckdir)
+        ckpt_fit_s = time.perf_counter() - t0
+        del first
+        resumed = TransformerTrainStep(cfg, learning_rate=LM["lr"],
+                                       momentum=LM["momentum"],
+                                       remat=LM["remat"], seed=1)
+        t0 = time.perf_counter()
+        resumed_losses = resumed.fit(lm_iter(cfg, B, T, LM_SEQUENCES),
+                                     LM_FIT_STEPS, resume_from=ckdir)
+        resume_s = time.perf_counter() - t0
+        got = resumed.params_numpy()
+        del resumed
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    differ = sorted(k for k in want if not np.array_equal(want[k], got[k]))
+
+    tokens_s = B * T / (step_ms / 1e3)
+    row = {
+        "phase": "train_lm", "config": dict(GPT2_SMALL, dtype="bfloat16",
+                                            param_dtype="float32"),
+        "params": n_params, "train": LM, "build_s": build_s,
+        "warmup_steps": LM_WARMUP, "warmup_s": warm_s,
+        "warm_losses": warm,
+        "tokens_per_s": tokens_s, "step_ms": step_ms,
+        "step_ms_windows": windows,
+        "window_steps": LM_WINDOW_STEPS, "timed_losses": losses,
+        "peak_mem_bytes": peak,
+        "tflops": flops / (step_ms / 1e3) / 1e12,
+        "tflops_frac_of_bf16_peak": flops / (step_ms / 1e3) /
+            PEAK_BF16_FLOPS,
+        "flops_per_step": flops,
+        "tflops_basis": "6 x N x tokens + 3 x 4 x B x H x D x causal "
+                        "pairs x layers, against the 989 TFLOP/s bf16 "
+                        "peak",
+        "kernel_launches": counts, "steps_counted": n_steps,
+        "profile": prof,
+        "fit": {"steps": LM_FIT_STEPS, "losses": fit_losses,
+                "seconds": fit_s},
+        "resume": {"checkpoint_step": LM_CKPT_STEP,
+                   "first_losses_equal": first_losses ==
+                       fit_losses[:LM_CKPT_STEP],
+                   "losses_equal": resumed_losses ==
+                       fit_losses[LM_CKPT_STEP:],
+                   "params_differ": differ, "fit_s": ckpt_fit_s,
+                   "resume_s": resume_s},
+    }
+    emit(row)
+    want_launches = cfg.n_layers * n_steps
+    if counts["flash_attention_fwd"] != want_launches or \
+            counts["flash_attention_fwd_by_route"]["wgmma"] != want_launches \
+            or counts["flash_attention_bwd"] != want_launches or \
+            counts["flash_attention_bwd_by_route"]["mma"] != want_launches:
+        raise RuntimeError("train_lm: %r kernel launches in %d steps of %d "
+                           "layers (want %d forward, all wgmma, and %d "
+                           "backward, all mma)"
+                           % (counts, n_steps, cfg.n_layers, want_launches,
+                              want_launches))
+    allx = warm + losses + fit_losses
+    if not np.isfinite(allx).all():
+        raise RuntimeError("train_lm: a loss is not finite")
+    if not fit_losses[-1] < fit_losses[0]:
+        raise RuntimeError("train_lm: fit did not lower the loss: %r"
+                           % (fit_losses,))
+    if not (row["resume"]["first_losses_equal"]
+            and row["resume"]["losses_equal"]) or differ:
+        raise RuntimeError("train_lm: the resumed run is not bitwise the "
+                           "uninterrupted one: %r" % (row["resume"],))
+    return row
+
+
+# faults planted in the attention's backward: the gradient of one input
+# is dropped (that input is detached from the graph)
+LM_ATTN_FAULTS = {
+    "attention_dk_zero": lambda f: lambda q, k, v: f(q, k.detach(), v),
+    "attention_dv_zero": lambda f: lambda q, k, v: f(q, k, v.detach()),
+}
+
+
+def _lm_numerics_run(cfg, device, w0, steps, dtype=None, attn_fault=None):
+    """``steps`` fit steps from parameters ``w0`` on ``device``; returns
+    the losses and the parameters after each step (float64 numpy).
+    ``attn_fault`` names an entry of ``LM_ATTN_FAULTS`` to plant."""
+    from mxnet_tpu_torch.transformer import TransformerTrainStep
+
+    step = TransformerTrainStep(cfg, learning_rate=LM_NUM_LR, momentum=0.9,
+                                device=device)
+    step.load_state({"params": {k: v.astype(dtype or v.dtype)
+                                for k, v in w0.items()}})
+    if attn_fault is not None:
+        # load_state built the step and bound its attention
+        step._attn_fn = LM_ATTN_FAULTS[attn_fault](step._attn_fn)
+    it = lm_iter(cfg, LM_NUM_BATCH, LM_NUM_SEQ, LM_NUM_BATCH * steps, seed=1)
+    losses, params = [], []
+    for _ in range(steps):
+        b = it.next()
+        losses.append(float(step.step(b.data[0], b.label[0])))
+        params.append({k: v.astype(np.float64)
+                       for k, v in step.params_numpy().items()})
+    return np.array(losses), params
+
+
+def phase_train_lm_numerics():
+    """A small config on the card against the port on the CPU in
+    float64, and bf16 on the card against float32 (see LM_NUM_*)."""
+    from mxnet_tpu_torch.transformer import TransformerTrainStep
+
+    cfg32 = lm_config(**LM_NUM, dtype="float32", param_dtype="float32")
+    cfg64 = lm_config(**LM_NUM, dtype="float64", param_dtype="float64")
+    cfg16 = lm_config(**LM_NUM, dtype="bfloat16", param_dtype="float32")
+    w0 = TransformerTrainStep(cfg32, device="cpu", seed=0).params_numpy()
+    _reset_kernel_counts()
+    card, card_p = _lm_numerics_run(cfg32, "cuda", w0, LM_NUM_STEPS)
+    counts = _kernel_counts()
+    ref, ref_p = _lm_numerics_run(cfg64, "cpu", w0, LM_NUM_STEPS,
+                                  np.float64)
+    cpu32, cpu32_p = _lm_numerics_run(cfg32, "cpu", w0, LM_NUM_STEPS)
+    bf16, _ = _lm_numerics_run(cfg16, "cuda", w0, 1)
+    loss_err, upd_err = trajectory_errors(card, card_p, ref, ref_p, w0)
+    c32_loss_err, c32_upd_err = trajectory_errors(cpu32, cpu32_p, ref, ref_p,
+                                                  w0)
+    p1, p2 = ref_p[0], ref_p[1]
+    no_mom = {k: v - 0.9 * (p1[k] - w0[k]) for k, v in p2.items()}
+    faults = {"step2_skipped": _update_err(p1, p2, w0),
+              "step2_without_momentum": _update_err(no_mom, p2, w0)}
+    for name in LM_ATTN_FAULTS:
+        bad, bad_p = _lm_numerics_run(cfg64, "cpu", w0, LM_NUM_STEPS,
+                                      np.float64, attn_fault=name)
+        # the largest reading over the steps: the check holds every step
+        faults[name] = float(trajectory_errors(bad, bad_p, ref, ref_p,
+                                               w0)[1].max())
+    bf16_rel = abs(bf16[0] - card[0]) / abs(card[0])
+    want = cfg32.n_layers * LM_NUM_STEPS
+    row = {"phase": "train_lm_numerics", "config": LM_NUM,
+           "batch": LM_NUM_BATCH, "seq": LM_NUM_SEQ, "steps": LM_NUM_STEPS,
+           "reference": "the port on the CPU, float64",
+           "cpu_losses": ref.tolist(), "card_float32_losses": card.tolist(),
+           "loss_rel_err": loss_err.tolist(), "loss_rtol": LM_NUM_LOSS_RTOL,
+           "update_rel_err": upd_err.tolist(),
+           "update_tol": LM_NUM_UPDATE_TOL,
+           "cpu_float32_loss_rel_err": c32_loss_err.tolist(),
+           "cpu_float32_update_rel_err": c32_upd_err.tolist(),
+           "fault_update_err": faults, "kernel_launches": counts,
+           "bf16_first_loss": float(bf16[0]),
+           "bf16_first_loss_rel_err": bf16_rel,
+           "bf16_loss_rtol": BF16_LOSS_RTOL}
+    emit(row)
+    if counts["flash_attention_fwd_by_route"]["simt"] != want or \
+            counts["flash_attention_bwd_by_route"]["simt"] != want:
+        raise RuntimeError("train_lm_numerics: float32 kernel launches %r, "
+                           "want %d simt forward and backward"
+                           % (counts, want))
+    if not (np.isfinite(card).all() and (loss_err <= LM_NUM_LOSS_RTOL).all()
+            and (upd_err <= LM_NUM_UPDATE_TOL).all()):
+        raise RuntimeError("train_lm_numerics: float32 on the card is off "
+                           "the float64 trajectory: %r" % (row,))
+    if not min(faults.values()) > LM_NUM_UPDATE_TOL:
+        raise RuntimeError("train_lm_numerics: the check cannot tell a "
+                           "planted fault from the reference: %r"
+                           % (faults,))
+    if not (np.isfinite(bf16).all() and bf16_rel <= BF16_LOSS_RTOL):
+        raise RuntimeError("train_lm_numerics: bf16 first loss %r against "
+                           "float32 %r" % (bf16.tolist(), card[0]))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -1615,6 +2182,7 @@ def main() -> int:
     phase_device()
     phase_build()
     rows = phase_kernel()
+    bwd_rows = phase_kernel_bwd()
     add_rows = phase_rtc_add()
     serve, served_rt, prompts = phase_serve()
     http, pred = phase_serve_http(served_rt, prompts, serve)
@@ -1626,7 +2194,9 @@ def main() -> int:
     ndrow = phase_ndarray()
     phase_train()
     phase_train_numerics()
-    main_row = rows[0]
+    lm = phase_train_lm()
+    phase_train_lm_numerics()
+    main_row, bwd_row = rows[0], bwd_rows[0]
     add_row = next(r for r in add_rows if "kernel_ms" in r)
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -1637,7 +2207,9 @@ def main() -> int:
         "launches_by_route": serve["flash_launches_by_route"],
         "launches_by_path": {"serve": serve["flash_launches"],
                              "serve_http": http["flash_launches"],
-                             "loadgen": load["flash_launches"]},
+                             "loadgen": load["flash_launches"],
+                             "train_lm": lm["kernel_launches"][
+                                 "flash_attention_fwd"]},
         "max_abs_err": max(r["max_err"] for r in rows),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1646,6 +2218,25 @@ def main() -> int:
         "graph_ms": main_row["graph_ms"],
         "library_graph_ms": main_row["library_graph_ms"],
         "shape": main_row["shape"], "dtype": main_row["dtype"],
+        "train_shape": bwd_row["shape"],
+        "train_ms_with_lse": bwd_row["fwd_lse_ms"],
+        "train_ms_without_lse": bwd_row["fwd_ms"],
+    }, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "kernel_route": bwd_row["route"],
+        "launches_by_route": lm["kernel_launches"][
+            "flash_attention_bwd_by_route"],
+        "source": "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
+        # the VJP of the scan flash_attention, which the JAX package
+        # trains through (the Pallas kernel at :126 is forward only)
+        "replaces": "mxnet_tpu/parallel/attention.py:76",
+        "launches": lm["kernel_launches"]["flash_attention_bwd"],
+        "max_abs_err": max(r["max_err"] for r in bwd_rows),
+        "ms": bwd_row["kernel_ms"], "plain_ms": bwd_row["plain_ms"],
+        "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
+        "library_ms": bwd_row["library_ms"],
+        "graph_ms": bwd_row["graph_ms"],
+        "shape": bwd_row["shape"], "dtype": bwd_row["dtype"],
     }, {
         "name": "rtc_add", "route": "cuda", "kernel_route": "nvrtc",
         "source": "mxnet_tpu_torch/csrc/rtc/add.cu",

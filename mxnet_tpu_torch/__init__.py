@@ -24,10 +24,16 @@ Ported so far:
   ``gluon`` (blocks, layers, losses, ``Trainer``, the ResNet zoo),
   ``optimizer`` (SGD, the fused SGD-momentum update), ``kvstore``
   (``local`` / ``device``) and ``parallel.dp.FusedTrainStep`` on one
-  device.
+  device;
+* transformer-LM training on one device —
+  ``transformer.TransformerTrainStep`` (``fit`` with checkpoints and
+  exact resume) over ``transformer.LMTokenIter`` (``io``), with the
+  flash-attention forward and backward kernels, ``remat`` and the
+  bucket plan (``parallel.buckets``) that checkpoints record.
 """
 from . import base, context, convert, env, parallel, serving, transformer
 from . import autograd, engine, ndarray, rtc
+from . import io, remat
 from . import ndarray as nd
 from . import random
 from . import initializer
@@ -44,7 +50,8 @@ from .ndarray import NDArray
 
 rnd = random
 
-__all__ = ["convert", "env", "parallel", "serving", "transformer", "nd",
+__all__ = ["convert", "env", "parallel", "serving", "transformer", "io",
+           "remat", "nd",
            "ndarray", "autograd", "engine", "rtc", "base", "context",
            "random", "initializer", "init", "optimizer", "kvstore", "kv",
            "gluon", "Context", "cpu", "cpu_pinned", "gpu", "tpu",

@@ -1,6 +1,8 @@
-"""Env-driven fault injection for the port's serving tier.
+"""Env-driven fault injection for the port's serving tier and its
+transformer training loop.
 
-Counterpart: ``mxnet_tpu/chaos.py``, the serving subset: the same
+Counterpart: ``mxnet_tpu/chaos.py``, the serving and training-loop
+subset: the same
 ``MXNET_CHAOS`` grammar (semicolon-separated rules, each
 ``kind:key=val,key=val``; every rule fires ``count`` times, default 1,
 once its match conditions hold, skipping the first ``nth``-1 candidate
@@ -25,13 +27,24 @@ injects:
     tick; the request recorder tags the stalled spans injected.
     Match keys: ``model``, ``nth``, ``count``, ``ms``.
 
-The training-side kinds of the JAX package (drop_push, kill, nan_grad,
-corrupt_shard, bitflip_*, ...) parse here too but nothing in the port
-injects them yet.
+  * ``delay_collective``  — sleep ``ms`` (default 200) before a
+    transformer ``fit`` step (the op is ``transformer_step``).  Match
+    keys: ``op``, ``step``, ``nth``, ``count``, ``ms``.
+  * ``kill``              — ``TransformerTrainStep.fit`` exits the
+    process with :data:`KILL_EXIT_CODE` after step ``step`` (1-based),
+    mid-run, like a preemption that did not say goodbye.  Match keys:
+    ``step``, ``rank``, ``nth``, ``count``.
+
+The other training-side kinds of the JAX package (drop_push, nan_grad,
+corrupt_shard, bitflip_param, ...) parse here too but nothing in the
+port injects them yet (``bitflip_param`` waits for the SDC defense,
+ROADMAP A11).
 """
 from __future__ import annotations
 
 import logging
+import os
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -39,9 +52,13 @@ from typing import Any, Dict, List, Optional
 __all__ = ["Rule", "parse_spec", "rules", "enabled", "fault",
            "maybe_slow_request", "should_fail_execute",
            "should_cancel_request", "maybe_stall_decode_tick",
-           "should_fail_version", "injected_total", "reset"]
+           "should_fail_version", "maybe_delay", "should_kill",
+           "KILL_EXIT_CODE", "injected_total", "reset"]
 
 _log = logging.getLogger(__name__)
+
+#: exit code of a ``kill`` injection (what SIGKILL gives a shell)
+KILL_EXIT_CODE = 137
 
 _INT_KEYS = ("rank", "nth", "count", "step", "version", "nbytes",
              "worker", "tick", "ckpt_step", "bit")
@@ -212,6 +229,31 @@ def fault(kind: str, **ctx) -> Optional[Rule]:
         return None
     except Exception:
         return None
+
+
+def maybe_delay(op: str, **ctx) -> Optional[dict]:
+    """delay_collective hook (the transformer fit loop, before each
+    step): sleep ms when a rule fires.  Returns ``{"kind", "ms"}`` when
+    it fired (None otherwise)."""
+    r = fault("delay_collective", op=op, **ctx)
+    if r is None:
+        return None
+    ms = float(r.params.get("ms", 200.0))
+    time.sleep(ms / 1e3)
+    return {"kind": "delay_collective", "ms": ms}
+
+
+def should_kill(step: int, **ctx) -> None:
+    """kill hook (fit's step loop): exits the process with
+    :data:`KILL_EXIT_CODE` when a rule fires — mid-step, like a real
+    preemption that didn't say goodbye."""
+    r = fault("kill", step=step, **ctx)
+    if r is not None:
+        _log.warning("chaos: killing this worker at step %d (exit %d)",
+                     step, KILL_EXIT_CODE)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(KILL_EXIT_CODE)
 
 
 def maybe_slow_request(model: str, **ctx) -> Optional[dict]:

@@ -13,6 +13,11 @@
 // q/k/v views of the fused projection are read without copies.  Masked
 // probabilities are exactly 0, and a row whose every key is masked
 // writes 0 (acc / (l == 0 ? 1 : l)), as the scan formulation does.
+// Both kernels optionally write the log-sum-exp of each row's scaled
+// scores, lse = m + log(l) (natural log, f32, a (B, H, Tq) buffer), for
+// the backward kernel (csrc/flash_attn_bwd.cu) to recompute P from; a
+// fully masked row (l == 0) gets +inf, so exp(s - lse) is 0 there.
+// Serving passes no buffer and the kernels skip the write.
 // One thread block handles one (b*h, 64-row q tile); the TPU grid's
 // sequential k axis becomes a loop over 64-row k/v tiles inside the
 // block, with the running max m, the denominator l and the accumulator
@@ -92,6 +97,7 @@ constexpr int RPT = BQ / TY;    // rows per thread
 constexpr int CPT = BK / TX;    // score columns per thread
 constexpr int LDP = BK + 8;     // padded row stride of the P tile
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -126,8 +132,8 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int BH,
-                 int n_qtiles, int Tq, int Tk, int D, int64_t qsb,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int H, int BH, int n_qtiles, int Tq, int Tk, int D, int64_t qsb,
                  int64_t qst, int64_t qsh, int64_t ksb, int64_t kst,
                  int64_t ksh, int64_t vsb, int64_t vst, int64_t vsh,
                  int64_t osb, int64_t ost, int64_t osh, float sm_scale,
@@ -253,6 +259,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty + TY * i;
     if (row >= Tq) continue;
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+    if (lse != nullptr && tx == 0)
+      lse[(int64_t)bh * Tq + row] =
+          l[i] == 0.f ? __int_as_float(0x7f800000) : m[i] + logf(l[i]);
     T* orow = oh + (int64_t)row * ost;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) {
@@ -280,9 +289,9 @@ int allow_smem(K kern, size_t bytes,
 }
 
 template <typename T, int DMAX>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Tq, int Tk, int D, const long long* st, float sm_scale,
-           int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int Tq, int Tk, int D, const long long* st,
+           float sm_scale, int causal, cudaStream_t stream) {
   auto kern = flash_fwd_kernel<T, DMAX>;
   const size_t smem = smem_bytes<DMAX>();
   static std::atomic<unsigned long long> attr_set{0};
@@ -292,8 +301,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const int n_qtiles = (Tq + BQ - 1) / BQ;
   const unsigned grid = (unsigned)n_qtiles * (unsigned)BH;
   kern<<<grid, NTHREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, H, BH, n_qtiles, Tq, Tk,
-      D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, H, BH, n_qtiles, Tq,
+      Tk, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
       st[10], st[11], sm_scale, causal);
   return (int)cudaGetLastError();
 }
@@ -473,8 +482,9 @@ __global__ void __launch_bounds__(NTHREADS, D == 64 ? 3 : 2)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v,
-                const __grid_constant__ CUtensorMap map_o, int H, int BH,
-                int n_qtiles, int Tq, int Tk, float scale_log2, int causal) {
+                const __grid_constant__ CUtensorMap map_o,
+                float* __restrict__ lse, int H, int BH, int n_qtiles, int Tq,
+                int Tk, float scale_log2, int causal) {
   constexpr int NB = D / 64;  // 64-column boxes per row
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -648,6 +658,14 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
   }
   const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);
   const float inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+  if (lse != nullptr && (lane & 3) == 0) {
+    // m is in log2 units of the scaled scores
+    float* lrow = lse + (int64_t)bh * Tq + q0;
+    if (q0 + r0 < Tq)
+      lrow[r0] = l0 == 0.f ? kInf : (m0 + log2f(l0)) * kLn2;
+    if (q0 + r0 + 8 < Tq)
+      lrow[r0 + 8] = l1 == 0.f ? kInf : (m1 + log2f(l1)) * kLn2;
+  }
   // every warp's last wgmma has read Q before any warp overwrites it
   asm volatile("bar.sync 1, %0;" ::"n"(NCONSUMER) : "memory");
 #pragma unroll
@@ -723,9 +741,9 @@ int make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int Tq, int Tk, const long long* maps, float sm_scale, int causal,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int Tq, int Tk, const long long* maps, float sm_scale,
+           int causal, cudaStream_t stream) {
   auto kern = flash_fwd_wgmma<D>;
   static std::atomic<unsigned long long> attr_set{0};
   int err = allow_smem(kern, smem_bytes<D>(), attr_set);
@@ -742,8 +760,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   const int n_qtiles = (Tq + BQ - 1) / BQ;
   const unsigned grid = (unsigned)n_qtiles * (unsigned)BH;
   kern<<<grid, NTHREADS, smem_bytes<D>(), stream>>>(
-      mq, mk, mv, mo, H, BH, n_qtiles, Tq, Tk, sm_scale * 1.4426950408889634f,
-      causal);
+      mq, mk, mv, mo, lse, H, BH, n_qtiles, Tq, Tk,
+      sm_scale * 1.4426950408889634f, causal);
   return (int)cudaGetLastError();
 }
 
@@ -776,9 +794,13 @@ struct DeviceGuard {
 };
 }  // namespace
 
+// Both entries take `lse`, a (B, H, Tq) float32 buffer for the rows'
+// log-sum-exp, or NULL to skip it.
+//
 // SIMT kernel.  After the head: dtype (0 = float32, 1 = bfloat16), then
 // 12 element strides, the (batch, seq, head) strides of q, k, v and o.
-extern "C" int mxt_flash_attn_fwd(const long long* a, float sm_scale) {
+extern "C" int mxt_flash_attn_fwd(const long long* a, float sm_scale,
+                                  float* lse) {
   const int B = (int)a[A_B], H = (int)a[A_H], Tq = (int)a[A_TQ],
             Tk = (int)a[A_TK], D = (int)a[A_D], causal = (int)a[A_CAUSAL];
   const void *q = (const void*)a[A_Q], *k = (const void*)a[A_K],
@@ -792,16 +814,16 @@ extern "C" int mxt_flash_attn_fwd(const long long* a, float sm_scale) {
   if (guard.err) return guard.err;
   cudaStream_t s = (cudaStream_t)a[A_STREAM];
   if (dtype == 0) {
-    return D <= 64 ? launch<float, 64>(q, k, v, o, B, H, Tq, Tk, D, strides,
-                                       sm_scale, causal, s)
-                   : launch<float, 128>(q, k, v, o, B, H, Tq, Tk, D, strides,
-                                        sm_scale, causal, s);
+    return D <= 64 ? launch<float, 64>(q, k, v, o, lse, B, H, Tq, Tk, D,
+                                       strides, sm_scale, causal, s)
+                   : launch<float, 128>(q, k, v, o, lse, B, H, Tq, Tk, D,
+                                        strides, sm_scale, causal, s);
   }
   if (dtype == 1) {
     return D <= 64
-               ? launch<__nv_bfloat16, 64>(q, k, v, o, B, H, Tq, Tk, D,
+               ? launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, H, Tq, Tk, D,
                                            strides, sm_scale, causal, s)
-               : launch<__nv_bfloat16, 128>(q, k, v, o, B, H, Tq, Tk, D,
+               : launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, H, Tq, Tk, D,
                                             strides, sm_scale, causal, s);
   }
   return (int)cudaErrorInvalidValue;
@@ -809,7 +831,8 @@ extern "C" int mxt_flash_attn_fwd(const long long* a, float sm_scale) {
 
 // wgmma kernel, bfloat16 with D = 64 or 128.  After the head: 4 x 11
 // numbers, the TMA map arguments of q, k, v and o (see make_map).
-extern "C" int mxt_flash_attn_fwd_wgmma(const long long* a, float sm_scale) {
+extern "C" int mxt_flash_attn_fwd_wgmma(const long long* a, float sm_scale,
+                                        float* lse) {
   const int B = (int)a[A_B], H = (int)a[A_H], Tq = (int)a[A_TQ],
             Tk = (int)a[A_TK], D = (int)a[A_D], causal = (int)a[A_CAUSAL];
   if ((D != 64 && D != 128) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0)
@@ -821,8 +844,8 @@ extern "C" int mxt_flash_attn_fwd_wgmma(const long long* a, float sm_scale) {
   void* o = (void*)a[A_O];
   cudaStream_t s = (cudaStream_t)a[A_STREAM];
   const long long* maps = a + A_HEAD;
-  return D == 64 ? wg::launch<64>(q, k, v, o, B, H, Tq, Tk, maps, sm_scale,
-                                  causal, s)
-                 : wg::launch<128>(q, k, v, o, B, H, Tq, Tk, maps, sm_scale,
-                                   causal, s);
+  return D == 64 ? wg::launch<64>(q, k, v, o, lse, B, H, Tq, Tk, maps,
+                                  sm_scale, causal, s)
+                 : wg::launch<128>(q, k, v, o, lse, B, H, Tq, Tk, maps,
+                                   sm_scale, causal, s);
 }

@@ -1,15 +1,20 @@
-"""Runtime health for the port's serving tier: the metrics registry,
-its Prometheus text exposition, and the SIGTERM / SIGUSR1 hooks.
+"""Runtime health for the port's serving tier and its transformer
+training loop: the metrics registry, its Prometheus text exposition,
+the SIGTERM / SIGUSR1 hooks and the loss-spike divergence guard.
 
 Counterpart: ``mxnet_tpu/diagnostics.py``, the subset serving uses —
 ``Gauge``/``Counter``/``Histogram``/``MetricsRegistry`` and
 :data:`metrics` (same metric names, label sets and exposition, so a
 dashboard reads either package), :func:`validate_prom_text`, the
-preemption and dump hooks, :func:`touch_heartbeat` and
-``EXIT_PREEMPTED``.  The collective flight recorder is not ported (the
-port has no collectives yet), so the signal handlers here run the
-hooks only: SIGUSR1 runs the dump hooks; SIGTERM runs the dump hooks,
-then the preemption hooks, and exits 83 when one ran.  Recompile
+preemption and dump hooks, :func:`touch_heartbeat`, ``EXIT_PREEMPTED``,
+and for training :class:`DivergenceGuard` and the
+``mxnet_transformer_tokens_per_second`` gauge.  The guard always
+raises: its supervised exit (84) comes with the elastic supervisor
+(ROADMAP A11).  The collective flight
+recorder is not ported (the port has no collectives yet), so the
+signal handlers here run the hooks only: SIGUSR1 runs the dump hooks;
+SIGTERM runs the dump hooks, then the preemption hooks, and exits 83
+when one ran.  Recompile
 tracking (``instrument_jit`` / ``recompile_stats``) is queued: eager
 PyTorch compiles nothing, and its ``torch.compile`` counterpart is not
 written yet.
@@ -29,7 +34,8 @@ __all__ = [
     "register_preemption_hook", "unregister_preemption_hook",
     "run_preemption_hooks", "register_dump_hook",
     "run_dump_hooks", "install_signal_handlers",
-    "touch_heartbeat",
+    "touch_heartbeat", "DivergenceError",
+    "DivergenceGuard", "tokens_per_second_gauge",
 ]
 
 _log = logging.getLogger(__name__)
@@ -590,3 +596,85 @@ def validate_prom_text(text: str) -> List[str]:
                             % (key, inf, count))
     return problems
 
+
+
+# ---------------------------------------------------------------------------
+# training: the divergence guard and the throughput gauge
+# ---------------------------------------------------------------------------
+def tokens_per_second_gauge() -> Gauge:
+    """The transformer fit loop's throughput gauge (tokens/s of the
+    last step, this rank), under the JAX package's name."""
+    return metrics.gauge(
+        "mxnet_transformer_tokens_per_second",
+        "transformer fit throughput (tokens/s, this rank)")
+
+
+class DivergenceError(RuntimeError):
+    """The loss-spike guard tripped: training was stopped rather than
+    continued through garbage."""
+
+
+class DivergenceGuard:
+    """Loss-spike detector (``MXNET_DIVERGENCE_WINDOW`` /
+    ``MXNET_DIVERGENCE_FACTOR``): once ``window`` losses are observed, a
+    step whose loss exceeds ``median + factor x |median|`` of the window
+    (or is non-finite) is divergence.
+
+    :meth:`check` feeds one loss and returns True on a trip (counted in
+    ``mxnet_training_divergence_trips_total``).  :meth:`trip` raises
+    :class:`DivergenceError`.  The JAX package's supervised exit and its
+    flight-recorder dump are not ported: the port has no elastic
+    supervisor (ROADMAP A11) and no collectives."""
+
+    def __init__(self, window: Optional[int] = None,
+                 factor: Optional[float] = None):
+        from . import env as _envmod
+
+        self.window = int(_envmod.get_int("MXNET_DIVERGENCE_WINDOW")
+                          if window is None else window)
+        self.factor = float(_envmod.get_float("MXNET_DIVERGENCE_FACTOR")
+                            if factor is None else factor)
+        self._history: List[float] = []
+
+    @property
+    def enabled(self) -> bool:
+        return self.window > 0
+
+    def check(self, loss: float, step: Optional[int] = None) -> bool:
+        """Feed one step's loss; True when it diverged from the window.
+        The spiking loss is not folded into the baseline."""
+        if not self.enabled:
+            return False
+        import math
+
+        loss = float(loss)
+        finite = math.isfinite(loss)
+        spiked = not finite
+        if finite and len(self._history) >= self.window:
+            med = sorted(self._history)[len(self._history) // 2]
+            # scale-relative above and below zero
+            spiked = loss > med + self.factor * max(abs(med), 1e-8)
+        if spiked:
+            metrics.counter(
+                "mxnet_training_divergence_trips_total",
+                help="steps the loss-spike divergence guard flagged"
+            ).inc()
+            _log.error(
+                "DIVERGENCE: loss %r at step %s tripped the guard "
+                "(window %d, factor %.2f, window median %s)",
+                loss, step, self.window, self.factor,
+                sorted(self._history)[len(self._history) // 2]
+                if self._history else None)
+            return True
+        if finite:
+            self._history.append(loss)
+            if len(self._history) > self.window:
+                del self._history[0]
+        return False
+
+    def trip(self, step: Optional[int] = None) -> None:
+        """Stop training: raise :class:`DivergenceError`."""
+        raise DivergenceError(
+            "loss diverged at step %s (window %d, factor %.2f); restore "
+            "from the last verified checkpoint" % (step, self.window,
+                                                    self.factor))

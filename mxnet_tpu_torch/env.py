@@ -138,7 +138,8 @@ register("MXNET_CHAOS", "str", None,
          "Fault-injection spec: semicolon-separated rules "
          "'kind:k=v,k=v'; the port reads the serving kinds "
          "slow_request / fail_execute / bad_version / cancel_request / "
-         "stall_decode_tick.")
+         "stall_decode_tick and the training-loop kinds kill / "
+         "delay_collective.")
 
 # diagnostics.py
 register("MXNET_DUMP_DIR", "str", None,
@@ -151,6 +152,14 @@ register("MXNET_METRICS_INTERVAL_S", "float", 30.0,
 register("MXNET_ELASTIC_HEARTBEAT_DIR", "str", None,
          "Directory of per-rank heartbeat files (hb_rank{K}) an "
          "elastic supervisor watches; touched by the serving workers.")
+register("MXNET_DIVERGENCE_WINDOW", "int", 0,
+         "Loss-spike detector window (steps) of the transformer fit "
+         "loop: once the window is full, a loss above median + factor "
+         "x |median| (or non-finite) trips the divergence guard; 0 "
+         "disables it.")
+register("MXNET_DIVERGENCE_FACTOR", "float", 3.0,
+         "Divergence threshold: loss > window median + factor x "
+         "|median| trips the guard (see MXNET_DIVERGENCE_WINDOW).")
 register("MXNET_ELASTIC_GENERATION", "int", 0,
          "Fleet incarnation, stamped into checkpoint sidecars and "
          "manifests.")
@@ -160,6 +169,12 @@ register("MXNET_NUM_PROCESSES", "int", 1,
          "Number of processes in the pod launch contract.")
 
 # checkpoint.py
+register("MXNET_CKPT_DIR", "str", None,
+         "Default checkpoint directory of TransformerTrainStep.fit when "
+         "checkpointing is on without an explicit dir.")
+register("MXNET_CKPT_EVERY_N", "int", 0,
+         "Checkpoint every N optimizer steps in TransformerTrainStep.fit; "
+         "0 disables (the checkpoint_every_n argument overrides).")
 register("MXNET_CKPT_KEEP", "int", 3,
          "Completed checkpoint steps retained per directory; older "
          "steps are garbage-collected after each save. 0 keeps all.")
@@ -188,10 +203,34 @@ register("MXNET_SERVE_GEN_BLOCKS", "int", 0,
 register("MXNET_SERVE_GEN_PREFILL_BATCH", "int", 4,
          "Largest batched prefill (sequences admitted per tick).")
 
-# parallel/dp.py: FusedTrainStep refuses what it does not port
+# parallel/dp.py, remat.py, transformer/train.py
 register("MXNET_REMAT_POLICY", "str", "none",
-         "Per-scope rematerialization policy; the port runs 'none' only "
-         "(remat is queued) and refuses any other.")
+         "Per-scope rematerialization policy: the transformer runs "
+         "'none', 'block' (each decoder block) and 'attention' (the "
+         "attention sub-graph) over torch.utils.checkpoint; the conv "
+         "scopes 'stage'/'conv_block' are queued (ROADMAP A7) and raise, "
+         "and FusedTrainStep refuses any policy but 'none'.")
+register("MXNET_BACKWARD_DO_MIRROR", "bool", False,
+         "The whole-program mirror remat policy; not ported (ROADMAP "
+         "A7): setting it raises at the train step's build.")
+register("MXNET_ZERO_STAGE", "int", 0,
+         "Optimizer-state sharding: 0 replicates momenta (default); 1 "
+         "(ZeRO-1) needs a multi-device dp axis, so on the port's one "
+         "device it warns and stays replicated.")
+register("MXNET_KVSTORE_BUCKET_BYTES", "int", 4 * 1024 * 1024,
+         "Gradient bucket size cap; on one device the plan only shapes "
+         "the checkpoint's momenta blob (n_buckets, bucket_elems), so "
+         "that checkpoints cross-load with the JAX package.  0 means "
+         "one bucket per dtype run.")
+register("MXNET_AUTOTUNE_PLAN", "str", None,
+         "A tuned bucket plan of the JAX package's autotuner; not ported "
+         "(ROADMAP A11): setting it raises at the train step's build.")
+register("MXNET_AUTOTUNE_DIR", "str", None,
+         "A directory of tuned bucket plans; not ported (ROADMAP A11): "
+         "setting it raises at the train step's build.")
+register("MXNET_SDC_CHECK_EVERY_N", "int", 0,
+         "Cross-rank SDC fingerprint-vote cadence; not ported (ROADMAP "
+         "A11): a nonzero value raises at the train step's build.")
 register("MXNET_GRAD_ACCUM_STEPS", "int", 1,
          "Microbatch gradient accumulation inside the train step; the "
          "port runs 1 only (queued) and refuses more.")

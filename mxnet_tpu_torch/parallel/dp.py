@@ -38,7 +38,8 @@ from ..context import current_context
 from ..ndarray import NDArray
 from .. import optimizer as _opt
 
-__all__ = ["FusedTrainStep"]
+__all__ = ["FusedTrainStep", "zero1_stage", "zero1_bucket_elems",
+           "momenta_bytes_per_device"]
 
 
 def _mesh_size(mesh) -> int:
@@ -186,3 +187,41 @@ class FusedTrainStep:
         loss, logits = self._step(d, lab)
         return (NDArray.from_raw(loss, self._ctx),
                 NDArray.from_raw(logits, self._ctx))
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 bookkeeping (mxnet_tpu/parallel/dp.py:132-190).  Sharding the
+# momenta needs a multi-device dp axis (ROADMAP A6); on one device the
+# train steps stay replicated and use these to read the knob, describe
+# the bucket layout a checkpoint records, and measure the state's bytes.
+# ---------------------------------------------------------------------------
+def zero1_stage(override=None) -> int:
+    """The selected ZeRO stage: explicit argument wins, else
+    ``MXNET_ZERO_STAGE`` (0 = replicated, 1 = sharded momenta)."""
+    stage = override if override is not None \
+        else _env.get_int("MXNET_ZERO_STAGE")
+    if stage not in (0, 1):
+        raise ValueError("MXNET_ZERO_STAGE=%r: only stages 0 "
+                         "(replicated) and 1 (sharded optimizer "
+                         "state) exist" % (stage,))
+    return int(stage)
+
+
+def zero1_bucket_elems(plan) -> list:
+    """True (unpadded) element count of each bucket's flat buffer — what
+    a checkpoint's momenta blob records as ``bucket_elems``."""
+    from .buckets import itemsize
+
+    return [int(b.nbytes) // itemsize(b.dtype) for b in plan]
+
+
+def momenta_bytes_per_device(moms) -> int:
+    """Largest per-device total of the momenta tensors' bytes (a dict or
+    a list of tensors); replicated state counts in full on its device."""
+    vals = moms.values() if isinstance(moms, dict) else moms
+    per_device = {}
+    for m in vals:
+        key = str(m.device)
+        per_device[key] = per_device.get(key, 0) + \
+            m.numel() * m.element_size()
+    return max(per_device.values()) if per_device else 0

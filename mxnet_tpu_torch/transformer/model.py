@@ -7,11 +7,13 @@ package's names, shapes and ``(in, out)`` orientation (``x @ W``), so
 
 Only the single-device ``flash`` attention is ported: ``apply`` takes
 the attention as an ``attn_fn`` (:func:`make_attn_fn` binds the
-kernel), and the generation prefill runs the Hopper flash-attention
-kernel (``parallel.attention.flash_attention_fwd``) where the JAX
+training attention, ``parallel.attention.flash_attention_train``: the
+Hopper forward and backward kernels on the card), and the generation
+prefill runs the forward kernel (``flash_attention_fwd``) where the JAX
 package runs the dense ``_masked_attn``.  Decode keeps the gather and
 the masked attention in plain PyTorch, as the JAX package leaves them
-to XLA.
+to XLA.  ``apply`` takes the JAX package's ``remat`` policies ``none``,
+``block`` and ``attention`` (``remat.py``); ``lm_loss`` is its loss.
 """
 from __future__ import annotations
 
@@ -23,11 +25,12 @@ import torch.nn.functional as F
 
 from .. import env as _env
 from .._device import resolve_device
-from ..parallel.attention import flash_attention_fwd
+from ..parallel.attention import flash_attention_fwd, flash_attention_train
+from ..remat import checkpoint_scope, remat_policy
 
 __all__ = [
     "TransformerConfig", "ATTENTION_IMPLS", "attention_impl",
-    "make_attn_fn", "param_shapes", "init_params", "apply",
+    "make_attn_fn", "param_shapes", "init_params", "apply", "lm_loss",
     "dense_causal_attn", "gather_kv", "apply_prefill", "apply_decode",
 ]
 
@@ -85,10 +88,12 @@ def attention_impl(override: Optional[str] = None) -> str:
 
 def make_attn_fn(impl: Optional[str] = None, causal: bool = True):
     """Bind an attention impl to ``fn(q, k, v) -> out`` over
-    (B, T, H, Dh) activations: ``flash`` is the Hopper kernel on CUDA
-    tensors and its plain version on CPU tensors."""
+    (B, T, H, Dh) activations, with a gradient: ``flash`` is the Hopper
+    forward and backward kernels on CUDA tensors and autograd of their
+    plain version on CPU tensors
+    (``parallel.attention.flash_attention_train``)."""
     attention_impl(impl)
-    return functools.partial(flash_attention_fwd, causal=causal)
+    return functools.partial(flash_attention_train, causal=causal)
 
 
 # ---------------------------------------------------------------------------
@@ -203,23 +208,42 @@ def _tied_head(h, embed, compute):
 
 
 def apply(params: Dict, tokens, cfg: TransformerConfig, *, attn_fn,
-          pos_offset: int = 0):
+          pos_offset: int = 0, remat: Optional[str] = None):
     """Forward pass: ``tokens`` (B, T) int -> logits (B, T, vocab) in
-    ``promote(dtype, float32)`` (tied embedding head)."""
+    ``promote(dtype, float32)`` (tied embedding head).  ``remat``
+    overrides ``MXNET_REMAT_POLICY``: ``block`` recomputes each decoder
+    block in the backward pass, ``attention`` each block's attention
+    sub-graph (``remat.checkpoint_scope``)."""
+    policy = remat_policy(remat)
     compute = _dtype(cfg.dtype)
     B, t = tokens.shape
     positions = pos_offset + torch.arange(t, device=tokens.device)
     embed = params["embed"]
     h = embed.to(compute)[tokens]
     shape = (B, t, cfg.n_heads, cfg.head_dim)
-    for i in range(cfg.n_layers):
-        p = "blk%d." % i
+
+    def attn_part(h, p):
         q, k, v = _qkv(h, params, p, cfg, shape, positions)
         o = attn_fn(q, k, v)
-        h = h + o.reshape(B, t, cfg.d_model) @ params[p + "wo"].to(o.dtype)
-        h = _mlp(h, params, p, cfg.eps)
+        return o.reshape(B, t, cfg.d_model) @ params[p + "wo"].to(o.dtype)
+
+    def block(h, p):
+        h = h + checkpoint_scope(attn_part, policy, "attention")(h, p)
+        return _mlp(h, params, p, cfg.eps)
+
+    block = checkpoint_scope(block, policy, "block")
+    for i in range(cfg.n_layers):
+        h = block(h, "blk%d." % i)
     h = _rmsnorm(h, params["final_norm"], cfg.eps)
     return _tied_head(h, embed, compute)
+
+
+def lm_loss(logits, labels):
+    """Mean next-token cross entropy: logits (B, T, V) f32 (or f64),
+    labels (B, T) int."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
 
 
 # ---------------------------------------------------------------------------

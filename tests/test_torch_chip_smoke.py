@@ -1,8 +1,10 @@
 """The host-side helpers of ``chip_smoke.py``, on the CPU: the parsing
 of ``cuobjdump -sass`` and ``-res-usage`` output that the ``build``
 phase checks the wgmma kernels with, the rtc add's grid, the row-scaled
-error the flash rows are held to, and the attention bound.  The script itself needs a card and refuses to run
-without one."""
+error the flash rows are held to, and the attention bound; for the
+transformer phases, the head-scaled error of the backward rows, the
+backward's bound, the step's FLOP count and the profile's kernel groups.
+The script itself needs a card and refuses to run without one."""
 import subprocess
 import sys
 import time
@@ -207,6 +209,30 @@ def test_the_float64_trajectory_check_fails_a_step_two_fault(fault):
         cs.check_trajectory(got, got_p, ref, ref_p, w0)
 
 
+@pytest.mark.parametrize("fault", sorted(cs.LM_ATTN_FAULTS))
+def test_the_lm_update_check_fails_a_planted_attention_fault(fault,
+                                                            monkeypatch):
+    # train_lm_numerics' planted faults, at its widths on a smaller
+    # batch (2 x 32 tokens), on the CPU in float64: dropping one
+    # attention input's gradient moves the update more than ten times
+    # LM_NUM_UPDATE_TOL (dk ~1.1e-2, dv ~0.36 here), while a rerun
+    # matches to rounding
+    monkeypatch.setattr(cs, "LM_NUM_BATCH", 2)
+    monkeypatch.setattr(cs, "LM_NUM_SEQ", 32)
+    cfg = cs.lm_config(**cs.LM_NUM, dtype="float64", param_dtype="float64")
+    from mxnet_tpu_torch.transformer import TransformerTrainStep
+
+    w0 = TransformerTrainStep(cfg, device="cpu", seed=0).params_numpy()
+    ref, ref_p = cs._lm_numerics_run(cfg, "cpu", w0, 2)
+    again, again_p = cs._lm_numerics_run(cfg, "cpu", w0, 2)
+    bad, bad_p = cs._lm_numerics_run(cfg, "cpu", w0, 2, attn_fault=fault)
+    _, same = cs.trajectory_errors(again, again_p, ref, ref_p, w0)
+    np.testing.assert_allclose(bad[0], ref[0], rtol=1e-12)
+    _, upd_err = cs.trajectory_errors(bad, bad_p, ref, ref_p, w0)
+    assert (same <= 1e-12).all()
+    assert upd_err.max() > 10 * cs.LM_NUM_UPDATE_TOL
+
+
 def test_the_serving_phases_follow_serve_and_precede_the_kernel_line():
     src = (REPO / "chip_smoke.py").read_text()
     main = src[src.index("def main()"):]
@@ -249,3 +275,59 @@ def test_stream_client_dechunks_and_resets_a_live_server():
     finally:
         srv.drain(timeout_s=10.0)
         fe.stop()
+
+
+BWD_MMA = ("_ZN50_GLOBAL__N__4bd607fe_17_flash_attn_bwd_cu_3b68708a2tc17"
+           "flash_bwd_dkv_mmaILi128EEEvPKtS3_S3_S3_PKfS5_P13__nv_bfloat16"
+           "S7_iiiiNS_7StridesEfi")
+BWD_SIMT = ("_ZN50_GLOBAL__N__4bd607fe_17_flash_attn_bwd_cu_3b68708a12"
+            "flash_bwd_dqI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_S4_PKfPfPS2_"
+            "iiiiiiNS_7StridesEfi")
+
+
+def test_backward_kernel_labels():
+    assert cs._kernel_label(BWD_MMA) == "flash_bwd_dkv_mma<128>"
+    assert cs._kernel_label(BWD_SIMT) == "flash_bwd_dq<bf16,64>"
+
+
+def test_head_scaled_error_ignores_rows_that_cancel():
+    want = torch.ones((1, 4, 2, 8))
+    want[:, 0] = 0.0                       # a row that cancels to zero
+    got = want.clone()
+    got[:, 0] = 1e-6                       # its rounding
+    assert cs.head_scaled_err(got, want) == pytest.approx(1e-6)
+    got[0, 2, 1, 3] += 0.5                 # one head off by half its scale
+    assert cs.head_scaled_err(got, want) == pytest.approx(0.5)
+
+
+def test_attention_backward_bound_at_the_train_shape():
+    # 5 products of 2*D FLOPs over the 524800 causal pairs a head: 32.2
+    # GFLOP, 0.0326 ms at 989 TFLOP/s; the bytes (q, k, v, o, dO read,
+    # dq, dk, dv written, lse) take 0.0301 ms
+    ms, by = cs.attention_bwd_bound(8, 1024, 1024, 12, 64, True,
+                                    torch.bfloat16)
+    assert by == "operations" and ms == pytest.approx(0.03260, rel=1e-3)
+    assert cs.causal_pairs(1024, 1024, True) == 1024 * 1025 // 2
+    assert cs.causal_pairs(3, 5, True) == 3 + 4 + 5
+    assert cs.causal_pairs(5, 3, True) == 0 + 0 + 1 + 2 + 3
+    assert cs.causal_pairs(4, 6, False) == 24
+    ms32, by32 = cs.attention_bwd_bound(2, 300, 200, 12, 64, True,
+                                        torch.float32)
+    assert by32 == "operations" and ms32 > 0
+
+
+def test_lm_step_flops_and_kernel_groups():
+    cfg = cs.lm_config()
+    n = 32000 * 768 + 12 * (768 * 2304 + 768 * 768 + 2 * 768 * 3072
+                            + 2 * 768) + 768
+    flops = cs.lm_step_flops(cfg, n, 8, 1024)
+    attn = 12 * 8 * 12 * 64 * (1024 * 1025 // 2) * 12
+    assert flops == pytest.approx(6 * n * 8 * 1024 + attn)
+    assert flops == pytest.approx(5.848e12, rel=1e-3)
+    assert cs.lm_kernel_group(BWD_MMA) == "attention_bwd"
+    assert cs.lm_kernel_group(
+        "void cutlass::Kernel2<cutlass_80_simt_sgemm_256x128_8x4_nn_align1>"
+    ) == "gemm_f32_head"
+    assert cs.lm_kernel_group("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n"
+                              ) == "gemm_bf16"
+    assert cs.lm_kernel_group("flash_fwd_wgmma<64>") == "attention_fwd"

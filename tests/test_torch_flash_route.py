@@ -2,8 +2,10 @@
 CUDA call takes (``kernel_route``), the TMA map arguments it computes for
 the ``wgmma`` kernel (``_tma_map``), the packed launch arguments the C
 interface of ``csrc/flash_attn_fwd.cu`` reads (``_launch_args``), and
-the refusals where TMA cannot read a tensor.  These are metadata of
-CPU tensors (shapes, strides, base addresses): no kernel runs here.
+the refusals where TMA cannot read a tensor; and which backward kernel a
+CUDA call takes (``bwd_route``) with its packed arguments
+(``_bwd_launch_args``).  These are metadata of CPU tensors (shapes,
+strides, base addresses): no kernel runs here.
 """
 import struct
 
@@ -132,3 +134,71 @@ def test_cpu_calls_count_no_launch_on_any_route():
     assert tattn.flash_attention_fwd.launches == n0
     assert tattn.flash_attention_fwd.launches_by_route == before
     assert set(before) == {"wgmma", "simt"}
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels (csrc/flash_attn_bwd.cu): route and packed arguments
+# ---------------------------------------------------------------------------
+def _bwd_inputs(dtype, D, B=2, T=8, H=2):
+    q, k, v, o, do = (torch.zeros((B, T, H, D), dtype=dtype)
+                      for _ in range(5))
+    return q, k, v, o, do
+
+
+@pytest.mark.parametrize("dtype,head_dim,route", [
+    (BF16, 64, "mma"), (BF16, 128, "mma"), (BF16, 32, "simt"),
+    (BF16, 8, "simt"), (F32, 64, "simt"), (F32, 128, "simt")])
+def test_bwd_route_by_dtype_and_head_dim(dtype, head_dim, route):
+    assert tattn.bwd_route(*_bwd_inputs(dtype, head_dim)) == route
+
+
+def test_bwd_route_of_the_fused_projection_and_of_unaligned_rows():
+    B, T, H, D = 2, 10, 3, 64
+    qkv = torch.zeros((B, T, 3 * H * D), dtype=BF16)
+    q, k, v = (x.reshape(B, T, H, D)
+               for x in torch.split(qkv, H * D, dim=-1))
+    o, do = torch.zeros_like(q), torch.zeros_like(q)
+    assert tattn.bwd_route(q, k, v, o, do) == "mma"
+    # a base 2 bytes off a 16-byte boundary, or a row stride of 68
+    # elements, is not 16-byte aligned: the simt kernels take it
+    odd = torch.zeros(1 + B * T * H * D, dtype=BF16)[1:].view(B, T, H, D)
+    assert tattn.bwd_route(q, k, v, o, odd) == "simt"
+    wide = torch.zeros((B, T, H, 68), dtype=BF16)[..., :64]
+    assert tattn.bwd_route(wide, k, v, o, do) == "simt"
+    # a size-1 dim's stride is never read
+    one = torch.zeros((1, T, 1, 68), dtype=BF16)[..., :64]
+    assert tattn.bwd_route(one, one, one, one, one) == "simt"
+    one = torch.zeros((1, 1, 1, 64), dtype=BF16).as_strided(
+        (1, 1, 1, 64), (3, 5, 7, 1))
+    assert tattn.bwd_route(one, one, one, one, one) == "mma"
+
+
+def test_bwd_launch_args_layout():
+    B, Tq, Tk, H, D = 2, 9, 7, 3, 24
+    q, o, do, dq = (torch.zeros((B, Tq, H, D)) for _ in range(4))
+    k, v, dk, dv = (torch.zeros((B, Tk, H, D)) for _ in range(4))
+    lse = torch.zeros((B, H, Tq))
+    dsum = torch.zeros((B, H, Tq))
+    blob = tattn._bwd_launch_args(q, k, v, o, do, lse, dsum, dq, dk, dv,
+                                  True, 5, 0)
+    got = struct.unpack("43q", blob)
+    assert got[:10] == tuple(t.data_ptr() for t in (q, k, v, o, do, lse,
+                                                     dsum, dq, dk, dv))
+    assert got[10:19] == (B, H, Tq, Tk, D, 1, 5, 0, 0)
+    assert got[19:] == (q.stride()[:3] + k.stride()[:3] + v.stride()[:3]
+                        + o.stride()[:3] + do.stride()[:3]
+                        + dq.stride()[:3] + dk.stride()[:3]
+                        + dv.stride()[:3])
+
+
+def test_bwd_cpu_calls_count_no_launch():
+    q = torch.randn((1, 16, 2, 64), dtype=BF16)
+    o, lse = tattn.flash_attention_fwd(q, q, q, causal=True,
+                                       return_lse=True)
+    before = dict(tattn.flash_attention_bwd.launches_by_route)
+    n0 = tattn.flash_attention_bwd.launches
+    dq, dk, dv = tattn.flash_attention_bwd(q, q, q, o, lse, q, causal=True)
+    assert dq.shape == q.shape and dq.dtype == BF16
+    assert tattn.flash_attention_bwd.launches == n0
+    assert tattn.flash_attention_bwd.launches_by_route == before
+    assert set(before) == {"mma", "simt"}

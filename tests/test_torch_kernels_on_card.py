@@ -183,6 +183,172 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
         tattn.flash_attention_fwd(q.cpu(), q, q)
 
 
+# the backward kernel (csrc/flash_attn_bwd.cu): (B, Tq, Tk, H, D, causal)
+BWD_CASES = CASES + [
+    (2, 128, 128, 3, 64, True),
+    (1, 100, 60, 2, 64, True),    # Tq > Tk: 40 rows see no key
+    (1, 64, 200, 2, 128, True),
+    (1, 130, 130, 2, 128, False),
+]
+# head-scaled limits (a head's largest error over that head's largest
+# magnitude of the reference, the scale of a gradient's rounding: a row
+# can cancel to ~0, as causal row 0 of dq does exactly, so a row's own
+# magnitude is no scale): float32 is another summation order; the bf16
+# gradients are rounded to bf16 on output, and the mma route (bf16,
+# head_dim 64/128) also rounds P and dS to bf16 for their products
+BWD_HEAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _head_err(got, want):
+    # (B, T, H, D): the largest error and magnitude of each (b, h)
+    err = (got.float() - want.float()).abs().amax(dim=(1, 3))
+    mag = want.float().abs().amax(dim=(1, 3)).clamp_min(1e-30)
+    return (err / mag).max().item()
+
+
+def _fwd_with_lse(q, k, v, causal):
+    n0 = tattn.flash_attention_fwd.launches
+    o, lse = tattn.flash_attention_fwd(q, k, v, causal=causal,
+                                       return_lse=True)
+    assert tattn.flash_attention_fwd.launches == n0 + 1
+    return o, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BWD_CASES, ids=_ids)
+def test_flash_lse_matches_plain(cuda_device, case, dtype):
+    B, Tq, Tk, H, D, causal = case
+    g = torch.Generator(device="cpu").manual_seed(4)
+    q, k, v = (torch.randn((B, T, H, D), generator=g).to(cuda_device,
+                                                          dtype)
+               for T in (Tq, Tk, Tk))
+    _, lse = _fwd_with_lse(q, k, v, causal)
+    torch.cuda.synchronize()
+    _, want = tattn.flash_attention(q.float(), k.float(), v.float(),
+                                    causal=causal, return_lse=True)
+    assert lse.shape == (B, H, Tq) and lse.dtype == torch.float32
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    fin = torch.isfinite(want)
+    assert (lse[fin] - want[fin]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BWD_CASES, ids=_ids)
+def test_flash_bwd_matches_reference(cuda_device, case, dtype):
+    B, Tq, Tk, H, D, causal = case
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q, k, v = (torch.randn((B, T, H, D), generator=g).to(cuda_device,
+                                                          dtype)
+               for T in (Tq, Tk, Tk))
+    do = torch.randn((B, Tq, H, D), generator=g).to(cuda_device, dtype)
+    o, lse = _fwd_with_lse(q, k, v, causal)
+    route = tattn.bwd_route(q, k, v, o, do)
+    assert route == ("mma" if dtype == torch.bfloat16 and D in (64, 128)
+                     else "simt")
+    n0 = tattn.flash_attention_bwd.launches
+    r0 = tattn.flash_attention_bwd.launches_by_route[route]
+    got = tattn.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_bwd.launches == n0 + 1
+    assert tattn.flash_attention_bwd.launches_by_route[route] == r0 + 1
+    want = tattn.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+        causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        assert _head_err(a, b) <= BWD_HEAD_RTOL[dtype], name
+    if causal and Tq > Tk:
+        # rows that see no key: no gradient
+        assert torch.count_nonzero(got[0][:, :Tq - Tk]) == 0
+    # no atomics: the same bits on a second run
+    again = tattn.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 70, 70, 3, 64, True),
+                                  (1, 40, 90, 2, 32, True),
+                                  (2, 33, 33, 2, 128, False)], ids=_ids)
+def test_flash_attention_train_matches_autograd_of_the_reference(
+        cuda_device, case):
+    B, Tq, Tk, H, D, causal = case
+    g = torch.Generator(device="cpu").manual_seed(6)
+    q, k, v = (torch.randn((B, T, H, D), generator=g).to(cuda_device)
+               .requires_grad_(True) for T in (Tq, Tk, Tk))
+    do = torch.randn((B, Tq, H, D), generator=g).to(cuda_device)
+    n0, b0 = (tattn.flash_attention_fwd.launches,
+              tattn.flash_attention_bwd.launches)
+    out = tattn.flash_attention_train(q, k, v, causal=causal)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert tattn.flash_attention_fwd.launches == n0 + 1
+    assert tattn.flash_attention_bwd.launches == b0 + 1
+    ref = tattn.attention_reference(q, k, v, causal=causal)
+    want = torch.autograd.grad(ref, (q, k, v), do)
+    assert _head_err(out.detach(), ref.detach()) <= 1e-4
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _head_err(a, b) <= 1e-4, name
+
+
+@pytest.mark.cuda
+def test_flash_bwd_reads_the_fused_projection(cuda_device):
+    # the training path's q/k/v: strided column blocks of one
+    # projection; autograd scatters the gradients back into it
+    B, T, H, D = 2, 130, 4, 64
+    g = torch.Generator(device="cpu").manual_seed(7)
+    for dtype, rtol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        qkv = torch.randn((B, T, 3 * H * D), generator=g).to(
+            cuda_device, dtype).requires_grad_(True)
+        q, k, v = (x.reshape(B, T, H, D)
+                   for x in torch.split(qkv, H * D, dim=-1))
+        do = torch.randn((B, T, H, D), generator=g).to(cuda_device, dtype)
+        (got,) = torch.autograd.grad(
+            tattn.flash_attention_train(q, k, v, causal=True), qkv, do)
+        ref32 = qkv.detach().float().requires_grad_(True)
+        q32, k32, v32 = (x.reshape(B, T, H, D)
+                         for x in torch.split(ref32, H * D, dim=-1))
+        (want,) = torch.autograd.grad(
+            tattn.attention_reference(q32, k32, v32, causal=True), ref32,
+            do.float())
+        # the (B, T, 3*H*D) gradient of the projection, as 3*H heads
+        assert _head_err(got.view(B, T, 3 * H, D),
+                         want.view(B, T, 3 * H, D)) <= rtol, dtype
+
+
+@pytest.mark.cuda
+def test_flash_bwd_unaligned_bf16_rows_take_the_simt_route(cuda_device):
+    B, T, H, D = 1, 70, 2, 64
+    g = torch.Generator(device="cpu").manual_seed(8)
+    q, k, v, do = (torch.randn((B, T, H, D), generator=g).to(
+        cuda_device, torch.bfloat16) for _ in range(4))
+    odd = torch.zeros(1 + B * T * H * D, device=cuda_device,
+                      dtype=torch.bfloat16)[1:].view(B, T, H, D)
+    odd.copy_(do)
+    o, lse = _fwd_with_lse(q, k, v, True)
+    assert tattn.bwd_route(q, k, v, o, odd) == "simt"
+    n0 = tattn.flash_attention_bwd.launches_by_route["simt"]
+    got = tattn.flash_attention_bwd(q, k, v, o, lse, odd, causal=True)
+    assert tattn.flash_attention_bwd.launches_by_route["simt"] == n0 + 1
+    want = tattn.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    for a, b in zip(got, want):
+        assert _head_err(a, b) <= BWD_HEAD_RTOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_flash_attention_train_refuses_float64_on_the_card(cuda_device):
+    q = torch.zeros((1, 8, 2, 8), device=cuda_device, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tattn.flash_attention_train(q, q, q, causal=True)
+    lse = torch.zeros((1, 2, 8), device=cuda_device)
+    q32 = q.float()
+    with pytest.raises(ValueError, match="lse"):
+        tattn.flash_attention_bwd(q32, q32, q32, q32, lse[:, :1], q32)
+
+
 @pytest.fixture(scope="module")
 def add_module():
     if not torch.cuda.is_available():

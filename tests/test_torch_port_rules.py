@@ -35,6 +35,10 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import mxnet_tpu_torch.serving.http\n"
         "import mxnet_tpu_torch.serving.loadgen\n"
         "import mxnet_tpu_torch.serving.__main__\n"
+        "import mxnet_tpu_torch.io, mxnet_tpu_torch.remat\n"
+        "import mxnet_tpu_torch.transformer.train\n"
+        "import mxnet_tpu_torch.transformer.data\n"
+        "import mxnet_tpu_torch.parallel.buckets\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mxnet_tpu', 'ml_dtypes'))\n"
         # kernels are built at first launch, never at import; NVRTC and
@@ -150,3 +154,24 @@ def test_arrays_default_to_the_card_and_raise_without_it():
     with mx.cpu():
         assert mx.nd.array([1.0, 2.0]).context == mx.cpu()
     assert mx.nd.zeros((2,), ctx=mx.cpu()).context == mx.cpu()
+
+
+def test_transformer_training_defaults_to_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from mxnet_tpu_torch import transformer as tr
+
+    cfg = tr.TransformerConfig(vocab_size=8, n_layers=1, d_model=8,
+                               n_heads=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tr.TransformerTrainStep(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tr.TransformerTrainStep(cfg, device="cuda")
+    step = tr.TransformerTrainStep(cfg, device="cpu")
+    assert step.device.type == "cpu"
+    # the iterator's batches are host data whatever the current context
+    batch = tr.LMTokenIter(batch_size=2, seq_len=4, vocab_size=8,
+                           num_sequences=4).next()
+    assert batch.data[0].context.device_type == "cpu"
+    loss = step.step(batch.data[0], batch.label[0])
+    assert loss.device.type == "cpu" and torch.isfinite(loss)
