@@ -27,8 +27,11 @@ Phases:
   build    nvcc of every ``mxnet_tpu_torch/csrc/*.cu``, all at once;
            ptxas's register report; ``cuobjdump -sass`` counts of HGMMA
            (wgmma) and UTMALDG (TMA loads) and ``cuobjdump -res-usage``
-           per flash kernel (fails if the wgmma kernels have none, or
-           if they or the backward kernels use local memory: a spill)
+           per flash kernel, forward and backward (fails if a wgmma
+           kernel, ``flash_fwd_wgmma``, ``flash_bwd_dq_wgmma`` or
+           ``flash_bwd_dkv_wgmma`` at D 64 or 128, has none, if a
+           wgmma or backward kernel uses local memory: a spill, or if
+           ptxas serialized the wgmma of a kernel it built)
   kernel:flash_attention_fwd
            the kernel against the plain version at the prefill's
            shapes, bf16 on the ``wgmma`` route (D 64 and 128, ragged T,
@@ -40,19 +43,23 @@ Phases:
            host's launch, device time from a CUDA graph, bound
   kernel:flash_attention_bwd
            the backward kernels (``csrc/flash_attn_bwd.cu``, from the
-           forward kernel's output and log-sum-exp; the ``mma`` route
+           forward kernel's output and log-sum-exp; the ``wgmma`` route
            for bf16, ``simt`` for float32) against their plain
            version ``flash_attention_bwd_reference`` and against
            autograd of ``attention_reference`` in float32, at the
            train_lm shape (8, 1024, 1024, 12, 64) causal bf16 (the
-           wgmma forward), D 128, ragged T 1000, Tq 384 < Tk 512, full,
-           the strided fused-projection views, float32 (simt) and Tq >
-           Tk (fully masked rows: dq exactly 0); errors over each
-           head's largest magnitude (``BWD_*_RTOL``); at the first
-           shape the kernel (10 calls), CUDA-graph, plain and library
-           (SDPA's backward alone) times, the bound (5 products over
-           the unmasked pairs, or the bytes), and the forward with and
-           without the log-sum-exp
+           wgmma forward), D 128, ragged T 1000 (D 64) and 200 (D
+           128), Tq 384 < Tk 512, full, the strided fused-projection
+           views, Tq > Tk in bf16 (fully masked rows: dq exactly 0) and
+           float32 (simt); errors over each head's largest magnitude
+           (``BWD_*_RTOL``), and a second call bitwise equal to the
+           first; at the first shape the kernel (10 calls), CUDA-graph,
+           plain and library (SDPA's backward alone, host-timed through
+           autograd) times, the device time of both under
+           torch.profiler (the sum of their kernels' durations, and
+           SDPA's kernels by name: its backend), the bound (5 products
+           over the unmasked pairs, or the bytes), and the forward with
+           and without the log-sum-exp
   kernel:rtc_add
            NVRTC compile of ``csrc/rtc/add.cu`` through
            ``rtc.CudaModule`` (timed), the kernel against
@@ -137,7 +144,7 @@ Phases:
            steps, 5 timed windows of 4 steps (tokens/s and step ms from
            the median window, peak memory, TFLOP/s of 6 x N x tokens
            plus attention), 12 forward (all ``wgmma``) and 12 backward
-           (all ``mma``) kernel launches a step; 2 steps under
+           (all ``wgmma``) kernel launches a step; 2 steps under
            torch.profiler after a traced warm-up step (device busy ms
            and the idle share of the untraced step, device ms by kernel
            group); ``fit`` for 20 steps
@@ -377,29 +384,38 @@ def phase_build():
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
              for n, log in _build.build_logs.items()}
+    # "wgmma.mma_async instructions are serialized": every wgmma of the
+    # kernel then waits for the one before (the backward ran 1.5x slower)
+    serialized = [ln.strip() for log in _build.build_logs.values()
+                  for ln in log.splitlines() if "are serialized" in ln]
     lib = _build._lib_path(_build.sources()["flash_attn_fwd"])
     sass = _sass_counts(_cuobjdump(lib, "-sass"))
     usage = _res_usage(_cuobjdump(lib, "-res-usage"))
     bwd_lib = _build._lib_path(_build.sources()["flash_attn_bwd"])
+    bwd_sass = _sass_counts(_cuobjdump(bwd_lib, "-sass"))
     bwd_usage = _res_usage(_cuobjdump(bwd_lib, "-res-usage"))
     emit({"phase": "build", "seconds": round(wall, 3),
           "per_source_s": {k: round(v, 3) for k, v in secs.items()},
-          "ptxas": ptxas, "flash_sass": sass, "flash_res_usage": usage,
-          "flash_bwd_res_usage": bwd_usage})
+          "ptxas": ptxas, "wgmma_serialized": serialized,
+          "flash_sass": sass, "flash_res_usage": usage,
+          "flash_bwd_sass": bwd_sass, "flash_bwd_res_usage": bwd_usage})
     wgmma = ["flash_fwd_wgmma<64>", "flash_fwd_wgmma<128>"]
-    if not all(sass.get(k, {}).get("HGMMA") and sass[k]["UTMALDG"]
-               for k in wgmma):
+    bwd_wgmma = ["flash_bwd_%s_wgmma<%d>" % (part, d)
+                 for part in ("dq", "dkv") for d in (64, 128)]
+    all_sass = dict(sass, **bwd_sass)
+    if not all(all_sass.get(k, {}).get("HGMMA") and all_sass[k]["UTMALDG"]
+               for k in wgmma + bwd_wgmma):
         raise RuntimeError("build: the wgmma flash kernels lack HGMMA or "
-                           "UTMALDG instructions: %r" % sass)
+                           "UTMALDG instructions: %r" % all_sass)
     spills = {k: usage.get(k) for k in wgmma
               if usage.get(k, {}).get("LOCAL", 1) or usage[k].get("STACK", 1)}
     bwd = ["flash_bwd_%s<%s,%d>" % (part, dt, d) for part in ("dq", "dkv")
-           for dt in ("f32", "bf16") for d in (64, 128)] + \
-        ["flash_bwd_%s_mma<%d>" % (part, d) for part in ("dq", "dkv")
-         for d in (64, 128)]
+           for dt in ("f32", "bf16") for d in (64, 128)] + bwd_wgmma
     spills.update({k: bwd_usage.get(k) for k in bwd
                    if bwd_usage.get(k, {}).get("LOCAL", 1)
                    or bwd_usage[k].get("STACK", 1)})
+    if serialized:
+        raise RuntimeError("build: ptxas serialized wgmma: %r" % serialized)
     if spills:
         raise RuntimeError("build: the wgmma or backward flash kernels "
                            "spill (or their resource usage is unreadable): "
@@ -499,6 +515,8 @@ BWD_SHAPES = [
     (2, 384, 512, 12, 64, True, torch.bfloat16, "dense"),
     (2, 512, 512, 12, 64, False, torch.bfloat16, "dense"),
     (8, 1024, 1024, 12, 64, True, torch.bfloat16, "fused"),
+    (2, 300, 200, 12, 64, True, torch.bfloat16, "dense"),
+    (2, 200, 200, 12, 128, True, torch.bfloat16, "dense"),
     (2, 512, 512, 12, 64, True, torch.float32, "dense"),
     (2, 300, 200, 12, 64, True, torch.float32, "dense"),
 ]
@@ -506,7 +524,7 @@ BWD_SHAPES = [
 # slice): the scale of its rounding (a row can cancel to ~0, as causal
 # row 0 of dq does exactly, so a row's own magnitude is no scale).
 # Against the plain backward on the same inputs (the kernel's own o and
-# lse): float32 is another summation order; bf16 (the mma route) rounds
+# lse): float32 is another summation order; bf16 (the wgmma route) rounds
 # P and dS to bf16 for their products and the gradients on output.
 # Against autograd of attention_reference in float32: bf16 also carries
 # the wgmma forward's bf16 P in o
@@ -543,6 +561,32 @@ def attention_bwd_bound(B, Tq, Tk, H, D, causal, dtype):
                                  else "bytes")
 
 
+def profiled_ms(fn, calls: int = 10):
+    """Device time of one ``fn`` call under torch.profiler: the summed
+    durations of the CUDA kernels (and copies) that ``calls`` calls
+    launch, over ``calls``; and the same by kernel name, largest
+    first."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per = defaultdict(float)
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and \
+                not getattr(ev, "is_user_annotation", False):
+            per[ev.name] += ev.device_time_total / 1e3 / calls
+    names = sorted(per.items(), key=lambda kv: -kv[1])
+    return sum(per.values()), [[n[:120], ms] for n, ms in names]
+
+
 def phase_kernel_bwd():
     """The backward kernel against its plain version and against
     autograd of ``attention_reference``, at the training path's shape
@@ -566,7 +610,7 @@ def phase_kernel_bwd():
         o, lse = flash_attention_fwd(q, k, v, causal=causal,
                                      return_lse=True)
         route = bwd_route(q, k, v, o, do)
-        want_route = "mma" if dtype == torch.bfloat16 else "simt"
+        want_route = "wgmma" if dtype == torch.bfloat16 else "simt"
         n0 = flash_attention_bwd.launches_by_route[route]
         got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
         torch.cuda.synchronize()
@@ -575,6 +619,10 @@ def phase_kernel_bwd():
             raise RuntimeError("flash_attention_bwd did not count one "
                                "launch on the %s route (%s)"
                                % (want_route, route))
+        # no atomics: a second call gives the same bits
+        again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
         f32 = [t.float() for t in (q, k, v, o, do)]
         want = flash_attention_bwd_reference(f32[0], f32[1], f32[2], f32[3],
                                              lse, f32[4], causal=causal)
@@ -604,7 +652,8 @@ def phase_kernel_bwd():
                "head_rtol": BWD_HEAD_RTOL[dtype],
                "autograd_head_err": {n: head_scaled_err(a, b) for n, a, b in
                                      zip(("dq", "dk", "dv"), got, ref)},
-               "autograd_head_rtol": BWD_AUTOGRAD_RTOL[dtype]}
+               "autograd_head_rtol": BWD_AUTOGRAD_RTOL[dtype],
+               "bitwise_repeat": bitwise}
         if causal and Tq > Tk:
             row["masked_rows_dq_nonzero"] = int(
                 torch.count_nonzero(got[0][:, :Tq - Tk]))
@@ -622,6 +671,8 @@ def phase_kernel_bwd():
             do_t = do.transpose(1, 2)
             lib = lambda: torch.autograd.grad(  # noqa: E731
                 out_t, (qt, kt, vt), do_t, retain_graph=True)
+            dev_ms, dev_kernels = profiled_ms(kern)
+            lib_dev_ms, lib_kernels = profiled_ms(lib)
             row.update({
                 "kernel_ms": time_ms(kern, iters=10),
                 "graph_ms": graph_ms(kern, inner=3),
@@ -629,6 +680,12 @@ def phase_kernel_bwd():
                     f32[0], f32[1], f32[2], f32[3], lse, f32[4],
                     causal=causal), iters=5, warmup=1),
                 "library_ms": time_ms(lib, iters=10),
+                "device_ms": dev_ms, "device_kernels": dev_kernels,
+                # SDPA's backward as device time, on the same basis
+                "library_graph_ms": lib_dev_ms,
+                "library_graph_basis": "torch.profiler: summed kernel "
+                                       "durations a call, 10 calls",
+                "library_kernels": lib_kernels,
                 "fwd_lse_ms": time_ms(lambda: flash_attention_fwd(
                     q, k, v, causal=causal, return_lse=True), inner=10),
                 "fwd_ms": time_ms(lambda: flash_attention_fwd(
@@ -638,7 +695,8 @@ def phase_kernel_bwd():
         emit(dict({"phase": "kernel:flash_attention_bwd"}, **row))
         if max(row["head_err"].values()) > BWD_HEAD_RTOL[dtype] or \
                 max(row["autograd_head_err"].values()) > \
-                BWD_AUTOGRAD_RTOL[dtype] or row.get("masked_rows_dq_nonzero"):
+                BWD_AUTOGRAD_RTOL[dtype] or row.get("masked_rows_dq_nonzero") \
+                or not bitwise:
             raise RuntimeError("flash_attention_bwd disagrees at %s: %r"
                                % (row["shape"], row))
         rows.append(row)
@@ -1605,7 +1663,7 @@ def _reset_kernel_counts():
     flash_attention_fwd.launches = 0
     flash_attention_fwd.launches_by_route = {"wgmma": 0, "simt": 0}
     flash_attention_bwd.launches = 0
-    flash_attention_bwd.launches_by_route = {"mma": 0, "simt": 0}
+    flash_attention_bwd.launches_by_route = {"wgmma": 0, "simt": 0}
     rtc.launches.clear()
 
 
@@ -2058,10 +2116,10 @@ def phase_train_lm():
     if counts["flash_attention_fwd"] != want_launches or \
             counts["flash_attention_fwd_by_route"]["wgmma"] != want_launches \
             or counts["flash_attention_bwd"] != want_launches or \
-            counts["flash_attention_bwd_by_route"]["mma"] != want_launches:
+            counts["flash_attention_bwd_by_route"]["wgmma"] != want_launches:
         raise RuntimeError("train_lm: %r kernel launches in %d steps of %d "
                            "layers (want %d forward, all wgmma, and %d "
-                           "backward, all mma)"
+                           "backward, all wgmma)"
                            % (counts, n_steps, cfg.n_layers, want_launches,
                               want_launches))
     allx = warm + losses + fit_losses
@@ -2236,6 +2294,9 @@ def main() -> int:
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
         "library_ms": bwd_row["library_ms"],
         "graph_ms": bwd_row["graph_ms"],
+        "device_ms": bwd_row["device_ms"],
+        "library_graph_ms": bwd_row["library_graph_ms"],
+        "library_kernels": [n for n, _ in bwd_row["library_kernels"]],
         "shape": bwd_row["shape"], "dtype": bwd_row["dtype"],
     }, {
         "name": "rtc_add", "route": "cuda", "kernel_route": "nvrtc",

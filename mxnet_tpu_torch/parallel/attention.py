@@ -28,9 +28,10 @@ The gradient, for training (the JAX package trains through the scan
     FlashAttention-2 formulas (tests, and the card's check);
   * ``flash_attention_bwd`` — the wrapper of the hand-written backward
     kernels in ``csrc/flash_attn_bwd.cu``, two routes chosen from the
-    inputs (:func:`bwd_route`): ``mma`` (bf16 with head_dim 64 or 128
-    and 16-byte aligned rows, the training path: tensor cores through
-    ``mma.sync``) and ``simt`` (the rest: CUDA-core FMAs in f32);
+    inputs (:func:`bwd_route`): ``wgmma`` (bf16 with head_dim 64 or 128
+    and 16-byte aligned bases and strides, the training path: tensor
+    cores through ``wgmma`` fed by TMA, as the forward) and ``simt`` (the
+    rest: CUDA-core FMAs in f32);
   * ``flash_attention_train`` — attention with a gradient: autograd of
     ``flash_attention`` on CPU tensors, the two kernels (through the
     autograd Function ``FlashAttention``) on CUDA tensors.
@@ -203,15 +204,16 @@ def kernel_route(dtype, head_dim) -> str:
     return "simt"
 
 
-def _tma_map(t, ptr):
-    """The 11 TMA map numbers of the wgmma kernel for a (B, T, H, D) bf16
-    tensor at base address ``ptr``, read in place through its strides, in
-    the order the kernel's ``make_map`` reads them: the dims innermost
-    first ``(D, H, T, B)``, the byte strides of H, T and B, and
-    :data:`_TMA_BOX`.  The stride of a size-1 dim is never read and is
-    given as the packed one.  Raises ``ValueError`` where TMA cannot take
-    the tensor: a last dim that is not contiguous, or a base address or
-    stride that is not a multiple of 16 bytes."""
+def _tma_map(t, ptr, who="flash_attention_fwd"):
+    """The 11 TMA map numbers of a wgmma kernel for a (B, T, H, D) bf16
+    tensor at base address ``ptr``, read or written in place through its
+    strides, in the order ``make_map`` (``csrc/hopper.cuh``) reads them:
+    the dims innermost first ``(D, H, T, B)``, the byte strides of H, T
+    and B, and :data:`_TMA_BOX`.  The stride of a size-1 dim is never
+    read and is given as the packed one.  Raises ``ValueError`` (naming
+    ``who``) where TMA cannot take the tensor: a last dim that is not
+    contiguous, or a base address or stride that is not a multiple of 16
+    bytes."""
     B, T, H, D = t.shape
     sb, st, sh, sd = t.stride()
     es = 2  # bf16, the wgmma route's one dtype
@@ -219,15 +221,15 @@ def _tma_map(t, ptr):
     ts = st * es if T > 1 else hs * H
     bs = sb * es if B > 1 else ts * T
     if sd != 1:
-        raise ValueError("flash_attention_fwd: the last dim must be "
-                         "contiguous for TMA (stride %d)" % sd)
+        raise ValueError("%s: the last dim must be contiguous for TMA "
+                         "(stride %d)" % (who, sd))
     if ptr & 15:
-        raise ValueError("flash_attention_fwd: TMA needs a 16-byte "
-                         "aligned base address, got %#x" % ptr)
+        raise ValueError("%s: TMA needs a 16-byte aligned base address, "
+                         "got %#x" % (who, ptr))
     if (hs | ts | bs) & 15:
-        raise ValueError("flash_attention_fwd: TMA needs byte strides that "
-                         "are multiples of 16, got element strides %s of %d "
-                         "bytes, shape %s" % (t.stride(), es, tuple(t.shape)))
+        raise ValueError("%s: TMA needs byte strides that are multiples of "
+                         "16, got element strides %s of %d bytes, shape %s"
+                         % (who, t.stride(), es, tuple(t.shape)))
     return (D, H, T, B, hs, ts, bs) + _TMA_BOX
 
 
@@ -243,17 +245,18 @@ def _kernel_lib():
 def _bwd_kernel_lib():
     lib = _build.load("flash_attn_bwd")
     if lib.mxt_flash_attn_bwd.argtypes is None:
-        for fn in (lib.mxt_flash_attn_bwd, lib.mxt_flash_attn_bwd_mma):
+        for fn in (lib.mxt_flash_attn_bwd, lib.mxt_flash_attn_bwd_wgmma):
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_char_p, ctypes.c_float]
     return lib
 
 
 def bwd_route(q, k, v, o, do) -> str:
-    """The backward kernel a CUDA call takes: ``"mma"`` for bfloat16 with
-    head dim 64 or 128 when every row of q, k, v, o and do starts on a
-    16-byte boundary (the kernel loads rows as 16-byte vectors),
-    ``"simt"`` for every other input the kernels take."""
+    """The backward kernel a CUDA call takes: ``"wgmma"`` for bfloat16
+    with head dim 64 or 128 when TMA can read q, k, v, o and do (base
+    addresses and the byte strides of every dim longer than 1 multiples
+    of 16; :func:`_tma_map`), ``"simt"`` for every other input the
+    kernels take."""
     if q.dtype != torch.bfloat16 or q.shape[-1] not in _WGMMA_HEAD_DIMS:
         return "simt"
     for t in (q, k, v, o, do):
@@ -261,7 +264,7 @@ def bwd_route(q, k, v, o, do) -> str:
                 st % 8 for st, n in zip(t.stride()[:3], t.shape[:3])
                 if n > 1):
             return "simt"
-    return "mma"
+    return "wgmma"
 
 
 def _check_kernel_args(q, k, v, who="flash_attention_fwd"):
@@ -381,22 +384,25 @@ flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_by_route = {"wgmma": 0, "simt": 0}
 
 
-def _bwd_launch_args(q, k, v, o, do, lse, dsum, dq, dk, dv, causal,
+def _bwd_launch_args(route, q, k, v, o, do, lse, dsum, dq, dk, dv, causal,
                      stream, device) -> bytes:
-    """The packed int64 arguments of ``mxt_flash_attn_bwd``
-    (``csrc/flash_attn_bwd.cu``): the ten base addresses (q, k, v, o,
-    dO, lse, the D scratch, dq, dk, dv), B, H, Tq, Tk, D, causal, the
-    stream, the device, the dtype code, then the (batch, seq, head)
-    element strides of q, k, v, o, dO, dq, dk and dv."""
+    """The packed int64 arguments of the backward entries of
+    ``csrc/flash_attn_bwd.cu``.  The 19-number head: the ten base
+    addresses (q, k, v, o, dO, lse, the D scratch, dq, dk, dv), B, H, Tq,
+    Tk, D, causal, the stream, the device and the dtype code; then, for
+    ``wgmma``, the 11 TMA map numbers of q, k, v, o, dO, dq, dk and dv
+    (:func:`_tma_map`; raises where TMA cannot take one), for ``simt``
+    the (batch, seq, head) element strides of the same eight."""
     B, Tq, H, D = q.shape
-    ptrs = tuple(t.data_ptr() for t in (q, k, v, o, do, lse, dsum, dq, dk,
-                                        dv))
-    strides = ()
-    for t in (q, k, v, o, do, dq, dk, dv):
-        strides += t.stride()[:3]
-    return struct.pack("43q", *ptrs, B, H, Tq, k.shape[1], D,
-                       int(bool(causal)), stream, device,
-                       _KERNEL_DTYPES[q.dtype], *strides)
+    ts = (q, k, v, o, do, lse, dsum, dq, dk, dv)
+    ptrs = tuple(t.data_ptr() for t in ts)
+    head = ptrs + (B, H, Tq, k.shape[1], D, int(bool(causal)), stream,
+                   device, _KERNEL_DTYPES[q.dtype])
+    tail = ()
+    for t, ptr in zip(ts[:5] + ts[7:], ptrs[:5] + ptrs[7:]):
+        tail += _tma_map(t, ptr, "flash_attention_bwd") \
+            if route == "wgmma" else t.stride()[:3]
+    return struct.pack("%dq" % (len(head) + len(tail)), *head, *tail)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal=False, sm_scale=None):
@@ -411,7 +417,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, sm_scale=None):
     (float32 or bfloat16, head_dim a multiple of 8 up to 128, any Tq and
     Tk, strided q/k/v with the last dim contiguous), accumulates in f32
     and uses no atomics, so its result is the same bits on every run.
-    The ``mma`` route rounds P and dS to bf16 for their products, as
+    The ``wgmma`` route rounds P and dS to bf16 for their products, as
     FlashAttention-2 does; ``simt`` keeps them in f32."""
     if all(t.is_cpu for t in (q, k, v, o, lse, do)):
         return flash_attention_bwd_reference(q, k, v, o, lse, do,
@@ -446,11 +452,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, sm_scale=None):
     dsum = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     route = bwd_route(q, k, v, o, do)
     dev = q.get_device()
-    args = _bwd_launch_args(q, k, v, o, do, lse, dsum, dq, dk, dv, causal,
-                            torch._C._cuda_getCurrentRawStream(dev), dev)
+    args = _bwd_launch_args(route, q, k, v, o, do, lse, dsum, dq, dk, dv,
+                            causal, torch._C._cuda_getCurrentRawStream(dev),
+                            dev)
     lib = _bwd_kernel_lib()
-    if route == "mma":
-        err = lib.mxt_flash_attn_bwd_mma(args, sm_scale)
+    if route == "wgmma":
+        err = lib.mxt_flash_attn_bwd_wgmma(args, sm_scale)
     else:
         err = lib.mxt_flash_attn_bwd(args, sm_scale)
     if err != 0:
@@ -465,7 +472,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, sm_scale=None):
 #: is the dq launch and the dk/dv launch; CPU calls are not launches),
 #: in all and by route
 flash_attention_bwd.launches = 0
-flash_attention_bwd.launches_by_route = {"mma": 0, "simt": 0}
+flash_attention_bwd.launches_by_route = {"wgmma": 0, "simt": 0}
 
 
 class FlashAttention(torch.autograd.Function):

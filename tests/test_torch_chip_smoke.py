@@ -277,16 +277,16 @@ def test_stream_client_dechunks_and_resets_a_live_server():
         fe.stop()
 
 
-BWD_MMA = ("_ZN50_GLOBAL__N__4bd607fe_17_flash_attn_bwd_cu_3b68708a2tc17"
-           "flash_bwd_dkv_mmaILi128EEEvPKtS3_S3_S3_PKfS5_P13__nv_bfloat16"
-           "S7_iiiiNS_7StridesEfi")
+BWD_WGMMA = ("_ZN50_GLOBAL__N__4bd607fe_17_flash_attn_bwd_cu_3b68708a2wg"
+             "19flash_bwd_dkv_wgmmaILi128EEEv14CUtensorMap_stS2_S2_S2_S2_S2_"
+             "PKfS4_iiiifffi")
 BWD_SIMT = ("_ZN50_GLOBAL__N__4bd607fe_17_flash_attn_bwd_cu_3b68708a12"
             "flash_bwd_dqI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_S4_PKfPfPS2_"
             "iiiiiiNS_7StridesEfi")
 
 
 def test_backward_kernel_labels():
-    assert cs._kernel_label(BWD_MMA) == "flash_bwd_dkv_mma<128>"
+    assert cs._kernel_label(BWD_WGMMA) == "flash_bwd_dkv_wgmma<128>"
     assert cs._kernel_label(BWD_SIMT) == "flash_bwd_dq<bf16,64>"
 
 
@@ -324,7 +324,7 @@ def test_lm_step_flops_and_kernel_groups():
     attn = 12 * 8 * 12 * 64 * (1024 * 1025 // 2) * 12
     assert flops == pytest.approx(6 * n * 8 * 1024 + attn)
     assert flops == pytest.approx(5.848e12, rel=1e-3)
-    assert cs.lm_kernel_group(BWD_MMA) == "attention_bwd"
+    assert cs.lm_kernel_group(BWD_WGMMA) == "attention_bwd"
     assert cs.lm_kernel_group(
         "void cutlass::Kernel2<cutlass_80_simt_sgemm_256x128_8x4_nn_align1>"
     ) == "gemm_f32_head"

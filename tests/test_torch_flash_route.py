@@ -146,7 +146,7 @@ def _bwd_inputs(dtype, D, B=2, T=8, H=2):
 
 
 @pytest.mark.parametrize("dtype,head_dim,route", [
-    (BF16, 64, "mma"), (BF16, 128, "mma"), (BF16, 32, "simt"),
+    (BF16, 64, "wgmma"), (BF16, 128, "wgmma"), (BF16, 32, "simt"),
     (BF16, 8, "simt"), (F32, 64, "simt"), (F32, 128, "simt")])
 def test_bwd_route_by_dtype_and_head_dim(dtype, head_dim, route):
     assert tattn.bwd_route(*_bwd_inputs(dtype, head_dim)) == route
@@ -158,7 +158,7 @@ def test_bwd_route_of_the_fused_projection_and_of_unaligned_rows():
     q, k, v = (x.reshape(B, T, H, D)
                for x in torch.split(qkv, H * D, dim=-1))
     o, do = torch.zeros_like(q), torch.zeros_like(q)
-    assert tattn.bwd_route(q, k, v, o, do) == "mma"
+    assert tattn.bwd_route(q, k, v, o, do) == "wgmma"
     # a base 2 bytes off a 16-byte boundary, or a row stride of 68
     # elements, is not 16-byte aligned: the simt kernels take it
     odd = torch.zeros(1 + B * T * H * D, dtype=BF16)[1:].view(B, T, H, D)
@@ -170,7 +170,7 @@ def test_bwd_route_of_the_fused_projection_and_of_unaligned_rows():
     assert tattn.bwd_route(one, one, one, one, one) == "simt"
     one = torch.zeros((1, 1, 1, 64), dtype=BF16).as_strided(
         (1, 1, 1, 64), (3, 5, 7, 1))
-    assert tattn.bwd_route(one, one, one, one, one) == "mma"
+    assert tattn.bwd_route(one, one, one, one, one) == "wgmma"
 
 
 def test_bwd_launch_args_layout():
@@ -179,8 +179,8 @@ def test_bwd_launch_args_layout():
     k, v, dk, dv = (torch.zeros((B, Tk, H, D)) for _ in range(4))
     lse = torch.zeros((B, H, Tq))
     dsum = torch.zeros((B, H, Tq))
-    blob = tattn._bwd_launch_args(q, k, v, o, do, lse, dsum, dq, dk, dv,
-                                  True, 5, 0)
+    blob = tattn._bwd_launch_args("simt", q, k, v, o, do, lse, dsum, dq,
+                                  dk, dv, True, 5, 0)
     got = struct.unpack("43q", blob)
     assert got[:10] == tuple(t.data_ptr() for t in (q, k, v, o, do, lse,
                                                      dsum, dq, dk, dv))
@@ -189,6 +189,56 @@ def test_bwd_launch_args_layout():
                         + o.stride()[:3] + do.stride()[:3]
                         + dq.stride()[:3] + dk.stride()[:3]
                         + dv.stride()[:3])
+
+
+def _bwd_wgmma_args(q, k, v, o, do, dq, dk, dv, causal=True, stream=5,
+                    device=1):
+    B, Tq, H, _ = q.shape
+    lse, dsum = (torch.zeros((B, H, Tq)) for _ in range(2))
+    return (lse, dsum), _unpack(tattn._bwd_launch_args(
+        "wgmma", q, k, v, o, do, lse, dsum, dq, dk, dv, causal, stream,
+        device))
+
+
+def test_bwd_launch_args_of_the_wgmma_route():
+    # q/k/v as the training path hands them in (strided views of the
+    # fused projection), o and do contiguous, the outputs contiguous
+    B, T, H, D = 2, 40, 3, 128
+    qkv = torch.zeros((B, T, 3 * H * D), dtype=BF16)
+    q, k, v = (x.reshape(B, T, H, D)
+               for x in torch.split(qkv, H * D, dim=-1))
+    o, do, dq, dk, dv = (torch.zeros((B, T, H, D), dtype=BF16)
+                         for _ in range(5))
+    (lse, dsum), got = _bwd_wgmma_args(q, k, v, o, do, dq, dk, dv)
+    assert len(got) == 19 + 8 * 11
+    assert got[:10] == tuple(t.data_ptr() for t in (q, k, v, o, do, lse,
+                                                     dsum, dq, dk, dv))
+    assert got[10:19] == (B, H, T, T, D, 1, 5, 1, 1)
+    row = 3 * H * D * 2
+    for i, t in enumerate((q, k, v, o, do, dq, dk, dv)):
+        dims, strides, box = _tma_args(t)
+        assert got[19 + 11 * i:30 + 11 * i] == dims + strides + box
+        assert dims == (D, H, T, B)
+        assert strides == ((2 * D, row, row * T) if i < 3 else
+                           (2 * D, 2 * D * H, 2 * D * H * T))
+
+
+def test_bwd_launch_args_refuse_what_tma_cannot_read():
+    B, T, H, D = 2, 8, 2, 64
+    good = torch.zeros((B, T, H, D), dtype=BF16)
+    odd = torch.zeros(1 + B * T * H * D, dtype=BF16)[1:].view(B, T, H, D)
+    wide = torch.zeros((B, T, H, 68), dtype=BF16)[..., :64]
+    with pytest.raises(ValueError, match="flash_attention_bwd: .*aligned "
+                                         "base"):
+        _bwd_wgmma_args(good, good, good, good, odd, good, good, good)
+    with pytest.raises(ValueError, match="flash_attention_bwd: .*multiples "
+                                         "of 16"):
+        _bwd_wgmma_args(good, wide, good, good, good, good, good, good)
+    # the simt route reads any alignment
+    lse = torch.zeros((B, H, T))
+    assert len(tattn._bwd_launch_args("simt", good, wide, good, good, odd,
+                                      lse, lse, good, good, good, True, 0,
+                                      0)) == 43 * 8
 
 
 def test_bwd_cpu_calls_count_no_launch():
@@ -201,4 +251,4 @@ def test_bwd_cpu_calls_count_no_launch():
     assert dq.shape == q.shape and dq.dtype == BF16
     assert tattn.flash_attention_bwd.launches == n0
     assert tattn.flash_attention_bwd.launches_by_route == before
-    assert set(before) == {"mma", "simt"}
+    assert set(before) == {"wgmma", "simt"}

@@ -12,9 +12,11 @@ Tolerances: flash attention float32 1e-4 abs (another summation order
 than the plain version's einsum), bfloat16 2e-2 abs against the plain
 version run in float32 on the same bfloat16 inputs (the output is
 rounded to bfloat16, and the ``wgmma`` route also rounds the
-probabilities to bfloat16 for P·V).  Every flash case asserts the route
-it took: bf16 with head_dim 64 or 128 on ``wgmma``, the rest on
-``simt``.  The ``mx.rtc`` add kernel (``csrc/rtc/add.cu``,
+probabilities to bfloat16 for P·V).  The backward: each head's largest
+error over that head's largest gradient, float32 1e-4, bfloat16 1e-2
+(its ``wgmma`` route also rounds P and dS to bfloat16 for their
+products).  Every flash case asserts the route it took: bf16 with
+head_dim 64 or 128 on ``wgmma``, the rest on ``simt``.  The ``mx.rtc`` add kernel (``csrc/rtc/add.cu``,
 compiled by NVRTC) exactly: one IEEE add per element, rounded to
 nearest even in bfloat16 as PyTorch's add does.  ``mx.nd`` ops on
 ``gpu(0)`` against the same ops on ``cpu()``: exact for elementwise
@@ -189,12 +191,23 @@ BWD_CASES = CASES + [
     (1, 100, 60, 2, 64, True),    # Tq > Tk: 40 rows see no key
     (1, 64, 200, 2, 128, True),
     (1, 130, 130, 2, 128, False),
+] + [
+    # bf16 takes the wgmma route at D 64 and 128: the tile edges (T of 2,
+    # 15, 64, 65, 200; at Tq = Tk = 1 dq and dk are exactly 0, dS = P (dP
+    # - D) cancelling, so no head has a scale), one query row, Tq < Tk,
+    # Tq > Tk (fully masked rows), full attention, several heads
+    (B, Tq, Tk, H, D, causal) for D in (64, 128)
+    for B, Tq, Tk, H, causal in [(2, T, T, 3, True) for T in (2, 15, 64, 65,
+                                                          200)]
+    + [(2, 1, 40, 3, True), (2, 64, 192, 3, True), (2, 100, 60, 3, True),
+       (2, 200, 200, 3, False), (1, 300, 513, 2, False),
+       (2, 256, 256, 12, True)]
 ]
 # head-scaled limits (a head's largest error over that head's largest
 # magnitude of the reference, the scale of a gradient's rounding: a row
 # can cancel to ~0, as causal row 0 of dq does exactly, so a row's own
 # magnitude is no scale): float32 is another summation order; the bf16
-# gradients are rounded to bf16 on output, and the mma route (bf16,
+# gradients are rounded to bf16 on output, and the wgmma route (bf16,
 # head_dim 64/128) also rounds P and dS to bf16 for their products
 BWD_HEAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
@@ -247,7 +260,7 @@ def test_flash_bwd_matches_reference(cuda_device, case, dtype):
     do = torch.randn((B, Tq, H, D), generator=g).to(cuda_device, dtype)
     o, lse = _fwd_with_lse(q, k, v, causal)
     route = tattn.bwd_route(q, k, v, o, do)
-    assert route == ("mma" if dtype == torch.bfloat16 and D in (64, 128)
+    assert route == ("wgmma" if dtype == torch.bfloat16 and D in (64, 128)
                      else "simt")
     n0 = tattn.flash_attention_bwd.launches
     r0 = tattn.flash_attention_bwd.launches_by_route[route]

@@ -1,5 +1,5 @@
-"""Time the port's two hand-written kernels on one NVIDIA GPU, for A/B
-runs of two checkouts in one call.
+"""Time the port's hand-written kernels on one NVIDIA GPU, for A/B runs
+of two checkouts in one call.
 
     python3 tools/torch_kernel_ab.py [--pkg-root DIR] [--label NAME]
 
@@ -15,6 +15,15 @@ one JSON line:
   10 back-to-back calls (``*_ms``, hot L2), for one call (host launch
   included, ``*_single_call_ms``), and per call in a CUDA graph of 10
   (device only, ``*_graph_ms``).
+* ``flash_bwd``: ``flash_attention_bwd`` at the train_lm phase's cell,
+  (8, 1024, 1024, 12, 64), causal, bf16, from the forward kernel's output
+  and log-sum-exp: its route, each gradient's largest error over its
+  head's largest magnitude against ``flash_attention_bwd_reference``,
+  the time of 10 back-to-back calls (``kernel_ms``), per call in a CUDA
+  graph of 3 (``graph_ms``), and the device time under torch.profiler
+  with its kernels by name (``device_ms``, ``device_kernels``); SDPA's
+  backward alone through autograd, host-timed (``library_ms``) and under
+  torch.profiler (``library_device_ms``, ``library_kernels``).
 * ``add``: the ``mx.rtc`` ``add`` kernel (``csrc/rtc/add.cu``) of that
   directory at 2**26 float32 against ``torch.add``, 10 calls back to
   back, on two grids: ``resident`` (``chip_smoke._add_grid``: 256-thread
@@ -35,7 +44,9 @@ import torch.nn.functional as F
 
 HERE = Path(__file__).resolve().parents[1]
 MAIN = (4, 512, 512, 12, 64)
+TRAIN = (8, 1024, 1024, 12, 64)
 N_ADD = 2 ** 26
+
 
 def _load_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke_tools",
@@ -70,6 +81,37 @@ def time_flash(smoke, attn):
             "library_single_call_ms": smoke.time_ms(lib),
             "kernel_graph_ms": smoke.graph_ms(kern),
             "library_graph_ms": smoke.graph_ms(lib)}
+
+
+def time_flash_bwd(smoke, attn):
+    B, Tq, Tk, H, D = TRAIN
+    g = torch.Generator(device="cpu").manual_seed(1)
+    q, k, v, do = (torch.randn((B, T, H, D), generator=g).to(
+        "cuda", torch.bfloat16) for T in (Tq, Tk, Tk, Tq))
+    o, lse = attn.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    got = attn.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    f32 = [t.float() for t in (q, k, v, o, do)]
+    want = attn.flash_attention_bwd_reference(
+        f32[0], f32[1], f32[2], f32[3], lse, f32[4], causal=True)
+    kern = lambda: attn.flash_attention_bwd(  # noqa: E731
+        q, k, v, o, lse, do, causal=True)
+    qt, kt, vt = (t.transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+    out_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib = lambda: torch.autograd.grad(  # noqa: E731
+        out_t, (qt, kt, vt), do.transpose(1, 2), retain_graph=True)
+    dev_ms, dev_kernels = smoke.profiled_ms(kern)
+    lib_dev_ms, lib_kernels = smoke.profiled_ms(lib)
+    return {"shape": list(TRAIN), "causal": True, "dtype": "bfloat16",
+            "route": attn.bwd_route(q, k, v, o, do),
+            "head_err": {n: smoke.head_scaled_err(a, b) for n, a, b in
+                         zip(("dq", "dk", "dv"), got, want)},
+            "kernel_ms": smoke.time_ms(kern, iters=10),
+            "graph_ms": smoke.graph_ms(kern, inner=3),
+            "device_ms": dev_ms, "device_kernels": dev_kernels,
+            "library_ms": smoke.time_ms(lib, iters=10),
+            "library_device_ms": lib_dev_ms, "library_kernels": lib_kernels,
+            "bound_ms": smoke.attention_bwd_bound(*TRAIN, True,
+                                                  torch.bfloat16)[0]}
 
 
 def _time_add(smoke, mx, kernel, grid, x, y, out, want):
@@ -125,6 +167,7 @@ def main(argv=None) -> int:
     row = {"label": args.label, "pkg_root": str(root),
            "device": torch.cuda.get_device_name(0),
            "flash": time_flash(smoke, attn),
+           "flash_bwd": time_flash_bwd(smoke, attn),
            "add": time_add(smoke, mx, rtc, root)}
     print(json.dumps(row), flush=True)
     return 0
