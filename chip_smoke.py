@@ -1623,6 +1623,42 @@ def resnet50(ctx, seed=0):
     return net
 
 
+def sym_resnet50(num_classes=1000):
+    """Symbolic ResNet-50 v1 (bottleneck 3-4-6-3) on the port's
+    ``mx.sym``: a copy of ``bench.py:1219`` ``_sym_resnet50``, which
+    builds on the JAX package (its ``tojson`` is byte-equal to this one's,
+    tests/test_torch_chip_smoke.py)."""
+    import mxnet_tpu_torch as mx
+
+    def conv_bn(x, f, k, s, p, name, relu=True):
+        x = mx.sym.Convolution(x, num_filter=f, kernel=(k, k), stride=(s, s),
+                               pad=(p, p), no_bias=True, name=name + "_conv")
+        x = mx.sym.BatchNorm(x, fix_gamma=False, name=name + "_bn")
+        return mx.sym.Activation(x, act_type="relu") if relu else x
+
+    def bottleneck(x, f, stride, match, name):
+        sc = x if match else conv_bn(x, 4 * f, 1, stride, 0,
+                                     name + "_sc", relu=False)
+        y = conv_bn(x, f, 1, 1, 0, name + "_a")
+        y = conv_bn(y, f, 3, stride, 1, name + "_b")
+        y = conv_bn(y, 4 * f, 1, 1, 0, name + "_c", relu=False)
+        return mx.sym.Activation(y + sc, act_type="relu")
+
+    x = mx.sym.Variable("data")
+    x = conv_bn(x, 64, 7, 2, 3, "stem")
+    x = mx.sym.Pooling(x, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                       pool_type="max")
+    for stage, (f, blocks) in enumerate([(64, 3), (128, 4), (256, 6),
+                                         (512, 3)]):
+        for b in range(blocks):
+            stride = 2 if (stage > 0 and b == 0) else 1
+            x = bottleneck(x, f, stride, b > 0, "s%d_b%d" % (stage, b))
+    x = mx.sym.Pooling(x, global_pool=True, pool_type="avg", kernel=(7, 7))
+    x = mx.sym.FullyConnected(mx.sym.Flatten(x), num_hidden=num_classes,
+                              name="fc")
+    return mx.sym.SoftmaxOutput(x, name="softmax")
+
+
 def train_batch(batch, ctx, seed=0):
     """A batch as ``bench_model`` draws it: ``nd.random.uniform`` images
     and ``np.random.randint(0, 1000)`` labels."""
@@ -2230,6 +2266,327 @@ def phase_train_lm_numerics():
     return row
 
 
+# ---------------------------------------------------------------------
+# the symbolic path: ResNet-50 v1 through mx.sym + Module.fit
+# ---------------------------------------------------------------------
+# bench_fit_loop (bench.py:1254-1298): batch 32, 224x224, 1000 classes,
+# float32 (TF32 off), NDArrayIter over 8 batches from numpy seed 0, Xavier,
+# SGD lr 0.05 momentum 0.9, engine.set_bulk_size(8), 3 epochs; images/s
+# from the fastest later epoch (the first pays one-time costs)
+FIT = dict(batch=32, image=224, classes=1000, n_batches=8, bulk_k=8,
+           epochs=3, lr=0.05, momentum=0.9)
+FIT_FUSED_WARMUP, FIT_FUSED_WINDOWS = 3, 2
+# fit_numerics: the same symbol cut to batch 4, 64x64, 10 classes; two
+# Module.fit steps in float64 on the card against the port on the CPU:
+# parameters and BatchNorm moving statistics within 1e-10 of the
+# update's size (as train_numerics, whose float64 trajectory agrees to
+# ~1e-11)
+FIT_NUM = dict(batch=4, image=64, classes=10, steps=2)
+FIT_NUM_TOL = 1e-10
+# export: the Gluon resnet50_v1 forward against its exported symbol
+# through Module and through SymbolBlock.imports, float32: each row's
+# error over that row's largest magnitude
+EXPORT_BATCH, EXPORT_RTOL = 8, 1e-5
+
+
+def _cast_module(mod, dtype):
+    """Every cell of a bound module's executor in ``dtype`` (a Module
+    binds float32 cells, as the JAX package's)."""
+    ex = mod._exec
+    for cells in (ex.arg_dict, ex.aux_dict, ex.grad_dict):
+        for cell in cells.values():
+            if cell is not None:
+                cell._data = cell._data.to(dtype)
+
+
+def _fit_data(batch, image, classes, n_batches, seed=0):
+    rng = np.random.RandomState(seed)
+    X = rng.rand(batch * n_batches, 3, image, image).astype(np.float32)
+    y = rng.randint(0, classes, batch * n_batches).astype(np.float32)
+    return X, y
+
+
+def _fit_run(bulk_k, X, y):
+    """``Module.fit`` of the symbolic ResNet-50 as ``bench_fit_loop``
+    runs it; returns the row and the module."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import engine
+
+    it = mx.io.NDArrayIter(X, y, batch_size=FIT["batch"],
+                           label_name="softmax_label")
+    mod = mx.mod.Module(sym_resnet50(FIT["classes"]), context=mx.gpu(0))
+    marks, metrics = [], []
+
+    def clock(*_):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    def batch_end(param):
+        metrics.append(dict(param.eval_metric.get_name_value()))
+
+    np.random.seed(0)    # Xavier draws from numpy's global generator
+    prev = engine.set_bulk_size(bulk_k)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    try:
+        mod.fit(it, num_epoch=FIT["epochs"], optimizer="sgd",
+                optimizer_params=(("learning_rate", FIT["lr"]),
+                                  ("momentum", FIT["momentum"])),
+                eval_metric=["acc", "ce"], epoch_end_callback=clock,
+                batch_end_callback=batch_end,
+                initializer=mx.init.Xavier())
+    finally:
+        engine.set_bulk_size(prev)
+    launches = _kernel_counts()
+    epochs = [b - a for a, b in zip([t0] + marks, marks)]
+    steps = FIT["n_batches"] * FIT["epochs"]
+    loop = mod._bulk_loop
+    row = {"bulk_k": bulk_k,
+           "images_per_s": FIT["batch"] * FIT["n_batches"] / min(epochs[1:]),
+           "epoch_s": epochs, "first_epoch_s": epochs[0],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "kernel_launches": launches,
+           "kernel_launches_per_step": {
+               k: v / steps for k, v in launches.items()
+               if isinstance(v, int)},
+           "bulk_used": bool(loop is not None and loop.groups > 0),
+           "bulk_groups": loop.groups if loop is not None else 0,
+           "bulk_steps": loop.steps if loop is not None else 0,
+           "last_train_metrics": metrics[-1],
+           "metrics_finite": all(np.isfinite(v) for m in metrics
+                                 for v in m.values())}
+    return row, mod
+
+
+def _fused_ips(X, y):
+    """``FusedTrainStep`` on the Gluon zoo ``resnet50_v1`` at the fit's
+    batch, image size and dtype (bench.py:1301-1322
+    ``bench_fit_with_comparator``): images/s of the best window of
+    ``bulk_k`` steps."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.parallel.dp import FusedTrainStep
+
+    ctx = mx.gpu(0)
+    net = resnet50(ctx)
+    step = FusedTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                          learning_rate=FIT["lr"], momentum=FIT["momentum"])
+    data = mx.nd.array(X[:FIT["batch"]], ctx=ctx)
+    label = mx.nd.array(y[:FIT["batch"]], ctx=ctx)
+    step.run_steps(data, label, steps=FIT_FUSED_WARMUP).asnumpy()
+    best = None
+    for _ in range(FIT_FUSED_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = step.run_steps(data, label, steps=FIT["bulk_k"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        best = wall if best is None else min(best, wall)
+    if not np.isfinite(losses.asnumpy()).all():
+        raise RuntimeError("fit: the FusedTrainStep comparator's loss is "
+                           "not finite")
+    return FIT["batch"] * FIT["bulk_k"] / best
+
+
+def phase_fit():
+    """The symbolic ResNet-50 v1 at full width through ``Module.fit``,
+    bulk K=8 and per-batch, and the ``FusedTrainStep`` comparator."""
+    X, y = _fit_data(FIT["batch"], FIT["image"], FIT["classes"],
+                     FIT["n_batches"])
+    bulk, mod = _fit_run(FIT["bulk_k"], X, y)
+    del mod
+    per_batch, mod = _fit_run(1, X, y)
+    del mod
+    fused = _fused_ips(X, y)
+    row = {"phase": "fit", "model": "sym_resnet50 (bench.py:1219)",
+           "batch": FIT["batch"], "image": FIT["image"],
+           "classes": FIT["classes"], "dtype": "float32",
+           "allow_tf32": False, "n_batches": FIT["n_batches"],
+           "epochs": FIT["epochs"], "init": "Xavier, numpy seed 0",
+           "optimizer": {"lr": FIT["lr"], "momentum": FIT["momentum"]},
+           "images_per_s": bulk["images_per_s"],
+           "bulk_used": bulk["bulk_used"], "bulk": bulk,
+           "per_batch": per_batch,
+           "bulk_vs_per_batch":
+               bulk["images_per_s"] / per_batch["images_per_s"],
+           "fused_images_per_s": fused,
+           "fit_vs_fused": bulk["images_per_s"] / fused,
+           "kernel_launches": bulk["kernel_launches"]}
+    emit(row)
+    for run in (bulk, per_batch):
+        if not run["metrics_finite"]:
+            raise RuntimeError("fit: a train metric is not finite: %r"
+                               % (run["last_train_metrics"],))
+    if not bulk["bulk_used"] or bulk["bulk_steps"] != \
+            FIT["n_batches"] * FIT["epochs"]:
+        raise RuntimeError("fit: Module.fit did not take the bulk path "
+                           "(%d groups, %d steps)"
+                           % (bulk["bulk_groups"], bulk["bulk_steps"]))
+    if per_batch["bulk_used"]:
+        raise RuntimeError("fit: the per-batch run took the bulk path")
+    return row
+
+
+def _fit_steps(ctx, w0, aux0, X, y, bulk_k):
+    """Two ``Module.fit`` steps of the cut symbol in float64 on ``ctx``
+    from ``w0`` / ``aux0``; returns the parameters (aux included) after
+    each step, and the losses."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import engine
+
+    it = mx.io.NDArrayIter(X, y, batch_size=FIT_NUM["batch"],
+                           label_name="softmax_label")
+    mod = mx.mod.Module(sym_resnet50(FIT_NUM["classes"]), context=ctx)
+    mod.bind(it.provide_data, it.provide_label)
+    _cast_module(mod, torch.float64)
+    mod.init_params(arg_params=w0, aux_params=aux0)
+    params, losses = [], []
+
+    def host(m):
+        a, x = m.get_params()
+        return {k: v.asnumpy() for k, v in list(a.items()) +
+                list(x.items())}
+
+    def batch_end(param):
+        # the running cross-entropy (eval_metric ["acc", "ce"])
+        losses.append(param.eval_metric.get_name_value()[1][1])
+        if bulk_k == 1:
+            params.append(host(mod))
+
+    prev = engine.set_bulk_size(bulk_k)
+    try:
+        mod.fit(it, num_epoch=1, optimizer="sgd", eval_metric=["acc", "ce"],
+                optimizer_params=(("learning_rate", FIT["lr"]),
+                                  ("momentum", FIT["momentum"])),
+                batch_end_callback=batch_end)
+    finally:
+        engine.set_bulk_size(prev)
+    if bulk_k != 1:
+        params = [None, host(mod)]
+    return params, np.array(losses), mod
+
+
+def phase_fit_numerics():
+    """The fit's symbol cut to batch 4, 64x64, 10 classes: two float64
+    ``Module.fit`` steps on the card against the same on the CPU (the
+    parameters and BatchNorm moving statistics within ``FIT_NUM_TOL`` of
+    the update's size), and bulk K=2 on the card equal to per-batch."""
+    import mxnet_tpu_torch as mx
+
+    n = FIT_NUM["batch"] * FIT_NUM["steps"]
+    X, y = _fit_data(FIT_NUM["batch"], FIT_NUM["image"], FIT_NUM["classes"],
+                     FIT_NUM["steps"], seed=7)
+    X = X.astype(np.float64)
+    # the start: Xavier (numpy seed 0) on the CPU, in float64
+    start = mx.mod.Module(sym_resnet50(FIT_NUM["classes"]),
+                          context=mx.cpu())
+    start.bind([("data", (FIT_NUM["batch"], 3, FIT_NUM["image"],
+                          FIT_NUM["image"]))],
+               [("softmax_label", (FIT_NUM["batch"],))])
+    _cast_module(start, torch.float64)
+    np.random.seed(0)
+    start.init_params(mx.init.Xavier())
+    w0, aux0 = start.get_params()
+    flat0 = {k: v.asnumpy() for k, v in list(w0.items()) + list(aux0.items())}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        card, card_loss, _ = _fit_steps(mx.gpu(0), w0, aux0, X, y, 1)
+        card_s = time.perf_counter() - t0
+        bulk, bulk_loss, bmod = _fit_steps(mx.gpu(0), w0, aux0, X, y,
+                                           FIT_NUM["steps"])
+    finally:
+        torch.backends.cudnn.deterministic = det
+    t0 = time.perf_counter()
+    ref, ref_loss, _ = _fit_steps(mx.cpu(), w0, aux0, X, y, 1)
+    cpu_s = time.perf_counter() - t0
+    upd = [_update_err(c, r, flat0) for c, r in zip(card, ref)]
+    aux_names = sorted(aux0)
+    aux_err = _update_err({k: card[-1][k] for k in aux_names},
+                          {k: ref[-1][k] for k in aux_names},
+                          {k: flat0[k] for k in aux_names})
+    skipped = _update_err(ref[0], ref[1], flat0)
+    bulk_diff = max(float(np.abs(bulk[-1][k] - card[-1][k]).max())
+                    for k in card[-1])
+    row = {"phase": "fit_numerics", "model": "sym_resnet50",
+           "cut": {"batch": FIT_NUM["batch"], "image": FIT_NUM["image"],
+                   "classes": FIT_NUM["classes"], "steps": FIT_NUM["steps"]},
+           "samples": n, "dtype": "float64",
+           "reference": "the port on the CPU, float64",
+           "card_ce": card_loss.tolist(), "cpu_ce": ref_loss.tolist(),
+           "update_rel_err": upd, "aux_update_rel_err": aux_err,
+           "tol": FIT_NUM_TOL, "fault_step2_skipped_err": skipped,
+           "bulk_used": bool(bmod._bulk_loop is not None
+                             and bmod._bulk_loop.groups == 1),
+           "bulk_vs_per_batch_max_abs_diff": bulk_diff,
+           "cudnn_deterministic": True,
+           "card_s": card_s, "cpu_s": cpu_s}
+    emit(row)
+    if not (max(upd) <= FIT_NUM_TOL and aux_err <= FIT_NUM_TOL):
+        raise RuntimeError("fit_numerics: the card's float64 trajectory "
+                           "differs from the CPU's by %r (aux %g; limit %g)"
+                           % (upd, aux_err, FIT_NUM_TOL))
+    if not skipped > FIT_NUM_TOL:
+        raise RuntimeError("fit_numerics: the check cannot tell a skipped "
+                           "step 2 (%g) from the reference" % skipped)
+    if not row["bulk_used"] or bulk_diff != 0.0:
+        raise RuntimeError("fit_numerics: bulk K=2 differs from per-batch "
+                           "by %g (bulk used: %s)"
+                           % (bulk_diff, row["bulk_used"]))
+    return row
+
+
+def phase_export():
+    """The Gluon ``resnet50_v1`` on the card through ``export``, then
+    ``mx.sym.load`` + ``Module`` (``for_training=False``) and
+    ``SymbolBlock.imports``: both against the Gluon forward."""
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.gpu(0)
+    net = resnet50(ctx)
+    rng = np.random.RandomState(11)
+    x = rng.uniform(0, 1, (EXPORT_BATCH, 3, 224, 224)).astype(np.float32)
+    data = mx.nd.array(x, ctx=ctx)
+    want = net(data).asnumpy()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        path = str(Path(tmp) / "resnet50_v1")
+        t0 = time.perf_counter()
+        net.export(path)
+        export_s = time.perf_counter() - t0
+        sym = mx.sym.load(path + "-symbol.json")
+        _, args, aux = mx.model.load_checkpoint(path, 0)
+        mod = mx.mod.Module(sym, label_names=None, context=ctx)
+        mod.bind([("data", x.shape)], for_training=False)
+        mod.set_params(args, aux)
+        mod.forward(mx.io.DataBatch([data]), is_train=False)
+        via_module = mod.get_outputs()[0].asnumpy()
+        blk = mx.gluon.SymbolBlock.imports(path + "-symbol.json", ["data"],
+                                           path + "-0000.params", ctx=ctx)
+        via_block = blk(data).asnumpy()
+        n_nodes = len(sym._topo())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    errs = {name: row_scaled_err(torch.from_numpy(got),
+                                 torch.from_numpy(want))
+            for name, got in (("module", via_module),
+                              ("symbol_block", via_block))}
+    row = {"phase": "export", "model": "resnet50_v1 (gluon zoo)",
+           "batch": EXPORT_BATCH, "image": 224, "dtype": "float32",
+           "symbol_nodes": n_nodes, "export_s": export_s,
+           "row_scaled_err": errs, "rtol": EXPORT_RTOL,
+           "finite": bool(np.isfinite(want).all())}
+    emit(row)
+    if not row["finite"] or not all(e <= EXPORT_RTOL for e in errs.values()):
+        raise RuntimeError("export: outputs differ from the Gluon forward "
+                           "by %r of each row (limit %g)"
+                           % (errs, EXPORT_RTOL))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -2254,6 +2611,9 @@ def main() -> int:
     phase_train_numerics()
     lm = phase_train_lm()
     phase_train_lm_numerics()
+    fit = phase_fit()
+    phase_fit_numerics()
+    phase_export()
     main_row, bwd_row = rows[0], bwd_rows[0]
     add_row = next(r for r in add_rows if "kernel_ms" in r)
     kernels = [{
@@ -2267,6 +2627,8 @@ def main() -> int:
                              "serve_http": http["flash_launches"],
                              "loadgen": load["flash_launches"],
                              "train_lm": lm["kernel_launches"][
+                                 "flash_attention_fwd"],
+                             "fit": fit["kernel_launches"][
                                  "flash_attention_fwd"]},
         "max_abs_err": max(r["max_err"] for r in rows),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
@@ -2289,6 +2651,10 @@ def main() -> int:
         # trains through (the Pallas kernel at :126 is forward only)
         "replaces": "mxnet_tpu/parallel/attention.py:76",
         "launches": lm["kernel_launches"]["flash_attention_bwd"],
+        "launches_by_path": {"train_lm": lm["kernel_launches"][
+                                 "flash_attention_bwd"],
+                             "fit": fit["kernel_launches"][
+                                 "flash_attention_bwd"]},
         "max_abs_err": max(r["max_err"] for r in bwd_rows),
         "ms": bwd_row["kernel_ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
@@ -2303,6 +2669,8 @@ def main() -> int:
         "source": "mxnet_tpu_torch/csrc/rtc/add.cu",
         "replaces": "tests/test_parity_tail.py:148",
         "launches": ndrow["rtc_launches"].get("add", 0),
+        "launches_by_path": {"ndarray": ndrow["rtc_launches"].get("add", 0),
+                             "fit": fit["kernel_launches"]["rtc_add"]},
         "max_abs_err": max(r["max_err"] for r in add_rows),
         "ms": add_row["kernel_ms"], "plain_ms": add_row["plain_ms"],
         "bound_ms": add_row["bound_ms"], "bound_by": add_row["bound_by"],

@@ -29,7 +29,14 @@ Ported so far:
   ``transformer.TransformerTrainStep`` (``fit`` with checkpoints and
   exact resume) over ``transformer.LMTokenIter`` (``io``), with the
   flash-attention forward and backward kernels, ``remat`` and the
-  bucket plan (``parallel.buckets``) that checkpoints record.
+  bucket plan (``parallel.buckets``) that checkpoints record;
+* the symbolic path on one device — ``sym`` (``symbol``: graphs, shape
+  and type inference, JSON that loads in either package), ``executor``,
+  ``mod`` (``Module`` with ``fit`` and the bulk K-step loop,
+  ``BucketingModule``, ``SequentialModule``, ``PythonModule``),
+  ``metric``, ``lr_scheduler``, ``callback``, ``monitor``, ``model``
+  (checkpoints, ``FeedForward``), the ``io`` iterators, and Gluon's
+  ``HybridBlock.export`` / ``SymbolBlock``.
 """
 from . import base, context, convert, env, parallel, serving, transformer
 from . import autograd, engine, ndarray, rtc
@@ -42,6 +49,12 @@ from . import optimizer
 from . import kvstore
 from . import kvstore as kv
 from . import gluon
+from . import name, attribute, symbol, executor
+from . import symbol as sym
+from . import metric, lr_scheduler, callback, monitor, model
+from . import module
+from . import module as mod
+from .attribute import AttrScope
 from .base import MXNetError
 from .context import (Context, cpu, cpu_pinned, current_context, gpu,
                       num_gpus, tpu)
@@ -54,5 +67,8 @@ __all__ = ["convert", "env", "parallel", "serving", "transformer", "io",
            "remat", "nd",
            "ndarray", "autograd", "engine", "rtc", "base", "context",
            "random", "initializer", "init", "optimizer", "kvstore", "kv",
-           "gluon", "Context", "cpu", "cpu_pinned", "gpu", "tpu",
+           "gluon", "name", "attribute", "symbol", "sym", "executor",
+           "metric", "lr_scheduler", "callback", "monitor", "model",
+           "module", "mod", "AttrScope",
+           "Context", "cpu", "cpu_pinned", "gpu", "tpu",
            "current_context", "num_gpus", "NDArray", "MXNetError"]

@@ -4,7 +4,9 @@ Both packages key a transformer's parameters by the names of
 ``param_shapes`` and store matrices in ``(in, out)`` orientation, so
 conversion is a per-array copy: nothing is transposed or renamed.
 A Gluon block's parameters cross by their names in
-``collect_params()`` (:func:`load_block_params`).  Arrays cross as
+``collect_params()`` (:func:`load_block_params`), a ``Module``'s by the
+names of its symbol's arguments and aux states
+(:func:`module_params_from_jax`).  Arrays cross as
 numpy (``np.asarray`` of a JAX array), which keeps the port free of any
 JAX import.
 """
@@ -17,7 +19,8 @@ import torch
 
 from ._device import resolve_device
 
-__all__ = ["params_from_jax", "params_to_numpy", "load_block_params"]
+__all__ = ["params_from_jax", "params_to_numpy", "load_block_params",
+           "module_params_from_jax"]
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
@@ -79,3 +82,26 @@ def load_block_params(block, np_params: Dict[str, np.ndarray]) -> None:
                              % (name, cell.shape, tuple(t.shape)))
         cell._set_data(t.to(device=cell._data.device,
                             dtype=cell._data.dtype))
+
+
+def module_params_from_jax(arg_params: Dict[str, np.ndarray],
+                           aux_params: Optional[Dict[str, np.ndarray]] = None,
+                           ctx=None):
+    """The port's ``(arg_params, aux_params)`` NDArray dicts, for
+    ``Module.set_params`` / ``init_params(arg_params=...)``, from the
+    JAX package's (``{name: nd.asnumpy()}`` of ``Module.get_params()``):
+    same names, each array copied in its own dtype onto ``ctx``
+    (default: the current context, the card; without one this raises
+    and names ``mx.cpu()``)."""
+    from .context import Context, current_context
+    from .ndarray import NDArray
+
+    ctx = Context(ctx) if ctx is not None else current_context()
+    dev = ctx.torch_device()
+
+    def convert(d):
+        return {name: NDArray.from_raw(_to_tensor(np.asarray(a)).to(dev),
+                                       ctx)
+                for name, a in (d or {}).items()}
+
+    return convert(arg_params), convert(aux_params)

@@ -7,7 +7,7 @@ Counterpart: ``mxnet_tpu/diagnostics.py``, the subset serving uses —
 :data:`metrics` (same metric names, label sets and exposition, so a
 dashboard reads either package), :func:`validate_prom_text`, the
 preemption and dump hooks, :func:`touch_heartbeat`, ``EXIT_PREEMPTED``,
-and for training :class:`DivergenceGuard` and the
+and for training :class:`DivergenceGuard`, :func:`loss_signal` and the
 ``mxnet_transformer_tokens_per_second`` gauge.  The guard always
 raises: its supervised exit (84) comes with the elastic supervisor
 (ROADMAP A11).  The collective flight
@@ -607,6 +607,27 @@ def tokens_per_second_gauge() -> Gauge:
     return metrics.gauge(
         "mxnet_transformer_tokens_per_second",
         "transformer fit throughput (tokens/s, this rank)")
+
+
+def loss_signal(name_values) -> Optional[float]:
+    """The loss-like scalar among a metric's ``(name, value)`` pairs —
+    what ``Module.fit``'s divergence guard feeds on: the first metric
+    whose name says loss/entropy/perplexity (spiking accuracy is not
+    divergence); failing that, any non-finite metric value."""
+    import math
+
+    fallback = None
+    for name, value in (name_values or ()):
+        try:
+            v = float(value)
+        except (TypeError, ValueError):
+            continue
+        n = str(name).lower()
+        if any(t in n for t in ("loss", "entropy", "perplex", "nll")):
+            return v
+        if not math.isfinite(v) and fallback is None:
+            fallback = v
+    return fallback
 
 
 class DivergenceError(RuntimeError):

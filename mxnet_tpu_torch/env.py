@@ -152,6 +152,13 @@ register("MXNET_METRICS_INTERVAL_S", "float", 30.0,
 register("MXNET_ELASTIC_HEARTBEAT_DIR", "str", None,
          "Directory of per-rank heartbeat files (hb_rank{K}) an "
          "elastic supervisor watches; touched by the serving workers.")
+# module/module.py
+register("MXNET_SKIP_NONFINITE_GRADS", "bool", False,
+         "Check gradients for NaN/Inf before the kvstore push/update "
+         "and skip the step (counting "
+         "mxnet_training_skipped_steps_total) instead of poisoning "
+         "the parameters.")
+
 register("MXNET_DIVERGENCE_WINDOW", "int", 0,
          "Loss-spike detector window (steps) of the transformer fit "
          "loop: once the window is full, a loss above median + factor "

@@ -1,0 +1,540 @@
+"""Executor — a bound Symbol, run eagerly on torch tensors.
+
+Counterpart: ``mxnet_tpu/executor.py`` (ref: GraphExecutor,
+src/executor/graph_executor.cc:512-1375, include/mxnet/executor.h).
+The JAX package lowers the graph to three jit-compiled programs over one
+pure evaluator; the port keeps the evaluator (:func:`build_graph_eval`,
+an eager walk over the topological order, with every rule of the JAX
+package's ``apply_node``) and runs it directly:
+
+  * ``forward(is_train)`` — one walk; in training it writes the aux
+    states (BatchNorm's moving statistics) back into their cells;
+  * ``run_train_step``    — one walk under ``torch.enable_grad`` and one
+    ``torch.autograd.grad`` to the arguments whose ``grad_req`` is not
+    ``null`` (the fused step ``Module.forward_backward`` drives); it
+    writes the aux states once;
+  * ``backward``          — ``run_train_step`` without touching the
+    outputs of an earlier ``forward``.  As in the JAX package, whose
+    backward recomputes the forward inside its fused program, it runs
+    the forward again: a manual ``forward(is_train=True)`` +
+    ``backward()`` moves the moving statistics twice, where
+    ``Module.forward_backward`` moves them once.
+
+Random ops draw from the per-device ``torch.Generator`` of
+``mx.random`` (``mx.random.seed`` reseeds it), where the JAX package
+folds the node index into a fresh key; parity tests never compare
+draws.  One device only: a ``group2ctx`` that places a group away from
+the executor's context raises (model parallelism, ROADMAP A6), and so
+do the conv-tier remat policies (``MXNET_REMAT_POLICY=stage|conv_block``)
+and ``MXNET_BACKWARD_DO_MIRROR`` (ROADMAP A7).  The profiler spans of
+the JAX package's Forward/Backward wait for ROADMAP A11.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from .base import MXNetError, torch_dtype
+from .context import Context, current_context
+from .ndarray import NDArray
+from .ops import registry as _op_registry
+
+__all__ = ["Executor", "build_graph_eval", "place_nodes"]
+
+
+def place_nodes(symbol, default_ctx: Context,
+                group2ctx: Optional[Dict[str, Context]]) -> None:
+    """The PlaceDevice pass (ref: graph_executor.cc:406) on one device:
+    nothing to place when every ``ctx_group`` maps to ``default_ctx``;
+    any other placement raises (ROADMAP A6).  ``ctx_group`` attributes
+    stay on the nodes and in the JSON either way."""
+    if not group2ctx:
+        return None
+    for node in symbol._topo():
+        group = node.attrs.get("__ctx_group__", node.attrs.get("ctx_group"))
+        if group is None:
+            continue
+        ctx = group2ctx.get(str(group), default_ctx)
+        if Context(ctx) != default_ctx:
+            raise MXNetError(
+                "group2ctx places ctx_group %r of node %r on %r, away from "
+                "the executor's %r: model-parallel placement is not ported "
+                "to mxnet_tpu_torch yet (ROADMAP A6)"
+                % (str(group), node.name, ctx, default_ctx))
+    return None
+
+
+def _refuse_remat() -> None:
+    """The executor's remat knobs are A7: the port's ``remat_policy``
+    raises for the conv scopes and the mirror; the transformer's
+    policies do not apply to a symbol graph."""
+    from .remat import remat_policy
+
+    remat_policy()
+
+
+def build_graph_eval(symbol, collect_internals: bool = False) -> Callable:
+    """Build ``fn(arg_vals, aux_vals, generator, training) -> (outputs,
+    aux_updates)`` over tensors (``aux_updates``: name -> new value).
+
+    With ``collect_internals`` the function returns a third value, a
+    dict name -> tensor of every op node's outputs, named
+    ``<node>_output`` / ``<node>_output<k>`` like the reference's
+    executor outputs — the data of the Monitor tap (ref:
+    GraphExecutor::ExecuteMonCallback, graph_executor.cc:1418)."""
+    topo = symbol._topo()
+    flat_outputs = symbol._flat_outputs()
+    aux_names = set(symbol.list_auxiliary_states())
+
+    # per node: (op, parsed params, aux writebacks [(k, aux name)])
+    plan = {}
+    for node in topo:
+        if node.is_variable:
+            continue
+        op = _op_registry.get(node.op)
+        params = {k: _op_registry.coerce_attr(v)
+                  for k, v in node.attrs.items() if not k.startswith("__")}
+        writes = []
+        for k, pos in enumerate(op.mutate_aux):
+            if pos < len(node.inputs):
+                parent, _ = node.inputs[pos]
+                if parent.is_variable and parent.name in aux_names:
+                    writes.append((k, parent.name))
+        plan[id(node)] = (op, params, writes)
+
+    def apply_node(node, args, generator, training):
+        """One op node -> (visible outputs, [(aux name, value)])."""
+        op, params, writes = plan[id(node)]
+        if op.train_aware:
+            params = dict(params, _training=training)
+        if op.rng:
+            args = [generator] + args
+        out = op.fn(*args, **params)
+        outs = list(out) if isinstance(out, tuple) else [out]
+        if op.nondiff:
+            # the reference registers no gradient for these ops
+            outs = [o.detach() for o in outs]
+        n_vis = len(outs) - len(op.mutate_aux)
+        # aux writebacks route to the feeding variable's name
+        aux_writes = [(name, outs[n_vis + k].detach()) for k, name in writes]
+        return outs[:n_vis], aux_writes
+
+    def eval_fn(arg_vals: Dict[str, torch.Tensor],
+                aux_vals: Dict[str, torch.Tensor], generator,
+                training: bool):
+        env: Dict[int, List[Any]] = {}
+        aux_updates: Dict[str, torch.Tensor] = {}
+        internals: Dict[str, torch.Tensor] = {}
+        for node in topo:
+            if not node.is_variable:
+                continue
+            if node.name in aux_vals:
+                val = aux_vals[node.name]
+            elif node.name in arg_vals:
+                val = arg_vals[node.name]
+            else:
+                raise MXNetError("unbound variable %r" % node.name)
+            env[id(node)] = [val]
+        for node in topo:
+            if node.is_variable:
+                continue
+            args = [env[id(p)][oi] for p, oi in node.inputs]
+            outs, aux_writes = apply_node(node, args, generator, training)
+            env[id(node)] = outs
+            if collect_internals:
+                for k in range(len(outs)):
+                    suffix = "_output" if len(outs) == 1 else "_output%d" % k
+                    internals[node.name + suffix] = outs[k]
+            for name, val in aux_writes:
+                aux_updates[name] = val
+        outputs = [env[id(n)][oi] for n, oi in flat_outputs]
+        if collect_internals:
+            return outputs, aux_updates, internals
+        return outputs, aux_updates
+
+    return eval_fn
+
+
+class Executor:
+    """ref: python/mxnet/executor.py Executor."""
+
+    def __init__(self, symbol, ctx: Context, arg_dict: Dict[str, NDArray],
+                 grad_dict: Dict[str, Optional[NDArray]],
+                 aux_dict: Dict[str, NDArray], grad_req, group2ctx=None,
+                 out_shapes=None):
+        self._symbol = symbol
+        self._ctx = ctx or current_context()
+        self._device = self._ctx.torch_device()
+        self.arg_dict = arg_dict
+        self.grad_dict = grad_dict
+        self.aux_dict = aux_dict
+        self._arg_names = symbol.list_arguments()
+        self._aux_names = symbol.list_auxiliary_states()
+        self._output_names = symbol.list_outputs()
+        if isinstance(grad_req, str):
+            grad_req = {k: grad_req for k in self._arg_names}
+        elif isinstance(grad_req, (list, tuple)):
+            grad_req = dict(zip(self._arg_names, grad_req))
+        self._grad_req = grad_req
+        self._group2ctx = dict(group2ctx) if group2ctx else None
+        place_nodes(symbol, self._ctx, self._group2ctx)
+        _refuse_remat()
+        self._eval = build_graph_eval(symbol)
+        self._eval_internals = None
+        self._grad_names = [k for k in self._arg_names
+                            if self._grad_req.get(k, "null") != "null"]
+
+        # outputs are STABLE cells allocated at bind time and refilled by
+        # every forward: reference code captures ``exec.outputs`` once
+        # and reads it after each forward, so identity must survive
+        self.outputs: List[NDArray] = []
+        try:
+            if out_shapes is None:  # bind() path: infer once here
+                from .symbol.infer import infer_shape
+
+                shapes = {k: tuple(v.shape) for k, v in arg_dict.items()}
+                _, out_shapes, _ = infer_shape(symbol, **shapes)
+            self.outputs = [NDArray.from_raw(
+                torch.zeros(s, device=self._device), self._ctx)
+                for s in out_shapes if s is not None]
+            if len(self.outputs) != len(self._output_names):
+                self.outputs = []
+        except MXNetError:
+            self.outputs = []  # the first forward materializes them
+        # bind-time cells hold zeros until a forward runs
+        self._forward_done = False
+        self._monitor_callback = None
+        self._monitor_all = False
+
+    # -- binding entry points ------------------------------------------
+    @staticmethod
+    def simple_bind(symbol, ctx=None, grad_req="write", type_dict=None,
+                    shared_exec=None, group2ctx=None, **kwargs) -> "Executor":
+        """Allocate zero-filled argument, gradient and aux cells from the
+        given shapes (float32 unless ``type_dict`` says otherwise; aux
+        states float32, as the JAX package) on ``ctx`` (default: the
+        current context, the card) and bind."""
+        from .symbol.infer import infer_shape
+
+        ctx = Context(ctx) if ctx is not None else current_context()
+        place_nodes(symbol, ctx, group2ctx)
+        dev = ctx.torch_device()
+        shapes = {k: v for k, v in kwargs.items()
+                  if isinstance(v, (tuple, list))}
+        arg_shapes, out_shapes, aux_shapes = infer_shape(symbol, **shapes)
+        type_dict = type_dict or {}
+        arg_names = symbol.list_arguments()
+        aux_names = symbol.list_auxiliary_states()
+
+        def cell(shape, dt):
+            return NDArray.from_raw(
+                torch.zeros(tuple(shape), dtype=dt, device=dev), ctx)
+
+        arg_dict: Dict[str, NDArray] = {}
+        grad_dict: Dict[str, Optional[NDArray]] = {}
+        aux_dict: Dict[str, NDArray] = {}
+        for name, shape in zip(arg_names, arg_shapes):
+            if shape is None:
+                raise MXNetError("simple_bind: could not infer shape of %r"
+                                 % name)
+            dt = torch_dtype(type_dict.get(name, "float32"))
+            arg_dict[name] = cell(shape, dt)
+            req = grad_req if isinstance(grad_req, str) \
+                else grad_req.get(name, "null")
+            grad_dict[name] = cell(shape, dt) if req != "null" else None
+        for name, shape in zip(aux_names, aux_shapes):
+            aux_dict[name] = cell(shape, torch.float32)
+        # out_shapes rides along: the constructor must not re-run the
+        # whole-graph inference this bind just performed
+        return Executor(symbol, ctx, arg_dict, grad_dict, aux_dict, grad_req,
+                        group2ctx=group2ctx, out_shapes=out_shapes)
+
+    @staticmethod
+    def bind(symbol, ctx=None, args=None, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None, shared_exec=None) -> "Executor":
+        """ref: python/mxnet/symbol.py bind.  ``args_grad=None`` means no
+        gradients; a dict grants them only to the names it lists
+        (symbol.py:1638).  ``shared_exec`` is accepted and has no effect:
+        the caching allocator owns the memory."""
+        ctx = Context(ctx) if ctx is not None else current_context()
+        ctx.torch_device()  # a missing card raises here, naming mx.cpu()
+        arg_names = symbol.list_arguments()
+        aux_names = symbol.list_auxiliary_states()
+        if isinstance(args, (list, tuple)):
+            arg_dict = dict(zip(arg_names, args))
+        else:
+            arg_dict = dict(args or {})
+        if isinstance(args_grad, (list, tuple)):
+            grad_dict = dict(zip(arg_names, args_grad))
+        else:
+            grad_dict = dict(args_grad or {})
+
+        def _declared_req(name):
+            if isinstance(grad_req, str):
+                return grad_req
+            if isinstance(grad_req, (list, tuple)):
+                return dict(zip(arg_names, grad_req)).get(name, "null")
+            return grad_req.get(name, "null")
+
+        eff_req = {}
+        for name in arg_names:
+            if grad_dict.get(name) is not None:
+                eff_req[name] = _declared_req(name)
+            else:
+                grad_dict[name] = None
+                eff_req[name] = "null"
+        if isinstance(aux_states, (list, tuple)):
+            aux_dict = dict(zip(aux_names, aux_states))
+        else:
+            aux_dict = dict(aux_states or {})
+        for name in aux_names:
+            if name not in aux_dict:
+                raise MXNetError("bind: missing aux state %r" % name)
+        return Executor(symbol, ctx, arg_dict, grad_dict, aux_dict, eff_req,
+                        group2ctx=group2ctx)
+
+    # -- execution ------------------------------------------------------
+    def _generator(self) -> torch.Generator:
+        from . import random as _random
+
+        return _random.generator(self._device)
+
+    def _arg_vals(self) -> Dict[str, torch.Tensor]:
+        return {k: v._data for k, v in self.arg_dict.items()}
+
+    def _aux_vals(self) -> Dict[str, torch.Tensor]:
+        return {k: v._data for k, v in self.aux_dict.items()}
+
+    def debug_str(self) -> str:
+        """The execution plan's summary, ending in the reference's
+        'Total N MB allocated' line (graph_executor debug_str;
+        example/memcost reads it): the bytes of every bound cell —
+        arguments, gradients, aux states and outputs.  The JAX package
+        reports its compiled program's buffers there; an eager run has
+        no program, so its transient activations are not in the sum."""
+        lines = ["Symbol Outputs:"]
+        lines += ["\toutput[%d]=%s" % (i, n)
+                  for i, n in enumerate(self._output_names)]
+        cells = list(self.arg_dict.values()) + list(self.aux_dict.values()) \
+            + [g for g in self.grad_dict.values() if g is not None] \
+            + list(self.outputs)
+        nbytes = sum(c._data.numel() * c._data.element_size() for c in cells)
+        lines.append("Total %d MB allocated" % int(round(nbytes / (1 << 20))))
+        lines.append("Total 0 MB TempSpace resource requested")
+        return "\n".join(lines) + "\n"
+
+    def _assign_input(self, name: str, value) -> None:
+        cell = self.arg_dict[name]
+        if isinstance(value, NDArray):
+            cell._data = value._data.detach().to(
+                device=cell._data.device, dtype=cell._data.dtype)
+        else:
+            cell[:] = value
+
+    def forward(self, is_train: bool = False, **kwargs) -> List[NDArray]:
+        """ref: GraphExecutor::Forward (graph_executor.cc:81)."""
+        for k, v in kwargs.items():
+            if k not in self.arg_dict:
+                raise MXNetError("forward: unknown argument %r" % k)
+            self._assign_input(k, v)
+        with torch.no_grad():
+            if self._monitor_callback is not None:
+                outs, aux_upd, internals = self._eval_monitored()(
+                    self._arg_vals(), self._aux_vals(), self._generator(),
+                    bool(is_train))
+                self._fire_monitor(internals)
+            else:
+                outs, aux_upd = self._eval(self._arg_vals(),
+                                           self._aux_vals(),
+                                           self._generator(), bool(is_train))
+        if is_train:
+            self._write_aux(aux_upd)
+        self._set_outputs(outs)
+        return self.outputs
+
+    # -- monitor tap (ref: MXExecutorSetMonitorCallback ->
+    #    GraphExecutor::ExecuteMonCallback, graph_executor.cc:1418) ------
+    def set_monitor_callback(self, callback, monitor_all: bool = False):
+        """Install a (name, NDArray) callback fired for every internal
+        node output after each forward; ``monitor_all`` also reports the
+        input arrays (as ``<name>_data``)."""
+        self._monitor_callback = callback
+        self._monitor_all = monitor_all
+
+    def _eval_monitored(self):
+        if self._eval_internals is None:
+            self._eval_internals = build_graph_eval(self._symbol,
+                                                    collect_internals=True)
+        return self._eval_internals
+
+    def _fire_monitor(self, internals) -> None:
+        if self._monitor_all:
+            for k, v in self.arg_dict.items():
+                self._monitor_callback(k + "_data", NDArray.from_raw(
+                    v._data.detach().clone(), self._ctx))
+        for name, val in internals.items():
+            self._monitor_callback(name, NDArray.from_raw(
+                val.detach().clone(), self._ctx))
+
+    def _train_step(self, cots, n_given: int, monitored: bool):
+        """One training forward and the gradients of the arguments in
+        ``_grad_names``, with the JAX package's head-gradient rules
+        (GraphExecutor::Backward): ``None`` means ones (loss outputs),
+        outputs past ``n_given`` get zero cotangents (their gradient is
+        dropped), a ``(1,)`` head gradient broadcasts over its output."""
+        arg_vals = self._arg_vals()
+        leaves = {k: arg_vals[k].detach().requires_grad_(True)
+                  for k in self._grad_names}
+        arg_vals.update(leaves)
+        eval_fn = self._eval_monitored() if monitored else self._eval
+        with torch.enable_grad():
+            res = eval_fn(arg_vals, self._aux_vals(), self._generator(), True)
+        outs, aux_upd = res[0], res[1]
+        if monitored:
+            self._fire_monitor(res[2])
+        heads, head_grads = [], []
+        for i, o in enumerate(outs):
+            if i >= n_given or not o.requires_grad:
+                continue
+            c = cots[i] if i < len(cots) else None
+            if c is None:
+                c = torch.ones_like(o)
+            else:
+                c = c.to(device=o.device, dtype=o.dtype).expand(o.shape)
+            heads.append(o)
+            head_grads.append(c)
+        names = list(leaves)
+        grads = torch.autograd.grad(heads, [leaves[n] for n in names],
+                                    head_grads, allow_unused=True) \
+            if heads and names else [None] * len(names)
+        grads = {n: (g if g is not None else torch.zeros_like(leaves[n]))
+                 for n, g in zip(names, grads)}
+        return [o.detach() for o in outs], grads, aux_upd
+
+    def backward(self, out_grads=None) -> None:
+        """ref: GraphExecutor::Backward (graph_executor.cc:94).  Runs the
+        training forward again and the gradients (see the module
+        docstring); the outputs of an earlier ``forward`` stay."""
+        self.run_train_step(out_grads=out_grads, update_outputs=False)
+
+    def run_train_step(self, out_grads=None, update_outputs: bool = True):
+        """Forward + gradients in one walk (``Module.forward_backward``):
+        writes the gradients per ``grad_req`` (``write`` / ``add``), the
+        aux states, and — with ``update_outputs`` or before any forward —
+        the outputs."""
+        n_out = len(self._output_names)
+        if out_grads is None:
+            cots = [None] * n_out
+            n_given = n_out
+        else:
+            if isinstance(out_grads, NDArray):
+                out_grads = [out_grads]
+            cots = [g._data if g is not None else None for g in out_grads]
+            n_given = len(cots)
+            cots += [None] * (n_out - n_given)
+        # the monitor tap fires on the fused-step path (fit's
+        # forward_backward); a manual forward() already fired it
+        monitored = self._monitor_callback is not None and update_outputs
+        outs, grads, aux_upd = self._train_step(cots, n_given, monitored)
+        self._write_aux(aux_upd)
+        if update_outputs or not self._forward_done:
+            self._set_outputs(outs)
+        for name in self._grad_names:
+            buf = self.grad_dict.get(name)
+            if buf is None:
+                continue
+            g = grads[name].to(buf._data.dtype)
+            if self._grad_req.get(name, "write") == "add":
+                buf._data = buf._data + g
+            else:
+                buf._data = g
+        return self.outputs
+
+    def _set_outputs(self, outs) -> None:
+        """Write forward results into the stable output cells (identity
+        preserved); (re)make cells only on first use or when a shape
+        changed."""
+        self._forward_done = True
+        if len(self.outputs) != len(outs):
+            self.outputs = [NDArray.from_raw(o, self._ctx) for o in outs]
+            return
+        for i, o in enumerate(outs):
+            cell = self.outputs[i]
+            if tuple(cell.shape) == tuple(o.shape):
+                cell._data = o
+            else:
+                self.outputs[i] = NDArray.from_raw(o, self._ctx)
+
+    def _write_aux(self, aux_upd) -> None:
+        for name, val in aux_upd.items():
+            cell = self.aux_dict.get(name)
+            if cell is not None:
+                cell._data = val.to(cell._data.dtype)
+
+    # -- parameter management ------------------------------------------
+    @property
+    def grad_arrays(self) -> List[Optional[NDArray]]:
+        return [self.grad_dict.get(n) for n in self._arg_names]
+
+    @property
+    def arg_arrays(self) -> List[NDArray]:
+        return [self.arg_dict[n] for n in self._arg_names]
+
+    @property
+    def aux_arrays(self) -> List[NDArray]:
+        return [self.aux_dict[n] for n in self._aux_names]
+
+    @property
+    def output_dict(self) -> Dict[str, NDArray]:
+        return dict(zip(self._output_names, self.outputs))
+
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params: bool = False) -> None:
+        """ref: Executor::CopyParams."""
+        for name, arr in (arg_params or {}).items():
+            if name in self.arg_dict:
+                arr.copyto(self.arg_dict[name])
+            elif not allow_extra_params:
+                raise MXNetError("copy_params_from: unknown argument %r"
+                                 % name)
+        for name, arr in (aux_params or {}).items():
+            if name in self.aux_dict:
+                arr.copyto(self.aux_dict[name])
+            elif not allow_extra_params:
+                raise MXNetError("copy_params_from: unknown aux state %r"
+                                 % name)
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False, **kwargs):
+        """Rebind with new shapes (ref: graph_executor.cc:1572 Reshape).
+        Cells whose shape did not change are SHARED with the new
+        executor, not copied: callers rely on it (a target network
+        forwarding through a reshaped executor while the original's
+        parameters are written in place, example/reinforcement-learning/
+        dqn/base.py:297)."""
+        new_shapes = {k: tuple(v) for k, v in kwargs.items()}
+        ex = Executor.simple_bind(self._symbol, ctx=self._ctx,
+                                  grad_req=self._grad_req,
+                                  group2ctx=self._group2ctx, **new_shapes)
+        for name, arr in self.arg_dict.items():
+            tgt = ex.arg_dict.get(name)
+            if tgt is None or tgt.shape != arr.shape:
+                continue
+            if tgt.dtype == arr.dtype:
+                ex.arg_dict[name] = arr
+            else:  # dtype changed under the new shapes: copy-with-cast
+                arr.copyto(tgt)
+        for name, arr in self.grad_dict.items():
+            if arr is not None and ex.grad_dict.get(name) is not None \
+                    and ex.grad_dict[name].shape == arr.shape \
+                    and ex.grad_dict[name].dtype == arr.dtype:
+                ex.grad_dict[name] = arr
+        for name, arr in self.aux_dict.items():
+            tgt = ex.aux_dict.get(name)
+            if tgt is None or tgt.shape != arr.shape:
+                continue
+            if tgt.dtype == arr.dtype:
+                ex.aux_dict[name] = arr
+            else:
+                arr.copyto(tgt)
+        return ex

@@ -11,11 +11,18 @@ The port runs every block eagerly on ``torch``:
     positions at the params with ``grad_req == "null"``, and runs
     nothing;
   * deferred shapes resolve per leaf layer, from the input it is called
-    with (``_infer_param_shapes``), where the JAX package infers them
-    through the symbol path, which is not ported (ROADMAP A5);
+    with (``_infer_param_shapes``), with the same numpy draws in the
+    same order as the JAX package, which infers them through the
+    symbol path;
   * names come from the same per-process counters (``_BlockScope``), so
     two nets built the same way in a fresh scope, or with the same
-    ``prefix=``, carry the same parameter names in both packages.
+    ``prefix=``, carry the same parameter names in both packages;
+  * a ``HybridBlock`` called on a ``Symbol`` composes symbolically
+    (``hybrid_forward`` with ``F = mx.sym``, its parameters as
+    variables); ``export`` writes ``path-symbol.json`` and
+    ``path-%04d.params`` as the JAX package does, and
+    :class:`SymbolBlock` (``SymbolBlock.imports``) runs such a file
+    through the executor.
 """
 from __future__ import annotations
 
@@ -266,8 +273,12 @@ class HybridBlock(Block):
     # -- execution ------------------------------------------------------
     def forward(self, x, *args):
         if not isinstance(x, NDArray):
-            raise MXNetError("symbolic composition of Gluon blocks is not "
-                             "ported (ROADMAP A5: the symbol path)")
+            # symbol input: compose symbolically (hybrid blocks are
+            # symbols too), every parameter a variable
+            from .. import symbol as sym_mod
+
+            kwargs = {name: p.var() for name, p in self._reg_params.items()}
+            return self.hybrid_forward(sym_mod, x, *args, **kwargs)
         try:
             params = {name: p.data() for name, p in self._reg_params.items()}
         except DeferredInitializationError:
@@ -279,8 +290,23 @@ class HybridBlock(Block):
         raise NotImplementedError
 
     def export(self, path, epoch=0):
-        raise MXNetError("HybridBlock.export writes a symbol file: the "
-                         "symbol path is not ported (ROADMAP A5)")
+        """Symbol + params export (ref: block.py export): the graph of a
+        symbolic call on ``Variable("data")`` to ``path-symbol.json``,
+        the parameters to ``path-%04d.params`` under ``arg:`` / ``aux:``
+        keys, so ``model.load_checkpoint`` / ``Module`` and
+        :meth:`SymbolBlock.imports` read them."""
+        from .. import symbol as sym_mod
+        from ..ndarray import save as nd_save
+
+        out = self(sym_mod.Variable("data"))
+        out.save("%s-symbol.json" % path)
+        aux_names = set(out.list_auxiliary_states())
+        params = {}
+        for name, p in self._all_params().items():
+            if p._data is not None:
+                prefix = "aux:" if name in aux_names else "arg:"
+                params[prefix + name] = p.data()
+        nd_save("%s-%04d.params" % (path, epoch), params)
 
 
 class CachedOp:
@@ -317,13 +343,76 @@ class CachedOp:
 
 
 class SymbolBlock(HybridBlock):
-    """Wraps a Symbol as a Block; waits for the symbol path."""
+    """Wrap a Symbol as a Block (ref: gluon/block.py SymbolBlock).  Every
+    argument and aux state of ``outputs`` that is not an input becomes a
+    parameter under its own name; a call binds the symbol on the
+    inputs' device and runs the executor's forward (training mode under
+    ``autograd.train_mode()``, which moves BatchNorm's statistics), as
+    the JAX package's SymbolBlock does: the call is not recorded by
+    autograd."""
 
     def __init__(self, outputs, inputs, params=None):
-        raise MXNetError("SymbolBlock needs the symbol path, which is not "
-                         "ported (ROADMAP A5)")
+        super().__init__(prefix="", params=None)
+        from .. import symbol as sym_mod
+
+        if isinstance(outputs, (list, tuple)):
+            outputs = sym_mod.Group(outputs)
+        self._out_symbol = outputs
+        self._in_names = [s.name for s in (
+            inputs if isinstance(inputs, (list, tuple)) else [inputs])]
+        aux_names = outputs.list_auxiliary_states()
+        for name in outputs.list_arguments() + aux_names:
+            if name in self._in_names:
+                continue
+            self._reg_params[name] = self.params.get(
+                name, allow_deferred_init=True,
+                grad_req="null" if name in aux_names else "write")
 
     @staticmethod
     def imports(symbol_file, input_names, param_file=None, ctx=None):
-        raise MXNetError("SymbolBlock.imports needs the symbol path, which "
-                         "is not ported (ROADMAP A5)")
+        """A SymbolBlock from an exported ``-symbol.json`` and (optional)
+        ``.params`` file; the parameters live on ``ctx`` (default: the
+        current context, the card)."""
+        from .. import symbol as sym_mod
+        from ..ndarray import load as nd_load
+
+        outputs = sym_mod.load(symbol_file)
+        names = input_names if isinstance(input_names, (list, tuple)) \
+            else [input_names]
+        block = SymbolBlock(outputs, [sym_mod.Variable(n) for n in names])
+        if param_file is not None:
+            for k, v in nd_load(param_file, ctx=ctx).items():
+                name = k.split(":", 1)[-1]
+                if name in block._reg_params:
+                    p = block._reg_params[name]
+                    p.shape = tuple(v.shape)
+                    p.initialize(ctx=ctx)
+                    p.set_data(v)
+        return block
+
+    def forward(self, *args):
+        if not isinstance(args[0], NDArray):
+            raise MXNetError("SymbolBlock expects NDArray inputs")
+        from .. import autograd
+
+        sym = self._out_symbol
+        try:
+            arg_vals = {n: p.data() for n, p in self._reg_params.items()}
+        except DeferredInitializationError:
+            shapes = {n: a.shape for n, a in zip(self._in_names, args)}
+            arg_shapes, _, aux_shapes = sym.infer_shape_partial(**shapes)
+            by_name = dict(zip(sym.list_arguments(), arg_shapes))
+            by_name.update(zip(sym.list_auxiliary_states(), aux_shapes))
+            for n, p in self._reg_params.items():
+                if p._deferred_init is not None and \
+                        by_name.get(n) is not None:
+                    p._finish_deferred_init(by_name[n])
+            arg_vals = {n: p.data() for n, p in self._reg_params.items()}
+        for n, a in zip(self._in_names, args):
+            arg_vals[n] = a
+        ex = sym.bind(ctx=args[0].context, args=arg_vals, grad_req="null",
+                      aux_states={n: arg_vals[n]
+                                  for n in sym.list_auxiliary_states()
+                                  if n in arg_vals})
+        outs = ex.forward(is_train=autograd.is_training())
+        return outs[0] if len(outs) == 1 else outs

@@ -173,6 +173,15 @@ class Parameter:
         if self._grad is not None:
             self._grad[:] = 0
 
+    def var(self):
+        """The symbol variable of this parameter (symbolic composition
+        and ``HybridBlock.export``), with its shape and dtype."""
+        from ..base import dtype_name
+        from ..symbol import Variable
+
+        return Variable(self.name, shape=self.shape,
+                        dtype=dtype_name(self.dtype))
+
     def reset_ctx(self, ctx):
         pass  # one device per process in this slice
 

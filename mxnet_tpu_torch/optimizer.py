@@ -246,9 +246,9 @@ class Updater:
             self.states_synced[index] = True
         elif not self.states_synced.get(index, True):
             # states from set_states were rebuilt from float32 numpy (a
-            # bf16 state's asnumpy is float32, exactly) on the current
-            # context: give them the weight's dtype and device, or the
-            # next update promotes a bf16 run to float32 for good
+            # bf16 state's asnumpy is float32, exactly) on the host: give
+            # them the weight's dtype and device, or the next update
+            # promotes a bf16 run to float32 for good
             self.states[index] = _state_like(self.states[index], weight)
             self.states_synced[index] = True
         self.optimizer.update_multi_precision(index, weight, grad,
@@ -290,13 +290,16 @@ def _state_like(state, weight):
 
 
 def _state_from_np(state):
+    # host cells: the first update moves each to its weight's device
+    # and dtype (Updater.__call__, _state_like)
+    from .context import cpu
     from .ndarray import array
 
     if state is None:
         return None
     if isinstance(state, tuple):
         return tuple(_state_from_np(s) for s in state)
-    return array(state)
+    return array(state, ctx=cpu())
 
 
 def get_updater(optimizer: Optimizer) -> Updater:

@@ -3,8 +3,11 @@ of ``cuobjdump -sass`` and ``-res-usage`` output that the ``build``
 phase checks the wgmma kernels with, the rtc add's grid, the row-scaled
 error the flash rows are held to, and the attention bound; for the
 transformer phases, the head-scaled error of the backward rows, the
-backward's bound, the step's FLOP count and the profile's kernel groups.
-The script itself needs a card and refuses to run without one."""
+backward's bound, the step's FLOP count and the profile's kernel groups;
+for the symbolic phases, the symbol ``fit`` trains (the JAX package's
+``bench._sym_resnet50``, byte for byte), the phase order, and the
+``fit_numerics`` checks on the CPU.  The script itself needs a card and
+refuses to run without one."""
 import subprocess
 import sys
 import time
@@ -331,3 +334,75 @@ def test_lm_step_flops_and_kernel_groups():
     assert cs.lm_kernel_group("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n"
                               ) == "gemm_bf16"
     assert cs.lm_kernel_group("flash_fwd_wgmma<64>") == "attention_fwd"
+
+
+def test_the_fit_symbol_is_the_bench_symbol():
+    import bench
+    import mxnet_tpu as jmx
+    import mxnet_tpu_torch as tmx
+
+    with jmx.name.NameManager():
+        want = bench._sym_resnet50(1000).tojson()
+    with tmx.name.NameManager():
+        got = cs.sym_resnet50(1000).tojson()
+    assert got == want
+    with tmx.name.NameManager():
+        cut = cs.sym_resnet50(cs.FIT_NUM["classes"])
+    shapes = cut.infer_shape(data=(cs.FIT_NUM["batch"], 3,
+                                   cs.FIT_NUM["image"], cs.FIT_NUM["image"]))
+    assert shapes[1] == [(cs.FIT_NUM["batch"], cs.FIT_NUM["classes"])]
+
+
+def test_the_symbolic_phases_run_before_the_kernel_line():
+    src = (REPO / "chip_smoke.py").read_text()
+    main = src[src.index("def main()"):]
+    order = [main.index(p) for p in ("phase_train_lm_numerics()",
+                                     "phase_fit()", "phase_fit_numerics()",
+                                     "phase_export()", '"phase": "kernels"')]
+    assert order == sorted(order)
+    assert '"fit": fit["kernel_launches"]' in main
+
+
+@pytest.fixture
+def restore_bulk_size():
+    """The phase sets the port's bulk size; an explicit one would leak
+    into later tests of this process: restore the engine as it was."""
+    from mxnet_tpu_torch import engine
+
+    saved = engine._bulk_size, engine._bulk_explicit
+    yield
+    engine._bulk_size, engine._bulk_explicit = saved
+
+
+def test_fit_steps_on_the_cpu_agree_and_see_a_skipped_step(
+        restore_bulk_size):
+    """The fit_numerics check, card replaced by a second CPU run: two
+    float64 Module.fit steps agree bitwise, bulk K=2 equals per-batch,
+    and a skipped step 2 reads far above the limit."""
+    import mxnet_tpu_torch as mx
+
+    X, y = cs._fit_data(2, 32, 4, 2, seed=7)
+    X = X.astype(np.float64)
+    with mx.name.NameManager():
+        sym = cs.sym_resnet50(4)
+    start = mx.mod.Module(sym, context=mx.cpu())
+    start.bind([("data", (2, 3, 32, 32))], [("softmax_label", (2,))])
+    cs._cast_module(start, torch.float64)
+    np.random.seed(0)
+    start.init_params(mx.init.Xavier())
+    w0, aux0 = start.get_params()
+    flat0 = {k: v.asnumpy() for k, v in list(w0.items()) + list(aux0.items())}
+    saved = dict(cs.FIT_NUM)
+    cs.FIT_NUM.update(batch=2, classes=4)
+    try:
+        a, a_loss, _ = cs._fit_steps(mx.cpu(), w0, aux0, X, y, 1)
+        b, b_loss, _ = cs._fit_steps(mx.cpu(), w0, aux0, X, y, 1)
+        bulk, _, bmod = cs._fit_steps(mx.cpu(), w0, aux0, X, y, 2)
+    finally:
+        cs.FIT_NUM.update(saved)
+    assert bmod._bulk_loop.groups == 1
+    assert [cs._update_err(p, q, flat0) for p, q in zip(a, b)] == [0.0, 0.0]
+    np.testing.assert_array_equal(a_loss, b_loss)
+    for k in a[-1]:
+        np.testing.assert_array_equal(bulk[-1][k], a[-1][k])
+    assert cs._update_err(a[0], a[1], flat0) > 1e3 * cs.FIT_NUM_TOL

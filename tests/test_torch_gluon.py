@@ -321,8 +321,9 @@ def test_queued_kinds_raise_and_name_the_queue():
             mx.kv.create(kind)
     with pytest.raises(mx.MXNetError, match="A12"):
         mx.optimizer.create("adam")
-    with pytest.raises(mx.MXNetError, match="A5"):
-        gluon.SymbolBlock(None, None)
+    # SymbolBlock landed with the symbol path; the sparse symbols wait
+    with pytest.raises(mx.MXNetError, match="A10"):
+        mx.sym.sparse.dot
 
 
 def test_kvstore_push_sums_and_pull_copies():

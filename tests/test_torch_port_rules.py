@@ -39,6 +39,13 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import mxnet_tpu_torch.transformer.train\n"
         "import mxnet_tpu_torch.transformer.data\n"
         "import mxnet_tpu_torch.parallel.buckets\n"
+        "import mxnet_tpu_torch.symbol, mxnet_tpu_torch.executor\n"
+        "import mxnet_tpu_torch.module, mxnet_tpu_torch.module.bulk\n"
+        "import mxnet_tpu_torch.metric, mxnet_tpu_torch.lr_scheduler\n"
+        "import mxnet_tpu_torch.callback, mxnet_tpu_torch.monitor\n"
+        "import mxnet_tpu_torch.model, mxnet_tpu_torch.name\n"
+        "import mxnet_tpu_torch.attribute\n"
+        "import mxnet_tpu_torch.symbol.legacy_json\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mxnet_tpu', 'ml_dtypes'))\n"
         # kernels are built at first launch, never at import; NVRTC and
@@ -72,6 +79,7 @@ def test_no_package_file_imports_jax_or_the_jax_package():
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
+                                    "tools/torch_fit_profile.py",
                                     "tools/torch_kernel_ab.py",
                                     "tools/torch_nd_profile.py",
                                     "tools/torch_serve_profile.py",
@@ -175,3 +183,50 @@ def test_transformer_training_defaults_to_cuda_and_raises_without_it():
     assert batch.data[0].context.device_type == "cpu"
     loss = step.step(batch.data[0], batch.label[0])
     assert loss.device.type == "cpu" and torch.isfinite(loss)
+
+
+def test_symbolic_entry_points_default_to_cuda_and_raise_without_it(
+        tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import convert
+
+    with mx.name.NameManager():
+        net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+            mx.sym.Variable("data"), num_hidden=3, name="fc"),
+            name="softmax")
+    cpu_msg = r"ctx=mx\.cpu\(\)"
+    with pytest.raises(mx.MXNetError, match=cpu_msg):
+        mx.mod.Module(net)
+    with pytest.raises(mx.MXNetError, match=cpu_msg):
+        net.simple_bind(data=(2, 4))
+    with pytest.raises(mx.MXNetError, match=cpu_msg):
+        mx.executor.Executor.simple_bind(net, data=(2, 4))
+    args = {"data": mx.nd.zeros((2, 4), ctx=mx.cpu()),
+            "fc_weight": mx.nd.zeros((3, 4), ctx=mx.cpu()),
+            "fc_bias": mx.nd.zeros((3,), ctx=mx.cpu()),
+            "softmax_label": mx.nd.zeros((2,), ctx=mx.cpu())}
+    with pytest.raises(mx.MXNetError, match=cpu_msg):
+        net.bind(args=args)
+    with pytest.raises(mx.MXNetError, match=cpu_msg):
+        convert.module_params_from_jax({"w": np.zeros(2)})
+    # the CPU when asked for
+    mod = mx.mod.Module(net, context=mx.cpu())
+    mod.bind([("data", (2, 4))], [("softmax_label", (2,))])
+    assert mod._exec.arg_dict["fc_weight"].context == mx.cpu()
+    assert net.bind(mx.cpu(), args=args).forward()[0].shape == (2, 3)
+    arg, aux = convert.module_params_from_jax({"w": np.zeros(2)}, {},
+                                              ctx=mx.cpu())
+    assert arg["w"].context == mx.cpu() and aux == {}
+    # an exported block's SymbolBlock.imports places its parameters on
+    # the card by default
+    blk = mx.gluon.nn.Dense(2, in_units=3, prefix="d_")
+    blk.initialize(ctx=mx.cpu())
+    path = str(tmp_path / "d")
+    blk.export(path)
+    with pytest.raises(mx.MXNetError, match=cpu_msg):
+        mx.gluon.SymbolBlock.imports(path + "-symbol.json", ["data"],
+                                     path + "-0000.params")
