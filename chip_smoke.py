@@ -11,7 +11,8 @@ float64 and float32 held against the CPU in float64), and train the
 GPT-2-small-width transformer LM through ``TransformerTrainStep``
 (the flash-attention forward and backward kernels on every layer;
 ``fit`` with a checkpoint resumed bit for bit; float32 held against
-the CPU in float64).
+the CPU in float64), then train both data-parallel, one process per
+card (each checked against one device, with planted faults).
 
     python3 chip_smoke.py
 
@@ -158,10 +159,42 @@ Phases:
            same parameters (``LM_NUM_*`` limits, the CPU's own float32
            distance beside); one bf16 step, its loss within 2e-2 of the
            float32 first loss
+  dp       data parallel, one process per visible card over NCCL
+           (``dist.launch``, spawn; the kernels are built before any
+           rank starts): ResNet-50 v1 bf16 at batch 128 a rank, 224x224,
+           the one-device step beside the bucketed, ZeRO-1 and
+           monolithic exchanges, timed in turns: images/s in total and
+           a rank, step ms, peak memory, dp_efficiency (against the
+           ``train`` row and against the one-device step of the same
+           process), the buckets, momenta bytes a rank; from rank 0's
+           torch.profiler trace the NCCL launches, device ms and the
+           all-reduce ms no other kernel overlaps, a step
+  dp_numerics
+           ResNet-50 v1 cut to batch 4 a rank, 64x64, 10 classes,
+           float64, two ranks sharing cuda:0 over gloo (NCCL takes one
+           rank a card), 2 steps: against the one-device step at the
+           global batch (1e-10 of the update, aux included), bucketed
+           = monolithic bitwise, ZeRO-1 = replicated bitwise at lr 0 and
+           within 1e-12 otherwise, and two planted faults (a rank's
+           gradient not reduced; sync BN's backward without its
+           all-reduce) above the limit; over NCCL on two cards where
+           the machine has them, else a line saying it did not run
+  train_lm_dp
+           the train_lm cell a rank with ZeRO-1 over NCCL: tokens/s,
+           efficiency against ``train_lm``, momenta bytes a rank
+           (sharded, replicated), 12 forward and 12 backward ``wgmma``
+           launches a step a rank, fit 20 steps and a step-10 ZeRO-1
+           checkpoint resumed bitwise
+  train_lm_dp_numerics
+           train_lm_numerics's cut on two gloo ranks on cuda:0 in
+           float32: the trajectory against the CPU float64 one (the
+           LM_NUM_* limits), a dp=2 ZeRO-1 checkpoint restaged to dp=1
+           continuing the dp=2 run; planted faults above the limit
   kernels  every kernel and its status
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import shutil
@@ -2179,10 +2212,12 @@ LM_ATTN_FAULTS = {
 }
 
 
-def _lm_numerics_run(cfg, device, w0, steps, dtype=None, attn_fault=None):
+def _lm_numerics_run(cfg, device, w0, steps, dtype=None, attn_fault=None,
+                     sequences=None):
     """``steps`` fit steps from parameters ``w0`` on ``device``; returns
     the losses and the parameters after each step (float64 numpy).
-    ``attn_fault`` names an entry of ``LM_ATTN_FAULTS`` to plant."""
+    ``attn_fault`` names an entry of ``LM_ATTN_FAULTS`` to plant;
+    ``sequences`` sizes the corpus (default: ``steps`` batches)."""
     from mxnet_tpu_torch.transformer import TransformerTrainStep
 
     step = TransformerTrainStep(cfg, learning_rate=LM_NUM_LR, momentum=0.9,
@@ -2192,7 +2227,8 @@ def _lm_numerics_run(cfg, device, w0, steps, dtype=None, attn_fault=None):
     if attn_fault is not None:
         # load_state built the step and bound its attention
         step._attn_fn = LM_ATTN_FAULTS[attn_fault](step._attn_fn)
-    it = lm_iter(cfg, LM_NUM_BATCH, LM_NUM_SEQ, LM_NUM_BATCH * steps, seed=1)
+    it = lm_iter(cfg, LM_NUM_BATCH, LM_NUM_SEQ,
+                 sequences or LM_NUM_BATCH * steps, seed=1)
     losses, params = [], []
     for _ in range(steps):
         b = it.next()
@@ -2587,6 +2623,718 @@ def phase_export():
     return row
 
 
+# ---------------------------------------------------------------------
+# data-parallel training: one process per card over torch.distributed
+# ---------------------------------------------------------------------
+# dp: the train cell per rank (ResNet-50 v1 bf16, batch 128 a rank,
+# 224x224, SGD lr 0.05 momentum 0.9), one rank per visible card over
+# NCCL; every rank gets the global batch (128 x ranks) and trains on its
+# rows.  Three exchanges: bucketed (4 MiB buckets from backward hooks),
+# ZeRO-1 on the buckets, monolithic (bucket_bytes=0); beside them the
+# one-device step on 128 rows in the same process.  Each is timed in
+# DP["rounds"] windows taken in turns (a window: DP["warmup"] steps,
+# then DP["steps"] timed), so that drift of the host or the card's
+# clocks falls on every variant alike
+DP = dict(batch=128, warmup=2, steps=5, rounds=3, profile_steps=2)
+DP_VARIANTS = (("one_device", None), ("bucketed", {}),
+               ("zero1", {"zero_stage": 1}),
+               ("monolithic", {"bucket_bytes": 0}))
+# dp_numerics: fit_numerics's cut (batch 4 a rank, 64x64, 10 classes) in
+# float64 on two ranks sharing cuda:0 over gloo (NCCL refuses two ranks
+# on one card), 2 steps; cuDNN deterministic.  Against the one-device
+# float64 step at the global batch 8 on the card: the parameters (aux
+# included) within DP_NUM_TOL of the update's size; bucketed against
+# monolithic bitwise; ZeRO-1 against replicated bitwise at lr 0 and
+# within DP_ZERO1_TOL otherwise; two planted faults must read above the
+# limit: rank 1 keeps its own gradient (the all-reduce's result
+# dropped), and sync BN's backward without its all-reduce (a plain
+# all-reduce in the forward, which carries no gradient across ranks)
+DP_NUM = dict(batch=4, image=64, classes=10, steps=2, lr=0.05)
+DP_NUM_TOL = 1e-10
+DP_ZERO1_TOL = 1e-12
+# train_lm_dp: the train_lm cell a rank (GPT-2-small width, bf16 over
+# float32 parameters, batch 8 x 1024 a rank), ZeRO-1, one rank per card
+# over NCCL; then fit 20 steps, and a checkpoint at step 10 resumed to 20
+LM_DP = dict(zero_stage=1)
+# train_lm_dp_numerics: train_lm_numerics's cut (global batch 4 x 256)
+# on two gloo ranks sharing cuda:0, float32: the trajectory against the
+# port on the CPU in float64 at the global batch within the LM_NUM_*
+# limits (the flash kernels take no float64, so the dp=2 run cannot be
+# held to the one-device run beyond float32's rounding; that distance
+# is reported); a dp=2 ZeRO-1 checkpoint at step 2 restaged to dp=1 on
+# the card continues as the uninterrupted dp=2 run within
+# LM_NUM_UPDATE_TOL of the update since the checkpoint; planted faults:
+# rank 1's gradient not reduced, and the restage with its momenta zeroed
+LM_DP_NUM_STEPS, LM_DP_CKPT = 3, 2
+LM_DP_NUM_SEQS = LM_NUM_BATCH * (LM_DP_NUM_STEPS + 1)
+
+
+def _rank_setup():
+    """A rank's process: TF32 off, as phase_device sets the parent."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _nccl_stats(prof_events, steps):
+    """NCCL kernels a step from a torch.profiler trace: launches, device
+    ms, and the ms of them not overlapped by any other kernel (exposed:
+    the all-reduce time compute does not hide)."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    kern = [(ev.name, ev.time_range.start, ev.time_range.end)
+            for ev in prof_events if ev.device_type == DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)]
+    nccl = [k for k in kern if "nccl" in k[0].lower()]
+    merged = []
+    for _, s, e in sorted((k for k in kern if "nccl" not in k[0].lower()),
+                          key=lambda k: k[1]):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    starts = [m[0] for m in merged]
+    exposed = 0.0
+    for _, s, e in nccl:
+        hidden = 0.0
+        i = max(bisect.bisect_right(starts, s) - 1, 0)
+        while i < len(merged) and merged[i][0] < e:
+            hidden += max(0.0, min(e, merged[i][1]) - max(s, merged[i][0]))
+            i += 1
+        exposed += (e - s) - hidden
+    return {"nccl_launches_per_step": len(nccl) / steps,
+            "nccl_device_ms_per_step":
+                sum(e - s for _, s, e in nccl) / 1e3 / steps,
+            "nccl_exposed_ms_per_step": exposed / 1e3 / steps,
+            "device_busy_ms_per_step":
+                sum(e - s for _, s, e in kern) / 1e3 / steps,
+            "launches_per_step": len(kern) / steps,
+            "nccl_kernels": sorted({n[:60] for n, _, _ in nccl})}
+
+
+def _dp_rank():
+    """One rank of ``dp``: the one-device step and the three exchanges,
+    timed in turns; every rank then takes 3 more one-device and 3 more
+    bucketed steps, which rank 0 profiles."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import convert, dist, gluon
+    from mxnet_tpu_torch.parallel.dp import FusedTrainStep
+    from mxnet_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    _rank_setup()
+    mesh = data_parallel_mesh()
+    n = mesh.size
+    ctx = mx.gpu(dist.device().index)
+    net = resnet50(ctx)
+    w0 = {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+    data, label = train_batch(DP["batch"] * n, ctx)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    rows = {name: {"exchange": name, "windows_ms": []}
+            for name, _ in DP_VARIANTS}
+    for rnd in range(DP["rounds"]):
+        for name, kw in DP_VARIANTS:
+            row = rows[name]
+            one = kw is None
+            d, lab = (data[:DP["batch"]], label[:DP["batch"]]) if one \
+                else (data, label)
+            net.cast("float32")
+            convert.load_block_params(net, w0)
+            step = FusedTrainStep(net, loss_fn, mesh=None if one else mesh,
+                                  learning_rate=TRAIN_LR,
+                                  momentum=TRAIN_MOMENTUM, dtype="bfloat16",
+                                  **(kw or {}))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_kernel_counts()
+            warm = step.run_steps(d, lab, steps=DP["warmup"]).asnumpy()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = step.run_steps(d, lab, steps=DP["steps"])
+            torch.cuda.synchronize()
+            row["windows_ms"].append(
+                (time.perf_counter() - t0) / DP["steps"] * 1e3)
+            losses = losses.asnumpy()
+            row.update(
+                first_loss=float(warm[0]), last_loss=float(losses[-1]),
+                peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                bucketed=step.bucketed, zero1=step.zero1,
+                buckets=step.bucket_accounting(),
+                optimizer_state_bytes_per_rank=
+                    step.optimizer_state_bytes_per_rank(),
+                kernel_launches=_kernel_counts())
+            if rnd == 0 and name in ("one_device", "bucketed"):
+                # every rank runs the profiled steps, so that their
+                # collectives pair up across ranks; rank 0 records them
+                from torch.profiler import ProfilerActivity, profile, \
+                    schedule
+
+                rec = mesh.rank == 0
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA],
+                               schedule=schedule(
+                                   wait=0, warmup=1,
+                                   active=DP["profile_steps"])) \
+                    if rec else contextlib.nullcontext()
+                with prof:
+                    for i in range(DP["profile_steps"] + 1):
+                        step.run_steps(d, lab, steps=1)
+                        torch.cuda.synchronize()
+                        if rec and i < DP["profile_steps"]:
+                            prof.step()
+                if rec:
+                    row["profile"] = _nccl_stats(prof.events(),
+                                                 DP["profile_steps"])
+            del step
+    out = []
+    for name, kw in DP_VARIANTS:
+        row = rows[name]
+        step_ms = statistics.median(row["windows_ms"])
+        imgs = DP["batch"] * (1 if kw is None else n)
+        row.update(ranks=1 if kw is None else n, global_batch=imgs,
+                   step_ms=step_ms, step_ms_min=min(row["windows_ms"]),
+                   images_per_s=imgs / step_ms * 1e3,
+                   images_per_s_per_rank=DP["batch"] / step_ms * 1e3)
+        out.append(row)
+    return out
+
+
+def phase_dp(train_row):
+    """ResNet-50 v1 bf16 data-parallel over NCCL, one rank per visible
+    card (``dist.launch``, spawn): images/s in total and a rank, step ms,
+    peak memory, ``dp_efficiency`` against the ``train`` row's batch-128
+    images/s, the buckets, ZeRO-1's momenta bytes a rank, the monolithic
+    exchange, and from rank 0's trace the NCCL launches and device ms a
+    step and the all-reduce time not hidden under compute kernels."""
+    from mxnet_tpu_torch import dist
+
+    n = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = dist.launch(_dp_rank, n, backend="nccl", timeout_s=300)
+    wall = time.perf_counter() - t0
+    single = next(r for r in train_row["runs"]
+                  if r["batch"] == DP["batch"])["images_per_s"]
+    rows = ranks[0]
+    one = rows[0]["images_per_s"]
+    for r in rows[1:]:
+        r["dp_efficiency"] = r["images_per_s"] / (n * single)
+        r["dp_efficiency_same_process"] = r["images_per_s"] / (n * one)
+    row = {"phase": "dp", "model": "resnet50_v1", "dtype": "bfloat16",
+           "backend": "nccl", "ranks": n, "batch_per_rank": DP["batch"],
+           "image": 224, "train_images_per_s_batch128": single,
+           "runs": rows, "ranks_step_ms": [[r["step_ms"] for r in rr]
+                                           for rr in ranks],
+           "wall_s": wall}
+    emit(row)
+    for r in rows:
+        if not (np.isfinite(r["first_loss"]) and np.isfinite(r["last_loss"])):
+            raise RuntimeError("dp: a loss is not finite: %r" % (r,))
+    _, b, z, m = rows
+    if not (b["bucketed"] and z["zero1"] and not m["bucketed"]
+            and b["buckets"] and m["buckets"] is None):
+        raise RuntimeError("dp: the exchanges did not take their paths: %r"
+                           % (rows,))
+    return row
+
+
+def _digest(params) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(np.ascontiguousarray(params[k]).tobytes())
+    return h.hexdigest()
+
+
+def _dp_numerics_rank(ref_path, aux, data, label, runs):
+    """One rank of ``dp_numerics``: each run of ``runs`` (name, step
+    options, planted fault) takes DP_NUM steps from the same weights.
+    The ResNet's parameters are ~190 MB in float64, so the rank reads
+    the one-device reference trajectory from ``ref_path`` and returns
+    numbers only: each step's update error against it (aux too), a
+    digest of each step's parameters (bitwise comparisons across runs
+    and ranks), and ZeRO-1's error against the replicated run."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import convert, dist, gluon
+    from mxnet_tpu_torch.parallel.dp import FusedTrainStep
+    from mxnet_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    _rank_setup()
+    torch.backends.cudnn.deterministic = True
+    mesh = data_parallel_mesh()
+    ctx = mx.gpu(dist.device().index)
+    with np.load(ref_path) as f:
+        ref = {k: f[k] for k in f.files}
+    w0 = {k[3:]: v for k, v in ref.items() if k.startswith("w0/")}
+    ref_p = [{k[3:]: v for k, v in ref.items() if k.startswith("s%d/" % i)}
+             for i in range(len(data))]
+    net = _dp_num_net(ctx)
+    out, keep = {}, {}
+    for name, kw, fault in runs:
+        net.cast("float32")
+        convert.load_block_params(net, w0)
+        step = FusedTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                              mesh=mesh, momentum=TRAIN_MOMENTUM,
+                              dtype="float64", **dict(
+                                  {"learning_rate": DP_NUM["lr"]}, **kw))
+        losses, params = [], []
+        with _DpFault(fault, mesh):
+            for k in range(len(data)):
+                losses.append(float(step.run_steps(
+                    mx.nd.array(data[k:k + 1], ctx=ctx),
+                    mx.nd.array(label[k:k + 1], ctx=ctx)).asnumpy()[0]))
+                params.append({p: v.data().asnumpy() for p, v in
+                               net.collect_params().items()})
+        row = {"losses": losses, "bucketed": step.bucketed,
+               "zero1": step.zero1,
+               "update_err": [_update_err(g, w, w0)
+                              for g, w in zip(params, ref_p)],
+               "aux_update_err": _update_err(
+                   {k: params[-1][k] for k in aux},
+                   {k: ref_p[-1][k] for k in aux}, {k: w0[k] for k in aux}),
+               "digests": [_digest(p) for p in params]}
+        if name == "bucketed":
+            keep = params
+        if name == "zero1":
+            row["vs_bucketed_update_err"] = max(
+                _update_err(g, w, w0) for g, w in zip(params, keep))
+        out[name] = row
+        del step, params
+    return out
+
+
+class _DpFault:
+    """A fault planted on this rank for one run: ``grad_not_reduced``
+    (rank 1 keeps its own gradient: each bucket's all-reduce still runs,
+    so the ranks stay in step, but its result is replaced by the local
+    gradient times n) or ``sync_bn_backward_local`` (BatchNorm's moment
+    mean without its backward all-reduce)."""
+
+    def __init__(self, fault, mesh):
+        self.fault, self.mesh = fault, mesh
+
+    def __enter__(self):
+        import torch.distributed as tdist
+
+        from mxnet_tpu_torch.ops import nn as nn_ops
+
+        self.saved = (tdist.all_reduce, nn_ops._CrossDeviceMean.backward)
+        if self.fault == "grad_not_reduced" and self.mesh.rank == 1:
+            real, n = tdist.all_reduce, self.mesh.size
+
+            class _Local:
+                def __init__(self, t, work, keep):
+                    self.t, self.work, self.keep = t, work, keep
+
+                def wait(self):
+                    self.work.wait()
+                    self.t.copy_(self.keep * n)
+                    return True
+
+            def all_reduce(t, *a, async_op=False, **kw):
+                if not async_op:            # sync BN, the loss
+                    return real(t, *a, **kw)
+                keep = t.clone()
+                return _Local(t, real(t, *a, async_op=True, **kw), keep)
+
+            tdist.all_reduce = all_reduce
+        elif self.fault == "sync_bn_backward_local":
+            nn_ops._CrossDeviceMean.backward = staticmethod(
+                lambda ctx, g: (g / ctx.n, None, None))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as tdist
+
+        from mxnet_tpu_torch.ops import nn as nn_ops
+
+        tdist.all_reduce, nn_ops._CrossDeviceMean.backward = \
+            self.saved[0], staticmethod(self.saved[1])
+        return False
+
+
+def _dp_num_net(ctx):
+    """ResNet-50 v1 cut to 10 classes, Xavier from numpy seed 0, its
+    shapes settled at 64x64."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    np.random.seed(0)
+    net = vision.get_model("resnet50_v1", classes=DP_NUM["classes"],
+                           prefix="resnet50_")
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    with mx.autograd.pause():
+        net(mx.nd.zeros((2, 3, DP_NUM["image"], DP_NUM["image"]), ctx=ctx))
+    return net
+
+
+def _dp_num_check(tag, out, ref):
+    """The dp_numerics verdicts of one backend's ranks (``out``) against
+    the one-device losses ``ref``."""
+    r0, r1 = out
+    res = {"update_err": {"rank%d_%s" % (r, n): max(rank[n]["update_err"])
+                          for r, rank in enumerate(out) for n in rank},
+           "aux_update_err": r0["bucketed"]["aux_update_err"],
+           "loss_rel_err": max(abs(a - b) / abs(b) for rank in out
+                               for a, b in zip(rank["bucketed"]["losses"],
+                                               ref)),
+           "bucketed_equals_monolithic":
+               r0["bucketed"]["digests"] == r0["monolithic"]["digests"]
+               and r0["bucketed"]["losses"] == r0["monolithic"]["losses"],
+           "zero1_equals_replicated_at_lr0":
+               r0["zero1_lr0"]["digests"] == r0["bucketed_lr0"]["digests"],
+           "zero1_update_err": r0["zero1"]["vs_bucketed_update_err"],
+           "ranks_equal": r0["bucketed"]["digests"] ==
+               r1["bucketed"]["digests"],
+           "paths": {k: (v["bucketed"], v["zero1"]) for k, v in r0.items()}}
+    faults = {"grad_not_reduced": max(r1["grad_not_reduced"]["update_err"]),
+              "sync_bn_backward_local":
+                  max(r0["sync_bn_backward_local"]["update_err"])}
+    res["fault_update_err"] = faults
+    good = [res["update_err"]["rank%d_%s" % (r, n)] for r in (0, 1)
+            for n in ("bucketed", "monolithic", "zero1")]
+    if not (max(good) <= DP_NUM_TOL and res["aux_update_err"] <= DP_NUM_TOL
+            and res["loss_rel_err"] <= DP_NUM_TOL):
+        raise RuntimeError("%s: dp=2 is off the one-device float64 "
+                           "trajectory: %r" % (tag, res))
+    if not (res["bucketed_equals_monolithic"] and res["ranks_equal"]
+            and res["zero1_equals_replicated_at_lr0"]
+            and res["zero1_update_err"] <= DP_ZERO1_TOL):
+        raise RuntimeError("%s: an exchange differs: %r" % (tag, res))
+    if not min(faults.values()) > DP_NUM_TOL:
+        raise RuntimeError("%s: the check cannot tell a planted fault "
+                           "from the reference: %r" % (tag, faults))
+    return res
+
+
+def phase_dp_numerics():
+    """Two float64 ResNet-50 ranks sharing cuda:0 over gloo against the
+    one-device float64 step at the global batch (see DP_NUM); the same
+    over NCCL on two cards where the machine has them."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import dist
+
+    rng = np.random.RandomState(11)
+    gb = DP_NUM["batch"] * 2
+    data = rng.uniform(0, 1, (DP_NUM["steps"], gb, 3, DP_NUM["image"],
+                              DP_NUM["image"]))
+    label = rng.randint(0, DP_NUM["classes"],
+                        (DP_NUM["steps"], gb)).astype(np.float64)
+    runs = [("bucketed", {}, None), ("monolithic", {"bucket_bytes": 0}, None),
+            ("zero1", {"zero_stage": 1}, None),
+            ("bucketed_lr0", {"learning_rate": 0.0}, None),
+            ("zero1_lr0", {"learning_rate": 0.0, "zero_stage": 1}, None),
+            ("grad_not_reduced", {}, "grad_not_reduced"),
+            ("sync_bn_backward_local", {}, "sync_bn_backward_local")]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        net = _dp_num_net(mx.gpu(0))
+        w0 = {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+        aux = sorted(k for k, p in net.collect_params().items()
+                     if p.grad_req == "null")
+        ref, ref_p = numerics_run(net, w0, data, label, "float64")
+        del net
+    finally:
+        torch.backends.cudnn.deterministic = det
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dpnum_")
+    ref_path = str(Path(tmp) / "reference.npz")
+    arrays = {"w0/" + k: v for k, v in w0.items()}
+    for i, p in enumerate(ref_p):
+        arrays.update({"s%d/%s" % (i, k): v for k, v in p.items()})
+    np.savez(ref_path, **arrays)
+    try:
+        t0 = time.perf_counter()
+        out = dist.launch(_dp_numerics_rank, 2,
+                          (ref_path, aux, data, label, runs),
+                          backend="gloo", device="cuda:0", timeout_s=300)
+        gloo_s = time.perf_counter() - t0
+        row = {"phase": "dp_numerics", "model": "resnet50_v1", "cut": DP_NUM,
+               "global_batch": gb, "dtype": "float64",
+               "reference": "one device on the card, float64, global batch",
+               "reference_losses": ref.tolist(),
+               "tol": DP_NUM_TOL, "zero1_tol": DP_ZERO1_TOL,
+               "gloo_cuda0": _dp_num_check("dp_numerics", out, ref),
+               "gloo_s": gloo_s}
+        if torch.cuda.device_count() >= 2:
+            out = dist.launch(_dp_numerics_rank, 2,
+                              (ref_path, aux, data, label, runs),
+                              backend="nccl", timeout_s=300)
+            row["nccl"] = _dp_num_check("dp_numerics (nccl)", out, ref)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if torch.cuda.device_count() < 2:
+        row["nccl"] = {"ran": False,
+                       "why": "%d visible card: NCCL takes one rank a "
+                              "card" % torch.cuda.device_count()}
+    emit(row)
+    return row
+
+
+def _lm_dp_rank(ckdir):
+    """One rank of ``train_lm_dp``: timed windows of the ZeRO-1 dp step,
+    then fit 20 steps, and 10 steps with a checkpoint (every rank's
+    shard under ``ckdir``) resumed to 20."""
+    import torch.distributed as tdist
+
+    from mxnet_tpu_torch.parallel.mesh import data_parallel_mesh
+    from mxnet_tpu_torch.transformer import TransformerTrainStep
+
+    _rank_setup()
+    mesh = data_parallel_mesh()
+    n = mesh.size
+    cfg = lm_config()
+    B, T = LM["batch"] * n, LM["seq"]
+
+    def new_step(seed=0):
+        return TransformerTrainStep(cfg, mesh=mesh, learning_rate=LM["lr"],
+                                    momentum=LM["momentum"],
+                                    remat=LM["remat"], seed=seed, **LM_DP)
+
+    step = new_step()
+    it = lm_iter(cfg, B, T, LM_SEQUENCES * n)
+    step.bucket_plan_meta()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(LM_WARMUP):
+        b = it.next()
+        step.step(b.data[0], b.label[0])
+    _reset_kernel_counts()
+    windows, losses = [], []
+    for _ in range(LM_WINDOWS):
+        batches = [it.next() for _ in range(LM_WINDOW_STEPS)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = [step.step(b.data[0], b.label[0]) for b in batches]
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / LM_WINDOW_STEPS * 1e3)
+        losses += [float(x) for x in out]
+    counts = _kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    sharded = step.optimizer_state_bytes_per_rank()
+    replicated = sum(v.numel() * v.element_size()
+                     for v in step._params.values())
+    zero1, plan = step.zero1, step.bucket_plan_meta()
+    del step
+    control = new_step()
+    fit_losses = control.fit(lm_iter(cfg, B, T, LM_SEQUENCES * n),
+                             LM_FIT_STEPS)
+    want = control.params_numpy()
+    del control
+    first = new_step()
+    first.fit(lm_iter(cfg, B, T, LM_SEQUENCES * n), LM_CKPT_STEP,
+              checkpoint_every_n=LM_CKPT_STEP, checkpoint_dir=ckdir)
+    del first
+    # the step is complete once every rank's shard landed
+    tdist.barrier()
+    resumed = new_step(seed=1)
+    resumed_losses = resumed.fit(lm_iter(cfg, B, T, LM_SEQUENCES * n),
+                                 LM_FIT_STEPS, resume_from=ckdir)
+    got = resumed.params_numpy()
+    del resumed
+    step_ms = statistics.median(windows)
+    return {"ranks": n, "global_batch": B, "tokens_per_s": B * T / step_ms
+            * 1e3, "tokens_per_s_per_rank": LM["batch"] * T / step_ms * 1e3,
+            "step_ms": step_ms, "step_ms_windows": windows,
+            "timed_losses": losses, "peak_mem_bytes": peak,
+            "kernel_launches": counts,
+            "steps_counted": LM_WINDOWS * LM_WINDOW_STEPS,
+            "zero1": zero1, "n_buckets": plan["n_buckets"],
+            "momenta_bytes_per_rank": sharded,
+            "momenta_bytes_replicated": replicated,
+            "fit_losses": fit_losses,
+            "resume_losses_equal": resumed_losses == fit_losses[
+                LM_CKPT_STEP:],
+            "resume_params_differ": sorted(
+                k for k in want if not np.array_equal(want[k], got[k]))}
+
+
+def phase_train_lm_dp(lm_row):
+    """The train_lm cell a rank, ZeRO-1, one rank per visible card over
+    NCCL: tokens/s and the efficiency against ``train_lm``, momenta bytes
+    a rank (sharded against replicated), flash launches by route (12
+    forward and 12 backward a step on each rank, all wgmma), and a
+    step-10 ZeRO-1 checkpoint resumed bitwise."""
+    from mxnet_tpu_torch import dist
+
+    n = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_lmdp_")
+    try:
+        t0 = time.perf_counter()
+        ranks = dist.launch(_lm_dp_rank, n, (ckdir,), backend="nccl",
+                            timeout_s=300)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    r0 = ranks[0]
+    cfg = lm_config()
+    row = {"phase": "train_lm_dp", "backend": "nccl", "ranks": n,
+           "config": dict(GPT2_SMALL, dtype="bfloat16", param_dtype="float32"),
+           "batch_per_rank": LM["batch"], "seq": LM["seq"], "zero_stage": 1,
+           "train_lm_tokens_per_s": lm_row["tokens_per_s"],
+           "dp_efficiency": r0["tokens_per_s"] / (n * lm_row["tokens_per_s"]),
+           "per_rank": ranks, "wall_s": wall}
+    emit(row)
+    want = cfg.n_layers * r0["steps_counted"]
+    for r, rank in enumerate(ranks):
+        c = rank["kernel_launches"]
+        if not (c["flash_attention_fwd_by_route"]["wgmma"] == want ==
+                c["flash_attention_fwd"] and
+                c["flash_attention_bwd_by_route"]["wgmma"] == want ==
+                c["flash_attention_bwd"]):
+            raise RuntimeError("train_lm_dp: rank %d launched %r in %d "
+                               "steps (want %d forward and %d backward, "
+                               "all wgmma)" % (r, c, rank["steps_counted"],
+                                               want, want))
+        if not (rank["zero1"] and rank["resume_losses_equal"]
+                and not rank["resume_params_differ"]
+                and np.isfinite(rank["timed_losses"]).all()):
+            raise RuntimeError("train_lm_dp: rank %d: %r" % (r, {
+                k: rank[k] for k in ("zero1", "resume_losses_equal",
+                                     "resume_params_differ")}))
+    return row
+
+
+def _lm_dp_numerics_rank(w0, ckdir):
+    """One rank of ``train_lm_dp_numerics`` (float32 on cuda:0): the
+    replicated trajectory, the same with rank 1's gradient not reduced,
+    and ZeRO-1 for 4 steps uninterrupted and for 2 with a checkpoint."""
+    from mxnet_tpu_torch.parallel.mesh import data_parallel_mesh
+    from mxnet_tpu_torch.transformer import TransformerTrainStep
+
+    _rank_setup()
+    mesh = data_parallel_mesh()
+    cfg = lm_config(**LM_NUM, dtype="float32", param_dtype="float32")
+
+    def run(steps, fault=None, ckpt=None, **kw):
+        step = TransformerTrainStep(cfg, mesh=mesh, learning_rate=LM_NUM_LR,
+                                    momentum=0.9, device="cuda", **kw)
+        step.load_state({"params": w0})
+        it = lm_iter(cfg, LM_NUM_BATCH, LM_NUM_SEQ, LM_DP_NUM_SEQS, seed=1)
+        if ckpt is not None:
+            step.fit(it, steps, checkpoint_every_n=steps,
+                     checkpoint_dir=ckpt)
+            return None
+        losses, params = [], []
+        with _DpFault(fault, mesh):
+            for _ in range(steps):
+                b = it.next()
+                losses.append(float(step.step(b.data[0], b.label[0])))
+                params.append({k: v.astype(np.float64)
+                                for k, v in step.params_numpy().items()})
+        return {"losses": losses, "params": params, "zero1": step.zero1}
+
+    _reset_kernel_counts()
+    out = {"replicated": run(LM_DP_NUM_STEPS, zero_stage=0)}
+    out["kernel_launches"] = _kernel_counts()
+    out["grad_not_reduced"] = run(LM_DP_NUM_STEPS, "grad_not_reduced",
+                                  zero_stage=0)
+    out["zero1"] = run(LM_DP_NUM_STEPS + 1, zero_stage=1)
+    run(LM_DP_CKPT, ckpt=ckdir, zero_stage=1)
+    return out
+
+
+def phase_train_lm_dp_numerics():
+    """train_lm_numerics's cut on two gloo ranks sharing cuda:0 (see
+    LM_DP_NUM_*): the dp=2 trajectory against the CPU float64 one at the
+    global batch, and a dp=2 ZeRO-1 checkpoint restaged to dp=1."""
+    from mxnet_tpu_torch import checkpoint as ckpt
+    from mxnet_tpu_torch import dist
+    from mxnet_tpu_torch.transformer import TransformerTrainStep
+
+    cfg32 = lm_config(**LM_NUM, dtype="float32", param_dtype="float32")
+    cfg64 = lm_config(**LM_NUM, dtype="float64", param_dtype="float64")
+    w0 = TransformerTrainStep(cfg32, device="cpu", seed=0).params_numpy()
+    ref, ref_p = _lm_numerics_run(cfg64, "cpu", w0, LM_DP_NUM_STEPS,
+                                  np.float64, sequences=LM_DP_NUM_SEQS)
+    one, one_p = _lm_numerics_run(cfg32, "cuda", w0, LM_DP_NUM_STEPS,
+                                  sequences=LM_DP_NUM_SEQS)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_lmdpnum_")
+    try:
+        torch.cuda.empty_cache()
+        out = dist.launch(_lm_dp_numerics_rank, 2, (w0, ckdir),
+                          backend="gloo", device="cuda:0", timeout_s=300)
+        r0 = out[0]
+        # dp=2 -> dp=1 on the card: resume the step-2 checkpoint to step 4
+        restaged = {}
+        for tag, zero_moms in (("restage", False),
+                               ("restage_momenta_zeroed", True)):
+            s = TransformerTrainStep(cfg32, learning_rate=LM_NUM_LR,
+                                     momentum=0.9, device="cuda",
+                                     zero_stage=1)
+            payload = ckpt.load_checkpoint(ckdir, rank=0, num_ranks=1)
+            s.load_state(payload)
+            if zero_moms:
+                s._moms = {k: torch.zeros_like(v)
+                           for k, v in s._moms.items()}
+            it = lm_iter(cfg32, LM_NUM_BATCH, LM_NUM_SEQ, LM_DP_NUM_SEQS,
+                         seed=1)
+            it.skip_batches(ckpt.scale_resume_skip(
+                payload, LM_NUM_BATCH))
+            ws = s.params_numpy()
+            ps = []
+            for _ in range(LM_DP_NUM_STEPS + 1 - LM_DP_CKPT):
+                b = it.next()
+                s.step(b.data[0], b.label[0])
+                ps.append({k: v.astype(np.float64)
+                           for k, v in s.params_numpy().items()})
+            restaged[tag] = max(_update_err(g, w, ws) for g, w in zip(
+                ps, r0["zero1"]["params"][LM_DP_CKPT:]))
+            restaged[tag + "_elastic"] = payload.get("elastic")
+            restaged[tag + "_zero1"] = s.zero1
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    dp = np.array(r0["replicated"]["losses"])
+    loss_err, upd_err = trajectory_errors(dp, r0["replicated"]["params"],
+                                          ref, ref_p, w0)
+    _, one_upd_err = trajectory_errors(one, one_p, ref, ref_p, w0)
+    vs_one = [_update_err(g, w, w0) for g, w in
+              zip(r0["replicated"]["params"], one_p)]
+    faults = {"grad_not_reduced": float(max(
+        trajectory_errors(np.array(out[1]["grad_not_reduced"]["losses"]),
+                          out[1]["grad_not_reduced"]["params"], ref, ref_p,
+                          w0)[1])),
+        "restage_momenta_zeroed": restaged["restage_momenta_zeroed"]}
+    counts = r0["kernel_launches"]
+    want = cfg32.n_layers * LM_DP_NUM_STEPS
+    row = {"phase": "train_lm_dp_numerics", "config": LM_NUM,
+           "global_batch": LM_NUM_BATCH, "seq": LM_NUM_SEQ,
+           "steps": LM_DP_NUM_STEPS, "dtype": "float32",
+           "reference": "the port on the CPU, float64, global batch",
+           "dp2_losses": dp.tolist(), "cpu_losses": ref.tolist(),
+           "loss_rel_err": loss_err.tolist(), "loss_rtol": LM_NUM_LOSS_RTOL,
+           "update_rel_err": upd_err.tolist(),
+           "update_tol": LM_NUM_UPDATE_TOL,
+           "one_device_card_update_rel_err": one_upd_err.tolist(),
+           "dp2_vs_one_device_card_update_err": vs_one,
+           "ranks_equal": r0["replicated"]["losses"] ==
+               out[1]["replicated"]["losses"],
+           "restage_dp2_to_dp1_update_err": restaged["restage"],
+           "restage_elastic": restaged["restage_elastic"],
+           "zero1": r0["zero1"]["zero1"],
+           "fault_update_err": faults, "kernel_launches": counts}
+    emit(row)
+    if counts["flash_attention_fwd_by_route"]["simt"] != want or \
+            counts["flash_attention_bwd_by_route"]["simt"] != want:
+        raise RuntimeError("train_lm_dp_numerics: kernel launches %r, want "
+                           "%d simt forward and backward a rank"
+                           % (counts, want))
+    if not (np.isfinite(dp).all() and (loss_err <= LM_NUM_LOSS_RTOL).all()
+            and (upd_err <= LM_NUM_UPDATE_TOL).all()
+            and row["ranks_equal"] and row["zero1"]
+            and restaged["restage"] <= LM_NUM_UPDATE_TOL):
+        raise RuntimeError("train_lm_dp_numerics: off the reference: %r"
+                           % (row,))
+    if not min(faults.values()) > LM_NUM_UPDATE_TOL:
+        raise RuntimeError("train_lm_dp_numerics: the check cannot tell a "
+                           "planted fault from the reference: %r"
+                           % (faults,))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -2607,13 +3355,19 @@ def main() -> int:
     phase_serve_cli()
     phase_numerics()
     ndrow = phase_ndarray()
-    phase_train()
+    train = phase_train()
     phase_train_numerics()
     lm = phase_train_lm()
     phase_train_lm_numerics()
     fit = phase_fit()
     phase_fit_numerics()
     phase_export()
+    dp = phase_dp(train)
+    phase_dp_numerics()
+    lm_dp = phase_train_lm_dp(lm)
+    lm_dp_num = phase_train_lm_dp_numerics()
+    dp_counts = dp["runs"][1]["kernel_launches"]
+    lm_dp_counts = lm_dp["per_rank"][0]["kernel_launches"]
     main_row, bwd_row = rows[0], bwd_rows[0]
     add_row = next(r for r in add_rows if "kernel_ms" in r)
     kernels = [{
@@ -2629,7 +3383,15 @@ def main() -> int:
                              "train_lm": lm["kernel_launches"][
                                  "flash_attention_fwd"],
                              "fit": fit["kernel_launches"][
-                                 "flash_attention_fwd"]},
+                                 "flash_attention_fwd"],
+                             "dp": dp_counts["flash_attention_fwd"],
+                             "train_lm_dp": lm_dp_counts[
+                                 "flash_attention_fwd"],
+                             "train_lm_dp_per_step_per_rank":
+                                 lm_dp_counts["flash_attention_fwd"] /
+                                 lm_dp["per_rank"][0]["steps_counted"],
+                             "train_lm_dp_numerics": lm_dp_num[
+                                 "kernel_launches"]["flash_attention_fwd"]},
         "max_abs_err": max(r["max_err"] for r in rows),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2654,7 +3416,15 @@ def main() -> int:
         "launches_by_path": {"train_lm": lm["kernel_launches"][
                                  "flash_attention_bwd"],
                              "fit": fit["kernel_launches"][
-                                 "flash_attention_bwd"]},
+                                 "flash_attention_bwd"],
+                             "dp": dp_counts["flash_attention_bwd"],
+                             "train_lm_dp": lm_dp_counts[
+                                 "flash_attention_bwd"],
+                             "train_lm_dp_per_step_per_rank":
+                                 lm_dp_counts["flash_attention_bwd"] /
+                                 lm_dp["per_rank"][0]["steps_counted"],
+                             "train_lm_dp_numerics": lm_dp_num[
+                                 "kernel_launches"]["flash_attention_bwd"]},
         "max_abs_err": max(r["max_err"] for r in bwd_rows),
         "ms": bwd_row["kernel_ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
@@ -2670,7 +3440,9 @@ def main() -> int:
         "replaces": "tests/test_parity_tail.py:148",
         "launches": ndrow["rtc_launches"].get("add", 0),
         "launches_by_path": {"ndarray": ndrow["rtc_launches"].get("add", 0),
-                             "fit": fit["kernel_launches"]["rtc_add"]},
+                             "fit": fit["kernel_launches"]["rtc_add"],
+                             "dp": dp_counts["rtc_add"],
+                             "train_lm_dp": lm_dp_counts["rtc_add"]},
         "max_abs_err": max(r["max_err"] for r in add_rows),
         "ms": add_row["kernel_ms"], "plain_ms": add_row["plain_ms"],
         "bound_ms": add_row["bound_ms"], "bound_by": add_row["bound_by"],

@@ -23,10 +23,17 @@ pickle the JAX package writes for an ``ml_dtypes.bfloat16`` array, so
 the JAX package reads it back as bf16.  Every other array loads as
 numpy.
 
-Not ported (queued in ROADMAP A10): the asynchronous writer thread,
-``rng_state``/``set_rng_state`` (a port shard carries ``rng: None``),
-and elastic resume across world sizes (a shard written by W ranks
-loads only on a W-rank fleet here; the JAX package reshards).
+Elastic resume across world sizes is the JAX package's: a step written
+by W ranks loads on a W'-rank fleet (rank r reads source shard r % W),
+the payload's ``elastic`` entry records the reshard, and
+``scale_resume_skip`` re-divides the global sample position.  The world
+size counts processes in both packages: one per host in the JAX
+package, one per device in the port, whose ranks each train on their
+rows of the global batch and record that per-rank batch size, so the
+sample position agrees both ways.
+
+Not ported (queued in ROADMAP A10): the asynchronous writer thread and
+``rng_state``/``set_rng_state`` (a port shard carries ``rng: None``).
 """
 from __future__ import annotations
 
@@ -51,7 +58,7 @@ __all__ = [
     "CheckpointCorrupt", "CheckpointManager", "save_checkpoint",
     "load_checkpoint", "latest_step", "list_steps", "step_dir",
     "shard_path", "manifest_path", "read_manifest", "missing_ranks",
-    "verify_step", "verify_dir", "main",
+    "verify_step", "verify_dir", "scale_resume_skip", "main",
 ]
 
 _log = logging.getLogger(__name__)
@@ -744,15 +751,11 @@ def _load_shard(directory: str, step: int, rank: int, nr: int,
             raise _StepVanished(step)
         man = read_manifest(directory, step)
         writer_ranks = int(man["num_ranks"]) if man is not None else nr
-        if writer_ranks != nr:
-            raise ValueError(
-                "checkpoint step %d under %r was written by %d rank(s) "
-                "and is loaded on %d: elastic resume across world sizes "
-                "is not ported (ROADMAP A10)"
-                % (step, directory, writer_ranks, nr))
+        # elastic: a W'-rank fleet reads source shard r % W
+        src = rank if writer_ranks == nr else rank % writer_ranks
         if verify and man is not None:
             rep = verify_step(directory, step,
-                              digest_ranks=[rank] if explicit else None,
+                              digest_ranks=[src] if explicit else None,
                               on_shard=refresh_pin)
             if not rep["verified"]:
                 if _tombstoned(directory, step) or \
@@ -779,7 +782,7 @@ def _load_shard(directory: str, step: int, rank: int, nr: int,
                            if info.get("error") in ("missing",
                                                     "unreadable")),
                     writer_ranks)
-        path = shard_path(directory, step, rank)
+        path = shard_path(directory, step, src)
         try:
             f = open(path, "rb")
         except FileNotFoundError:
@@ -788,7 +791,7 @@ def _load_shard(directory: str, step: int, rank: int, nr: int,
                 raise _StepVanished(step)
             raise _incomplete_error(
                 directory, step,
-                missing_ranks(directory, step, writer_ranks) or [rank],
+                missing_ranks(directory, step, writer_ranks) or [src],
                 writer_ranks)
         with f:
             payload = _loads_payload(f.read())
@@ -797,6 +800,21 @@ def _load_shard(directory: str, step: int, rank: int, nr: int,
         raise ValueError(
             "checkpoint %s has format_version %r; this build reads <= %d"
             % (path, version, FORMAT_VERSION))
+    if writer_ranks != nr:
+        it = payload.get("iterator") or {}
+        payload["elastic"] = {
+            "from_num_ranks": writer_ranks, "to_num_ranks": nr,
+            "rank": rank, "source_rank": src,
+            "orig_nbatch": int(payload.get("nbatch", 0)),
+            "orig_cursor": it.get("cursor"),
+            "orig_batch_size": it.get("batch_size"),
+        }
+        _log.warning(
+            "ELASTIC RESUME: checkpoint step %d under %r was written by "
+            "%d rank(s); resuming rank %d of %d from source shard %d — "
+            "iterator position scales by %d/%d (exact resume is bitwise "
+            "only when the world size matches)",
+            step, directory, writer_ranks, rank, nr, src, writer_ranks, nr)
     return payload
 
 
@@ -806,7 +824,9 @@ def load_checkpoint(directory: str, step: Optional[int] = None,
                     verify: Optional[bool] = None) -> dict:
     """Load one rank's shard of the given (default: newest verified)
     step.  Digests are checked against MANIFEST.json (``verify``,
-    default ``MXNET_CKPT_VERIFY``).  An explicit ``step`` (or a
+    default ``MXNET_CKPT_VERIFY``).  A step written by W ranks loads on
+    a W'-rank fleet from source shard ``rank % W`` (the payload's
+    ``elastic`` entry records it).  An explicit ``step`` (or a
     ``directory`` naming a ``step_NNNNNNNN`` dir) fails fast on
     corruption; ``step=None`` falls back past corrupt steps to the
     newest verified one.  Raises FileNotFoundError when nothing is
@@ -858,6 +878,26 @@ def load_checkpoint(directory: str, step: Optional[int] = None,
         "no complete checkpoint under %r (a step is complete "
         "only when every rank's shard exists): %s"
         % (directory, _incomplete_detail(directory, nr)))
+
+
+def scale_resume_skip(payload: dict,
+                      new_batch_size: Optional[int]) -> int:
+    """The per-rank batches to skip on an elastic resume (ref
+    ``scale_resume_skip`` :985): the global sample position (per-rank
+    batches x per-rank batch size x world size) is invariant, re-divided
+    by this fleet's per-rank batch x world size; pure world-size
+    scaling when the writer recorded no batch size."""
+    el = payload.get("elastic")
+    if not el:
+        return int(payload.get("nbatch", 0))
+    w_old = max(int(el["from_num_ranks"]), 1)
+    w_new = max(int(el["to_num_ranks"]), 1)
+    nbatch = int(el.get("orig_nbatch", payload.get("nbatch", 0)))
+    b_old = el.get("orig_batch_size")
+    if b_old and new_batch_size:
+        global_samples = nbatch * int(b_old) * w_old
+        return global_samples // (int(new_batch_size) * w_new)
+    return (nbatch * w_old) // w_new
 
 
 # ---------------------------------------------------------------------------

@@ -63,12 +63,17 @@ def _dump_dir_path(path: str) -> str:
 
 
 def _rank_info() -> Tuple[int, int]:
-    """(rank, num_workers) from the launcher env: DMLC_WORKER_ID /
-    DMLC_NUM_WORKER (tools/launch.py), then MXNET_PROCESS_ID /
-    MXNET_NUM_PROCESSES."""
+    """(rank, num_workers): the launcher env's DMLC_WORKER_ID /
+    DMLC_NUM_WORKER (tools/launch.py), then the process group once
+    ``dist.initialize()`` has run (one process per device), then
+    MXNET_PROCESS_ID / MXNET_NUM_PROCESSES."""
+    import torch.distributed as tdist
+
     if os.environ.get("DMLC_WORKER_ID") is not None:
         return (int(os.environ["DMLC_WORKER_ID"]),
                 int(os.environ.get("DMLC_NUM_WORKER", "1")))
+    if tdist.is_available() and tdist.is_initialized():
+        return tdist.get_rank(), tdist.get_world_size()
     from . import env as _env
 
     if os.environ.get("MXNET_PROCESS_ID") not in (None, ""):

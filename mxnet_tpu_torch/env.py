@@ -170,6 +170,9 @@ register("MXNET_DIVERGENCE_FACTOR", "float", 3.0,
 register("MXNET_ELASTIC_GENERATION", "int", 0,
          "Fleet incarnation, stamped into checkpoint sidecars and "
          "manifests.")
+register("MXNET_COORDINATOR_ADDRESS", "str", None,
+         "host:port of rank 0's rendezvous; presence enables "
+         "multi-process initialization (dist.initialize).")
 register("MXNET_PROCESS_ID", "int", 0,
          "This process's rank in the pod launch contract.")
 register("MXNET_NUM_PROCESSES", "int", 1,
@@ -222,13 +225,21 @@ register("MXNET_BACKWARD_DO_MIRROR", "bool", False,
          "A7): setting it raises at the train step's build.")
 register("MXNET_ZERO_STAGE", "int", 0,
          "Optimizer-state sharding: 0 replicates momenta (default); 1 "
-         "(ZeRO-1) needs a multi-device dp axis, so on the port's one "
-         "device it warns and stays replicated.")
+         "(ZeRO-1) shards them over a dp mesh of more than one rank "
+         "(on one device it warns and stays replicated).")
 register("MXNET_KVSTORE_BUCKET_BYTES", "int", 4 * 1024 * 1024,
-         "Gradient bucket size cap; on one device the plan only shapes "
-         "the checkpoint's momenta blob (n_buckets, bucket_elems), so "
-         "that checkpoints cross-load with the JAX package.  0 means "
-         "one bucket per dtype run.")
+         "Gradient all-reduce bucket size cap (one all-reduce per "
+         "bucket, issued from backward hooks); 0 asks for the "
+         "monolithic reduction (FusedTrainStep) or one bucket per dtype "
+         "run (TransformerTrainStep).")
+register("MXNET_KVSTORE_BUCKET_CHAIN", "bool", True,
+         "The JAX package chains consecutive bucket reductions; NCCL and "
+         "gloo run a process group's collectives in issue order, so the "
+         "port reads it only to report it.")
+register("MXNET_KVSTORE_BUCKET_IMPL", "str", "psum",
+         "The JAX package's bucket reduction schedule: 'psum', 'ring' "
+         "or 'hierarchical'.  The port accepts the three names and runs "
+         "the backend's own all-reduce (NCCL picks its algorithm).")
 register("MXNET_AUTOTUNE_PLAN", "str", None,
          "A tuned bucket plan of the JAX package's autotuner; not ported "
          "(ROADMAP A11): setting it raises at the train step's build.")

@@ -24,7 +24,7 @@ Random ops draw from the per-device ``torch.Generator`` of
 ``mx.random`` (``mx.random.seed`` reseeds it), where the JAX package
 folds the node index into a fresh key; parity tests never compare
 draws.  One device only: a ``group2ctx`` that places a group away from
-the executor's context raises (model parallelism, ROADMAP A6), and so
+the executor's context raises (model parallelism, ROADMAP A6b), and so
 do the conv-tier remat policies (``MXNET_REMAT_POLICY=stage|conv_block``)
 and ``MXNET_BACKWARD_DO_MIRROR`` (ROADMAP A7).  The profiler spans of
 the JAX package's Forward/Backward wait for ROADMAP A11.
@@ -47,7 +47,7 @@ def place_nodes(symbol, default_ctx: Context,
                 group2ctx: Optional[Dict[str, Context]]) -> None:
     """The PlaceDevice pass (ref: graph_executor.cc:406) on one device:
     nothing to place when every ``ctx_group`` maps to ``default_ctx``;
-    any other placement raises (ROADMAP A6).  ``ctx_group`` attributes
+    any other placement raises (ROADMAP A6b).  ``ctx_group`` attributes
     stay on the nodes and in the JSON either way."""
     if not group2ctx:
         return None
@@ -60,7 +60,7 @@ def place_nodes(symbol, default_ctx: Context,
             raise MXNetError(
                 "group2ctx places ctx_group %r of node %r on %r, away from "
                 "the executor's %r: model-parallel placement is not ported "
-                "to mxnet_tpu_torch yet (ROADMAP A6)"
+                "to mxnet_tpu_torch yet (ROADMAP A6b)"
                 % (str(group), node.name, ctx, default_ctx))
     return None
 

@@ -4,12 +4,13 @@ Counterpart: ``mxnet_tpu/kvstore.py`` ``KVStore`` (:153-452; ref:
 include/mxnet/kvstore.h, src/kvstore/kvstore_local.h).  ``push`` sums the
 values pushed for a key, ``pull`` copies the stored value out, and
 ``set_optimizer`` moves the update into the store (update_on_kvstore),
-with the optimizer's states saved in the JAX package's format.  The
-other kinds (``tpu``, ``nccl``, ``dist_*``) are the multi-device and
-multi-process tiers, not ported: creating one raises and names the
-queue item.  The profiler spans, byte counters and flight-recorder
-entries of the JAX package's verbs wait for the observability port
-(ROADMAP A11).
+with the optimizer's states saved in the JAX package's format.
+``rank`` / ``num_workers`` follow the rank contract (kvstore.h:254-306):
+after ``dist.initialize()`` they are the process group's.  The other
+kinds (``tpu``, ``nccl``, ``dist_*``) are not ported: creating one
+raises and names the queue item.  The profiler spans, byte counters
+and flight-recorder entries of the JAX package's verbs wait for the
+observability port (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -60,11 +61,15 @@ class KVStore:
 
     @property
     def rank(self) -> int:
-        return 0
+        from . import dist
+
+        return dist.rank()
 
     @property
     def num_workers(self) -> int:
-        return 1
+        from . import dist
+
+        return dist.num_processes()
 
     # -- core API (ref: include/mxnet/kvstore.h Init/Push/Pull) --------
     def init(self, key, value) -> None:
@@ -167,6 +172,8 @@ def create(name: str = "local") -> KVStore:
         raise MXNetError("kvstore %r is the parameter-server tier, not "
                          "ported (ROADMAP A10)" % name)
     if name in ("tpu", "nccl"):
-        raise MXNetError("kvstore %r is the multi-device tier, not ported "
-                         "(ROADMAP A6: multi-GPU data parallel)" % name)
+        raise MXNetError("kvstore %r (the in-step multi-device fast path) "
+                         "is not ported (ROADMAP A6b); train data-parallel "
+                         "through parallel.dp.FusedTrainStep over a dp "
+                         "mesh" % name)
     return KVStore(name)

@@ -5,7 +5,7 @@ python/mxnet/module/module.py, bind/forward/backward/update at
 :570-629).  One device: ``Module(context=None)`` takes the current
 context, the card (without one the bind raises and names ``mx.cpu()``);
 a context list of more than one device, the reference's data-parallel
-executor group, is ROADMAP A6 and raises.  Batches arrive as host data
+executor group, is ROADMAP A6b and raises.  Batches arrive as host data
 (``io`` iterators build them on ``mx.cpu()``): ``_feed`` casts each to
 its argument's dtype and moves it to the module's device.
 """
@@ -42,7 +42,7 @@ class Module(BaseModule):
         if len(self._context_list) != 1:
             raise MXNetError(
                 "Module over %d contexts: multi-device data parallelism is "
-                "not ported to mxnet_tpu_torch yet (ROADMAP A6); pass one "
+                "not ported to mxnet_tpu_torch yet (ROADMAP A6b); pass one "
                 "context" % len(self._context_list))
         self._ctx = Context(self._context_list[0])
         self._ctx.torch_device()  # no card: raise now, naming mx.cpu()
@@ -60,7 +60,7 @@ class Module(BaseModule):
         self._fixed_param_names = list(fixed_param_names or [])
         # group2ctxs: dict (one mapping for the module) or list of dicts
         # (reference: one per context); the executor raises for any
-        # placement away from the module's device (ROADMAP A6)
+        # placement away from the module's device (ROADMAP A6b)
         if isinstance(group2ctxs, (list, tuple)):
             group2ctxs = group2ctxs[0] if group2ctxs else None
         self._group2ctxs = group2ctxs

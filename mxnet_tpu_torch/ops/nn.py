@@ -38,23 +38,25 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..base import MXNetError
 from .registry import register
 
 # ---------------------------------------------------------------------------
 # cross-device batch semantics (sync BN / global-batch normalisation;
-# ref: mxnet_tpu/ops/nn.py:47-61).  A per-device program of the dp path
-# traces under ``cross_device_batch_stats(axis)`` and batch statistics
-# reduce over that axis.  One device is the whole batch, so the hook is
-# a no-op there; the multi-device path (ROADMAP A6) is not ported.
+# ref: mxnet_tpu/ops/nn.py:47-61).  A dp train step runs its body under
+# ``cross_device_batch_stats("dp", mesh)``: BatchNorm's moments become
+# the global batch's (the mean over ranks of each rank's moments, equal
+# per-rank batches), and SoftmaxOutput's ``batch`` / ``valid``
+# normalisations divide by the global batch / valid count.  One device
+# is the whole batch: no collective runs there.
 # ---------------------------------------------------------------------------
 _cross_device_axis: list = []
 
 
 @contextlib.contextmanager
-def cross_device_batch_stats(axis_name: str):
-    """Batch-statistics ops reduce over ``axis_name`` inside."""
-    _cross_device_axis.append(str(axis_name))
+def cross_device_batch_stats(axis_name: str, mesh=None):
+    """Batch-statistics ops reduce over ``axis_name`` inside: over the
+    ranks of ``mesh`` (default: the whole process group)."""
+    _cross_device_axis.append((str(axis_name), mesh))
     try:
         yield
     finally:
@@ -62,23 +64,67 @@ def cross_device_batch_stats(axis_name: str):
 
 
 def _batch_stats_axis() -> Optional[str]:
-    return _cross_device_axis[-1] if _cross_device_axis else None
+    return _cross_device_axis[-1][0] if _cross_device_axis else None
 
 
-def _world_size() -> int:
+def _cross_device_group():
+    """``(n, process group)`` of the batch-stats axis, or None where no
+    collective runs: outside the context, and on one device that is not
+    a rank of a process group."""
+    if not _cross_device_axis:
+        return None
+    mesh = _cross_device_axis[-1][1]
+    if mesh is not None:
+        return (mesh.size, mesh.group) if mesh.collective or mesh.size > 1 \
+            else None
     dist = torch.distributed
-    return dist.get_world_size() if (dist.is_available()
-                                     and dist.is_initialized()) else 1
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), None
+    return None
+
+
+class _CrossDeviceMean(torch.autograd.Function):
+    """``lax.pmean`` under ``shard_map``: forward the mean over ranks
+    (the sum, then divided by n); backward the all-reduce of the
+    cotangent divided by n, pmean's transpose.  A plain all-reduce in
+    the forward would carry no gradient across ranks."""
+
+    @staticmethod
+    def forward(ctx, t, n, group):
+        import torch.distributed as dist
+
+        ctx.n, ctx.group = n, group
+        out = t.clone()
+        dist.all_reduce(out, group=group)
+        return out / n
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g / ctx.n, None, None
 
 
 def _cross_device_mean(t: torch.Tensor) -> torch.Tensor:
-    """The mean of ``t`` over the devices of the batch-stats axis: ``t``
-    itself on one device."""
-    if _batch_stats_axis() is not None and _world_size() > 1:
-        raise MXNetError("cross-device batch statistics over %d devices are "
-                         "not ported (ROADMAP A6: multi-GPU data parallel)"
-                         % _world_size())
-    return t
+    """The mean of ``t`` over the ranks of the batch-stats axis (``t``
+    itself on one device), differentiable as pmean."""
+    axis = _cross_device_group()
+    return t if axis is None else _CrossDeviceMean.apply(t, *axis)
+
+
+def _cross_device_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of the batch-stats axis (``psum``
+    of a count: no gradient)."""
+    axis = _cross_device_group()
+    if axis is None:
+        return t
+    import torch.distributed as dist
+
+    out = t.clone()
+    dist.all_reduce(out, group=axis[1])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -364,13 +410,14 @@ class _SoftmaxOutputFn(torch.autograd.Function):
             grad = grad.reshape(prob.shape)
         scale = grad_scale
         if normalization == "batch":
-            scale = scale / (prob.shape[0] * _world_size()
-                             if _batch_stats_axis() is not None
-                             else prob.shape[0])
+            # per-rank program: normalise by the GLOBAL batch
+            axis = _cross_device_group()
+            scale = scale / (prob.shape[0] * (1 if axis is None
+                                               else axis[0]))
         elif normalization == "valid" and use_ignore:
             nvalid = (label.reshape(-1).to(torch.int64)
                       != int(ignore_label)).sum()
-            nvalid = torch.clamp(_cross_device_mean(nvalid), min=1)
+            nvalid = torch.clamp(_cross_device_sum(nvalid), min=1)
             grad = grad * (1.0 / nvalid.to(prob.dtype))
         return grad * scale, _zero_grad(ctx, label), None
 
@@ -469,8 +516,14 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
         # single pass: E[x] and E[x²] in one read of the activation, in
         # promote(dtype, float32); the variance is the biased one
         xf = data.to(acc_t)
-        mean32 = _cross_device_mean(torch.mean(xf, dim=reduce_axes))
-        ex2 = _cross_device_mean(torch.mean(xf * xf, dim=reduce_axes))
+        mean32 = torch.mean(xf, dim=reduce_axes)
+        ex2 = torch.mean(xf * xf, dim=reduce_axes)
+        if _batch_stats_axis() is not None:
+            # sync BN: equal per-rank batches make the mean over ranks of
+            # the local moments the global batch's; E[x] and E[x²] of a
+            # layer ride one collective
+            mean32, ex2 = _cross_device_mean(
+                torch.stack([mean32, ex2])).unbind(0)
         var32 = torch.clamp(ex2 - mean32 * mean32, min=0.0)
         # momentum weights the OLD stat; the update runs in the stats'
         # own dtype (bf16 after a cast)

@@ -1,7 +1,9 @@
 """Parallel primitives of the port.  Counterpart: ``mxnet_tpu/parallel/``
-(the single-device attention with its gradient, the bucket plan, and
-``dp.FusedTrainStep`` on one device; ``import mxnet_tpu_torch.parallel.dp``
-for it)."""
+(the attention kernels with their gradient, ``mesh`` (dp meshes over a
+process group), ``buckets`` (the bucket plan and its all-reduce) and
+``dp`` (``FusedTrainStep`` on one device or data-parallel, ZeRO-1);
+``import mxnet_tpu_torch.parallel.dp`` for it).  Ring / Ulysses sequence
+parallelism is ROADMAP A6b."""
 from .attention import (FlashAttention, attention_reference,
                         flash_attention, flash_attention_bwd,
                         flash_attention_bwd_reference, flash_attention_fwd,

@@ -1,26 +1,44 @@
-"""Gradient bucket plans.
+"""Gradient buckets: the reverse-layer-order plan and its all-reduce.
 
-Counterpart: ``mxnet_tpu/parallel/buckets.py`` ``Bucket``,
-``bucket_cap_bytes``, ``partition``, ``plan_with_tuning`` (:53-183) and
-``plan_meta`` (:400).  The JAX package partitions the gradient pytree
-into reverse-layer-order, size-capped, dtype-homogeneous buckets and
-reduces each across the data-parallel axis.  The port runs on one
-device and reduces nothing, so here the plan only shapes what a
-checkpoint records (the momenta blob's ``n_buckets`` and
-``bucket_elems``); it is the JAX package's plan exactly, so that
-checkpoints cross-load.  The reductions themselves and the autotuned
-caps (``MXNET_AUTOTUNE_PLAN`` / ``MXNET_AUTOTUNE_DIR``, which raise
-here) are the multi-device tier (ROADMAP A6, A11).
+Counterpart: ``mxnet_tpu/parallel/buckets.py`` (:53-430).  The gradient
+tree is partitioned into reverse-layer-order, size-capped,
+dtype-homogeneous buckets (the JAX package's plan exactly, so that
+checkpoints cross-load); each bucket is one flat concat and ONE
+all-reduce over the mesh's process group, in the bucket's own dtype:
+the sum first, then a multiply by ``1/n`` in that dtype, as the
+reference's ``psum`` then scale (``ReduceOp.AVG`` would round
+otherwise).  :class:`OverlappedReduce` issues each bucket's collective
+from the backward pass, as soon as the bucket's last gradient is
+written (``register_post_accumulate_grad_hook``), so the reductions of
+the deepest layers ride under the rest of backward: the NCCL-DDP
+schedule the reference reaches through XLA's scheduler.
+
+``MXNET_KVSTORE_BUCKET_IMPL=ring|hierarchical`` name XLA-side schedules
+in the JAX package.  On NCCL the algorithm is NCCL's own (it picks ring
+or tree per message), so the port accepts the three names and runs the
+backend's all-reduce for each.  ``MXNET_KVSTORE_BUCKET_CHAIN`` is
+reported only: a process group runs its collectives in issue order.
+Tuned caps (``MXNET_AUTOTUNE_PLAN`` / ``_DIR``) and ``stamp_profiler``
+are queued (ROADMAP A11) and raise or are absent.
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, \
+    Tuple
+
+import torch
 
 from .. import env as _env
 
-__all__ = ["Bucket", "bucket_cap_bytes", "dtype_name", "itemsize",
-           "partition", "plan_with_tuning", "accounting", "plan_meta"]
+__all__ = ["DEFAULT_BUCKET_BYTES", "Bucket", "bucket_cap_bytes",
+           "chain_enabled", "impl_name", "dtype_name", "itemsize",
+           "partition", "plan_with_tuning", "plan_for_arrays",
+           "host_local_count", "pack_flats", "scale_", "unpack",
+           "bucketed_reduce", "OverlappedReduce", "accounting",
+           "plan_meta"]
 
+DEFAULT_BUCKET_BYTES = 4 * 1024 * 1024
+_IMPLS = ("psum", "ring", "hierarchical")
 _ITEMSIZE = {"float64": 8, "float32": 4, "bfloat16": 2, "float16": 2,
              "int64": 8, "int32": 4}
 
@@ -34,8 +52,24 @@ class Bucket(NamedTuple):
 
 def bucket_cap_bytes() -> int:
     """The size cap, ``MXNET_KVSTORE_BUCKET_BYTES`` (default 4 MiB; 0
-    asks for one bucket per dtype run)."""
+    asks for the monolithic reduction)."""
     return _env.get_int("MXNET_KVSTORE_BUCKET_BYTES")
+
+
+def chain_enabled() -> bool:
+    """``MXNET_KVSTORE_BUCKET_CHAIN`` (reported in ``plan_meta``)."""
+    return _env.get_bool("MXNET_KVSTORE_BUCKET_CHAIN")
+
+
+def impl_name() -> str:
+    """``MXNET_KVSTORE_BUCKET_IMPL``: 'psum', 'ring' or 'hierarchical';
+    each runs the process group's own all-reduce here.  Another name
+    raises."""
+    name = _env.get_str("MXNET_KVSTORE_BUCKET_IMPL")
+    if name not in _IMPLS:
+        raise ValueError("MXNET_KVSTORE_BUCKET_IMPL=%r: one of %s"
+                         % (name, ", ".join(_IMPLS)))
+    return name
 
 
 def dtype_name(dtype) -> str:
@@ -110,6 +144,198 @@ def plan_with_tuning(entries: Sequence[Tuple],
     return partition(list(entries), None), None
 
 
+def plan_for_arrays(named: Mapping, cap_bytes: Optional[int] = None
+                    ) -> List[Bucket]:
+    """Partition a ``{key: tensor}`` mapping (insertion order = layer
+    order)."""
+    return partition([(k, tuple(v.shape), dtype_name(v.dtype))
+                      for k, v in named.items()], cap_bytes)
+
+
+def host_local_count(mesh) -> Optional[int]:
+    """Ranks per host along the mesh, when every host's ranks are
+    contiguous and equally many (the layout the JAX package's
+    hierarchical schedule assumes); None for one rank, ragged hosts or
+    interleaved placement."""
+    hosts = list(getattr(mesh, "hosts", None) or ())
+    n = len(hosts)
+    if n < 2 or None in hosts:
+        return None
+    local = 1
+    while local < n and hosts[local] == hosts[0]:
+        local += 1
+    if n % local:
+        return None
+    blocks = []
+    for h in range(n // local):
+        block = hosts[h * local:(h + 1) * local]
+        if len(set(block)) != 1:
+            return None
+        blocks.append(block[0])
+    return local if len(set(blocks)) == len(blocks) else None
+
+
+def _flat_copy(tensors) -> torch.Tensor:
+    """One new flat buffer holding ``tensors`` in order (never a view:
+    the collectives below write into it)."""
+    if len(tensors) == 1:
+        return tensors[0].reshape(-1).clone()
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def pack_flats(grads: Mapping, plan: Sequence[Bucket]) -> List:
+    """``grads`` (``{key: tensor}``) packed into one flat buffer per
+    bucket, in plan order: the layout the all-reduce and ZeRO-1's
+    reduce-scatter consume."""
+    return [_flat_copy([grads[k] for k in b.keys]) for b in plan]
+
+
+def scale_(flat: torch.Tensor, n: int) -> torch.Tensor:
+    """``flat *= 1/n`` with ``1/n`` rounded to the buffer's dtype first,
+    as the reference's ``red * jnp.asarray(1/n, dtype)``."""
+    return flat.mul_(torch.tensor(1.0 / n, dtype=flat.dtype))
+
+
+def unpack(flat: torch.Tensor, keys, like: Mapping) -> Dict:
+    """Views of ``flat`` in the shapes of ``like[key]``, in ``keys``
+    order."""
+    out, off = {}, 0
+    for k in keys:
+        sz = like[k].numel()
+        out[k] = flat[off:off + sz].view(like[k].shape)
+        off += sz
+    return out
+
+
+def bucketed_reduce(grads: Mapping, plan: Sequence[Bucket], mesh, *,
+                    mean: bool = False, impl: Optional[str] = None,
+                    flats: Optional[Sequence] = None) -> Dict:
+    """Reduce ``grads`` (``{key: this rank's tensor}``) bucket by bucket
+    over the mesh's process group; returns ``{key: reduced tensor}``.
+    One flat concat and one all-reduce (sum) per bucket, in plan order;
+    ``mean`` then multiplies by ``1/n``.  ``flats`` (pre-packed
+    buffers, :func:`pack_flats`) skip the concat and are reduced in
+    place; ``grads`` then supplies the shapes."""
+    import torch.distributed as dist
+
+    if impl is None:
+        impl = impl_name()
+    elif impl not in _IMPLS:
+        raise ValueError("bucket impl %r: one of %s" % (impl, _IMPLS))
+    n = mesh.size
+    out: Dict = {}
+    for i, bucket in enumerate(plan):
+        flat = flats[i] if flats is not None else \
+            _flat_copy([grads[k] for k in bucket.keys])
+        if n > 1:
+            dist.all_reduce(flat, group=mesh.group)
+            if mean:
+                scale_(flat, n)
+        out.update(unpack(flat, bucket.keys, grads))
+    return out
+
+
+class OverlappedReduce:
+    """The bucketed exchange driven by the backward pass.
+
+    ``arm(params)`` hooks every gradient leaf of the plan
+    (``register_post_accumulate_grad_hook``); when the last gradient of
+    a bucket is written, the bucket is packed (the ``.grad`` tensors are
+    released) and its collective is issued with ``async_op=True``:
+    an all-reduce, or with ``scatter=True`` ZeRO-1's reduce-scatter of
+    the buffer padded to a multiple of ``n``.  ``finish()`` issues the
+    buckets backward never completed (parameters that took no gradient
+    reduce zeros), in plan order, waits for every handle and returns
+    one reduced flat (or this rank's shard) per bucket in plan order.
+    The update therefore does not depend on the order in which the
+    buckets land.  Every rank runs the same graph, so every rank issues
+    the same collectives in the same order.  ``overlap=False`` issues
+    them all after backward (the monolithic reduction)."""
+
+    def __init__(self, plan: Sequence[Bucket], mesh, *,
+                 scatter: bool = False, overlap: bool = True):
+        self.plan = list(plan)
+        self.mesh = mesh
+        self.scatter = bool(scatter)
+        self.overlap = bool(overlap)
+        self._where = {k: i for i, b in enumerate(self.plan)
+                       for k in b.keys}
+        self._handles: list = []
+        self.issue_order: List[int] = []
+
+    def arm(self, params: Mapping) -> None:
+        """Hook ``params`` (``{key: leaf tensor}``) for one backward."""
+        self._params = params
+        self._grads: Dict = {}
+        self._left = [len(b.keys) for b in self.plan]
+        self._work: List = [None] * len(self.plan)
+        self.issue_order = []
+        self.disarm()
+        if self.overlap:
+            for k, p in params.items():
+                if k in self._where:
+                    self._handles.append(p.register_post_accumulate_grad_hook(
+                        lambda t, k=k: self._ready(k, t)))
+
+    def disarm(self) -> None:
+        for h in self._handles:
+            h.remove()
+        self._handles = []
+
+    def _ready(self, key, tensor) -> None:
+        self._grads[key] = tensor.grad
+        tensor.grad = None
+        i = self._where[key]
+        self._left[i] -= 1
+        if self._left[i] == 0:
+            self._issue(i)
+
+    def _issue(self, i: int) -> None:
+        import torch.distributed as dist
+
+        b = self.plan[i]
+        flat = _flat_copy([
+            self._grads[k] if self._grads.get(k) is not None
+            else torch.zeros_like(self._params[k]) for k in b.keys])
+        for k in b.keys:
+            self._grads.pop(k, None)
+        n = self.mesh.size
+        if self.scatter:
+            pad = (-flat.numel()) % n
+            if pad:
+                flat = torch.cat([flat, flat.new_zeros(pad)])
+            shard = flat.new_empty(flat.numel() // n)
+            work = dist.reduce_scatter_tensor(shard, flat,
+                                              group=self.mesh.group,
+                                              async_op=True)
+            self._work[i] = (shard, work)
+        else:
+            work = dist.all_reduce(flat, group=self.mesh.group,
+                                   async_op=True)
+            self._work[i] = (flat, work)
+        self.issue_order.append(i)
+
+    def finish(self) -> List[torch.Tensor]:
+        """Issue what backward left, wait for everything; the reduced
+        flats (sums, not yet scaled) in plan order."""
+        self.disarm()
+        if not self.overlap:
+            for k, p in self._params.items():
+                if k in self._where:
+                    self._grads[k] = p.grad
+                    p.grad = None
+        for i in range(len(self.plan)):
+            if self._work[i] is None:
+                self._issue(i)
+        out = []
+        for flat, work in self._work:
+            work.wait()
+            out.append(flat)
+        self._params = None
+        self._work = []
+        return out
+
+
 def accounting(plan: Sequence[Bucket]) -> List[Dict]:
     """Per-bucket rows: index, gradient count, bytes, dtype."""
     return [{"bucket": i, "n_grads": len(b.keys), "bytes": int(b.nbytes),
@@ -119,17 +345,16 @@ def accounting(plan: Sequence[Bucket]) -> List[Dict]:
 def plan_meta(plan: Optional[Sequence[Bucket]],
               cap_bytes: Optional[int] = None) -> Dict:
     """The self-describing summary of a plan, in the JAX package's
-    format: bucket count, bytes, cap, per-bucket rows, and the
-    reduction it would run under, which on one device is none: the JAX
-    package's defaults (``psum``, chained) are recorded.  No
-    ``autotune`` block: tuned plans are not ported."""
+    format: bucket count, bytes, cap, the schedule's name and chaining,
+    per-bucket rows.  No ``autotune`` block: tuned plans are not
+    ported."""
     plan = list(plan or ())
     return {
         "n_buckets": len(plan),
         "total_bytes": sum(int(b.nbytes) for b in plan),
         "cap_bytes": bucket_cap_bytes() if cap_bytes is None
         else int(cap_bytes),
-        "impl": "psum",
-        "chained": True,
+        "impl": impl_name(),
+        "chained": chain_enabled(),
         "buckets": accounting(plan),
     }

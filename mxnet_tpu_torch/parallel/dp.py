@@ -1,33 +1,47 @@
-"""The fused train step, one device.
+"""The fused train step, on one device or data-parallel over a dp mesh.
 
-Counterpart: ``mxnet_tpu/parallel/dp.py`` ``FusedTrainStep`` (:397-1043,
-``run_steps`` :1044, ``__call__`` :1173), single device.  The JAX package
-compiles forward, loss, backward and update into one XLA program; the
+Counterpart: ``mxnet_tpu/parallel/dp.py``: ``shard_batch`` / ``replicate``
+(:98, :108), the ZeRO-1 helpers (:132-330) and ``FusedTrainStep``
+(:397-1173).  The JAX package compiles forward, loss, backward, the
+gradient exchange and the update into one XLA program over a mesh; the
 port runs the same step eagerly on torch (cuDNN convolutions and cuBLAS
-GEMMs on the card), with its semantics:
+GEMMs on the card), one process per device (``mxnet_tpu_torch.dist``),
+with its semantics:
 
   * the first call settles deferred shapes with one float32 forward
     under ``autograd.pause()`` (inference mode: BatchNorm's running
     statistics do not move), then ``block.cast(dtype)`` casts every
-    parameter, running statistics included;
-  * the batch is cast to the compute dtype inside the step; the loss is
-    the batch mean of the loss block;
+    parameter, running statistics included; on a dp mesh rank 0 then
+    broadcasts every parameter once;
+  * every rank receives the GLOBAL batch, as the JAX step does, and
+    trains on its rows ``[r*B/n, (r+1)*B/n)`` (``shard_batch``'s
+    placement); the batch is cast to the compute dtype inside the step;
+    the loss is the batch mean of the loss block, averaged over ranks;
+  * inside the step BatchNorm's moments and SoftmaxOutput's
+    normalisations are the global batch's
+    (``ops.nn.cross_device_batch_stats``, sync BN);
   * gradients are taken over the parameters with a gradient (not the
-    aux ones, ``grad_req == "null"``); the aux ones keep the values the
-    forward wrote into them;
+    aux ones); on a mesh each reverse-layer-order bucket
+    (``parallel.buckets``) is all-reduced from the backward pass as soon
+    as its last gradient is written, then scaled by ``1/n``
+    (``bucket_bytes=0``: one all-reduce over all gradients after
+    backward, the monolithic reduction);
   * the update is ONE fused SGD-momentum per dtype group over a flat
     concatenation of the parameters (``optimizer.fused_sgd_mom_grouped``),
     or the per-key loop with ``fused_update=False``, bitwise equal;
     weight decay applies to every non-aux parameter; momenta start at
-    zeros in the parameter dtype.
+    zeros in the parameter dtype.  ``zero_stage=1`` (ZeRO-1, on the
+    bucketed path) reduce-scatters each bucket instead, updates this
+    rank's shard of the momenta and parameters and all-gathers the
+    parameters: each rank holds 1/n of the momenta.
 
-A mesh of more than one device, ``bucket_bytes``, ``zero_stage``,
-``param_spec_fn``, gradient accumulation and remat are the multi-device
-and memory tiers (ROADMAP A6, A7): asking for one raises.
+Tensor-parallel ``param_spec_fn`` and mesh axes other than ``dp``
+(ROADMAP A6b), gradient accumulation and remat (A7) raise.
 """
 from __future__ import annotations
 
-from typing import List
+import logging
+from typing import Dict, List, Optional
 
 import numpy as _np
 import torch
@@ -37,9 +51,16 @@ from ..base import MXNetError, torch_dtype
 from ..context import current_context
 from ..ndarray import NDArray
 from .. import optimizer as _opt
+from . import buckets as _buckets
+from .mesh import Mesh
 
-__all__ = ["FusedTrainStep", "zero1_stage", "zero1_bucket_elems",
+__all__ = ["FusedTrainStep", "shard_batch", "replicate", "as_mesh",
+           "zero1_stage", "zero1_bucket_elems", "zero1_momentum_buffers",
+           "zero1_restage_flats", "zero1_flats_to_tree",
+           "zero1_tree_to_flats", "zero1_bucketed_update",
            "momenta_bytes_per_device"]
+
+_log = logging.getLogger(__name__)
 
 
 def _mesh_size(mesh) -> int:
@@ -50,150 +71,68 @@ def _mesh_size(mesh) -> int:
     return int(size) if size is not None else 1
 
 
-def _refuse(mesh, bucket_bytes, zero_stage, param_spec_fn, accum_steps):
-    """Raise for every option of the multi-device or memory tiers."""
-    why = []
-    if mesh is not None and _mesh_size(mesh) > 1:
-        why.append("a mesh of %d devices (ROADMAP A6)" % _mesh_size(mesh))
-    if bucket_bytes is not None:
-        why.append("bucket_bytes (ROADMAP A6: bucketed gradient exchange)")
-    if zero_stage not in (None, 0):
-        why.append("zero_stage=%r (ROADMAP A6: ZeRO-1)" % (zero_stage,))
-    if param_spec_fn is not None:
-        why.append("param_spec_fn (ROADMAP A6: tensor-parallel shardings)")
-    accum = accum_steps if accum_steps is not None else \
-        _env.get_int("MXNET_GRAD_ACCUM_STEPS")
-    if accum != 1:
-        why.append("gradient accumulation over %r steps (ROADMAP A7)"
-                   % (accum,))
-    policy = _env.get_str("MXNET_REMAT_POLICY")
-    if policy != "none":
-        why.append("MXNET_REMAT_POLICY=%r (ROADMAP A7)" % (policy,))
-    if why:
-        raise MXNetError("FusedTrainStep in mxnet_tpu_torch runs on one "
-                         "device; not ported: " + "; ".join(why))
+def as_mesh(mesh, who: str, exc=MXNetError) -> Optional[Mesh]:
+    """The dp mesh a train step runs over: None for one device (a mesh
+    of one device outside a process group).  A mesh
+    with another axis of more than one device (sequence or tensor
+    parallelism, ROADMAP A6b), or a device list of more than one device
+    that is not a ``parallel.mesh.Mesh``, raises ``exc``."""
+    if mesh is None:
+        return None
+    if not isinstance(mesh, Mesh):
+        n = _mesh_size(mesh)
+        if n > 1:
+            raise exc(
+                "%s: a mesh of %d devices is a dp mesh over %d processes, "
+                "one per device: call dist.initialize() on every rank, "
+                "then parallel.mesh.data_parallel_mesh(%d)" % (who, n, n, n))
+        return None
+    extra = {a: s for a, s in mesh.shape.items() if a != "dp" and s > 1}
+    if extra:
+        raise exc("%s: mesh axes %s (sequence or tensor parallelism) are "
+                  "not ported (ROADMAP A6b); use a dp-only mesh"
+                  % (who, extra))
+    if "dp" not in mesh.axis_names:
+        raise exc("%s: the mesh needs a 'dp' axis (got %s)"
+                  % (who, mesh.axis_names))
+    return mesh if mesh.size > 1 or mesh.collective else None
 
 
-class FusedTrainStep:
-    """Forward + loss + backward + SGD-momentum update, one device.
+def shard_batch(arr, mesh):
+    """This rank's rows ``[r*B/n, (r+1)*B/n)`` of a global batch (an
+    NDArray or a tensor); the batch itself on one device.  A batch that
+    does not divide over the dp ranks raises."""
+    if mesh is None or mesh.size == 1:
+        return arr
+    t = arr._data if isinstance(arr, NDArray) else arr
+    b, n = int(t.shape[0]), mesh.size
+    if b % n:
+        raise ValueError("the global batch of %d rows does not divide "
+                         "over the mesh's %d dp ranks" % (b, n))
+    rows = t[mesh.rank * (b // n):(mesh.rank + 1) * (b // n)]
+    return NDArray.from_raw(rows, arr.context) \
+        if isinstance(arr, NDArray) else rows
 
-    Parameters
-    ----------
-    block : an initialised gluon HybridBlock
-    loss_fn : a gluon Loss block
-    learning_rate, momentum, weight_decay : the SGD-momentum update
-    dtype : compute and parameter dtype (``block.cast`` at build); None
-        keeps float32
-    fused_update : one update per dtype group (True) or per key (False)
 
-    The step runs on the device the block's parameters were initialised
-    on, or the current context where the block has none yet (the card
-    by default: it raises where there is none and names ``mx.cpu()``).
-    """
+def replicate(arr, mesh):
+    """Give every rank of the mesh rank 0's value of ``arr`` (an NDArray
+    or a tensor, written in place); returns ``arr``."""
+    if mesh is not None and mesh.size > 1:
+        import torch.distributed as dist
 
-    def __init__(self, block, loss_fn, mesh=None, learning_rate=0.05,
-                 momentum=0.9, weight_decay=0.0, param_spec_fn=None,
-                 dtype=None, bucket_bytes=None, fused_update=True,
-                 zero_stage=None, accum_steps=None):
-        _refuse(mesh, bucket_bytes, zero_stage, param_spec_fn, accum_steps)
-        ctxs = [c for p in block.collect_params().values()
-                for c in p.list_ctx()]
-        self._ctx = ctxs[0] if ctxs else current_context()
-        self._device = self._ctx.torch_device()
-        self._block = block
-        self._loss_fn = loss_fn
-        self._lr = learning_rate
-        self._momentum = momentum
-        self._wd = weight_decay
-        self._dtype = dtype
-        self._fused_update = bool(fused_update)
-        self._built = False
-
-    def _build(self, sample: NDArray) -> None:
-        """Settle deferred shapes with one float32 forward that moves no
-        running statistic, cast, and list the parameter cells."""
-        from ..gluon.block import CachedOp
-
-        with autograd.pause():
-            settle = sample if sample._data.dtype == torch.float32 \
-                else sample.astype("float32")
-            self._block(settle)
-        if self._dtype is not None:
-            self._block.cast(self._dtype)
-        cached = CachedOp(self._block)
-        self._cells = [p for (_, _, p) in cached._param_cells]
-        aux = set(cached._aux_positions)
-        self._diff = [i for i in range(len(self._cells)) if i not in aux]
-        self._compute_dtype = torch_dtype(self._dtype or "float32")
-        self._moms = [torch.zeros_like(p.data()._data.detach())
-                      for p in self._cells]
-        self._built = True
-
-    def _as_tensor(self, x) -> torch.Tensor:
-        t = x._data.detach() if isinstance(x, NDArray) else \
-            torch.as_tensor(_np.asarray(x))
-        return t.to(self._device)
-
-    def _step(self, data: torch.Tensor, label: torch.Tensor):
-        """One step on tensors on the device; returns (loss, logits)."""
-        if data.dtype != self._compute_dtype:
-            data = data.to(self._compute_dtype)
-        x = NDArray.from_raw(data, self._ctx)
-        y = NDArray.from_raw(label, self._ctx)
-        with autograd.record(train_mode=True):
-            out = self._block(x)
-            loss = self._loss_fn(out, y)._data.mean()
-        params = [p.data()._data for p in self._cells]
-        got = torch.autograd.grad(loss, [params[i] for i in self._diff],
-                                  allow_unused=True)
-        grads = {i: (torch.zeros_like(params[i]) if g is None else g)
-                 for i, g in zip(self._diff, got)}
-        lr, mom_c, wd = self._lr, self._momentum, self._wd
+        t = arr._data if isinstance(arr, NDArray) else arr
         with torch.no_grad():
-            if self._fused_update:
-                new_p, new_m = _opt.fused_sgd_mom_grouped(
-                    self._diff, params, grads, self._moms, lr, mom_c, wd)
-            else:
-                new_p, new_m = {}, {}
-                for i in self._diff:
-                    g = grads[i] + wd * params[i]
-                    m = mom_c * self._moms[i] - lr * g
-                    new_p[i], new_m[i] = params[i] + m, m
-            for i in self._diff:
-                self._cells[i].data()._set_data(new_p[i].detach())
-                self._moms[i] = new_m[i]
-        return loss.detach(), out._data.detach()
-
-    def run_steps(self, data, label, steps=None) -> NDArray:
-        """Run K optimizer steps.  ``data`` / ``label`` carry a leading K
-        dim (one batch per step), or, with ``steps``, are one batch used
-        for every step.  Returns the per-step losses, shape (K,)."""
-        d, lab = self._as_tensor(data), self._as_tensor(label)
-        if steps is None:
-            batches = list(zip(d, lab))
-        else:
-            batches = [(d, lab)] * int(steps)
-        if not self._built:
-            self._build(NDArray.from_raw(batches[0][0], self._ctx))
-        losses: List[torch.Tensor] = [self._step(x, y)[0]
-                                      for x, y in batches]
-        return NDArray.from_raw(torch.stack(losses), self._ctx)
-
-    def __call__(self, data, label):
-        """One optimizer step; returns ``(loss, logits)`` NDArrays."""
-        d, lab = self._as_tensor(data), self._as_tensor(label)
-        if not self._built:
-            self._build(NDArray.from_raw(d, self._ctx))
-        loss, logits = self._step(d, lab)
-        return (NDArray.from_raw(loss, self._ctx),
-                NDArray.from_raw(logits, self._ctx))
+            dist.broadcast(t.detach(), src=0, group=mesh.group)
+    return arr
 
 
 # ---------------------------------------------------------------------------
-# ZeRO-1 bookkeeping (mxnet_tpu/parallel/dp.py:132-190).  Sharding the
-# momenta needs a multi-device dp axis (ROADMAP A6); on one device the
-# train steps stay replicated and use these to read the knob, describe
-# the bucket layout a checkpoint records, and measure the state's bytes.
+# ZeRO-1 (mxnet_tpu/parallel/dp.py:132-330): optimizer-state sharding over
+# the dp axis.  Each bucket's gradient arrives by reduce-scatter (this
+# rank receives its 1/n shard of the sum), the momentum + parameter
+# update runs on the shard, and the updated parameter shards are
+# all-gathered.  A rank holds only its shard of the momenta; the global
+# flat buffers (padded to a multiple of n) exist in checkpoints.
 # ---------------------------------------------------------------------------
 def zero1_stage(override=None) -> int:
     """The selected ZeRO stage: explicit argument wins, else
@@ -208,16 +147,155 @@ def zero1_stage(override=None) -> int:
 
 
 def zero1_bucket_elems(plan) -> list:
-    """True (unpadded) element count of each bucket's flat buffer — what
-    a checkpoint's momenta blob records as ``bucket_elems``."""
-    from .buckets import itemsize
+    """True (unpadded) element count of each bucket's flat buffer — the
+    invariant the elastic restage re-slices by."""
+    return [int(b.nbytes) // _buckets.itemsize(b.dtype) for b in plan]
 
-    return [int(b.nbytes) // itemsize(b.dtype) for b in plan]
+
+def _padded(elems: int, n: int) -> int:
+    return elems + (-elems) % max(int(n), 1)
+
+
+def zero1_momentum_buffers(plan, n: int, device=None) -> list:
+    """This rank's zero momentum shards, one per bucket: ``1/n`` of the
+    bucket's flat buffer padded to a multiple of ``n``."""
+    return [torch.zeros(_padded(e, n) // n, device=device,
+                        dtype=torch_dtype(b.dtype))
+            for e, b in zip(zero1_bucket_elems(plan), plan)]
+
+
+def _host_tensor(x) -> torch.Tensor:
+    """A checkpointed array (numpy, or a bf16 tensor from the port's
+    unpickler) as a flat CPU tensor in its own dtype."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().reshape(-1)
+    from ..convert import _to_tensor
+
+    return _to_tensor(_np.asarray(x)).reshape(-1)
+
+
+def zero1_restage_flats(flats, plan, n_new: int) -> list:
+    """Re-slice checkpointed GLOBAL flat momentum buffers for an
+    ``n_new``-way dp axis (on the host): trim each to its bucket's true
+    element count (the old padding holds zeros by construction) and
+    re-pad to a multiple of ``n_new``.  The identity when the dp size is
+    unchanged.  A bucket count or layout other than the plan's raises:
+    restage re-slices, it cannot re-bucket."""
+    if len(flats) != len(plan):
+        raise ValueError(
+            "checkpoint has %d momentum buckets, this plan has %d — "
+            "bucket caps changed between runs; pin bucket_bytes to "
+            "resume" % (len(flats), len(plan)))
+    out = []
+    for bi, (flat, elems) in enumerate(zip(flats,
+                                           zero1_bucket_elems(plan))):
+        flat = _host_tensor(flat)
+        if flat.numel() < elems:
+            raise ValueError(
+                "momentum bucket %d holds %d elements, plan needs %d — "
+                "the bucket LAYOUT changed (not just the dp size); "
+                "elastic restage only re-slices identical bucket plans"
+                % (bi, flat.numel(), elems))
+        flat = flat[:elems]
+        pad = _padded(elems, n_new) - elems
+        out.append(torch.cat([flat, flat.new_zeros(pad)]) if pad
+                   else flat.clone())
+    return out
+
+
+def zero1_flats_to_tree(flats, plan, shapes) -> Dict:
+    """Stage-1 flat momenta → ``{key: tensor}`` (the replicated side of
+    the restage).  ``shapes`` maps key → shape."""
+    if len(flats) != len(plan):
+        raise ValueError("checkpoint has %d momentum buckets, this plan "
+                         "has %d" % (len(flats), len(plan)))
+    out = {}
+    for flat, bucket in zip(flats, plan):
+        missing = [k for k in bucket.keys if k not in shapes]
+        if missing:
+            raise KeyError("restage: bucket keys %s not in the live "
+                           "param tree" % missing[:4])
+        flat, off = _host_tensor(flat), 0
+        for k in bucket.keys:
+            sz = int(_np.prod(shapes[k], dtype=_np.int64))
+            out[k] = flat[off:off + sz].reshape(tuple(shapes[k]))
+            off += sz
+    return out
+
+
+def zero1_tree_to_flats(tree, plan, n: int) -> list:
+    """``{key: momentum}`` → stage-1 GLOBAL flat buffers padded for an
+    ``n``-way dp axis, in the update's packing order."""
+    flats = []
+    for bucket in plan:
+        missing = [k for k in bucket.keys if k not in tree]
+        if missing:
+            raise KeyError("restage: checkpoint momenta missing keys %s"
+                           % missing[:4])
+        flat = torch.cat([_host_tensor(tree[k]) for k in bucket.keys])
+        pad = _padded(flat.numel(), n) - flat.numel()
+        flats.append(torch.cat([flat, flat.new_zeros(pad)]) if pad
+                     else flat)
+    return flats
+
+
+def zero1_bucketed_update(grads, params, mom_shards, plan, mesh, *, lr,
+                          momentum, wd, mean_n=None, flats=None,
+                          scattered=None):
+    """One ZeRO-1 step over the bucket plan on this rank.
+
+    ``grads`` / ``params``: ``{key: tensor}`` (this rank's UNreduced
+    gradients; the replicated parameters); ``mom_shards``: this rank's
+    momentum shard per bucket.  Per bucket, in plan order: flat concat
+    (or ``flats[i]``), padded to a multiple of n → reduce-scatter (or
+    ``scattered[i]``, already reduce-scattered) → multiply by
+    ``1/mean_n`` → the fused update of this rank's shard → all-gather of
+    the parameter shards (issued asynchronously, so bucket k's gather
+    overlaps bucket k+1's update).  Returns ``({key: new param}, [new
+    momentum shards])``."""
+    import torch.distributed as dist
+
+    n, r = mesh.size, mesh.rank
+    mean_n = n if mean_n is None else int(mean_n)
+    gathers, new_moms = [], []
+    for bi, bucket in enumerate(plan):
+        if scattered is not None:
+            gsh = scattered[bi]
+        else:
+            flat_g = flats[bi] if flats is not None else \
+                _buckets.pack_flats(grads, [bucket])[0]
+            pad = (-flat_g.numel()) % n
+            if pad:
+                flat_g = torch.cat([flat_g, flat_g.new_zeros(pad)])
+            gsh = flat_g.new_empty(flat_g.numel() // n)
+            dist.reduce_scatter_tensor(gsh, flat_g, group=mesh.group)
+        if mean_n > 1:
+            _buckets.scale_(gsh, mean_n)
+        flat_w = _opt.pack_flat([params[k] for k in bucket.keys])
+        size = flat_w.numel()
+        shard = gsh.numel()
+        lo, hi = r * shard, min((r + 1) * shard, size)
+        wsh = flat_w[lo:hi]
+        if hi - lo < shard:          # this rank's shard reaches the pad
+            wsh = torch.cat([wsh, flat_w.new_zeros(shard - max(hi - lo,
+                                                               0))])
+        w_new, m_new = _opt.fused_sgd_mom_flat(wsh, gsh, mom_shards[bi],
+                                               lr, momentum, wd)
+        new_moms.append(m_new)
+        full = w_new.new_empty(shard * n)
+        gathers.append((bucket, size, full, dist.all_gather_into_tensor(
+            full, w_new.contiguous(), group=mesh.group, async_op=True)))
+    out = {}
+    for bucket, size, full, work in gathers:
+        work.wait()
+        out.update(_buckets.unpack(full[:size], bucket.keys, params))
+    return out, new_moms
 
 
 def momenta_bytes_per_device(moms) -> int:
     """Largest per-device total of the momenta tensors' bytes (a dict or
-    a list of tensors); replicated state counts in full on its device."""
+    a list of tensors) held by this process: replicated state counts in
+    full, a ZeRO-1 rank its shards."""
     vals = moms.values() if isinstance(moms, dict) else moms
     per_device = {}
     for m in vals:
@@ -225,3 +303,278 @@ def momenta_bytes_per_device(moms) -> int:
         per_device[key] = per_device.get(key, 0) + \
             m.numel() * m.element_size()
     return max(per_device.values()) if per_device else 0
+
+
+def _refuse(param_spec_fn, accum_steps):
+    """Raise for the options of the tensor-parallel and memory tiers."""
+    why = []
+    if param_spec_fn is not None:
+        why.append("param_spec_fn (ROADMAP A6b: tensor-parallel "
+                   "shardings)")
+    accum = accum_steps if accum_steps is not None else \
+        _env.get_int("MXNET_GRAD_ACCUM_STEPS")
+    if accum != 1:
+        why.append("gradient accumulation over %r steps (ROADMAP A7)"
+                   % (accum,))
+    policy = _env.get_str("MXNET_REMAT_POLICY")
+    if policy != "none":
+        why.append("MXNET_REMAT_POLICY=%r (ROADMAP A7)" % (policy,))
+    if why:
+        raise MXNetError("FusedTrainStep in mxnet_tpu_torch: not ported: "
+                         + "; ".join(why))
+
+
+class FusedTrainStep:
+    """Forward + loss + backward + gradient exchange + SGD-momentum
+    update, on one device or over a dp mesh (one process per device).
+
+    Parameters
+    ----------
+    block : an initialised gluon HybridBlock
+    loss_fn : a gluon Loss block
+    mesh : None (one device) or a ``parallel.mesh`` dp mesh; every rank
+        builds the same step and feeds it the same global batches
+    learning_rate, momentum, weight_decay : the SGD-momentum update
+    dtype : compute and parameter dtype (``block.cast`` at build); None
+        keeps float32
+    bucket_bytes : the gradient bucket cap (None:
+        ``MXNET_KVSTORE_BUCKET_BYTES``; 0: the monolithic reduction)
+    fused_update : one update per dtype group (True) or per key (False)
+    zero_stage : None (``MXNET_ZERO_STAGE``), 0 or 1 (ZeRO-1, on the
+        bucketed path; elsewhere it warns and stays replicated)
+
+    The step runs on the device the block's parameters were initialised
+    on, or the current context where the block has none yet (the card
+    by default: it raises where there is none and names ``mx.cpu()``).
+    """
+
+    def __init__(self, block, loss_fn, mesh=None, learning_rate=0.05,
+                 momentum=0.9, weight_decay=0.0, param_spec_fn=None,
+                 dtype=None, bucket_bytes=None, fused_update=True,
+                 zero_stage=None, accum_steps=None):
+        _refuse(param_spec_fn, accum_steps)
+        self.mesh = as_mesh(mesh, "FusedTrainStep")
+        ctxs = [c for p in block.collect_params().values()
+                for c in p.list_ctx()]
+        self._ctx = ctxs[0] if ctxs else current_context()
+        self._device = self._ctx.torch_device()
+        self._block = block
+        self._loss_fn = loss_fn
+        self._lr = learning_rate
+        self._momentum = momentum
+        self._wd = weight_decay
+        self._dtype = dtype
+        self._bucket_bytes = bucket_bytes
+        self._fused_update = bool(fused_update)
+        self._zero_stage = zero_stage
+        self._bucketed = False
+        self._zero1 = False
+        self._built = False
+
+    @property
+    def bucketed(self) -> bool:
+        """True once built on the bucketed (overlapped) dp path."""
+        return self._built and self._bucketed
+
+    @property
+    def zero1(self) -> bool:
+        """True once built with ZeRO-1 sharded optimizer state."""
+        return self._built and self._zero1
+
+    def _build(self, sample: NDArray) -> None:
+        """Settle deferred shapes with one float32 forward that moves no
+        running statistic, cast, broadcast rank 0's parameters, plan the
+        buckets and list the parameter cells."""
+        from ..gluon.block import CachedOp
+
+        with autograd.pause():
+            settle = sample if sample._data.dtype == torch.float32 \
+                else sample.astype("float32")
+            self._block(settle)
+        if self._dtype is not None:
+            self._block.cast(self._dtype)
+        cached = CachedOp(self._block)
+        self._cells = [p for (_, _, p) in cached._param_cells]
+        aux = set(cached._aux_positions)
+        self._diff = [i for i in range(len(self._cells)) if i not in aux]
+        self._compute_dtype = torch_dtype(self._dtype or "float32")
+        mesh = self.mesh
+        stage = zero1_stage(self._zero_stage)
+        if mesh is not None:
+            # every schedule name runs the backend's all-reduce; an
+            # unknown one raises here
+            _buckets.impl_name()
+            for p in self._cells:
+                replicate(p.data(), mesh)
+            cap = self._bucket_bytes if self._bucket_bytes is not None \
+                else _buckets.bucket_cap_bytes()
+            entries = [(i, tuple(self._cells[i].data()._data.shape),
+                        _buckets.dtype_name(self._cells[i].data().dtype))
+                       for i in self._diff]
+            self._bucketed = cap != 0
+            if self._bucketed:
+                self._plan, _ = _buckets.plan_with_tuning(
+                    entries, self._bucket_bytes)
+            else:
+                # monolithic: one all-reduce per dtype run, after backward
+                self._plan = _buckets.partition(entries, 1 << 62)
+            self._zero1 = stage == 1 and self._bucketed
+            self._reducer = _buckets.OverlappedReduce(
+                self._plan, mesh, scatter=self._zero1,
+                overlap=self._bucketed)
+        if stage == 1 and not self._zero1:
+            _log.warning("MXNET_ZERO_STAGE=1 requested but this step is "
+                         "not on the bucketed multi-device dp path — "
+                         "momenta stay replicated")
+        if self._zero1:
+            self._moms = zero1_momentum_buffers(self._plan, mesh.size,
+                                                self._device)
+        else:
+            self._moms = [torch.zeros_like(p.data()._data.detach())
+                          for p in self._cells]
+        self._built = True
+
+    def optimizer_state_bytes_per_rank(self) -> Optional[int]:
+        """Momenta bytes resident on this rank's device, from the live
+        tensors (ZeRO-1: ~1/n of replicated)."""
+        if not self._built:
+            return None
+        return momenta_bytes_per_device(self._moms)
+
+    def bucket_accounting(self):
+        """Per-bucket rows ({bucket, n_grads, bytes, dtype}); None on one
+        device or the monolithic path."""
+        if not self.bucketed:
+            return None
+        return _buckets.accounting(self._plan)
+
+    def _as_tensor(self, x) -> torch.Tensor:
+        t = x._data.detach() if isinstance(x, NDArray) else \
+            torch.as_tensor(_np.asarray(x))
+        return t.to(self._device)
+
+    def _local(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global batch tensor."""
+        return shard_batch(t, self.mesh)
+
+    def _update(self, params, grads):
+        """The replicated SGD-momentum update of the diff cells."""
+        lr, mom_c, wd = self._lr, self._momentum, self._wd
+        if self._fused_update:
+            return _opt.fused_sgd_mom_grouped(
+                self._diff, params, grads, self._moms, lr, mom_c, wd)
+        new_p, new_m = {}, {}
+        for i in self._diff:
+            g = grads[i] + wd * params[i]
+            m = mom_c * self._moms[i] - lr * g
+            new_p[i], new_m[i] = params[i] + m, m
+        return new_p, new_m
+
+    def _step(self, data: torch.Tensor, label: torch.Tensor):
+        """One step on the global batch (tensors on the device); returns
+        (loss averaged over ranks, this rank's logits)."""
+        from ..ops import nn as _nn_ops
+
+        mesh = self.mesh
+        data, label = self._local(data), self._local(label)
+        if data.dtype != self._compute_dtype:
+            data = data.to(self._compute_dtype)
+        x = NDArray.from_raw(data, self._ctx)
+        y = NDArray.from_raw(label, self._ctx)
+        params = [p.data()._data for p in self._cells]
+        if mesh is None:
+            with autograd.record(train_mode=True):
+                out = self._block(x)
+                loss = self._loss_fn(out, y)._data.mean()
+            got = torch.autograd.grad(
+                loss, [params[i] for i in self._diff], allow_unused=True)
+            grads = {i: (torch.zeros_like(params[i]) if g is None else g)
+                     for i, g in zip(self._diff, got)}
+            with torch.no_grad():
+                new_p, new_m = self._update(params, grads)
+                for i in self._diff:
+                    self._moms[i] = new_m[i]
+        else:
+            new_p, loss, out = self._dp_step(params, x, y, _nn_ops)
+        with torch.no_grad():
+            for i in self._diff:
+                self._cells[i].data()._set_data(new_p[i].detach())
+        return loss.detach(), out._data.detach()
+
+    def _dp_step(self, params, x, y, nn_ops):
+        """Forward and backward with the bucket collectives issued from
+        backward, then the update; every batch statistic is the global
+        batch's."""
+        import torch.distributed as dist
+
+        mesh, red = self.mesh, self._reducer
+        by_key = {i: params[i] for i in self._diff}
+        red.arm(by_key)
+        try:
+            with nn_ops.cross_device_batch_stats("dp", mesh):
+                with autograd.record(train_mode=True):
+                    out = self._block(x)
+                    loss = self._loss_fn(out, y)._data.mean()
+                loss.backward()
+            flats = red.finish()
+        finally:
+            red.disarm()
+        n = mesh.size
+        with torch.no_grad():
+            if self._zero1:
+                new_p, self._moms = zero1_bucketed_update(
+                    None, by_key, self._moms, self._plan, mesh,
+                    lr=self._lr, momentum=self._momentum, wd=self._wd,
+                    scattered=flats)
+            else:
+                grads = {}
+                for b, flat in zip(self._plan, flats):
+                    grads.update(_buckets.unpack(
+                        _buckets.scale_(flat, n), b.keys, by_key))
+                new_p, new_m = self._update(params, grads)
+                for i in self._diff:
+                    self._moms[i] = new_m[i]
+            # the loss averaged over ranks (the reference's pmean)
+            loss = loss.detach().clone()
+            dist.all_reduce(loss, group=mesh.group)
+            loss = loss / n
+        return new_p, loss, out
+
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``t``, in rank order (the global batch's
+        logits)."""
+        if self.mesh is None:
+            return t
+        import torch.distributed as dist
+
+        t = t.contiguous()
+        full = t.new_empty((t.shape[0] * self.mesh.size,) + t.shape[1:])
+        dist.all_gather_into_tensor(full, t, group=self.mesh.group)
+        return full
+
+    def run_steps(self, data, label, steps=None) -> NDArray:
+        """Run K optimizer steps.  ``data`` / ``label`` carry a leading K
+        dim (one global batch per step), or, with ``steps``, are one
+        batch used for every step.  Returns the per-step losses, shape
+        (K,)."""
+        d, lab = self._as_tensor(data), self._as_tensor(label)
+        if steps is None:
+            batches = list(zip(d, lab))
+        else:
+            batches = [(d, lab)] * int(steps)
+        if not self._built:
+            self._build(NDArray.from_raw(self._local(batches[0][0]),
+                                         self._ctx))
+        losses: List[torch.Tensor] = [self._step(x, y)[0]
+                                      for x, y in batches]
+        return NDArray.from_raw(torch.stack(losses), self._ctx)
+
+    def __call__(self, data, label):
+        """One optimizer step; returns ``(loss, logits)`` NDArrays (the
+        global batch's logits on a mesh)."""
+        d, lab = self._as_tensor(data), self._as_tensor(label)
+        if not self._built:
+            self._build(NDArray.from_raw(self._local(d), self._ctx))
+        loss, logits = self._step(d, lab)
+        return (NDArray.from_raw(loss, self._ctx),
+                NDArray.from_raw(self._gather_rows(logits), self._ctx))

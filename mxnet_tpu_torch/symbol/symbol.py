@@ -230,7 +230,7 @@ class Symbol:
         src/executor/graph_executor.cc:512; python symbol.py simple_bind).
         ``ctx`` defaults to the current context, the card.  A
         ``group2ctx`` that places a group away from ``ctx`` raises
-        (model parallelism is ROADMAP A6)."""
+        (model parallelism is ROADMAP A6b)."""
         from ..executor import Executor
 
         return Executor.simple_bind(self, ctx=ctx, grad_req=grad_req,

@@ -1,7 +1,7 @@
 """Decoder-only transformer LM.  Counterpart: ``mxnet_tpu/transformer/``
-(the model, its generation forwards, one-device training and the
-synthetic token stream; sequence parallelism and ZeRO-1 wait for the
-multi-device tier, ROADMAP A6)."""
+(the model, its generation forwards, training on one device or
+data-parallel with ZeRO-1, and the synthetic token stream; sequence
+parallelism waits for ROADMAP A6b)."""
 from .data import LMTokenIter, make_corpus
 from .model import (ATTENTION_IMPLS, TransformerConfig, apply,
                     apply_decode, apply_prefill, attention_impl,

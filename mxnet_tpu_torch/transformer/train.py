@@ -1,30 +1,44 @@
-"""Transformer-LM training on one device: the train step and a
-checkpointed fit loop.
+"""Transformer-LM training: the train step and a checkpointed fit loop,
+on one device or data-parallel over a dp mesh.
 
 Counterpart: ``mxnet_tpu/transformer/train.py`` ``TransformerTrainStep``
-(:46-757), on one device.  The JAX package compiles forward, loss,
-backward and the update into one XLA program over a mesh; the port runs
-the same step eagerly on torch: value and gradient of
+(:46-757).  The JAX package compiles forward, loss, backward, the
+gradient exchange and the update into one XLA program over a mesh; the
+port runs the same step eagerly on torch, one process per device
+(``mxnet_tpu_torch.dist``): value and gradient of
 ``lm_loss(apply(...))`` (attention through the Hopper forward and
 backward kernels on the card, ``parallel.attention.FlashAttention``),
-then ONE fused SGD-momentum update per dtype group
-(``optimizer.fused_sgd_mom_grouped``), the JAX package's replicated
-stage-0 step.  Same parameter names, same update, same checkpoint
-layout (the momenta blob in ``optimizer_states``, the bucket plan's
-``n_buckets`` / ``bucket_elems``), so a checkpoint of either package
-resumes in the other.
+then either
+
+  * replicated (ZeRO stage 0): each bucket of the JAX package's plan
+    all-reduced from the backward pass (``parallel.buckets``), scaled by
+    ``1/dp``, and ONE fused SGD-momentum update per dtype group
+    (``optimizer.fused_sgd_mom_grouped``), or
+  * ZeRO-1 (``MXNET_ZERO_STAGE=1`` on a dp mesh of more than one rank):
+    per bucket a reduce-scatter, the fused update of this rank's shard
+    of the momenta, and an all-gather of the parameters
+    (``parallel.dp.zero1_bucketed_update``): each rank holds 1/dp of the
+    momenta.
+
+Every rank receives the GLOBAL batch and trains on its rows.  Same
+parameter names, same update, same checkpoint layout (the momenta blob
+in ``optimizer_states`` with ``zero_stage``, ``dp``, ``n_buckets`` and
+``bucket_elems``; ZeRO-1 momenta as the global flat buffers), so a
+checkpoint of either package resumes in the other, and a ZeRO-1
+checkpoint restages across dp sizes and stages.
 
 ``fit`` rides the robustness stack: checkpoints every N steps
-(``checkpoint.CheckpointManager``), exact resume (the iterator
-fast-forwards with ``skip_batches``; a resumed run equals the
-uninterrupted one bit for bit), the loss-spike divergence guard, the
-heartbeat, the tokens/s gauge and the chaos ``kill`` / delay hooks.
+(``checkpoint.CheckpointManager``: every rank writes its shard), exact
+resume (the iterator fast-forwards with ``skip_batches``; a resumed run
+equals the uninterrupted one bit for bit at the same world size; across
+world sizes the skip is ``checkpoint.scale_resume_skip``'s), the
+loss-spike divergence guard, the heartbeat, the tokens/s gauge and the
+chaos ``kill`` / delay hooks.
 
-Not ported (raise with the ROADMAP item): a mesh of more than one
-device, sequence parallelism (ring / Ulysses), ZeRO-1 sharded momenta
-and restaging a checkpoint across dp sizes (A6); the SDC fingerprint
-vote, ``bitflip_param`` chaos and tuned bucket plans (A11).  ZeRO stage
-1 on one device warns and stays replicated, as in the JAX package.
+Not ported (raise with the ROADMAP item): sequence parallelism (ring /
+Ulysses, an ``sp`` mesh axis: A6b); the SDC fingerprint vote,
+``bitflip_param`` chaos and tuned bucket plans (A11).  ZeRO stage 1 on
+one device warns and stays replicated, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -56,13 +70,15 @@ def _to_device_tensor(x, device) -> torch.Tensor:
 
 
 class TransformerTrainStep:
-    """One train step over a ``TransformerConfig``, on one device.
+    """One train step over a ``TransformerConfig``, on one device or over
+    a dp mesh (one process per device).
 
     Parameters
     ----------
     cfg : TransformerConfig (``dtype`` is the compute dtype; parameters
         are stored in ``param_dtype``).
-    mesh : None or a one-device mesh; more devices raise (ROADMAP A6).
+    mesh : None (one device) or a ``parallel.mesh`` dp mesh; an ``sp``
+        axis raises (ROADMAP A6b).
     learning_rate, momentum, weight_decay : the SGD-momentum update.
     attn_impl / remat / zero_stage : explicit overrides for
         ``MXNET_ATTENTION_IMPL`` / ``MXNET_REMAT_POLICY`` /
@@ -85,14 +101,9 @@ class TransformerTrainStep:
                  zero_stage: Optional[int] = None,
                  bucket_bytes: Optional[int] = None, seed: int = 0,
                  device=None):
-        from ..parallel.dp import _mesh_size
+        from ..parallel.dp import as_mesh
 
-        if mesh is not None and _mesh_size(mesh) > 1:
-            raise ValueError(
-                "TransformerTrainStep in mxnet_tpu_torch runs on one "
-                "device; a mesh of %d devices (data or sequence "
-                "parallelism, ZeRO-1) is not ported yet (ROADMAP A6)"
-                % _mesh_size(mesh))
+        self.mesh = as_mesh(mesh, "TransformerTrainStep", exc=ValueError)
         self.cfg = cfg
         self.device = resolve_device(device)
         self._lr = float(learning_rate)
@@ -105,13 +116,16 @@ class TransformerTrainStep:
         self._seed = int(seed)
         self._built = False
 
-    #: data-parallel replicas (one device)
-    n_dp = 1
+    @property
+    def n_dp(self) -> int:
+        """Data-parallel replicas (ranks of the mesh)."""
+        return self.mesh.size if self.mesh is not None else 1
 
     # -- build ----------------------------------------------------------
     def _build(self):
         from ..parallel import buckets as _buckets
-        from ..parallel.dp import zero1_stage
+        from ..parallel.dp import (replicate, zero1_momentum_buffers,
+                                   zero1_stage)
 
         cfg = self.cfg
         if _env.get_int("MXNET_SDC_CHECK_EVERY_N"):
@@ -124,9 +138,11 @@ class TransformerTrainStep:
         gen = torch.Generator().manual_seed(self._seed)
         self._params = _model.init_params(gen, cfg, device=self.device)
         self._names = list(self._params)
+        for v in self._params.values():
+            replicate(v, self.mesh)
 
         # the gradient bucket plan of the JAX package over the same
-        # leaves: on one device it only shapes the checkpoint blob
+        # leaves (on one device it only shapes the checkpoint blob)
         entries = [(k, tuple(v.shape), _buckets.dtype_name(v.dtype))
                    for k, v in self._params.items()]
         cap = self._bucket_bytes if self._bucket_bytes is not None \
@@ -136,22 +152,31 @@ class TransformerTrainStep:
         else:
             plan, _ = _buckets.plan_with_tuning(entries, self._bucket_bytes)
         self._bucket_plan = plan
-        if zero1_stage(self._zero_stage) == 1:
+        stage = zero1_stage(self._zero_stage)
+        self._zero1 = stage == 1 and self.mesh is not None
+        if stage == 1 and not self._zero1:
             _log.warning("MXNET_ZERO_STAGE=1 needs a multi-device dp axis "
                          "— momenta stay replicated")
         meta = _buckets.plan_meta(plan, cap if cap else None)
         meta["workload"] = "transformer_lm"
-        meta["zero_stage"] = 0
+        meta["zero_stage"] = 1 if self._zero1 else 0
         self._plan_meta = meta
-        self._moms = {k: torch.zeros_like(v)
-                      for k, v in self._params.items()}
+        if self._zero1:
+            self._moms = zero1_momentum_buffers(plan, self.n_dp,
+                                                self.device)
+        else:
+            self._moms = {k: torch.zeros_like(v)
+                          for k, v in self._params.items()}
+        self._reducer = None if self.mesh is None else \
+            _buckets.OverlappedReduce(plan, self.mesh, scatter=self._zero1)
         self._built = True
 
     # -- introspection --------------------------------------------------
     @property
     def zero1(self) -> bool:
-        """Always False: sharded momenta need a multi-device dp axis."""
-        return False
+        """True once built with ZeRO-1 sharded momenta (a dp mesh of more
+        than one rank)."""
+        return self._built and self._zero1
 
     @property
     def attention_impl(self) -> str:
@@ -165,8 +190,8 @@ class TransformerTrainStep:
         return self._plan_meta
 
     def optimizer_state_bytes_per_rank(self) -> Optional[int]:
-        """Momenta bytes resident on the device, from the live tensors
-        (None before the first build)."""
+        """Momenta bytes resident on this rank's device, from the live
+        tensors (ZeRO-1: ~1/dp of replicated; None before the build)."""
         if not self._built:
             return None
         from ..parallel.dp import momenta_bytes_per_device
@@ -192,15 +217,30 @@ class TransformerTrainStep:
         return t.to(device=self.device, dtype=torch.long)
 
     def _step(self, tokens: torch.Tensor, labels: torch.Tensor):
-        names = self._names
+        from .. import optimizer as _opt
+        from ..parallel.dp import shard_batch
+
+        names, mesh = self._names, self.mesh
+        tokens, labels = shard_batch(tokens, mesh), shard_batch(labels, mesh)
         params = {k: v.detach().requires_grad_(True)
                   for k, v in self._params.items()}
+        if mesh is not None:
+            # each bucket's collective is issued from backward
+            self._reducer.arm(params)
+            try:
+                loss = _model.lm_loss(_model.apply(
+                    params, tokens, self.cfg, attn_fn=self._attn_fn,
+                    remat=self._policy), labels)
+                loss.backward()
+                flats = self._reducer.finish()
+            finally:
+                self._reducer.disarm()
+            with torch.no_grad():
+                return self._dp_update(params, flats, loss)
         logits = _model.apply(params, tokens, self.cfg,
                               attn_fn=self._attn_fn, remat=self._policy)
         loss = _model.lm_loss(logits, labels)
         grads = torch.autograd.grad(loss, [params[k] for k in names])
-        from .. import optimizer as _opt
-
         with torch.no_grad():
             # ONE multi-tensor update per dtype group, as the JAX
             # package's replicated step
@@ -210,9 +250,39 @@ class TransformerTrainStep:
         self._params, self._moms = new_p, new_m
         return loss.detach()
 
+    def _dp_update(self, params, flats, loss):
+        """The dp update from the reduced bucket flats (sums); returns
+        the loss averaged over ranks (the reference's pmean)."""
+        import torch.distributed as dist
+
+        from .. import optimizer as _opt
+        from ..parallel import buckets as _buckets
+        from ..parallel.dp import zero1_bucketed_update
+
+        n, mesh = self.n_dp, self.mesh
+        live = {k: v.detach() for k, v in params.items()}
+        if self._zero1:
+            new_p, self._moms = zero1_bucketed_update(
+                None, live, self._moms, self._bucket_plan, mesh,
+                lr=self._lr, momentum=self._momentum, wd=self._wd,
+                scattered=flats)
+            self._params = {k: new_p[k] for k in self._names}
+        else:
+            grads = {}
+            for b, flat in zip(self._bucket_plan, flats):
+                grads.update(_buckets.unpack(_buckets.scale_(flat, n),
+                                             b.keys, live))
+            self._params, self._moms = _opt.fused_sgd_mom_grouped(
+                self._names, live, grads, self._moms, self._lr,
+                self._momentum, self._wd)
+        loss = loss.detach().clone()
+        dist.all_reduce(loss, group=mesh.group)
+        return loss / n
+
     def step(self, tokens, labels):
-        """One optimizer step on a (B, T) batch; returns the scalar loss
-        as a tensor on the device (not synchronised)."""
+        """One optimizer step on a global (B, T) batch (on a mesh, this
+        rank trains on its rows); returns the scalar loss (averaged over
+        ranks) as a tensor on the device, not synchronised."""
         if not self._built:
             self._build()
         return self._step(self._put(tokens), self._put(labels))
@@ -230,20 +300,31 @@ class TransformerTrainStep:
     def optimizer_states_bytes(self) -> bytes:
         """The momenta as the JAX package's pickled blob for a
         checkpoint's ``optimizer_states`` slot (bf16 momenta pickle as
-        its bf16 arrays)."""
+        its bf16 arrays).  ZeRO-1 momenta are all-gathered into the
+        global flat buffers (a collective: every rank calls it)."""
         from .. import checkpoint as _ckpt
         from ..parallel.dp import zero1_bucket_elems
 
         if not self._built:
             self._build()
+        if self._zero1:
+            import torch.distributed as dist
+
+            moms = []
+            for m in self._moms:
+                full = m.new_empty(m.numel() * self.n_dp)
+                dist.all_gather_into_tensor(full, m.contiguous(),
+                                            group=self.mesh.group)
+                moms.append(full.cpu())
+        else:
+            moms = {k: v.detach().cpu() for k, v in self._moms.items()}
         return _ckpt._dumps_payload({
             "workload": "transformer_lm",
-            "zero_stage": 0,
+            "zero_stage": 1 if self._zero1 else 0,
             "dp": self.n_dp,
             "n_buckets": len(self._bucket_plan),
             "bucket_elems": zero1_bucket_elems(self._bucket_plan),
-            "momenta": {k: v.detach().cpu()
-                        for k, v in self._moms.items()},
+            "momenta": moms,
         })
 
     def load_state(self, payload: dict) -> None:
@@ -269,26 +350,69 @@ class TransformerTrainStep:
         self._restore_momenta(state)
 
     def _restore_momenta(self, state: dict) -> None:
-        """Momenta from a checkpoint state blob: the stage-0, same-dp
-        case (the bitwise exact-resume path).  A ZeRO-1 blob or one
-        written at another dp size needs the elastic restage of the
-        multi-device tier (ROADMAP A6) and raises."""
+        """Momenta from a checkpoint state blob, ELASTICALLY (ref
+        ``_restore_momenta`` :535-600): a stage-1 checkpoint written at
+        one dp resumes at any other — the global flat buffers are
+        re-sliced by the (identical) bucket layout and re-padded for
+        this dp, and this rank keeps its shard; stage 1 → a replicated
+        step unpacks the flats into the per-parameter dict, and a
+        replicated checkpoint → ZeRO-1 packs the dict into flats.  Same
+        stage and dp is the bitwise exact-resume path (the restage is
+        the identity there).  A bucket-LAYOUT mismatch raises: restage
+        re-slices, it cannot re-bucket."""
+        from ..parallel.dp import (zero1_bucket_elems, zero1_flats_to_tree,
+                                   zero1_restage_flats, zero1_tree_to_flats)
+
         saved_stage = int(state.get("zero_stage", 0))
         saved_dp = state.get("dp")
-        if saved_stage != 0 or (saved_dp is not None
-                                and int(saved_dp) != self.n_dp):
-            raise ValueError(
-                "checkpoint momenta were written at ZeRO stage %d, dp=%s; "
-                "this one-device step resumes stage 0 at dp=1 only — the "
-                "elastic ZeRO-1 restage is not ported yet (ROADMAP A6)"
-                % (saved_stage, saved_dp))
         moms = state["momenta"]
-        missing = [k for k in self._names if k not in moms]
-        if missing:
-            raise KeyError("checkpoint momenta missing params: %s"
-                           % missing[:4])
-        self._moms = {k: _to_device_tensor(moms[k], self.device)
-                      for k in self._names}
+        plan = self._bucket_plan
+        if saved_stage == 1:
+            if len(moms) != len(plan):
+                raise ValueError(
+                    "checkpoint has %d momentum buckets, this plan has %d "
+                    "— bucket caps changed between runs; pin bucket_bytes "
+                    "to resume" % (len(moms), len(plan)))
+            saved_elems = state.get("bucket_elems")
+            if saved_elems is not None and \
+                    list(saved_elems) != zero1_bucket_elems(plan):
+                raise ValueError(
+                    "checkpoint bucket layout %s != this plan's %s — "
+                    "elastic restage re-slices identical bucket plans "
+                    "only; pin bucket_bytes to resume"
+                    % (list(saved_elems), zero1_bucket_elems(plan)))
+        else:
+            missing = [k for k in self._names if k not in moms]
+            if missing:
+                raise KeyError("checkpoint momenta missing params: %s"
+                               % missing[:4])
+        if saved_stage == 1 and self._zero1:
+            flats = zero1_restage_flats(moms, plan, self.n_dp)
+        elif saved_stage == 1:
+            shapes = {k: tuple(v.shape) for k, v in self._params.items()}
+            moms = zero1_flats_to_tree(zero1_restage_flats(moms, plan, 1),
+                                       plan, shapes)
+        elif self._zero1:
+            flats = zero1_tree_to_flats(moms, plan, self.n_dp)
+        if self._zero1:
+            r = self.mesh.rank
+            self._moms = []
+            for f in flats:
+                shard = f.numel() // self.n_dp
+                # a copy: the rank keeps its shard, not the global flat
+                self._moms.append(f[r * shard:(r + 1) * shard].clone().to(
+                    self.device))
+        else:
+            self._moms = {k: _to_device_tensor(moms[k], self.device)
+                          for k in self._names}
+        cur_stage = 1 if self._zero1 else 0
+        if saved_stage != cur_stage or (saved_dp is not None
+                                        and int(saved_dp) != self.n_dp):
+            _log.warning(
+                "ZERO-1 ELASTIC RESTAGE: momenta written at stage %d "
+                "(dp=%s) re-sliced for stage %d (dp=%d) over the same "
+                "%d-bucket layout", saved_stage, saved_dp, cur_stage,
+                self.n_dp, len(plan))
 
     def _replay_spec(self, train_iter) -> dict:
         """What re-creates this run's steps: config, hyperparameters
@@ -342,6 +466,12 @@ class TransformerTrainStep:
             train_iter.reset()
             skip = int((payload.get("iterator") or {})
                        .get("nbatch", start))
+            if payload.get("elastic"):
+                # written by another world size: the GLOBAL sample
+                # position is the invariant, re-divided by this fleet's
+                # per-rank batch x world size
+                skip = _ckpt.scale_resume_skip(
+                    payload, self._rank_batch(train_iter))
             if hasattr(train_iter, "skip_batches"):
                 train_iter.skip_batches(skip)
             else:
@@ -383,11 +513,18 @@ class TransformerTrainStep:
                          iterator_state={
                              "nbatch": step_i + 1,
                              "cursor": getattr(train_iter, "cursor", None),
-                             "batch_size": getattr(train_iter,
-                                                   "batch_size", None)},
+                             # the rows this rank trains on: with the
+                             # world size, the global sample position
+                             "batch_size": self._rank_batch(train_iter)},
                          extra={"workload": "transformer_lm",
                                 "replay": self._replay_spec(train_iter)})
         return losses
+
+    def _rank_batch(self, train_iter) -> Optional[int]:
+        """The rows of each global batch this rank trains on (the
+        iterator's batch over the dp ranks)."""
+        b = getattr(train_iter, "batch_size", None)
+        return None if b is None else int(b) // self.n_dp
 
     @staticmethod
     def _next_batch(train_iter):

@@ -406,3 +406,88 @@ def test_fit_steps_on_the_cpu_agree_and_see_a_skipped_step(
     for k in a[-1]:
         np.testing.assert_array_equal(bulk[-1][k], a[-1][k])
     assert cs._update_err(a[0], a[1], flat0) > 1e3 * cs.FIT_NUM_TOL
+
+
+def test_the_dp_phases_follow_export_and_precede_the_kernel_line():
+    src = (REPO / "chip_smoke.py").read_text()
+    main = src[src.index("def main()"):]
+    order = [main.index(p) for p in ("phase_export()", "phase_dp(train)",
+                                     "phase_dp_numerics()",
+                                     "phase_train_lm_dp(lm)",
+                                     "phase_train_lm_dp_numerics()",
+                                     '"phase": "kernels"')]
+    assert order == sorted(order)
+    for path in ('"dp": dp_counts', '"train_lm_dp": lm_dp_counts'):
+        assert path in main
+
+
+class _Range:
+    def __init__(self, start, end):
+        self.start, self.end = start, end
+
+
+class _Kernel:
+    def __init__(self, name, start, end):
+        from torch.autograd import DeviceType
+
+        self.name, self.time_range = name, _Range(start, end)
+        self.device_type = DeviceType.CUDA
+
+
+def test_nccl_stats_count_the_all_reduce_time_compute_does_not_hide():
+    events = [_Kernel("conv", 0, 100), _Kernel("ncclDevKernel_AR", 50, 150),
+              _Kernel("bn", 140, 160), _Kernel("ncclKernel_AG", 200, 210),
+              _Kernel("gemm", 205, 300)]
+    got = cs._nccl_stats(events, steps=2)
+    assert got["nccl_launches_per_step"] == 1.0
+    assert got["launches_per_step"] == 2.5
+    # 50-100 under conv, 140-150 under bn; 205-210 under gemm
+    assert got["nccl_exposed_ms_per_step"] == pytest.approx(
+        (40 + 5) / 1e3 / 2)
+    assert got["nccl_device_ms_per_step"] == pytest.approx(110 / 1e3 / 2)
+    assert cs._nccl_stats([_Kernel("conv", 0, 10)], 1)[
+        "nccl_exposed_ms_per_step"] == 0.0
+
+
+def test_digest_tells_one_bit_apart():
+    a = {"w": np.arange(4.0), "b": np.ones(2)}
+    b = {"b": np.ones(2), "w": np.arange(4.0)}
+    assert cs._digest(a) == cs._digest(b)
+    b["w"] = b["w"].copy()
+    b["w"].view(np.int64)[1] ^= 1
+    assert cs._digest(a) != cs._digest(b)
+
+
+def test_the_planted_dp_faults_read_above_the_limit_and_undo_themselves():
+    """dp_numerics's faults on two gloo CPU ranks (the conv net of the
+    dp parity tests): a rank that keeps its own gradient, and sync BN's
+    backward without its all-reduce, each move the trajectory far past
+    DP_NUM_TOL; a clean run after them equals the clean run before."""
+    import torch_dp_cases as cases
+    from mxnet_tpu_torch import dist
+
+    rng = np.random.RandomState(1)
+    data = rng.uniform(-1, 1, (2, 4, 3, 8, 8)).astype(np.float32)
+    label = rng.randint(0, 5, (2, 4)).astype(np.float32)
+    import mxnet_tpu_torch as mx
+
+    np.random.seed(0)
+    with mx.cpu():
+        net = cases.conv_net(mx)
+        net.initialize(mx.init.Xavier())
+        with mx.autograd.pause():
+            net(mx.nd.array(data[0][:2]))
+    spec = dict(data=data, label=label, w0=cases.params_of(net),
+                step=dict(learning_rate=0.1, momentum=0.9, dtype="float64"))
+    ranks = dist.launch(cases.fault_cases, 2, (spec,), device="cpu",
+                        threads=1, timeout_s=300)
+    w0 = spec["w0"]
+    for r, got in enumerate(ranks):
+        for k, v in got.items():
+            assert "error" not in v, v
+        clean = got["clean"]
+        assert all(np.array_equal(clean[k], got["after"][k]) for k in clean)
+        assert cs._update_err(got["sync_bn_backward_local"], clean, w0) > \
+            1e3 * cs.DP_NUM_TOL
+    assert cs._update_err(ranks[1]["grad_not_reduced"], ranks[1]["clean"],
+                          w0) > 1e3 * cs.DP_NUM_TOL

@@ -46,6 +46,7 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import mxnet_tpu_torch.model, mxnet_tpu_torch.name\n"
         "import mxnet_tpu_torch.attribute\n"
         "import mxnet_tpu_torch.symbol.legacy_json\n"
+        "import mxnet_tpu_torch.dist, mxnet_tpu_torch.parallel.mesh\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mxnet_tpu', 'ml_dtypes'))\n"
         # kernels are built at first launch, never at import; NVRTC and
@@ -79,6 +80,8 @@ def test_no_package_file_imports_jax_or_the_jax_package():
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
+                                    "tools/torch_collective_cost.py",
+                                    "tools/torch_dp_scale.py",
                                     "tools/torch_fit_profile.py",
                                     "tools/torch_kernel_ab.py",
                                     "tools/torch_nd_profile.py",
@@ -230,3 +233,82 @@ def test_symbolic_entry_points_default_to_cuda_and_raise_without_it(
     with pytest.raises(mx.MXNetError, match=cpu_msg):
         mx.gluon.SymbolBlock.imports(path + "-symbol.json", ["data"],
                                      path + "-0000.params")
+
+
+def test_dist_initialize_picks_nccl_on_a_card_and_raises_without_one(
+        monkeypatch, tmp_path):
+    from mxnet_tpu_torch import dist
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    # no card: the default (NCCL on the card) raises and names the CPU
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dist._resolve(None, None, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dist._resolve("nccl", "cuda", 0)
+    with pytest.raises(ValueError, match="NCCL runs on CUDA"):
+        dist._resolve("nccl", "cpu", 0)
+    # asked for the CPU, or for gloo by name: gloo
+    assert dist._resolve(None, "cpu", 0) == ("gloo", torch.device("cpu"))
+    assert dist._resolve("gloo", None, 0) == ("gloo", torch.device("cpu"))
+    # with cards: NCCL on the rank's card (rank modulo the card count)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: None)
+    assert dist._resolve(None, None, 6) == ("nccl",
+                                            torch.device("cuda", 2))
+    assert dist._resolve("gloo", "cuda:0", 1) == ("gloo",
+                                                  torch.device("cuda", 0))
+    # no env contract and no arguments: a single process, no group
+    monkeypatch.delenv("MXNET_COORDINATOR_ADDRESS", raising=False)
+    assert dist.initialize() is False and not dist.is_initialized()
+
+
+@pytest.mark.parametrize("launcher", [
+    ["-m", "mxnet_tpu_torch.dist", "-n", "2", "--timeout", "120"],
+    [str(REPO / "tools" / "launch.py"), "-n", "2", "--launcher", "jax"]],
+    ids=["port", "tools_launch_jax"])
+def test_launcher_workers_run_the_env_contract_without_jax(tmp_path,
+                                                           launcher):
+    """``python -m mxnet_tpu_torch.dist -n 2 <cmd>`` (and the JAX
+    package's ``tools/launch.py --launcher jax``, which only sets the env
+    contract and spawns) starts two ranks; each joins the group (gloo on
+    the CPU) and imports no JAX.  A failing rank fails the port's
+    launch."""
+    code = (
+        "import sys\n"
+        "from mxnet_tpu_torch import dist\n"
+        "from mxnet_tpu_torch.parallel.mesh import data_parallel_mesh\n"
+        "assert dist.initialize(device='cpu')\n"
+        "m = data_parallel_mesh()\n"
+        "assert (m.size, m.rank) == (2, dist.rank())\n"
+        "bad = [n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'mxnet_tpu')]\n"
+        "assert not bad, bad\n"
+        "open(sys.argv[1] + str(dist.rank()), 'w').write('ok')\n"
+        "dist.shutdown()\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = str(tmp_path / "rank")
+    proc = subprocess.run(
+        [sys.executable, *launcher, sys.executable, "-c", code, out],
+        cwd=str(REPO), env=env, capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert [Path(out + r).read_text() for r in "01"] == ["ok", "ok"]
+    if launcher[0] != "-m":
+        return
+    failing = subprocess.run(
+        [sys.executable, "-m", "mxnet_tpu_torch.dist", "-n", "2",
+         sys.executable, "-c",
+         "import os, sys; sys.exit(3 if os.environ['MXNET_PROCESS_ID'] == "
+         "'1' else 0)"],
+        cwd=str(REPO), env=env, capture_output=True, text=True, timeout=60)
+    assert failing.returncode == 3, failing.stderr
+
+
+def test_a_dp_mesh_larger_than_the_group_raises():
+    from mxnet_tpu_torch.parallel import mesh
+
+    assert mesh.current_device_count() == 1
+    for n in (2, 8):
+        with pytest.raises(ValueError, match="needs %d ranks" % n):
+            mesh.data_parallel_mesh(n)

@@ -154,24 +154,42 @@ def test_settle_forward_moves_no_running_statistic():
 
 
 @pytest.mark.parametrize("kwargs,env,item", [
-    (dict(mesh=["cuda:0", "cuda:1"]), {}, "A6"),
-    (dict(bucket_bytes=1 << 20), {}, "A6"),
-    (dict(zero_stage=1), {}, "A6"),
-    (dict(param_spec_fn=lambda name, shape: None), {}, "A6"),
+    # a device list is not a dp mesh over a process group: no collapse
+    (dict(mesh=["cuda:0", "cuda:1"]), {}, r"dist\.initialize"),
+    # one device: the bucket cap and ZeRO-1 are accepted as the JAX
+    # package accepts them there (nothing to reduce; ZeRO-1 warns and
+    # stays replicated) — the dp path is tests/test_torch_dp.py's
+    (dict(bucket_bytes=1 << 20), {}, None),
+    (dict(zero_stage=1), {}, None),
+    (dict(param_spec_fn=lambda name, shape: None), {}, "A6b"),
     (dict(accum_steps=2), {}, "A7"),
     ({}, {"MXNET_GRAD_ACCUM_STEPS": "4"}, "A7"),
     ({}, {"MXNET_REMAT_POLICY": "stage"}, "A7"),
 ], ids=["mesh", "bucket_bytes", "zero_stage", "param_spec_fn",
         "accum_steps", "accum_env", "remat_env"])
 def test_multi_device_and_memory_options_raise(kwargs, env, item,
-                                               monkeypatch):
+                                               monkeypatch, caplog):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     with mx.cpu():
         net = _net(mx)
         net.initialize()
-        with pytest.raises(mx.MXNetError, match=item):
-            TStep(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), **kwargs)
+        if item is not None:
+            with pytest.raises(mx.MXNetError, match=item):
+                TStep(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                      **kwargs)
+            return
+        step = TStep(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), **STEP,
+                     **kwargs)
+        data, label = _batches(k=1)
+        with caplog.at_level("WARNING"):
+            assert np.isfinite(step.run_steps(mx.nd.array(data),
+                                              mx.nd.array(label)).asnumpy()
+                               ).all()
+    assert step.mesh is None and not step.bucketed and not step.zero1
+    assert step.bucket_accounting() is None
+    assert ("momenta stay replicated" in caplog.text) == \
+        ("zero_stage" in kwargs)
 
 
 def test_step_defaults_to_the_card():
