@@ -12,7 +12,10 @@ GPT-2-small-width transformer LM through ``TransformerTrainStep``
 (the flash-attention forward and backward kernels on every layer;
 ``fit`` with a checkpoint resumed bit for bit; float32 held against
 the CPU in float64), then train both data-parallel, one process per
-card (each checked against one device, with planted faults).
+card (each checked against one device, with planted faults), and
+train ResNet under the memory tier: the remat scopes, the mirror and
+gradient accumulation (peak memory against none; float64 against the
+CPU and against none, with planted faults).
 
     python3 chip_smoke.py
 
@@ -175,10 +178,35 @@ Phases:
            rank a card), 2 steps: against the one-device step at the
            global batch (1e-10 of the update, aux included), bucketed
            = monolithic bitwise, ZeRO-1 = replicated bitwise at lr 0 and
-           within 1e-12 otherwise, and two planted faults (a rank's
-           gradient not reduced; sync BN's backward without its
-           all-reduce) above the limit; over NCCL on two cards where
-           the machine has them, else a line saying it did not run
+           within 1e-12 otherwise, accum_steps=2 (bucketed and ZeRO-1)
+           against one device accumulating the same microbatches,
+           stage against one device, the collectives of a step, and
+           two planted faults (a rank's gradient not reduced; sync BN's
+           backward without its all-reduce) above the limit; over NCCL
+           on two cards where the machine has them, else a line saying
+           it did not run
+  remat    the train cell (ResNet-50 v1 bf16, batch 128, 224x224) under
+           MXNET_REMAT_POLICY none, stage, conv_block and the mirror
+           (MXNET_BACKWARD_DO_MIRROR): step ms, images/s, peak allocated
+           bytes over steps 2+, memory ratio (none / policy) and
+           slowdown; fails unless each policy lowers the peak
+  memory_remat
+           bench.py:1325's row: ResNet-18 v1, batch 16, 128x128, bf16,
+           the mirror off and on: memory ratio and slowdown (reported;
+           only the losses are held)
+  large_batch_remat
+           bench.py:1421's row: ResNet-50 v1 at an effective batch of
+           128 in 4 microbatches of 32, bf16, stage, beside its none
+           twin at the same accumulation: images/s, TFLOP/s, both peaks
+           and their ratio, images/s against the train row
+  remat_numerics
+           a marked conv net in float64 (see REMAT_NUM): each policy
+           and accum_steps=2 on the card against the CPU within 1e-10 of
+           the update, each against none on the card bit for bit with
+           BatchNorm and Dropout inside a stage, the symbolic executor's
+           stage fit against its none fit, two gloo ranks at stage +
+           accum 2 against one device; three planted faults above the
+           limit
   train_lm_dp
            the train_lm cell a rank with ZeRO-1 over NCCL: tokens/s,
            efficiency against ``train_lm``, momenta bytes a rank
@@ -196,6 +224,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import shutil
 import statistics
@@ -1819,11 +1848,12 @@ def _update_err(got, want, w0):
     return (num / den) ** 0.5
 
 
-def numerics_run(net, w0, data, label, dtype, momentum=TRAIN_MOMENTUM):
-    """Load ``w0`` into ``net`` and take one ``FusedTrainStep`` step for
-    each batch of ``data`` / ``label`` (a leading step dim) in ``dtype``
-    on the net's device.  Returns the losses and the parameters after
-    each step."""
+def numerics_run(net, w0, data, label, dtype, momentum=TRAIN_MOMENTUM,
+                 accum=None):
+    """Load ``w0`` into ``net`` and take one ``FusedTrainStep`` step (in
+    ``accum`` microbatches) for each batch of ``data`` / ``label`` (a
+    leading step dim) in ``dtype`` on the net's device.  Returns the
+    losses and the parameters after each step."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import convert, gluon
     from mxnet_tpu_torch.parallel.dp import FusedTrainStep
@@ -1833,7 +1863,7 @@ def numerics_run(net, w0, data, label, dtype, momentum=TRAIN_MOMENTUM):
     convert.load_block_params(net, w0)
     step = FusedTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
                           learning_rate=TRAIN_LR, momentum=momentum,
-                          dtype=dtype)
+                          dtype=dtype, accum_steps=accum)
     losses, params = [], []
     for k in range(len(data)):
         losses.append(float(step.run_steps(
@@ -2648,7 +2678,13 @@ DP_VARIANTS = (("one_device", None), ("bucketed", {}),
 # within DP_ZERO1_TOL otherwise; two planted faults must read above the
 # limit: rank 1 keeps its own gradient (the all-reduce's result
 # dropped), and sync BN's backward without its all-reduce (a plain
-# all-reduce in the forward, which carries no gradient across ranks)
+# all-reduce in the forward, which carries no gradient across ranks).
+# accum_steps=2, bucketed and ZeRO-1, against one device accumulating
+# the same microbatches (the ranks' k-th slices together: sync BN's
+# moments are each microbatch's over the ranks) within DP_NUM_TOL, and
+# MXNET_REMAT_POLICY=stage (sync BN's moments reduced again in each
+# stage's recompute) against the one-device step; every run counts the
+# collectives of a step
 DP_NUM = dict(batch=4, image=64, classes=10, steps=2, lr=0.05)
 DP_NUM_TOL = 1e-10
 DP_ZERO1_TOL = 1e-12
@@ -2867,11 +2903,15 @@ def _dp_numerics_rank(ref_path, aux, data, label, runs):
     with np.load(ref_path) as f:
         ref = {k: f[k] for k in f.files}
     w0 = {k[3:]: v for k, v in ref.items() if k.startswith("w0/")}
-    ref_p = [{k[3:]: v for k, v in ref.items() if k.startswith("s%d/" % i)}
-             for i in range(len(data))]
+    # s: the one-device step; a: one device accumulating 2 microbatches
+    refs = {tag: [{k[3:]: v for k, v in ref.items()
+                   if k.startswith("%s%d/" % (tag, i))}
+                  for i in range(len(data))] for tag in ("s", "a")}
     net = _dp_num_net(ctx)
     out, keep = {}, {}
     for name, kw, fault in runs:
+        kw = dict(kw)
+        policy = kw.pop("remat", "none")
         net.cast("float32")
         convert.load_block_params(net, w0)
         step = FusedTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
@@ -2879,15 +2919,19 @@ def _dp_numerics_rank(ref_path, aux, data, label, runs):
                               dtype="float64", **dict(
                                   {"learning_rate": DP_NUM["lr"]}, **kw))
         losses, params = [], []
-        with _DpFault(fault, mesh):
+        with _DpFault(fault, mesh), remat_knobs(policy):
             for k in range(len(data)):
-                losses.append(float(step.run_steps(
-                    mx.nd.array(data[k:k + 1], ctx=ctx),
-                    mx.nd.array(label[k:k + 1], ctx=ctx)).asnumpy()[0]))
+                # the collectives of the last step (the first also
+                # broadcasts the parameters)
+                with _CollectiveCount(k == len(data) - 1) as count:
+                    losses.append(float(step.run_steps(
+                        mx.nd.array(data[k:k + 1], ctx=ctx),
+                        mx.nd.array(label[k:k + 1], ctx=ctx)).asnumpy()[0]))
                 params.append({p: v.data().asnumpy() for p, v in
                                net.collect_params().items()})
+        ref_p = refs["a" if kw.get("accum_steps") else "s"]
         row = {"losses": losses, "bucketed": step.bucketed,
-               "zero1": step.zero1,
+               "zero1": step.zero1, "collectives_per_step": count.calls,
                "update_err": [_update_err(g, w, w0)
                               for g, w in zip(params, ref_p)],
                "aux_update_err": _update_err(
@@ -2902,6 +2946,36 @@ def _dp_numerics_rank(ref_path, aux, data, label, runs):
         out[name] = row
         del step, params
     return out
+
+
+class _CollectiveCount:
+    """Count this rank's collectives by kind while ``on``."""
+
+    KINDS = ("all_reduce", "reduce_scatter_tensor",
+             "all_gather_into_tensor", "broadcast")
+
+    def __init__(self, on=True):
+        self.on, self.calls = on, {}
+
+    def __enter__(self):
+        import torch.distributed as tdist
+
+        self.saved = {k: getattr(tdist, k) for k in self.KINDS}
+        if self.on:
+            for kind, real in self.saved.items():
+                def counted(*a, _real=real, _kind=kind, **kw):
+                    self.calls[_kind] = self.calls.get(_kind, 0) + 1
+                    return _real(*a, **kw)
+
+                setattr(tdist, kind, counted)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as tdist
+
+        for kind, real in self.saved.items():
+            setattr(tdist, kind, real)
+        return False
 
 
 class _DpFault:
@@ -2969,16 +3043,19 @@ def _dp_num_net(ctx):
     return net
 
 
-def _dp_num_check(tag, out, ref):
+def _dp_num_check(tag, out, ref, ref_a):
     """The dp_numerics verdicts of one backend's ranks (``out``) against
-    the one-device losses ``ref``."""
+    the one-device losses ``ref`` (and ``ref_a``, accumulating)."""
     r0, r1 = out
     res = {"update_err": {"rank%d_%s" % (r, n): max(rank[n]["update_err"])
                           for r, rank in enumerate(out) for n in rank},
-           "aux_update_err": r0["bucketed"]["aux_update_err"],
+           "aux_update_err": max(r0[n]["aux_update_err"] for n in
+                                 ("bucketed", "bucketed_a2", "zero1_a2")),
            "loss_rel_err": max(abs(a - b) / abs(b) for rank in out
-                               for a, b in zip(rank["bucketed"]["losses"],
-                                               ref)),
+                               for n, want in (("bucketed", ref),
+                                               ("bucketed_a2", ref_a),
+                                               ("zero1_a2", ref_a))
+                               for a, b in zip(rank[n]["losses"], want)),
            "bucketed_equals_monolithic":
                r0["bucketed"]["digests"] == r0["monolithic"]["digests"]
                and r0["bucketed"]["losses"] == r0["monolithic"]["losses"],
@@ -2992,8 +3069,11 @@ def _dp_num_check(tag, out, ref):
               "sync_bn_backward_local":
                   max(r0["sync_bn_backward_local"]["update_err"])}
     res["fault_update_err"] = faults
+    res["collectives_per_step"] = {n: v["collectives_per_step"]
+                                   for n, v in r0.items()}
     good = [res["update_err"]["rank%d_%s" % (r, n)] for r in (0, 1)
-            for n in ("bucketed", "monolithic", "zero1")]
+            for n in ("bucketed", "monolithic", "zero1", "bucketed_a2",
+                      "zero1_a2", "bucketed_stage")]
     if not (max(good) <= DP_NUM_TOL and res["aux_update_err"] <= DP_NUM_TOL
             and res["loss_rel_err"] <= DP_NUM_TOL):
         raise RuntimeError("%s: dp=2 is off the one-device float64 "
@@ -3026,7 +3106,11 @@ def phase_dp_numerics():
             ("bucketed_lr0", {"learning_rate": 0.0}, None),
             ("zero1_lr0", {"learning_rate": 0.0, "zero_stage": 1}, None),
             ("grad_not_reduced", {}, "grad_not_reduced"),
-            ("sync_bn_backward_local", {}, "sync_bn_backward_local")]
+            ("sync_bn_backward_local", {}, "sync_bn_backward_local"),
+            ("bucketed_a2", {"accum_steps": 2}, None),
+            ("zero1_a2", {"accum_steps": 2, "zero_stage": 1}, None),
+            ("bucketed_stage", {"remat": "stage"}, None)]
+    order = _microbatch_order(gb, 2, 2)
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -3035,6 +3119,8 @@ def phase_dp_numerics():
         aux = sorted(k for k, p in net.collect_params().items()
                      if p.grad_req == "null")
         ref, ref_p = numerics_run(net, w0, data, label, "float64")
+        ref_a, ref_ap = numerics_run(net, w0, data[:, order],
+                                     label[:, order], "float64", accum=2)
         del net
     finally:
         torch.backends.cudnn.deterministic = det
@@ -3042,8 +3128,9 @@ def phase_dp_numerics():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dpnum_")
     ref_path = str(Path(tmp) / "reference.npz")
     arrays = {"w0/" + k: v for k, v in w0.items()}
-    for i, p in enumerate(ref_p):
-        arrays.update({"s%d/%s" % (i, k): v for k, v in p.items()})
+    for tag, traj in (("s", ref_p), ("a", ref_ap)):
+        for i, p in enumerate(traj):
+            arrays.update({"%s%d/%s" % (tag, i, k): v for k, v in p.items()})
     np.savez(ref_path, **arrays)
     try:
         t0 = time.perf_counter()
@@ -3055,14 +3142,16 @@ def phase_dp_numerics():
                "global_batch": gb, "dtype": "float64",
                "reference": "one device on the card, float64, global batch",
                "reference_losses": ref.tolist(),
+               "accum_reference_losses": ref_a.tolist(),
                "tol": DP_NUM_TOL, "zero1_tol": DP_ZERO1_TOL,
-               "gloo_cuda0": _dp_num_check("dp_numerics", out, ref),
+               "gloo_cuda0": _dp_num_check("dp_numerics", out, ref, ref_a),
                "gloo_s": gloo_s}
         if torch.cuda.device_count() >= 2:
             out = dist.launch(_dp_numerics_rank, 2,
                               (ref_path, aux, data, label, runs),
                               backend="nccl", timeout_s=300)
-            row["nccl"] = _dp_num_check("dp_numerics (nccl)", out, ref)
+            row["nccl"] = _dp_num_check("dp_numerics (nccl)", out, ref,
+                                        ref_a)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if torch.cuda.device_count() < 2:
@@ -3335,9 +3424,509 @@ def phase_train_lm_dp_numerics():
     return row
 
 
+# ---------------------------------------------------------------------
+# the memory tier: remat scopes, the mirror, gradient accumulation
+# ---------------------------------------------------------------------
+# remat: the train cell (ResNet-50 v1 bf16, batch 128, 224x224, SGD lr
+# 0.05 momentum 0.9, one card) under each memory policy: one warm-up
+# step, then REMAT_STEPS timed; the peak is torch.cuda's allocated
+# bytes over the timed steps (reset after the warm-up)
+REMAT_RUNS = (("none", "none", False), ("stage", "stage", False),
+              ("conv_block", "conv_block", False), ("mirror", "none", True))
+REMAT_BATCH, REMAT_STEPS = 128, 5
+# memory_remat: bench.py:1325 bench_memory_remat / :1366 _memory_probe,
+# ResNet-18 v1 at batch 16, 128x128, bf16, the mirror off and on
+MEMORY_REMAT = dict(model="resnet18_v1", batch=16, image=128, steps=10)
+# large_batch_remat: bench.py:1421 bench_large_batch_remat / :1455
+# _large_batch_probe, ResNet-50 v1 at an effective batch of 128 in 4
+# microbatches of 32, 224x224, bf16, MXNET_REMAT_POLICY=stage, beside
+# its policy-none twin at the same accumulation
+LARGE_BATCH_REMAT = dict(batch=128, accum=4, steps=5)
+# remat_numerics: a marked conv net (2 stages of 2 units of conv, BN,
+# relu, and a Dropout in stage 0's units; global-avg pool; dense) at
+# batch 8, 32x32, 10 classes, float64, SGD lr 0.05 momentum 0.9, 2
+# steps, cuDNN deterministic.  With the Dropout at p=0 (nothing drawn)
+# each policy on the card agrees with the same policy on the CPU within
+# REMAT_NUM_TOL of the update's size; with p=0.25 each policy on the
+# card equals none on the card bit for bit, and two planted faults
+# (the aux write-back run again in the recompute, the generator not
+# replayed) read above the limit; the symbolic executor's stage fit
+# equals its none fit bit for bit; two gloo ranks on cuda:0 at stage +
+# accum 2 agree with one device accumulating the same microbatches
+# within the limit, and the bucket hooks armed on every microbatch read
+# above it
+REMAT_NUM = dict(batch=8, image=32, classes=10, steps=2, lr=0.05, drop=0.25)
+REMAT_NUM_TOL = 1e-10
+REMAT_NUM_CONFIGS = (("stage", "stage", False, None),
+                     ("conv_block", "conv_block", False, None),
+                     ("mirror", "none", True, None),
+                     ("accum2", "none", False, 2),
+                     ("stage_accum2", "stage", False, 2))
+
+
+@contextlib.contextmanager
+def remat_knobs(policy="none", mirror=False):
+    """``MXNET_REMAT_POLICY`` / ``MXNET_BACKWARD_DO_MIRROR`` for a run."""
+    knobs = {"MXNET_REMAT_POLICY": policy,
+             "MXNET_BACKWARD_DO_MIRROR": "1" if mirror else "0"}
+    old = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _memory_cell(net, w0, data, label, policy, mirror, steps, accum=None):
+    """One bf16 ``FusedTrainStep`` run of ``net`` from ``w0`` under a
+    memory policy: a warm-up step, then ``steps`` timed steps and their
+    peak allocated bytes."""
+    import gc
+
+    from mxnet_tpu_torch import convert, gluon
+    from mxnet_tpu_torch.parallel.dp import FusedTrainStep
+
+    net.cast("float32")
+    convert.load_block_params(net, w0)
+    with remat_knobs(policy, mirror):
+        step = FusedTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                              learning_rate=TRAIN_LR,
+                              momentum=TRAIN_MOMENTUM, dtype="bfloat16",
+                              accum_steps=accum)
+        first = float(step.run_steps(data, label, steps=1).asnumpy()[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = step.run_steps(data, label, steps=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        losses = losses.asnumpy()
+    del step
+    gc.collect()
+    batch = int(data.shape[0])
+    step_s = wall / steps
+    return {"policy": policy, "mirror": mirror, "accum_steps": accum or 1,
+            "step_ms": step_s * 1e3, "images_per_s": batch / step_s,
+            "peak_bytes": int(peak), "first_loss": first,
+            "last_loss": float(losses[-1]),
+            "tflops": train_tflops(batch, step_s)}
+
+
+def _memory_verdicts(runs, base="none"):
+    """Each run's memory ratio (the base's peak over its own) and
+    slowdown (1 - its images/s over the base's), bench.py's formulas."""
+    ref = runs[base]
+    return {name: {"memory_ratio": ref["peak_bytes"] / r["peak_bytes"],
+                   "slowdown": 1.0 - r["images_per_s"] /
+                   ref["images_per_s"]}
+            for name, r in runs.items() if name != base}
+
+
+def _check_memory(tag, runs, verdicts, lower=True):
+    """Every loss finite and, with ``lower``, every policy's peak below
+    the base's."""
+    bad = [n for n, r in runs.items()
+           if not (np.isfinite(r["first_loss"])
+                   and np.isfinite(r["last_loss"]))]
+    if bad:
+        raise RuntimeError("%s: a loss is not finite: %r" % (tag, bad))
+    flat = [n for n, v in verdicts.items() if not v["memory_ratio"] > 1.0]
+    if lower and flat:
+        raise RuntimeError("%s: %s does not lower the peak below the "
+                           "base: %r" % (tag, flat, runs))
+
+
+def phase_remat():
+    """The train cell under ``none``, ``stage``, ``conv_block`` and the
+    mirror: step ms, images/s, peak bytes, memory ratio and slowdown
+    against none.  Fails unless each policy lowers the peak below
+    none's."""
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.gpu(0)
+    net = resnet50(ctx)
+    w0 = {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+    data, label = train_batch(REMAT_BATCH, ctx)
+    runs = {}
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    for name, policy, mirror in REMAT_RUNS:
+        runs[name] = _memory_cell(net, w0, data, label, policy, mirror,
+                                  REMAT_STEPS)
+    wall = time.perf_counter() - t0
+    verdicts = _memory_verdicts(runs)
+    row = {"phase": "remat", "model": "resnet50_v1", "batch": REMAT_BATCH,
+           "image": 224, "dtype": "bfloat16", "steps": REMAT_STEPS,
+           "peak": "torch.cuda.max_memory_allocated over steps 2+",
+           "runs": runs, "verdicts": verdicts,
+           "kernel_launches": _kernel_counts(), "wall_s": wall}
+    emit(row)
+    _check_memory("remat", runs, verdicts)
+    return row, (net, w0, data, label)
+
+
+def phase_memory_remat():
+    """bench_memory_remat's row: ResNet-18 v1 at batch 16, 128x128,
+    bf16, the mirror off and on."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    cfg = MEMORY_REMAT
+    ctx = mx.gpu(0)
+    np.random.seed(0)
+    net = vision.get_model(cfg["model"], classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    with mx.autograd.pause():
+        net(mx.nd.zeros((2, 3, cfg["image"], cfg["image"]), ctx=ctx))
+    w0 = {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+    mx.random.seed(0)
+    data = mx.nd.random.uniform(
+        shape=(cfg["batch"], 3, cfg["image"], cfg["image"]), ctx=ctx)
+    label = mx.nd.array(np.random.RandomState(0).randint(
+        0, 1000, cfg["batch"]).astype("float32"), ctx=ctx)
+    _reset_kernel_counts()
+    runs = {"mirror_off": _memory_cell(net, w0, data, label, "none", False,
+                                       cfg["steps"]),
+            "mirror_on": _memory_cell(net, w0, data, label, "none", True,
+                                      cfg["steps"])}
+    verdicts = _memory_verdicts(runs, "mirror_off")
+    row = {"phase": "memory_remat", "reference": "bench.py:1325",
+           "cfg": cfg, "dtype": "bfloat16", "runs": runs,
+           "memory_ratio": verdicts["mirror_on"]["memory_ratio"],
+           "slowdown": verdicts["mirror_on"]["slowdown"],
+           "kernel_launches": _kernel_counts()}
+    emit(row)
+    # reported, not held: at this size the peak is not the activations'
+    # (PERF.md, PR 11)
+    _check_memory("memory_remat", runs, verdicts, lower=False)
+    return row
+
+
+def phase_large_batch_remat(cell, train_row):
+    """bench_large_batch_remat's row: the train cell's net at an
+    effective batch of 128 in 4 microbatches, ``stage`` beside its
+    ``none`` twin at the same accumulation."""
+    net, w0, data, label = cell
+    cfg = LARGE_BATCH_REMAT
+    _reset_kernel_counts()
+    runs = {"none": _memory_cell(net, w0, data, label, "none", False,
+                                 cfg["steps"], accum=cfg["accum"]),
+            "stage": _memory_cell(net, w0, data, label, "stage", False,
+                                  cfg["steps"], accum=cfg["accum"])}
+    verdicts = _memory_verdicts(runs)
+    b128 = next(r for r in train_row["runs"] if r["batch"] == 128)
+    st = runs["stage"]
+    row = {"phase": "large_batch_remat", "reference": "bench.py:1421",
+           "model": "resnet50_v1", "effective_batch": cfg["batch"],
+           "grad_accum_steps": cfg["accum"],
+           "microbatch": cfg["batch"] // cfg["accum"], "image": 224,
+           "dtype": "bfloat16", "remat_policy": "stage",
+           "images_per_s": st["images_per_s"], "tflops": st["tflops"],
+           "tflops_basis": "24.54 GFLOP an image (3 x 2 x 4.09 G "
+                           "multiply-adds)",
+           "peak_bytes": st["peak_bytes"],
+           "none_twin_peak_bytes": runs["none"]["peak_bytes"],
+           "memory_ratio": verdicts["stage"]["memory_ratio"],
+           "slowdown_vs_twin": verdicts["stage"]["slowdown"],
+           "vs_train_b128_images_per_s":
+               st["images_per_s"] / b128["images_per_s"],
+           "runs": runs, "kernel_launches": _kernel_counts()}
+    emit(row)
+    _check_memory("large_batch_remat", runs, verdicts)
+    return row
+
+
+def remat_num_net(ctx, drop, prefix="rn_"):
+    """remat_numerics's marked net on ``ctx``, Xavier from numpy seed 0,
+    its shapes settled (float32 cells)."""
+    import mxnet_tpu_torch as mx
+
+    nn = mx.gluon.nn
+
+    def unit(f, p):
+        u = nn.HybridSequential()
+        with u.name_scope():
+            u.add(nn.Conv2D(f, 3, padding=1, use_bias=False),
+                  nn.BatchNorm(), nn.Activation("relu"))
+            if p:
+                u.add(nn.Dropout(p))
+        u._remat_scope = "conv_block"
+        return u
+
+    def stage(f, p):
+        s = nn.HybridSequential()
+        with s.name_scope():
+            s.add(unit(f, p), unit(f, p))
+        s._remat_scope = "stage"
+        return s
+
+    np.random.seed(0)
+    net = nn.HybridSequential(prefix=prefix)
+    with net.name_scope():
+        net.add(stage(16, drop), stage(32, 0.0), nn.GlobalAvgPool2D(),
+                nn.Dense(REMAT_NUM["classes"]))
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    with mx.autograd.pause():
+        net(mx.nd.zeros((2, 3, REMAT_NUM["image"], REMAT_NUM["image"]),
+                        ctx=ctx))
+    return net
+
+
+def remat_num_run(ctx, w0, data, label, policy, mirror, accum=None,
+                  drop=0.0, mesh=None):
+    """REMAT_NUM steps of the marked net in float64 from ``w0`` under a
+    memory policy; the losses, and the parameters (aux included) after
+    each step.  ``data`` / ``label`` carry a leading step dim."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import convert, gluon
+    from mxnet_tpu_torch.parallel.dp import FusedTrainStep
+
+    net = remat_num_net(ctx, drop)
+    convert.load_block_params(net, w0)
+    losses, params = [], []
+    with remat_knobs(policy, mirror):
+        step = FusedTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                              mesh=mesh, learning_rate=REMAT_NUM["lr"],
+                              momentum=TRAIN_MOMENTUM, dtype="float64",
+                              accum_steps=accum, bucket_bytes=1 << 14)
+        mx.random.seed(7)
+        for k in range(len(data)):
+            losses.append(float(step.run_steps(
+                mx.nd.array(data[k:k + 1], ctx=ctx),
+                mx.nd.array(label[k:k + 1], ctx=ctx)).asnumpy()[0]))
+            params.append({n: p.data().asnumpy()
+                           for n, p in net.collect_params().items()})
+    return np.array(losses), params
+
+
+def _traj_err(got, ref, w0):
+    """The largest update error of a trajectory against another, and the
+    largest relative loss error."""
+    (gl, gp), (rl, rp) = got, ref
+    return (max(_update_err(g, r, w0) for g, r in zip(gp, rp)),
+            float(np.max(np.abs(gl - rl) / np.abs(rl))))
+
+
+def _same_traj(a, b) -> bool:
+    return a[0].tolist() == b[0].tolist() and \
+        [_digest(p) for p in a[1]] == [_digest(p) for p in b[1]]
+
+
+def _remat_num_symbol(drop):
+    """A stage-named conv symbol with a BatchNorm and a Dropout inside
+    stage 1 (the executor segments it by the ``stageN_`` names)."""
+    import mxnet_tpu_torch as mx
+
+    with mx.name.NameManager():
+        x = mx.sym.Variable("data")
+        x = mx.sym.Activation(mx.sym.Convolution(
+            x, num_filter=8, kernel=(3, 3), pad=(1, 1), name="stem_conv"),
+            act_type="relu")
+        for s in (1, 2):
+            x = mx.sym.Convolution(x, num_filter=8, kernel=(3, 3),
+                                   pad=(1, 1), name="stage%d_unit1_conv1" % s)
+            x = mx.sym.BatchNorm(x, fix_gamma=False,
+                                 name="stage%d_unit1_bn1" % s)
+            x = mx.sym.Activation(x, act_type="relu",
+                                  name="stage%d_unit1_relu1" % s)
+            if s == 1:
+                x = mx.sym.Dropout(x, p=drop, name="stage1_unit1_drop1")
+        x = mx.sym.FullyConnected(mx.sym.Flatten(x),
+                                  num_hidden=REMAT_NUM["classes"],
+                                  name="head_fc")
+        return mx.sym.SoftmaxOutput(x, name="softmax")
+
+
+def _remat_num_fit(policy, X, y, start):
+    """One epoch of ``Module.fit`` of the stage symbol on the card in
+    float64 from ``start`` under ``policy``: the parameters (aux
+    included) and whether the executor ran stage segments."""
+    import mxnet_tpu_torch as mx
+
+    with remat_knobs(policy):
+        it = mx.io.NDArrayIter(X, y, batch_size=REMAT_NUM["batch"],
+                               label_name="softmax_label")
+        mod = mx.mod.Module(_remat_num_symbol(REMAT_NUM["drop"]),
+                            context=mx.gpu(0))
+        mod.bind(it.provide_data, it.provide_label)
+        _cast_module(mod, torch.float64)
+        mod.init_params(arg_params=start[0], aux_params=start[1])
+        mx.random.seed(7)
+        mod.fit(it, num_epoch=1, optimizer="sgd",
+                optimizer_params=(("learning_rate", REMAT_NUM["lr"]),
+                                  ("momentum", TRAIN_MOMENTUM)))
+    a, x = mod.get_params()
+    return ({k: v.asnumpy() for k, v in list(a.items()) + list(x.items())},
+            mod._exec._eval.remat_plan is not None)
+
+
+def _microbatch_order(b, n, a):
+    """The global rows in the order one device must see them for its
+    k-th microbatch to be the dp ranks' k-th microbatches together."""
+    per, mb = b // n, b // n // a
+    return [r * per + k * mb + i for k in range(a) for r in range(n)
+            for i in range(mb)]
+
+
+def _remat_num_dp_rank(w0, data, label):
+    """One gloo rank of remat_numerics's dp part: stage + accum 2, and
+    the same with the bucket hooks armed on every microbatch."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import dist
+    from mxnet_tpu_torch.parallel.dp import FusedTrainStep
+    from mxnet_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    _rank_setup()
+    torch.backends.cudnn.deterministic = True
+    mesh = data_parallel_mesh()
+    ctx = mx.gpu(dist.device().index)
+    good = remat_num_run(ctx, w0, data, label, "stage", False, accum=2,
+                         mesh=mesh)
+    arms = FusedTrainStep._arms
+    FusedTrainStep._arms = lambda self, k: True
+    try:
+        bad = remat_num_run(ctx, w0, data, label, "stage", False, accum=2,
+                            mesh=mesh)
+    finally:
+        FusedTrainStep._arms = arms
+    return {"good": (good[0], good[1]), "armed_every_microbatch":
+            (bad[0], bad[1])}
+
+
+def phase_remat_numerics():
+    """The memory tier's numbers on the card against the CPU and against
+    none (see REMAT_NUM)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import dist, remat
+    from mxnet_tpu_torch import random as mx_random
+
+    cfg = REMAT_NUM
+    rng = np.random.RandomState(5)
+    data = rng.uniform(-1, 1, (cfg["steps"], cfg["batch"], 3, cfg["image"],
+                               cfg["image"]))
+    label = rng.randint(0, cfg["classes"],
+                        (cfg["steps"], cfg["batch"])).astype(np.float64)
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    w0 = {k: p.data().asnumpy()
+          for k, p in remat_num_net(cpu, cfg["drop"]).collect_params()
+          .items()}
+    aux = sorted(k for k in w0 if "running" in k)
+    t0 = time.perf_counter()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    _reset_kernel_counts()
+    try:
+        # p=0: each policy on the card against the same on the CPU
+        vs_cpu = {}
+        for name, policy, mirror, accum in REMAT_NUM_CONFIGS:
+            card = remat_num_run(gpu, w0, data, label, policy, mirror, accum)
+            ref = remat_num_run(cpu, w0, data, label, policy, mirror, accum)
+            vs_cpu[name] = _traj_err(card, ref, w0)
+        # p=0.25: each policy on the card against none on the card
+        drop = cfg["drop"]
+        none = remat_num_run(gpu, w0, data, label, "none", False, None, drop)
+        none2 = remat_num_run(gpu, w0, data, label, "none", False, None,
+                              drop)
+        none_a2 = remat_num_run(gpu, w0, data, label, "none", False, 2, drop)
+        vs_none = {"none_rerun": _same_traj(none2, none)}
+        for name, policy, mirror, accum in REMAT_NUM_CONFIGS:
+            if name == "accum2":
+                continue
+            got = remat_num_run(gpu, w0, data, label, policy, mirror, accum,
+                                drop)
+            vs_none[name] = _same_traj(got, none_a2 if accum else none)
+        # the planted faults, on stage with the Dropout
+        faults = {}
+        real = remat.recomputing
+        remat.recomputing = lambda: False
+        try:
+            bad = remat_num_run(gpu, w0, data, label, "stage", False, None,
+                                drop)
+        finally:
+            remat.recomputing = real
+        faults["aux_written_twice"] = _update_err(
+            {k: bad[1][-1][k] for k in aux},
+            {k: none[1][-1][k] for k in aux}, {k: w0[k] for k in aux})
+        real = mx_random.set_state
+        mx_random.set_state = lambda state: None
+        try:
+            bad = remat_num_run(gpu, w0, data, label, "stage", False, None,
+                                drop)
+        finally:
+            mx_random.set_state = real
+        faults["mask_redrawn"] = _traj_err(bad, none, w0)[0]
+        # the executor: Module.fit under stage against none, on the card
+        X = rng.uniform(-1, 1, (4 * cfg["batch"], 3, cfg["image"],
+                                cfg["image"]))
+        y = rng.randint(0, cfg["classes"], 4 * cfg["batch"]).astype(
+            np.float64)
+        start = mx.mod.Module(_remat_num_symbol(cfg["drop"]), context=cpu)
+        start.bind([("data", (cfg["batch"], 3, cfg["image"], cfg["image"]))],
+                   [("softmax_label", (cfg["batch"],))])
+        _cast_module(start, torch.float64)
+        np.random.seed(0)
+        start.init_params(mx.init.Xavier())
+        start = start.get_params()
+        fit_none, _ = _remat_num_fit("none", X, y, start)
+        fit_stage, segmented = _remat_num_fit("stage", X, y, start)
+        executor_equal = _digest(fit_none) == _digest(fit_stage)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    counts = _kernel_counts()
+    # the dp part: two gloo ranks on cuda:0 against one device over the
+    # same microbatches
+    order = _microbatch_order(cfg["batch"], 2, 2)
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = remat_num_run(gpu, w0, data[:, order], label[:, order],
+                            "stage", False, 2)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    ranks = dist.launch(_remat_num_dp_rank, 2, (w0, data, label),
+                        backend="gloo", device="cuda:0", timeout_s=300)
+    dp = {"rank%d" % r: _traj_err(out["good"], one, w0)
+          for r, out in enumerate(ranks)}
+    faults["armed_every_microbatch"] = max(
+        _traj_err(out["armed_every_microbatch"], one, w0)[0]
+        for out in ranks)
+    wall = time.perf_counter() - t0
+    row = {"phase": "remat_numerics", "cfg": cfg, "dtype": "float64",
+           "tol": REMAT_NUM_TOL, "cudnn_deterministic": True,
+           "card_vs_cpu": {k: {"update_err": v[0], "loss_rel_err": v[1]}
+                           for k, v in vs_cpu.items()},
+           "card_vs_card_none_bitwise": vs_none,
+           "executor_stage_fit_equals_none": executor_equal,
+           "executor_segmented": segmented,
+           "dp_stage_accum2_vs_one_device": {
+               k: {"update_err": v[0], "loss_rel_err": v[1]}
+               for k, v in dp.items()},
+           "fault_update_err": faults, "kernel_launches": counts,
+           "wall_s": wall}
+    emit(row)
+    errs = [v for pair in list(vs_cpu.values()) + list(dp.values())
+            for v in pair]
+    if not max(errs) <= REMAT_NUM_TOL:
+        raise RuntimeError("remat_numerics: a policy on the card is off "
+                           "the reference: %r" % (row,))
+    if not (all(vs_none.values()) and executor_equal and segmented):
+        raise RuntimeError("remat_numerics: a policy on the card differs "
+                           "from none: %r" % (vs_none,))
+    if not min(faults.values()) > REMAT_NUM_TOL:
+        raise RuntimeError("remat_numerics: the check cannot tell a "
+                           "planted fault from the reference: %r"
+                           % (faults,))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
+    t_start = time.perf_counter()
     # without the rest of the repository beside this script the import
     # fails here, before anything is printed
     import mxnet_tpu_torch  # noqa: F401
@@ -3364,10 +3953,19 @@ def main() -> int:
     phase_export()
     dp = phase_dp(train)
     phase_dp_numerics()
+    remat_row, cell = phase_remat()
+    memory = phase_memory_remat()
+    large = phase_large_batch_remat(cell, train)
+    del cell
+    remat_num = phase_remat_numerics()
     lm_dp = phase_train_lm_dp(lm)
     lm_dp_num = phase_train_lm_dp_numerics()
     dp_counts = dp["runs"][1]["kernel_launches"]
     lm_dp_counts = lm_dp["per_rank"][0]["kernel_launches"]
+    memory_counts = {"remat": remat_row["kernel_launches"],
+                     "memory_remat": memory["kernel_launches"],
+                     "large_batch_remat": large["kernel_launches"],
+                     "remat_numerics": remat_num["kernel_launches"]}
     main_row, bwd_row = rows[0], bwd_rows[0]
     add_row = next(r for r in add_rows if "kernel_ms" in r)
     kernels = [{
@@ -3391,7 +3989,9 @@ def main() -> int:
                                  lm_dp_counts["flash_attention_fwd"] /
                                  lm_dp["per_rank"][0]["steps_counted"],
                              "train_lm_dp_numerics": lm_dp_num[
-                                 "kernel_launches"]["flash_attention_fwd"]},
+                                 "kernel_launches"]["flash_attention_fwd"],
+                             **{k: v["flash_attention_fwd"]
+                                for k, v in memory_counts.items()}},
         "max_abs_err": max(r["max_err"] for r in rows),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -3424,7 +4024,9 @@ def main() -> int:
                                  lm_dp_counts["flash_attention_bwd"] /
                                  lm_dp["per_rank"][0]["steps_counted"],
                              "train_lm_dp_numerics": lm_dp_num[
-                                 "kernel_launches"]["flash_attention_bwd"]},
+                                 "kernel_launches"]["flash_attention_bwd"],
+                             **{k: v["flash_attention_bwd"]
+                                for k, v in memory_counts.items()}},
         "max_abs_err": max(r["max_err"] for r in bwd_rows),
         "ms": bwd_row["kernel_ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
@@ -3442,7 +4044,9 @@ def main() -> int:
         "launches_by_path": {"ndarray": ndrow["rtc_launches"].get("add", 0),
                              "fit": fit["kernel_launches"]["rtc_add"],
                              "dp": dp_counts["rtc_add"],
-                             "train_lm_dp": lm_dp_counts["rtc_add"]},
+                             "train_lm_dp": lm_dp_counts["rtc_add"],
+                             **{k: v["rtc_add"]
+                                for k, v in memory_counts.items()}},
         "max_abs_err": max(r["max_err"] for r in add_rows),
         "ms": add_row["kernel_ms"], "plain_ms": add_row["plain_ms"],
         "bound_ms": add_row["bound_ms"], "bound_by": add_row["bound_by"],
@@ -3450,6 +4054,7 @@ def main() -> int:
         "single_call_ms": add_row["single_call_ms"],
         "shape": add_row["shape"], "dtype": add_row["dtype"],
     }]
+    emit({"phase": "wall", "wall_s": time.perf_counter() - t_start})
     emit({"phase": "kernels",
           "kernels": {k["name"]: "checked" for k in kernels}})
     emit({"kernels": kernels})

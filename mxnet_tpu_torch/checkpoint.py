@@ -32,8 +32,15 @@ package, one per device in the port, whose ranks each train on their
 rows of the global batch and record that per-rank batch size, so the
 sample position agrees both ways.
 
-Not ported (queued in ROADMAP A10): the asynchronous writer thread and
-``rng_state``/``set_rng_state`` (a port shard carries ``rng: None``).
+The random state: a port shard carries the port's (``rng_state``:
+the seed and every ``torch.Generator``'s state, bit for bit) under its
+own key ``rng_torch``, and ``rng: None`` where the JAX package keeps
+its key, so the JAX package reads a port shard unchanged (its
+``set_rng_state`` ignores an empty state).  A JAX shard carries no torch
+state: resuming from it in the port warns that the random stream
+restarts.
+
+Not ported (queued in ROADMAP A10): the asynchronous writer thread.
 """
 from __future__ import annotations
 
@@ -59,6 +66,7 @@ __all__ = [
     "load_checkpoint", "latest_step", "list_steps", "step_dir",
     "shard_path", "manifest_path", "read_manifest", "missing_ranks",
     "verify_step", "verify_dir", "scale_resume_skip", "main",
+    "rng_state", "set_rng_state", "restore_rng",
 ]
 
 _log = logging.getLogger(__name__)
@@ -558,6 +566,43 @@ def _verify_wanted(verify: Optional[bool]) -> bool:
 # ---------------------------------------------------------------------------
 # write
 # ---------------------------------------------------------------------------
+def rng_state() -> dict:
+    """The port's random state (``random.get_state``) with numpy
+    arrays, so it pickles without torch."""
+    from . import random as _random
+
+    st = _random.get_state()
+    return {"seed": st["seed"],
+            "generators": {d: g.numpy() for d, g
+                           in st["generators"].items()}}
+
+
+def set_rng_state(state: Optional[dict]) -> None:
+    """Restore a :func:`rng_state` snapshot; ``None`` leaves the random
+    state as it is."""
+    if not state:
+        return
+    from . import random as _random
+
+    _random.set_state(state)
+
+
+def restore_rng(payload: dict, where: str = "checkpoint") -> None:
+    """Resume the random stream of a loaded shard: the port's state
+    where it carries one, else a warning that the stream restarts (a
+    JAX shard carries a JAX key, which draws nothing here)."""
+    state = payload.get("rng_torch")
+    if state:
+        set_rng_state(state)
+        return
+    _log.warning(
+        "%s (step %s) carries no torch random state (%s): the random "
+        "stream restarts from the current seed", where,
+        payload.get("step"),
+        "written by the JAX package" if payload.get("rng") else
+        "none was saved")
+
+
 def _snapshot_params(params: Optional[Dict[str, Any]]) -> Dict[str, Any]:
     """Params (torch tensors, port NDArrays or numpy) -> host values,
     synchronously: numpy arrays, except bf16, which stays a CPU
@@ -611,7 +656,9 @@ class CheckpointManager:
             "params": _snapshot_params(params),
             "aux_params": _snapshot_params(aux_params),
             "optimizer_states": optimizer_states,
+            # the JAX package's key stays empty: it reads this shard
             "rng": None,
+            "rng_torch": rng_state(),
             "iterator": dict(iterator_state) if iterator_state else None,
             "extra": dict(extra) if extra else None,
         }

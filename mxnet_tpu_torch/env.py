@@ -215,14 +215,18 @@ register("MXNET_SERVE_GEN_PREFILL_BATCH", "int", 4,
 
 # parallel/dp.py, remat.py, transformer/train.py
 register("MXNET_REMAT_POLICY", "str", "none",
-         "Per-scope rematerialization policy: the transformer runs "
-         "'none', 'block' (each decoder block) and 'attention' (the "
-         "attention sub-graph) over torch.utils.checkpoint; the conv "
-         "scopes 'stage'/'conv_block' are queued (ROADMAP A7) and raise, "
-         "and FusedTrainStep refuses any policy but 'none'.")
+         "Per-scope rematerialization policy over torch.utils.checkpoint: "
+         "'none'; the transformer's 'block' (each decoder block) and "
+         "'attention' (the attention sub-graph); the conv tier's 'stage' "
+         "(each ResNet stage; the executor's stageN_ segments) and "
+         "'conv_block' (each residual unit), in FusedTrainStep, "
+         "hybridized Gluon blocks and the symbolic executor.  One scope "
+         "at a time; an unknown name raises.")
 register("MXNET_BACKWARD_DO_MIRROR", "bool", False,
-         "The whole-program mirror remat policy; not ported (ROADMAP "
-         "A7): setting it raises at the train step's build.")
+         "The mirror: keep convolution and matrix-product outputs and "
+         "recompute the rest in backward, region by region (FusedTrainStep, "
+         "an outermost hybridized block's recorded call, the executor; "
+         "the transformer ignores it).")
 register("MXNET_ZERO_STAGE", "int", 0,
          "Optimizer-state sharding: 0 replicates momenta (default); 1 "
          "(ZeRO-1) shards them over a dp mesh of more than one rank "
@@ -250,5 +254,7 @@ register("MXNET_SDC_CHECK_EVERY_N", "int", 0,
          "Cross-rank SDC fingerprint-vote cadence; not ported (ROADMAP "
          "A11): a nonzero value raises at the train step's build.")
 register("MXNET_GRAD_ACCUM_STEPS", "int", 1,
-         "Microbatch gradient accumulation inside the train step; the "
-         "port runs 1 only (queued) and refuses more.")
+         "Microbatch gradient accumulation inside FusedTrainStep: the "
+         "per-device batch splits into this many microbatches whose "
+         "gradients are summed before ONE exchange and update; it must "
+         "divide the batch.")

@@ -24,14 +24,28 @@ Random ops draw from the per-device ``torch.Generator`` of
 ``mx.random`` (``mx.random.seed`` reseeds it), where the JAX package
 folds the node index into a fresh key; parity tests never compare
 draws.  One device only: a ``group2ctx`` that places a group away from
-the executor's context raises (model parallelism, ROADMAP A6b), and so
-do the conv-tier remat policies (``MXNET_REMAT_POLICY=stage|conv_block``)
-and ``MXNET_BACKWARD_DO_MIRROR`` (ROADMAP A7).  The profiler spans of
-the JAX package's Forward/Backward wait for ROADMAP A11.
+the executor's context raises (model parallelism, ROADMAP A6b).  The
+profiler spans of the JAX package's Forward/Backward wait for ROADMAP
+A11.
+
+The memory tier is the JAX package's (``remat.py``):
+
+  * ``MXNET_REMAT_POLICY=stage|conv_block`` segments the graph by the
+    ``stageN_`` of its node and parameter names (:func:`_remat_plan`);
+    a training walk runs each segment under one checkpoint, so only its
+    boundary values and its aux write-backs cross it (residual units
+    share their stage's prefix on the symbol path: both policies cut at
+    stages).  The Monitor tap keeps the inline walk;
+  * ``MXNET_BACKWARD_DO_MIRROR`` cuts the graph, in topological order,
+    after every convolution and matrix product (:func:`_mirror_plan`)
+    and runs each segment under a checkpoint (with a conv policy too,
+    the stage segments run);
+  * the recompute replays the draws of the executor's generator.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional
+import re
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -65,13 +79,150 @@ def place_nodes(symbol, default_ctx: Context,
     return None
 
 
-def _refuse_remat() -> None:
-    """The executor's remat knobs are A7: the port's ``remat_policy``
-    raises for the conv scopes and the mirror; the transformer's
-    policies do not apply to a symbol graph."""
-    from .remat import remat_policy
+# ---------------------------------------------------------------------------
+# scoped remat on the symbol path (MXNET_REMAT_POLICY=stage/conv_block;
+# mxnet_tpu/executor.py:88-205)
+# ---------------------------------------------------------------------------
+_STAGE_RE = re.compile(r"(stage\d+)_")
 
-    remat_policy()
+
+def _stage_keys(topo):
+    """Per-node stage key for remat segmentation, or None (boundary).
+
+    A node's stage is read from its own name (hand-written symbols name
+    ops ``stage1_unit1_conv1``), else from the stage prefix of its
+    parameter variables (gluon-exported symbols carry it only on param
+    names, ``...stage1_conv0_weight``), else inherited from its
+    producers when they agree (relu/pool/add between parameterized
+    nodes).  Parameterized nodes whose params carry no stage (stem
+    conv, FC head) or mix stages are boundaries."""
+    key_of: Dict[int, Optional[str]] = {}
+    for node in topo:
+        m = _STAGE_RE.search(node.name or "")
+        if node.is_variable:
+            key_of[id(node)] = m.group(1) if m else None
+            continue
+        if m:
+            key_of[id(node)] = m.group(1)
+            continue
+        var_in = [p for p, _ in node.inputs if p.is_variable]
+        vkeys = {key_of[id(p)] for p in var_in} - {None}
+        if len(vkeys) == 1:
+            key_of[id(node)] = vkeys.pop()
+        elif vkeys or var_in:
+            key_of[id(node)] = None
+        else:
+            akeys = {key_of[id(p)] for p, _ in node.inputs} - {None}
+            key_of[id(node)] = akeys.pop() if len(akeys) == 1 else None
+    return key_of
+
+
+class _RematSegment:
+    """One contiguous same-stage run of op nodes, run under ONE
+    checkpoint: only the values crossing the segment boundary
+    (``in_refs`` consumed from outside, ``out_refs`` read outside or
+    graph outputs) and the aux write-backs leave it; everything inside
+    is recomputed in backward."""
+
+    __slots__ = ("key", "nodes", "node_ids", "in_refs", "out_refs",
+                 "aux_out_names")
+
+    def __init__(self, key, nodes):
+        self.key = key
+        self.nodes = nodes
+        self.node_ids = {id(n) for n in nodes}
+        self.in_refs: List[Tuple[int, int]] = []
+        self.out_refs: List[Tuple[int, int]] = []
+        self.aux_out_names: List[str] = []
+
+
+# symbol ops whose outputs the mirror keeps: a mirror segment ends at
+# each
+_MIRROR_KEEPS = frozenset({"Convolution", "Deconvolution",
+                           "FullyConnected", "dot", "batch_dot"})
+
+
+def _mirror_keys(topo):
+    """Per-node mirror segment key: a segment runs up to and including
+    the next node whose output the mirror keeps."""
+    key_of: Dict[int, Optional[str]] = {}
+    seg = 0
+    for node in topo:
+        if node.is_variable:
+            key_of[id(node)] = None
+            continue
+        key_of[id(node)] = "mirror%d" % seg
+        if _op_registry.get(node.op).name in _MIRROR_KEEPS:
+            seg += 1
+    return key_of
+
+
+def _mirror_plan(topo, flat_outputs, aux_names):
+    """:func:`_remat_plan` over the mirror's segments."""
+    return _remat_plan(topo, flat_outputs, aux_names, _mirror_keys(topo))
+
+
+def _remat_plan(topo, flat_outputs, aux_names, key_of=None):
+    """Segment the topo order into ('node', n) / ('seg', _RematSegment)
+    entries covering every non-variable node, or None when the graph
+    carries no stage structure (then the plain inline loop runs).
+    Correct for ANY grouping — each segment threads its exact boundary
+    values — so an imperfect name heuristic only costs memory, never
+    numerics.  ``key_of`` (node id -> segment key) defaults to the
+    stages of :func:`_stage_keys`."""
+    if key_of is None:
+        key_of = _stage_keys(topo)
+    op_nodes = [n for n in topo if not n.is_variable]
+    if not any(key_of[id(n)] for n in op_nodes):
+        return None
+    runs: List[Tuple[Optional[str], List[Any]]] = []
+    for n in op_nodes:
+        k = key_of[id(n)]
+        if runs and runs[-1][0] == k:
+            runs[-1][1].append(n)
+        else:
+            runs.append((k, [n]))
+    # global consumer map: which op nodes read each (producer, out_idx)
+    consumers: Dict[Tuple[int, int], set] = {}
+    for n in op_nodes:
+        for p, oi in n.inputs:
+            consumers.setdefault((id(p), oi), set()).add(id(n))
+    out_positions = {(id(n), oi) for n, oi in flat_outputs}
+
+    plan: List[Tuple[str, Any]] = []
+    for k, nodes in runs:
+        if k is None or len(nodes) < 2:
+            plan.extend(("node", n) for n in nodes)
+            continue
+        seg = _RematSegment(k, nodes)
+        seen_in = set()
+        aux_out = set()
+        for n in nodes:
+            for p, oi in n.inputs:
+                ref = (id(p), oi)
+                if (p.is_variable or id(p) not in seg.node_ids) \
+                        and ref not in seen_in:
+                    seen_in.add(ref)
+                    seg.in_refs.append(ref)
+            for pos in _op_registry.get(n.op).mutate_aux:
+                if pos < len(n.inputs):
+                    parent, _ = n.inputs[pos]
+                    if parent.is_variable and parent.name in aux_names:
+                        aux_out.add(parent.name)
+        seg.aux_out_names = sorted(aux_out)
+        pos_of = {id(n): i for i, n in enumerate(nodes)}
+        exported = set()
+        for (pid, oi), readers in consumers.items():
+            if pid in seg.node_ids and readers - seg.node_ids:
+                exported.add((pid, oi))
+        for pid, oi in out_positions:
+            if pid in seg.node_ids:
+                exported.add((pid, oi))
+        seg.out_refs = sorted(exported, key=lambda r: (pos_of[r[0]], r[1]))
+        plan.append(("seg", seg))
+    if not any(kind == "seg" for kind, _ in plan):
+        return None
+    return plan
 
 
 def build_graph_eval(symbol, collect_internals: bool = False) -> Callable:
@@ -82,10 +233,23 @@ def build_graph_eval(symbol, collect_internals: bool = False) -> Callable:
     dict name -> tensor of every op node's outputs, named
     ``<node>_output`` / ``<node>_output<k>`` like the reference's
     executor outputs — the data of the Monitor tap (ref:
-    GraphExecutor::ExecuteMonCallback, graph_executor.cc:1418)."""
+    GraphExecutor::ExecuteMonCallback, graph_executor.cc:1418).
+
+    Under ``MXNET_REMAT_POLICY=stage|conv_block`` (or the mirror) a walk
+    that records a graph runs the segments of :func:`_remat_plan` (or
+    :func:`_mirror_plan`) under checkpoints (``fn.remat_plan``); the
+    Monitor tap keeps the inline walk."""
+    from . import remat as _remat
+
     topo = symbol._topo()
     flat_outputs = symbol._flat_outputs()
     aux_names = set(symbol.list_auxiliary_states())
+    remat_plan = None
+    if not collect_internals:
+        if _remat.remat_policy() in _remat.CONV_SCOPES:
+            remat_plan = _remat_plan(topo, flat_outputs, aux_names)
+        elif _remat.mirror_enabled():
+            remat_plan = _mirror_plan(topo, flat_outputs, aux_names)
 
     # per node: (op, parsed params, aux writebacks [(k, aux name)])
     plan = {}
@@ -136,9 +300,8 @@ def build_graph_eval(symbol, collect_internals: bool = False) -> Callable:
             else:
                 raise MXNetError("unbound variable %r" % node.name)
             env[id(node)] = [val]
-        for node in topo:
-            if node.is_variable:
-                continue
+
+        def run_inline(node):
             args = [env[id(p)][oi] for p, oi in node.inputs]
             outs, aux_writes = apply_node(node, args, generator, training)
             env[id(node)] = outs
@@ -148,11 +311,47 @@ def build_graph_eval(symbol, collect_internals: bool = False) -> Callable:
                     internals[node.name + suffix] = outs[k]
             for name, val in aux_writes:
                 aux_updates[name] = val
+
+        def run_segment(seg):
+            def seg_fn(*ext_vals):
+                local = dict(zip(seg.in_refs, ext_vals))
+                aux_up = {}
+                for node in seg.nodes:
+                    args = [local[(id(p), oi)] for p, oi in node.inputs]
+                    outs, aux_writes = apply_node(node, args, generator,
+                                                  training)
+                    for oi, v in enumerate(outs):
+                        local[(id(node), oi)] = v
+                    aux_up.update(aux_writes)
+                return tuple(local[r] for r in seg.out_refs) + \
+                    tuple(aux_up[n] for n in seg.aux_out_names)
+
+            res = _remat.checkpoint(
+                seg_fn, *[env[pid][oi] for pid, oi in seg.in_refs])
+            n_out = len(seg.out_refs)
+            for (pid, oi), v in zip(seg.out_refs, res[:n_out]):
+                slot = env.setdefault(pid, [])
+                while len(slot) <= oi:
+                    slot.append(None)
+                slot[oi] = v
+            aux_updates.update(zip(seg.aux_out_names, res[n_out:]))
+
+        if remat_plan is None or not torch.is_grad_enabled():
+            for node in topo:
+                if not node.is_variable:
+                    run_inline(node)
+        else:
+            for kind, item in remat_plan:
+                if kind == "node":
+                    run_inline(item)
+                else:
+                    run_segment(item)
         outputs = [env[id(n)][oi] for n, oi in flat_outputs]
         if collect_internals:
             return outputs, aux_updates, internals
         return outputs, aux_updates
 
+    eval_fn.remat_plan = remat_plan
     return eval_fn
 
 
@@ -179,7 +378,6 @@ class Executor:
         self._grad_req = grad_req
         self._group2ctx = dict(group2ctx) if group2ctx else None
         place_nodes(symbol, self._ctx, self._group2ctx)
-        _refuse_remat()
         self._eval = build_graph_eval(symbol)
         self._eval_internals = None
         self._grad_names = [k for k in self._arg_names

@@ -6,7 +6,10 @@ block.py: Block, HybridBlock, name scopes; src/imperative/cached_op.cc).
 The port runs every block eagerly on ``torch``:
 
   * ``hybridize()`` records the flag and execution stays eager
-    (ROADMAP C); :class:`CachedOp` keeps the JAX package's listing of
+    (ROADMAP C); the call of an outermost hybridized block stands for
+    the JAX package's CachedOp: the conv remat scopes inside it fire,
+    and it is the boundary of the mirror (``remat.py``);
+    :class:`CachedOp` keeps the JAX package's listing of
     the block tree's parameter cells, in the same order, with the aux
     positions at the params with ``grad_req == "null"``, and runs
     nothing;
@@ -214,6 +217,16 @@ class Block:
 
     # -- execution ------------------------------------------------------
     def __call__(self, *args):
+        # scoped remat (MXNET_REMAT_POLICY=stage/conv_block): blocks that
+        # declare a ``_remat_scope`` (ResNet stages, residual units) run
+        # under a checkpoint inside a block trace (remat.py)
+        scope = getattr(self, "_remat_scope", None)
+        if scope is not None:
+            from ..remat import checkpoint_block_call
+
+            out = checkpoint_block_call(self, scope, args)
+            if out is not NotImplemented:
+                return out
         return self.forward(*args)
 
     def forward(self, *args):
@@ -271,6 +284,16 @@ class HybridBlock(Block):
                 p._finish_deferred_init(shapes[name])
 
     # -- execution ------------------------------------------------------
+    def __call__(self, *args):
+        # an outermost hybridized block is the JAX package's CachedOp:
+        # its call is a block trace and the mirror's boundary (remat.py)
+        if self._active and args and isinstance(args[0], NDArray):
+            from .. import remat
+
+            if not remat.in_block_trace():
+                return remat.hybrid_block_call(self, args)
+        return super().__call__(*args)
+
     def forward(self, x, *args):
         if not isinstance(x, NDArray):
             # symbol input: compose symbolically (hybrid blocks are

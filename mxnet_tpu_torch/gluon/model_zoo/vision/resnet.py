@@ -6,8 +6,10 @@ python/mxnet/gluon/model_zoo/vision/resnet.py).
 Same architecture layout as the reference zoo: BasicBlock for 18/34,
 BottleNeck for 50/101/152, v1 (post-activation) and v2 (pre-activation).
 All compute stays in the input dtype; BatchNorm accumulates its
-statistics in float32.  The JAX package's remat scopes
-(``_remat_scope``) are left out with remat (ROADMAP A7).
+statistics in float32.  The remat scopes are the JAX package's
+(``_remat_scope``, read by ``Block.__call__``): every residual unit is a
+``conv_block``, and each stage of a v1 net a ``stage``
+(``MXNET_REMAT_POLICY``, ``remat.py``).
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ def _conv3x3(channels, stride, in_channels):
 
 
 class BasicBlockV1(HybridBlock):
+    _remat_scope = "conv_block"  # MXNET_REMAT_POLICY=conv_block boundary
+
     def __init__(self, channels, stride, downsample=False, in_channels=0, **kwargs):
         super().__init__(**kwargs)
         self.body = nn.HybridSequential(prefix="")
@@ -52,6 +56,8 @@ class BasicBlockV1(HybridBlock):
 
 
 class BottleneckV1(HybridBlock):
+    _remat_scope = "conv_block"
+
     def __init__(self, channels, stride, downsample=False, in_channels=0, **kwargs):
         super().__init__(**kwargs)
         self.body = nn.HybridSequential(prefix="")
@@ -80,6 +86,8 @@ class BottleneckV1(HybridBlock):
 
 
 class BasicBlockV2(HybridBlock):
+    _remat_scope = "conv_block"
+
     def __init__(self, channels, stride, downsample=False, in_channels=0, **kwargs):
         super().__init__(**kwargs)
         self.bn1 = nn.BatchNorm()
@@ -106,6 +114,8 @@ class BasicBlockV2(HybridBlock):
 
 
 class BottleneckV2(HybridBlock):
+    _remat_scope = "conv_block"
+
     def __init__(self, channels, stride, downsample=False, in_channels=0, **kwargs):
         super().__init__(**kwargs)
         self.bn1 = nn.BatchNorm()
@@ -164,6 +174,9 @@ class ResNetV1(HybridBlock):
     def _make_layer(self, block, layers, channels, stride, stage_index,
                     in_channels=0):
         layer = nn.HybridSequential(prefix="stage%d_" % stage_index)
+        # remat boundary (MXNET_REMAT_POLICY=stage): only this
+        # sequential's input and output activations stay for backward
+        layer._remat_scope = "stage"
         with layer.name_scope():
             layer.add(block(channels, stride, channels != in_channels,
                             in_channels=in_channels, prefix=""))

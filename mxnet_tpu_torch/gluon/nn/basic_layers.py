@@ -12,6 +12,8 @@ import math
 import numpy as _np
 
 from ... import initializer as _init
+from ... import remat
+from ...ndarray import NDArray
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
@@ -56,6 +58,8 @@ class HybridSequential(HybridBlock):
             self.register_child(block)
 
     def hybrid_forward(self, F, x):
+        if isinstance(x, NDArray) and remat.mirror_active():
+            return remat.mirror_sequence(list(self._children.values()), x)
         for block in self._children.values():
             x = block(x)
         return x
@@ -76,6 +80,9 @@ def _channels(x, axis):
 
 class Dense(HybridBlock):
     """ref: basic_layers.py Dense -> FullyConnected."""
+
+    # the mirror keeps this layer's output (remat.mirror_sequence)
+    _mirror_keeps = True
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype=_np.float32, weight_initializer=None,

@@ -26,6 +26,9 @@ def _tup(v, n):
 class _Conv(HybridBlock):
     """ref: conv_layers.py _Conv."""
 
+    # the mirror keeps this layer's output (remat.mirror_sequence)
+    _mirror_keeps = True
+
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels=0, activation=None,
                  use_bias=True, weight_initializer=None,

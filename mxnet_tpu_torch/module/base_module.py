@@ -246,13 +246,14 @@ class BaseModule:
                             optimizer_params=optimizer_params)
         if resume_payload is not None:
             # optimizer/momenta AFTER init_optimizer installed the fresh
-            # updater.  The shard's RNG state is not restored: the port's
-            # shards carry none (ROADMAP A10), so a resumed run with
-            # random ops draws afresh
+            # updater; RNG last, so nothing below draws from the
+            # pre-restore state (a JAX shard's key warns: the stream
+            # restarts)
             if hasattr(self, "restore_checkpoint_state"):
                 self.restore_checkpoint_state(
                     {"optimizer_states":
                      resume_payload.get("optimizer_states")})
+            _ckpt.restore_rng(resume_payload, resume_from)
 
         manager = None
         if every_n and every_n > 0:

@@ -31,6 +31,7 @@ import numpy as _np
 import torch
 
 from .. import autograd
+from .. import remat as _remat
 from ..base import (MXNetError, as_shape, dtype_name, np_dtype, storage_id,
                     torch_dtype)
 from ..context import Context, current_context, used_cuda_devices
@@ -567,11 +568,14 @@ def invoke(op: Union[str, _op_registry.Op], inputs: Sequence[NDArray],
         n_visible = len(tupled) - len(op.mutate_aux)
         wrapped = [NDArray.from_raw(o, out_ctx) for o in tupled[:n_visible]]
 
-        # write back mutated aux states (BatchNorm moving stats et al.)
-        for pos, new_val in zip(op.mutate_aux, tupled[n_visible:]):
-            tgt = inputs[pos]
-            if isinstance(tgt, NDArray):
-                tgt._set_data(new_val.detach())
+        # write back mutated aux states (BatchNorm moving stats et al.),
+        # once: a remat scope's recompute runs the op again and must not
+        # move them twice
+        if op.mutate_aux and not _remat.recomputing():
+            for pos, new_val in zip(op.mutate_aux, tupled[n_visible:]):
+                tgt = inputs[pos]
+                if isinstance(tgt, NDArray):
+                    tgt._set_data(new_val.detach())
 
         if out is not None:
             outs_list = [out] if isinstance(out, NDArray) else list(out)

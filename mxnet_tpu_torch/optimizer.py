@@ -14,6 +14,7 @@ Test) are queued (ROADMAP A12); ``create`` names them as such.
 """
 from __future__ import annotations
 
+import io
 import pickle
 from typing import Any, Dict
 
@@ -260,13 +261,43 @@ class Updater:
         return pickle.dumps(payload)
 
     def set_states(self, states: bytes) -> None:
-        data = pickle.loads(states)
+        data = _StatesUnpickler(io.BytesIO(states)).load()
         if isinstance(data, tuple):
-            states, self.optimizer = data
+            states, opt = data
+            if isinstance(opt, Optimizer):
+                self.optimizer = opt
+            else:
+                # the JAX package's optimizer (a checkpoint of its fit):
+                # this one stays, with the step counts the schedule reads
+                for k in ("num_update", "_index_update_count"):
+                    if k in vars(opt):
+                        setattr(self.optimizer, k, vars(opt)[k])
         else:
             states = data
         self.states = {k: _state_from_np(v) for k, v in states.items()}
         self.states_synced = {k: False for k in self.states}
+
+
+class _Foreign:
+    """An object of the JAX package inside pickled optimizer states (its
+    optimizer, lr scheduler), read without importing that package: its
+    attributes only."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        if isinstance(state, tuple):
+            state = state[-1]
+        if isinstance(state, dict):
+            self.__dict__.update(state)
+
+
+class _StatesUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module == "mxnet_tpu" or module.startswith("mxnet_tpu."):
+            return _Foreign
+        return super().find_class(module, name)
 
 
 def _state_to_np(state):

@@ -263,9 +263,15 @@ class OverlappedReduce:
         self._handles: list = []
         self.issue_order: List[int] = []
 
-    def arm(self, params: Mapping) -> None:
-        """Hook ``params`` (``{key: leaf tensor}``) for one backward."""
+    def arm(self, params: Mapping, prescale: int = 1) -> None:
+        """Hook ``params`` (``{key: leaf tensor}``) for one backward.
+        Arm it for the LAST backward of an accumulation window only:
+        the earlier ones sum into ``.grad`` without a collective, and
+        this backward's hooks see the sum.  ``prescale`` > 1 multiplies
+        each packed bucket by ``1/prescale`` before its collective (the
+        accumulated sum's mean over the microbatches)."""
         self._params = params
+        self._prescale = int(prescale)
         self._grads: Dict = {}
         self._left = [len(b.keys) for b in self.plan]
         self._work: List = [None] * len(self.plan)
@@ -299,6 +305,8 @@ class OverlappedReduce:
             else torch.zeros_like(self._params[k]) for k in b.keys])
         for k in b.keys:
             self._grads.pop(k, None)
+        if self._prescale > 1:
+            scale_(flat, self._prescale)
         n = self.mesh.size
         if self.scatter:
             pad = (-flat.numel()) % n

@@ -33,10 +33,22 @@ with its semantics:
     zeros in the parameter dtype.  ``zero_stage=1`` (ZeRO-1, on the
     bucketed path) reduce-scatters each bucket instead, updates this
     rank's shard of the momenta and parameters and all-gathers the
-    parameters: each rank holds 1/n of the momenta.
+    parameters: each rank holds 1/n of the momenta;
+  * ``accum_steps`` (``MXNET_GRAD_ACCUM_STEPS``) splits this rank's
+    batch into A microbatches: forward and backward per microbatch
+    (BatchNorm's moving statistics move once per microbatch, in order,
+    and random ops draw afresh each time), the gradients summed and
+    scaled by ``1/A``, then ONE exchange and ONE update.  On a mesh the
+    bucket hooks are armed for the last microbatch's backward only, so
+    the earlier ones accumulate without a collective (DDP's
+    ``no_sync``); sync BN still reduces each microbatch's moments;
+  * the remat policy (``MXNET_REMAT_POLICY=stage|conv_block``) and the
+    mirror (``MXNET_BACKWARD_DO_MIRROR``) apply to every microbatch's
+    forward and backward (``remat.py``): the block runs as a block
+    trace, and its forward and loss are the mirror's boundary.
 
 Tensor-parallel ``param_spec_fn`` and mesh axes other than ``dp``
-(ROADMAP A6b), gradient accumulation and remat (A7) raise.
+(ROADMAP A6b) raise.
 """
 from __future__ import annotations
 
@@ -305,23 +317,12 @@ def momenta_bytes_per_device(moms) -> int:
     return max(per_device.values()) if per_device else 0
 
 
-def _refuse(param_spec_fn, accum_steps):
-    """Raise for the options of the tensor-parallel and memory tiers."""
-    why = []
+def _refuse(param_spec_fn):
+    """Raise for the options of the tensor-parallel tier."""
     if param_spec_fn is not None:
-        why.append("param_spec_fn (ROADMAP A6b: tensor-parallel "
-                   "shardings)")
-    accum = accum_steps if accum_steps is not None else \
-        _env.get_int("MXNET_GRAD_ACCUM_STEPS")
-    if accum != 1:
-        why.append("gradient accumulation over %r steps (ROADMAP A7)"
-                   % (accum,))
-    policy = _env.get_str("MXNET_REMAT_POLICY")
-    if policy != "none":
-        why.append("MXNET_REMAT_POLICY=%r (ROADMAP A7)" % (policy,))
-    if why:
         raise MXNetError("FusedTrainStep in mxnet_tpu_torch: not ported: "
-                         + "; ".join(why))
+                         "param_spec_fn (ROADMAP A6b: tensor-parallel "
+                         "shardings)")
 
 
 class FusedTrainStep:
@@ -342,6 +343,8 @@ class FusedTrainStep:
     fused_update : one update per dtype group (True) or per key (False)
     zero_stage : None (``MXNET_ZERO_STAGE``), 0 or 1 (ZeRO-1, on the
         bucketed path; elsewhere it warns and stays replicated)
+    accum_steps : None (``MXNET_GRAD_ACCUM_STEPS``) or the number of
+        microbatches a step's batch is split into
 
     The step runs on the device the block's parameters were initialised
     on, or the current context where the block has none yet (the card
@@ -352,7 +355,7 @@ class FusedTrainStep:
                  momentum=0.9, weight_decay=0.0, param_spec_fn=None,
                  dtype=None, bucket_bytes=None, fused_update=True,
                  zero_stage=None, accum_steps=None):
-        _refuse(param_spec_fn, accum_steps)
+        _refuse(param_spec_fn)
         self.mesh = as_mesh(mesh, "FusedTrainStep")
         ctxs = [c for p in block.collect_params().values()
                 for c in p.list_ctx()]
@@ -367,6 +370,7 @@ class FusedTrainStep:
         self._bucket_bytes = bucket_bytes
         self._fused_update = bool(fused_update)
         self._zero_stage = zero_stage
+        self._accum_steps = accum_steps
         self._bucketed = False
         self._zero1 = False
         self._built = False
@@ -384,8 +388,13 @@ class FusedTrainStep:
     def _build(self, sample: NDArray) -> None:
         """Settle deferred shapes with one float32 forward that moves no
         running statistic, cast, broadcast rank 0's parameters, plan the
-        buckets and list the parameter cells."""
+        buckets and list the parameter cells; read the accumulation and
+        remat knobs (build time, as the JAX package)."""
         from ..gluon.block import CachedOp
+        from .. import remat as _remat
+
+        self._grad_accum = _remat.grad_accum_steps(self._accum_steps)
+        _remat.remat_policy()      # an unknown policy raises here
 
         with autograd.pause():
             settle = sample if sample._data.dtype == torch.float32 \
@@ -470,55 +479,111 @@ class FusedTrainStep:
             new_p[i], new_m[i] = params[i] + m, m
         return new_p, new_m
 
+    def _forward(self, x: torch.Tensor, y: torch.Tensor):
+        """The recorded training forward and loss of one (micro)batch as
+        a block trace and the mirror's boundary: (the batch-mean loss,
+        the logits)."""
+        from .. import remat as _remat
+
+        ctx = self._ctx
+
+        def fwd(x, y):
+            with _remat.block_trace(), autograd.record(train_mode=True):
+                out = self._block(NDArray.from_raw(x, ctx))
+                loss = self._loss_fn(out, NDArray.from_raw(y, ctx))
+            return loss._data.mean(), out._data
+
+        return _remat.maybe_checkpoint(fwd)(x, y)
+
+    def _microbatches(self, data: torch.Tensor, label: torch.Tensor):
+        """This rank's batch in ``accum_steps`` equal slices."""
+        a, b = self._grad_accum, int(data.shape[0])
+        if b % a:
+            raise ValueError("MXNET_GRAD_ACCUM_STEPS=%d does not divide "
+                             "the per-device batch %d" % (a, b))
+        mb = b // a
+        return [(data[k * mb:(k + 1) * mb], label[k * mb:(k + 1) * mb])
+                for k in range(a)]
+
     def _step(self, data: torch.Tensor, label: torch.Tensor):
         """One step on the global batch (tensors on the device); returns
         (loss averaged over ranks, this rank's logits)."""
-        from ..ops import nn as _nn_ops
-
-        mesh = self.mesh
         data, label = self._local(data), self._local(label)
         if data.dtype != self._compute_dtype:
             data = data.to(self._compute_dtype)
-        x = NDArray.from_raw(data, self._ctx)
-        y = NDArray.from_raw(label, self._ctx)
+        micro = self._microbatches(data, label)
         params = [p.data()._data for p in self._cells]
-        if mesh is None:
-            with autograd.record(train_mode=True):
-                out = self._block(x)
-                loss = self._loss_fn(out, y)._data.mean()
-            got = torch.autograd.grad(
-                loss, [params[i] for i in self._diff], allow_unused=True)
-            grads = {i: (torch.zeros_like(params[i]) if g is None else g)
-                     for i, g in zip(self._diff, got)}
-            with torch.no_grad():
-                new_p, new_m = self._update(params, grads)
-                for i in self._diff:
-                    self._moms[i] = new_m[i]
+        if self.mesh is None:
+            new_p, loss, out = self._one_device_step(params, micro)
         else:
-            new_p, loss, out = self._dp_step(params, x, y, _nn_ops)
+            new_p, loss, out = self._dp_step(params, micro)
         with torch.no_grad():
             for i in self._diff:
                 self._cells[i].data()._set_data(new_p[i].detach())
-        return loss.detach(), out._data.detach()
+        return loss, out
 
-    def _dp_step(self, params, x, y, nn_ops):
-        """Forward and backward with the bucket collectives issued from
-        backward, then the update; every batch statistic is the global
-        batch's."""
+    @staticmethod
+    def _mean_of(losses, outs):
+        """The loss (mean of the microbatch means) and the logits
+        (concatenated) of an accumulation window."""
+        if len(losses) == 1:
+            return losses[0], outs[0]
+        return torch.stack(losses).mean(), torch.cat(outs)
+
+    def _one_device_step(self, params, micro):
+        """Forward and backward per microbatch, the gradients summed and
+        scaled by ``1/A``, then the update."""
+        diff = [params[i] for i in self._diff]
+        acc, losses, outs = None, [], []
+        for x, y in micro:
+            loss, out = self._forward(x, y)
+            got = torch.autograd.grad(loss, diff, allow_unused=True)
+            got = [torch.zeros_like(p) if g is None else g
+                   for p, g in zip(diff, got)]
+            acc = got if acc is None else [a + g for a, g in zip(acc, got)]
+            losses.append(loss.detach())
+            outs.append(out.detach())
+        a = len(micro)
+        if a > 1:
+            acc = [g * torch.tensor(1.0 / a, dtype=g.dtype) for g in acc]
+        grads = dict(zip(self._diff, acc))
+        with torch.no_grad():
+            new_p, new_m = self._update(params, grads)
+            for i in self._diff:
+                self._moms[i] = new_m[i]
+        loss, out = self._mean_of(losses, outs)
+        return new_p, loss, out
+
+    def _arms(self, k: int) -> bool:
+        """Whether microbatch ``k``'s backward runs with the bucket hooks
+        armed: the last one's only."""
+        return k == self._grad_accum - 1
+
+    def _dp_step(self, params, micro):
+        """Forward and backward per microbatch with the bucket
+        collectives issued from the last one's backward, then the
+        update; every batch statistic is the global batch's."""
         import torch.distributed as dist
+
+        from ..ops import nn as nn_ops
 
         mesh, red = self.mesh, self._reducer
         by_key = {i: params[i] for i in self._diff}
-        red.arm(by_key)
+        losses, outs = [], []
         try:
             with nn_ops.cross_device_batch_stats("dp", mesh):
-                with autograd.record(train_mode=True):
-                    out = self._block(x)
-                    loss = self._loss_fn(out, y)._data.mean()
-                loss.backward()
+                for k, (x, y) in enumerate(micro):
+                    if self._arms(k):
+                        red.arm(by_key, prescale=len(micro))
+                    loss, out = self._forward(x, y)
+                    loss.backward()
+                    losses.append(loss.detach())
+                    outs.append(out.detach())
             flats = red.finish()
         finally:
             red.disarm()
+            for p in by_key.values():
+                p.grad = None
         n = mesh.size
         with torch.no_grad():
             if self._zero1:
@@ -534,8 +599,9 @@ class FusedTrainStep:
                 new_p, new_m = self._update(params, grads)
                 for i in self._diff:
                     self._moms[i] = new_m[i]
+            loss, out = self._mean_of(losses, outs)
             # the loss averaged over ranks (the reference's pmean)
-            loss = loss.detach().clone()
+            loss = loss.clone()
             dist.all_reduce(loss, group=mesh.group)
             loss = loss / n
         return new_p, loss, out

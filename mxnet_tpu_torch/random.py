@@ -11,6 +11,11 @@ generator of their output's device from ``nd.invoke``.
 
 Draws differ from the JAX package's for the same seed (another
 generator), so parity tests compare distributions, never draws.
+
+:func:`get_state` / :func:`set_state` snapshot and restore the whole
+random state bit for bit: the seed and every generator's state.  A
+checkpoint carries it (``checkpoint.rng_state``), and a remat scope
+replays it for its recompute (``remat.checkpoint``).
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ import torch
 
 from .base import as_shape, dtype_name
 
-__all__ = ["seed", "uniform", "normal", "randint"]
+__all__ = ["seed", "uniform", "normal", "randint", "get_state",
+           "set_state"]
 
 _lock = threading.Lock()
 _seed_state = 0
@@ -51,6 +57,39 @@ def generator(device: torch.device) -> torch.Generator:
             gen.manual_seed(_seed_state)
             _generators[device] = gen
         return gen
+
+
+def get_state() -> dict:
+    """The random state: ``{"seed": int, "generators": {device string:
+    uint8 state tensor}}``.  A draw after ``set_state(get_state())``
+    repeats the draw that would have come."""
+    with _lock:
+        return {"seed": _seed_state,
+                "generators": {str(d): g.get_state()
+                               for d, g in _generators.items()}}
+
+
+def set_state(state: dict) -> None:
+    """Restore a :func:`get_state` snapshot.  A generator it names that
+    does not exist yet is made first; one it does not name is reseeded
+    with its seed, the state such a generator starts from.  A device
+    this process cannot reach (a card's generator on a machine without
+    one) is skipped: nothing here can draw on it."""
+    global _seed_state
+    gens = state.get("generators") or {}
+    for dev in gens:
+        d = torch.device(dev)
+        if d.type != "cuda" or torch.cuda.is_available():
+            generator(d)
+    with _lock:
+        _seed_state = int(state["seed"])
+        for d, gen in _generators.items():
+            s = gens.get(str(d))
+            if s is None:
+                gen.manual_seed(_seed_state)
+            else:
+                gen.set_state(torch.as_tensor(s, dtype=torch.uint8)
+                              .cpu())
 
 
 def _shape_from_out(shape, out):

@@ -462,6 +462,7 @@ class TransformerTrainStep:
         if resume_from:
             payload = _ckpt.load_checkpoint(resume_from)
             self.load_state(payload)
+            _ckpt.restore_rng(payload, resume_from)
             start = int(payload["step"])
             train_iter.reset()
             skip = int((payload.get("iterator") or {})

@@ -536,3 +536,105 @@ def test_the_divergence_guard_trips_on_a_spiking_loss(monkeypatch):
         else:
             _fit(tmx, "mlp", start, epochs=1, eval_metric=metric)
             assert len(seen) == 5
+
+
+# ---------------------------------------------------------------------------
+# the random state in checkpoints (ROADMAP C2): a resumed fit with a
+# random op draws what the uninterrupted one drew
+# ---------------------------------------------------------------------------
+def _dropout_mlp(mx):
+    with mx.name.NameManager():
+        x = mx.sym.Variable("data")
+        x = mx.sym.FullyConnected(x, num_hidden=16, name="fc1")
+        x = mx.sym.Activation(x, act_type="relu")
+        x = mx.sym.Dropout(x, p=0.5, name="drop")
+        x = mx.sym.FullyConnected(x, num_hidden=4, name="fc2")
+        return mx.sym.SoftmaxOutput(x, name="softmax")
+
+
+def _dropout_fit(mx, epochs, seed=4, **fit_kw):
+    """FC(16), ReLU, Dropout(0.5), FC(4), SoftmaxOutput on 40 rows at
+    batch 8 (5 steps an epoch), float64, from fixed start weights."""
+    X, y = _data("mlp")
+    it = mx.io.NDArrayIter(X, y, batch_size=8)
+    mod = mx.mod.Module(_dropout_mlp(mx), context=mx.cpu())
+    mod.bind(it.provide_data, it.provide_label)
+    _cast(mod, "float64")
+    start = _start("mlp")
+    if mx is tmx:
+        args, aux = convert.module_params_from_jax(*start, ctx=tmx.cpu())
+    else:
+        args = {k: jmx.nd.array(v, dtype=v.dtype)
+                for k, v in start[0].items()}
+        aux = {}
+    mod.init_params(arg_params=args, aux_params=aux)
+    mx.random.seed(seed)
+    mod.fit(it, num_epoch=epochs, optimizer="sgd",
+            optimizer_params=(("learning_rate", LR), ("momentum", 0.9)),
+            **fit_kw)
+    return _host(mod.get_params()[0])
+
+
+def test_dropout_fit_resumes_bitwise(tmp_path):
+    """2 epochs uninterrupted against 1 epoch with a checkpoint every 3
+    steps, resumed (from step 3) to 2 epochs."""
+    full = _dropout_fit(tmx, 2)
+    d = str(tmp_path / "ck")
+    _dropout_fit(tmx, 1, checkpoint_every_n=3, checkpoint_dir=d)
+    # a fresh process's generator would start from the seed again
+    resumed = _dropout_fit(tmx, 2, seed=99, resume_from=d)
+    assert sorted(resumed) == sorted(full)
+    for k in full:
+        np.testing.assert_array_equal(resumed[k], full[k], err_msg=k)
+    # the masks differ between steps: a resume that redrew from the
+    # seed would leave the uninterrupted run
+    assert _rel(_dropout_fit(tmx, 2, seed=5), full) > 1e-3
+
+
+def test_port_shards_load_in_the_jax_package_and_back(tmp_path, caplog):
+    from mxnet_tpu import checkpoint as jckpt
+    from mxnet_tpu_torch import checkpoint as tckpt
+
+    d = str(tmp_path / "t")
+    _dropout_fit(tmx, 1, checkpoint_every_n=3, checkpoint_dir=d)
+    payload = jckpt.load_checkpoint(d)
+    assert payload["step"] == 3 and payload["rng"] is None
+    assert sorted(payload["rng_torch"]["generators"]) == ["cpu"]
+    jckpt.set_rng_state(payload["rng"])        # nothing to restore there
+    # a JAX shard carries a JAX key: the port warns and trains
+    jd = str(tmp_path / "j")
+    _dropout_fit(jmx, 1, checkpoint_every_n=3, checkpoint_dir=jd)
+    assert jckpt.load_checkpoint(jd)["rng"]["root_key"] is not None
+    with caplog.at_level(logging.WARNING):
+        got = _dropout_fit(tmx, 2, resume_from=jd)
+    assert any("random stream restarts" in r.getMessage()
+               for r in caplog.records)
+    assert all(np.isfinite(v).all() for v in got.values())
+    assert tckpt.load_checkpoint(jd)["step"] == 3
+
+
+def test_random_state_round_trips_bitwise():
+    from mxnet_tpu_torch import random as trandom
+
+    cpu = torch.device("cpu")
+    trandom.seed(21)
+    gen = trandom.generator(cpu)
+    torch.rand(5, generator=gen)
+    state = trandom.get_state()
+    want = torch.rand(7, generator=gen, dtype=torch.float64)
+    trandom.set_state(state)
+    assert torch.equal(torch.rand(7, generator=gen, dtype=torch.float64),
+                       want)
+    # a fresh process: the generator is made, then takes the state
+    trandom._generators.pop(cpu)
+    trandom.seed(0)
+    trandom.set_state(state)
+    got = torch.rand(7, generator=trandom.generator(cpu),
+                     dtype=torch.float64)
+    assert torch.equal(got, want)
+    # a generator the snapshot does not name restarts from its seed
+    trandom.set_state({"seed": 21, "generators": {}})
+    fresh = torch.Generator().manual_seed(21)
+    assert torch.equal(torch.rand(3, generator=trandom.generator(cpu)),
+                       torch.rand(3, generator=fresh))
+    assert trandom._seed_state == 21

@@ -162,9 +162,11 @@ def test_settle_forward_moves_no_running_statistic():
     (dict(bucket_bytes=1 << 20), {}, None),
     (dict(zero_stage=1), {}, None),
     (dict(param_spec_fn=lambda name, shape: None), {}, "A6b"),
-    (dict(accum_steps=2), {}, "A7"),
-    ({}, {"MXNET_GRAD_ACCUM_STEPS": "4"}, "A7"),
-    ({}, {"MXNET_REMAT_POLICY": "stage"}, "A7"),
+    # the memory tier runs (tests/test_torch_grad_accum.py and
+    # tests/test_torch_remat.py hold its numbers)
+    (dict(accum_steps=2), {}, None),
+    ({}, {"MXNET_GRAD_ACCUM_STEPS": "4"}, None),
+    ({}, {"MXNET_REMAT_POLICY": "stage"}, None),
 ], ids=["mesh", "bucket_bytes", "zero_stage", "param_spec_fn",
         "accum_steps", "accum_env", "remat_env"])
 def test_multi_device_and_memory_options_raise(kwargs, env, item,
