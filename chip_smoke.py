@@ -15,7 +15,11 @@ the CPU in float64), then train both data-parallel, one process per
 card (each checked against one device, with planted faults), and
 train ResNet under the memory tier: the remat scopes, the mirror and
 gradient accumulation (peak memory against none; float64 against the
-CPU and against none, with planted faults).
+CPU and against none, with planted faults), then the LM
+sequence-parallel (ring and Ulysses attention over an sp axis, the
+flash kernels on every step; float32 against the CPU in float64, with
+planted faults) and the multi-context ``Module`` with ``group2ctx``
+placement.
 
     python3 chip_smoke.py
 
@@ -218,6 +222,34 @@ Phases:
            float32: the trajectory against the CPU float64 one (the
            LM_NUM_* limits), a dp=2 ZeRO-1 checkpoint restaged to dp=1
            continuing the dp=2 run; planted faults above the limit
+  train_lm_sp
+           the train_lm width sequence-parallel: a global batch of 2 x
+           8192 tokens over sp=2, two gloo ranks sharing cuda:0 (K/V,
+           the all-to-alls and the gradients cross through host
+           buffers), ring then Ulysses, one warm-up and 3 timed steps:
+           tokens/s, step ms, peak memory a rank, flash launches a step
+           a rank (ring: 12 and 24 forward and backward on ranks 0 and
+           1; Ulysses 12 and 12; all wgmma), the first loss within 2e-2
+           of the one-device step's at the same batch and parameters;
+           over NCCL where there are two cards, else a line saying it
+           did not run
+  train_lm_sp_numerics
+           train_lm_numerics's cut in float32 (simt): ring and Ulysses
+           at sp=2 (two gloo ranks) and dp=2 x sp=2 (four) on cuda:0
+           against the CPU float64 one-device trajectory (the LM_NUM_*
+           limits), ZeRO-1 with sp = replicated bitwise at lr 0, a
+           dp=2 x sp=2 ZeRO-1 checkpoint continued on one device, three
+           ring faults planted (the diagonal unmasked, the merge
+           dropped, dk/dv not brought home) above the limit
+  module_dp_numerics
+           fit_numerics's symbol at batch 4 a rank, float64:
+           Module(context=[gpu(0), gpu(1)]) on two gloo ranks on cuda:0
+           against the one-device Module at the global batch (1e-10 of
+           the update, aux included) under kvstore local, tpu and nccl;
+           the list collapsed in one process = one device bitwise; a
+           rank's gradient left unreduced above the limit; group2ctx
+           placement (a group on the host, one on the card) against the
+           unplaced run, across two cards where there are two
   kernels  every kernel and its status
 """
 from __future__ import annotations
@@ -2495,19 +2527,36 @@ def phase_fit():
     return row
 
 
-def _fit_steps(ctx, w0, aux0, X, y, bulk_k):
-    """Two ``Module.fit`` steps of the cut symbol in float64 on ``ctx``
-    from ``w0`` / ``aux0``; returns the parameters (aux included) after
-    each step, and the losses."""
+def _fit_steps(ctx, w0, aux0, X, y, bulk_k, batch=None, kvstore="local",
+               symbol=None, group2ctxs=None, fault=None):
+    """``Module.fit`` steps (one epoch of ``X`` in batches of ``batch``,
+    default ``FIT_NUM["batch"]``) of the cut symbol (or ``symbol``) in
+    float64 on ``ctx`` (a context list: data parallel) from ``w0`` /
+    ``aux0``; returns the parameters (aux included) after each step, and
+    the losses.  ``fault="grad_not_reduced"``: rank 1 of
+    a multi-context Module keeps its own gradients (it still joins every
+    collective)."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import engine
 
-    it = mx.io.NDArrayIter(X, y, batch_size=FIT_NUM["batch"],
+    it = mx.io.NDArrayIter(X, y, batch_size=batch or FIT_NUM["batch"],
                            label_name="softmax_label")
-    mod = mx.mod.Module(sym_resnet50(FIT_NUM["classes"]), context=ctx)
+    mod = mx.mod.Module(symbol or sym_resnet50(FIT_NUM["classes"]),
+                        context=ctx, group2ctxs=group2ctxs)
     mod.bind(it.provide_data, it.provide_label)
     _cast_module(mod, torch.float64)
     mod.init_params(arg_params=w0, aux_params=aux0)
+    if fault == "grad_not_reduced" and mod._dp.mesh.rank == 1:
+        reduce = mod._dp.reduce_grads
+
+        def keep_local(grad_dict, names):
+            local = {k: grad_dict[k]._data for k in names
+                     if grad_dict.get(k) is not None}
+            reduce(grad_dict, names)
+            for k, v in local.items():
+                grad_dict[k]._data = v
+
+        mod._dp.reduce_grads = keep_local
     params, losses = [], []
 
     def host(m):
@@ -2524,6 +2573,7 @@ def _fit_steps(ctx, w0, aux0, X, y, bulk_k):
     prev = engine.set_bulk_size(bulk_k)
     try:
         mod.fit(it, num_epoch=1, optimizer="sgd", eval_metric=["acc", "ce"],
+                kvstore=kvstore,
                 optimizer_params=(("learning_rate", FIT["lr"]),
                                   ("momentum", FIT["momentum"])),
                 batch_end_callback=batch_end)
@@ -2711,10 +2761,13 @@ def _rank_setup():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _nccl_stats(prof_events, steps):
+def _nccl_stats(prof_events, steps, kinds=None):
     """NCCL kernels a step from a torch.profiler trace: launches, device
     ms, and the ms of them not overlapped by any other kernel (exposed:
-    the all-reduce time compute does not hide)."""
+    the all-reduce time compute does not hide).  ``kinds``: count only
+    the NCCL kernels whose name holds one of these words (e.g.
+    ``("SendRecv",)``); the others count as compute that may hide
+    them."""
     import bisect
 
     from torch.autograd import DeviceType
@@ -2722,9 +2775,10 @@ def _nccl_stats(prof_events, steps):
     kern = [(ev.name, ev.time_range.start, ev.time_range.end)
             for ev in prof_events if ev.device_type == DeviceType.CUDA
             and not getattr(ev, "is_user_annotation", False)]
-    nccl = [k for k in kern if "nccl" in k[0].lower()]
+    nccl = [k for k in kern if "nccl" in k[0].lower() and
+            (kinds is None or any(w in k[0] for w in kinds))]
     merged = []
-    for _, s, e in sorted((k for k in kern if "nccl" not in k[0].lower()),
+    for _, s, e in sorted((k for k in kern if k not in nccl),
                           key=lambda k: k[1]):
         if merged and s <= merged[-1][1]:
             merged[-1][1] = max(merged[-1][1], e)
@@ -3923,6 +3977,664 @@ def phase_remat_numerics():
     return row
 
 
+# ---------------------------------------------------------------------
+# sequence parallelism (ring and Ulysses over an sp axis) and the
+# multi-context Module
+# ---------------------------------------------------------------------
+# train_lm_sp: the train_lm width (GPT-2-small, bf16 over float32
+# parameters, SGD lr 0.01 momentum 0.9) at a global batch of 2 x 8192
+# tokens, sequence-parallel over sp=2: two gloo ranks sharing cuda:0
+# (NCCL takes one rank a card), each 2 rows x 4096 positions; ring, then
+# Ulysses: LM_SP["warmup"] steps, then LM_SP["steps"] timed; the first
+# loss (the mean over the ranks) within BF16_LOSS_RTOL of the one-device
+# step's at the same global batch and parameters
+LM_SP = dict(batch=2, seq=8192, sp=2, warmup=1, steps=3)
+# after the timed steps each rank runs ring and Ulysses attention once at
+# the path's shapes (bf16, (B, T/sp, H, D) = (2, 4096, 12, 64) a rank,
+# causal: rank 1's ring holds a block without a mask and the diagonal)
+# with a gradient, and holds its slices against the plain versions on
+# the full sequence in float32: the output within SP_ATTN_FWD_RTOL of
+# each head's largest value, dq/dk/dv within BWD_HEAD_RTOL of the plain
+# backward from the gathered output and within BWD_AUTOGRAD_RTOL of the
+# float32 one throughout
+SP_ATTN_FWD_RTOL = 2e-2
+# train_lm_sp_numerics: train_lm_numerics's cut (float32, both kernels on
+# the simt route), ring and Ulysses at sp=2 (2 gloo ranks) and dp=2 x
+# sp=2 (4 gloo ranks), all on cuda:0, against the port on the CPU in
+# float64 at the global batch (the LM_NUM_* limits); ZeRO-1 with sp
+# against replicated bit for bit at lr 0; a dp=2 x sp=2 ZeRO-1
+# checkpoint at step LM_SP_NUM_CKPT continued at dp=1 (one device) within
+# LM_NUM_UPDATE_TOL of the uninterrupted dp=2 x sp=2 run; three faults
+# planted in the ring at sp=2, each read above the update limit
+LM_SP_NUM_STEPS, LM_SP_NUM_CKPT = 3, 2
+LM_SP_NUM_SEQS = LM_NUM_BATCH * (LM_SP_NUM_STEPS + 1)
+RING_FAULTS = ("diagonal_unmasked", "merge_dropped", "dkv_not_home")
+# module_dp_numerics: fit_numerics's cut (symbolic ResNet-50 v1, 64x64,
+# 10 classes, float64) at batch 4 a rank: Module(context=[gpu(0),
+# gpu(1)]) on two gloo ranks sharing cuda:0 against the one-device
+# Module at the global batch of 8 (FIT_NUM_TOL of the update, aux
+# included; under kvstore local, tpu and nccl), the list collapsed in one
+# process against one device bit for bit, rank 1's gradient left
+# unreduced read above the limit; group2ctx placement of a two-group
+# MLP (one group on the host, one on the card) against the unplaced run
+MODULE_DP = dict(batch=4, ranks=2, steps=2, mlp_batch=8, mlp_steps=4)
+
+
+@contextlib.contextmanager
+def _ring_fault(name):
+    """Plant one fault of RING_FAULTS in ``parallel.ring_attention`` for
+    the run inside (None: none): the diagonal step without its causal
+    mask, the merge dropped (the last partial wins), or the dk/dv
+    accumulators not brought home (each rank keeps the ones it holds
+    after the last step; the rotation still runs, so ranks stay in
+    step)."""
+    from mxnet_tpu_torch.parallel import ring_attention as ra
+
+    names = ("flash_attention_fwd", "flash_attention_bwd",
+             "merge_partials", "_ring_backward")
+    saved = {k: getattr(ra, k) for k in names}
+    if name == "diagonal_unmasked":
+        fwd, bwd = saved["flash_attention_fwd"], saved["flash_attention_bwd"]
+        ra.flash_attention_fwd = \
+            lambda *a, causal=False, **kw: fwd(*a, causal=False, **kw)
+        ra.flash_attention_bwd = \
+            lambda *a, causal=False, **kw: bwd(*a, causal=False, **kw)
+    elif name == "merge_dropped":
+        ra.merge_partials = lambda o1, l1, o2, l2: (o2.float(), l2.float())
+    elif name == "dkv_not_home":
+        bwd = saved["_ring_backward"]
+        ra._ring_backward = lambda *a, **kw: bwd(*a, _home=False, **kw)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(ra, k, v)
+
+
+def _sp_attention_check(mesh, impl, device=None, dtype=torch.bfloat16):
+    """This rank's ``impl`` ("ring" or "ulysses") attention at the
+    train_lm_sp shapes against the plain versions on the full sequence
+    (see SP_ATTN_FWD_RTOL): the errors of the output and of dq, dk and
+    dv in this rank's slice, each scaled by its head's largest value.
+    ``device`` defaults to the rank's card."""
+    from mxnet_tpu_torch.parallel.attention import (
+        flash_attention, flash_attention_bwd_reference)
+    from mxnet_tpu_torch.parallel.ring_attention import ring_attention
+    from mxnet_tpu_torch.parallel.sequence import ulysses_attention
+    import torch.distributed as dist
+
+    cfg = lm_config()
+    B, T, H = LM_SP["batch"], LM_SP["seq"], cfg.n_heads
+    D = cfg.d_model // H
+    n, i = mesh.axis_size("sp"), mesh.axis_index("sp")
+    t, dt = T // n, dtype
+    dev = device or torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator().manual_seed(7)
+    qkv = torch.randn((B, T, 3 * H * D), generator=g).to(dev, dt)
+    do = torch.randn((B, T, H, D), generator=g).to(dev, dt)
+    sl = slice(i * t, (i + 1) * t)
+    # the model's layout: q and k leave the rotary embedding contiguous,
+    # v is a strided view of the fused projection
+    q, k, v = (x.reshape(B, t, H, D) for x in
+               torch.split(qkv[:, sl], H * D, dim=-1))
+    q, k = q.contiguous(), k.contiguous()
+    for x in (q, k, v):
+        x.requires_grad_(True)
+    fn = ring_attention if impl == "ring" else ulysses_attention
+    o = fn(q, k, v, mesh, "sp", causal=True)
+    got = torch.autograd.grad(o, (q, k, v), do[:, sl])
+    o = o.detach()
+    # the full output: every rank's slice, through the host on gloo
+    group = mesh.axis_group("sp")
+    host = dist.get_backend(group) == "gloo"
+    mine = o.cpu() if host else o
+    parts = [torch.empty_like(mine) for _ in range(n)]
+    dist.all_gather(parts, mine, group=group)
+    o_all = torch.cat(parts, dim=1).to(dev).float()
+    full = [x.reshape(B, T, H, D).float()
+            for x in torch.split(qkv, H * D, dim=-1)]
+    ref_o, ref_lse = flash_attention(*full, causal=True, return_lse=True)
+    dof = do.float()
+    own = flash_attention_bwd_reference(*full, o_all, ref_lse, dof,
+                                        causal=True)
+    f32 = flash_attention_bwd_reference(*full, ref_o, ref_lse, dof,
+                                        causal=True)
+    names = ("dq", "dk", "dv")
+    out = {"o": head_scaled_err(o, ref_o[:, sl]),
+           "grads_from_its_output": {m: head_scaled_err(a, b[:, sl])
+                                     for m, a, b in zip(names, got, own)},
+           "grads_float32": {m: head_scaled_err(a, b[:, sl])
+                             for m, a, b in zip(names, got, f32)},
+           "finite": bool(torch.isfinite(o).all()) and all(
+               bool(torch.isfinite(x).all()) for x in got)}
+    del qkv, do, q, k, v, o, got, o_all, full, ref_o, ref_lse, own, f32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_sp_rank():
+    """One rank of ``train_lm_sp``: ring, then Ulysses, over a (1, sp)
+    mesh; per impl the first loss, step ms, peak memory and the flash
+    launches of the timed steps."""
+    from mxnet_tpu_torch.parallel.mesh import make_mesh
+    from mxnet_tpu_torch.transformer import TransformerTrainStep
+
+    _rank_setup()
+    mesh = make_mesh((1, LM_SP["sp"]), ("dp", "sp"))
+    cfg = lm_config()
+    B, T = LM_SP["batch"], LM_SP["seq"]
+    n_steps = LM_SP["warmup"] + LM_SP["steps"]
+    out = {"rank": mesh.rank, "sp_index": mesh.axis_index("sp")}
+    for impl in ("ring", "ulysses"):
+        step = TransformerTrainStep(cfg, mesh=mesh, attn_impl=impl,
+                                    learning_rate=LM["lr"],
+                                    momentum=LM["momentum"],
+                                    remat=LM["remat"], seed=0)
+        it = lm_iter(cfg, B, T, B * n_steps)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for i in range(n_steps):
+            if i == LM_SP["warmup"]:
+                _reset_kernel_counts()
+            b = it.next()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step.step(b.data[0], b.label[0])))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        timed = times[LM_SP["warmup"]:]
+        out[impl] = {"losses": losses, "step_ms": statistics.median(timed),
+                     "step_ms_each": timed,
+                     "tokens_per_s": B * T / statistics.median(timed) * 1e3,
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                     "kernel_launches": _kernel_counts(),
+                     "steps_counted": LM_SP["steps"]}
+        del step
+        torch.cuda.empty_cache()
+        # after the counts are read: these launches are not the path's
+        out[impl]["attention_check"] = _sp_attention_check(mesh, impl)
+    return out
+
+
+def _check_launches(tag, counts, want, route):
+    """Raise unless ``counts`` (``_kernel_counts``) hold ``want`` launches
+    of each flash kernel, every one on ``route``."""
+    for k in ("flash_attention_fwd", "flash_attention_bwd"):
+        if not counts[k] == want == counts[k + "_by_route"][route]:
+            raise RuntimeError("%s: launched %r (want %d forward and %d "
+                               "backward, all %s)"
+                               % (tag, counts, want, want, route))
+
+
+def _lm_sp_check(tag, ranks, cfg, ref_loss):
+    """Raise unless every rank launched both flash kernels on every
+    visible ring step and every Ulysses layer (all wgmma), its attention
+    check is within its limits (SP_ATTN_FWD_RTOL), and the first loss is
+    within BF16_LOSS_RTOL of the one-device step's."""
+    L = cfg.n_layers
+    errs = {}
+    for rank in ranks:
+        i = rank["sp_index"]
+        for impl, per_layer in (("ring", i + 1), ("ulysses", 1)):
+            r = rank[impl]
+            a = r["attention_check"]
+            if not (a["finite"] and a["o"] <= SP_ATTN_FWD_RTOL
+                    and max(a["grads_from_its_output"].values())
+                    <= BWD_HEAD_RTOL[torch.bfloat16]
+                    and max(a["grads_float32"].values())
+                    <= BWD_AUTOGRAD_RTOL[torch.bfloat16]):
+                raise RuntimeError(
+                    "%s: rank %d %s attention off the plain version on "
+                    "the full sequence: %r (limits %g output, %g and %g "
+                    "gradients)" % (tag, rank["rank"], impl, a,
+                                    SP_ATTN_FWD_RTOL,
+                                    BWD_HEAD_RTOL[torch.bfloat16],
+                                    BWD_AUTOGRAD_RTOL[torch.bfloat16]))
+            _check_launches("%s: rank %d %s, %d steps"
+                            % (tag, rank["rank"], impl, r["steps_counted"]),
+                            r["kernel_launches"],
+                            per_layer * L * r["steps_counted"], "wgmma")
+            if not np.isfinite(r["losses"]).all():
+                raise RuntimeError("%s: rank %d %s losses %r"
+                                   % (tag, rank["rank"], impl, r["losses"]))
+            errs[impl] = abs(r["losses"][0] - ref_loss) / abs(ref_loss)
+    if not max(errs.values()) <= BF16_LOSS_RTOL:
+        raise RuntimeError("%s: first loss off the one-device step's %r by "
+                           "%r (limit %g)" % (tag, ref_loss, errs,
+                                              BF16_LOSS_RTOL))
+    return errs
+
+
+def _sp_summary(ranks):
+    """The train_lm_sp numbers of each impl: rank 0's step ms and
+    tokens/s, every rank's peak memory and flash launches a step."""
+    out = {}
+    for impl in ("ring", "ulysses"):
+        r0 = ranks[0][impl]
+        out[impl] = {
+            "tokens_per_s": r0["tokens_per_s"], "step_ms": r0["step_ms"],
+            "step_ms_each": r0["step_ms_each"],
+            "first_loss": r0["losses"][0],
+            "peak_mem_bytes_per_rank": [r[impl]["peak_mem_bytes"]
+                                        for r in ranks],
+            "launches_per_step_per_rank": [
+                {k: r[impl]["kernel_launches"][k + "_by_route"]["wgmma"]
+                 / r[impl]["steps_counted"]
+                 for k in ("flash_attention_fwd", "flash_attention_bwd")}
+                for r in ranks],
+            "attention_check_per_rank": [r[impl]["attention_check"]
+                                         for r in ranks]}
+    return out
+
+
+def phase_train_lm_sp():
+    """The train_lm width sequence-parallel at sp=2 (see LM_SP): two gloo
+    ranks sharing cuda:0, ring then Ulysses, against the one-device
+    step's first loss; the same over NCCL where there are two cards."""
+    from mxnet_tpu_torch import dist
+    from mxnet_tpu_torch.transformer import TransformerTrainStep
+
+    cfg = lm_config()
+    B, T = LM_SP["batch"], LM_SP["seq"]
+    one = TransformerTrainStep(cfg, learning_rate=LM["lr"],
+                               momentum=LM["momentum"], remat=LM["remat"],
+                               seed=0)
+    # the ranks' first batch: the same corpus (its draws depend on the
+    # number of sequences)
+    b = lm_iter(cfg, B, T, B * (LM_SP["warmup"] + LM_SP["steps"])).next()
+    ref_loss = float(one.step(b.data[0], b.label[0]))
+    del one
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = dist.launch(_lm_sp_rank, LM_SP["sp"], (), backend="gloo",
+                        device="cuda:0", timeout_s=400)
+    wall = time.perf_counter() - t0
+    row = {"phase": "train_lm_sp",
+           "config": dict(GPT2_SMALL, dtype="bfloat16",
+                          param_dtype="float32"),
+           "global_batch": B, "seq": T, "sp": LM_SP["sp"],
+           "tokens_per_rank": B * T // LM_SP["sp"],
+           "backend": "gloo, %d ranks sharing cuda:0 (K/V, the all-to-alls "
+                      "and the gradients cross through host buffers)"
+                      % LM_SP["sp"],
+           "one_device_first_loss": ref_loss,
+           "per_impl": _sp_summary(ranks),
+           "first_loss_rel_err": _lm_sp_check("train_lm_sp", ranks, cfg,
+                                              ref_loss),
+           "wall_s": wall}
+    emit(row)
+    if torch.cuda.device_count() >= LM_SP["sp"]:
+        torch.cuda.empty_cache()
+        nccl = dist.launch(_lm_sp_rank, LM_SP["sp"], (), backend="nccl",
+                           timeout_s=400)
+        emit({"phase": "train_lm_sp_nccl", "ranks": LM_SP["sp"],
+              "per_impl": _sp_summary(nccl),
+              "first_loss_rel_err": _lm_sp_check("train_lm_sp_nccl", nccl,
+                                                 cfg, ref_loss)})
+    else:
+        emit({"phase": "train_lm_sp_nccl", "ran": False,
+              "why": "%d visible card: NCCL takes one rank a card"
+                     % torch.cuda.device_count()})
+    return row
+
+
+def _lm_sp_numerics_rank(w0, ref, ref_p, shape, ckdir):
+    """One rank of ``train_lm_sp_numerics`` over a ``shape`` (dp, sp)
+    mesh on cuda:0, float32: ring and Ulysses trajectories, ZeRO-1 ring
+    (at lr 0 against replicated, and uninterrupted), at (1, 2) the ring
+    faults, at (2, 2) a ZeRO-1 checkpoint under ``ckdir``.  Each
+    trajectory comes back as its errors against the CPU float64 one."""
+    from mxnet_tpu_torch.parallel.mesh import make_mesh
+    from mxnet_tpu_torch.transformer import TransformerTrainStep
+
+    _rank_setup()
+    mesh = make_mesh(shape, ("dp", "sp"))
+    cfg = lm_config(**LM_NUM, dtype="float32", param_dtype="float32")
+
+    def run(impl, steps, fault=None, ckpt=None, lr=LM_NUM_LR, **kw):
+        step = TransformerTrainStep(cfg, mesh=mesh, attn_impl=impl,
+                                    learning_rate=lr, momentum=0.9,
+                                    device="cuda", **kw)
+        step.load_state({"params": w0})
+        it = lm_iter(cfg, LM_NUM_BATCH, LM_NUM_SEQ, LM_SP_NUM_SEQS, seed=1)
+        if ckpt is not None:
+            step.fit(it, steps, checkpoint_every_n=steps,
+                     checkpoint_dir=ckpt)
+            return None
+        losses, params = [], []
+        with _ring_fault(fault):
+            for _ in range(steps):
+                b = it.next()
+                losses.append(float(step.step(b.data[0], b.label[0])))
+                params.append({k: v.astype(np.float64)
+                               for k, v in step.params_numpy().items()})
+        loss_err, upd_err = trajectory_errors(
+            np.array(losses), params, ref[:steps], ref_p[:steps], w0)
+        return {"losses": losses, "loss_rel_err": loss_err.tolist(),
+                "update_err": upd_err.tolist(), "zero1": step.zero1,
+                "digest": _digest(params[-1]), "params": params}
+
+    out = {"rank": mesh.rank, "index": (mesh.axis_index("dp"),
+                                        mesh.axis_index("sp"))}
+    for impl in ("ring", "ulysses"):
+        _reset_kernel_counts()
+        out[impl] = run(impl, LM_SP_NUM_STEPS, zero_stage=0)
+        out[impl]["kernel_launches"] = _kernel_counts()
+    out["ring_lr0_z0"] = run("ring", 1, lr=0.0, zero_stage=0)
+    out["ring_lr0_z1"] = run("ring", 1, lr=0.0, zero_stage=1)
+    out["ring_z1"] = run("ring", LM_SP_NUM_STEPS, zero_stage=1)
+    if shape == (1, 2):
+        for f in RING_FAULTS:
+            out[f] = run("ring", LM_SP_NUM_STEPS, fault=f, zero_stage=0)
+    if ckdir is not None:
+        run("ring", LM_SP_NUM_CKPT, ckpt=ckdir, zero_stage=1)
+    # only rank 0 sends parameters back (the resume check's control)
+    for k, v in out.items():
+        if isinstance(v, dict) and "params" in v:
+            if not (mesh.rank == 0 and k == "ring_z1"):
+                del v["params"]
+    return out
+
+
+def _lm_sp_num_check(tag, ranks, cfg):
+    """The verdicts of one mesh's ranks: every trajectory within the
+    LM_NUM_* limits, the launches of each impl, ZeRO-1 = replicated at
+    lr 0, ranks equal; returns (row, the faults' readings)."""
+    L, S = cfg.n_layers, LM_SP_NUM_STEPS
+    res = {"loss_rel_err": {}, "update_err": {}, "launches": {}}
+    for rank in ranks:
+        d, s = rank["index"]
+        for name in ("ring", "ulysses", "ring_z1"):
+            r = rank[name]
+            key = "rank%d_%s" % (rank["rank"], name)
+            res["loss_rel_err"][key] = max(r["loss_rel_err"])
+            res["update_err"][key] = max(r["update_err"])
+        for impl, per_layer in (("ring", s + 1), ("ulysses", 1)):
+            c = rank[impl]["kernel_launches"]
+            res["launches"]["rank%d_%s" % (rank["rank"], impl)] = c
+            _check_launches("%s: rank %d %s" % (tag, rank["rank"], impl), c,
+                            per_layer * L * S, "simt")
+    r0 = ranks[0]
+    res["zero1_equals_replicated_at_lr0"] = all(
+        r["ring_lr0_z0"]["digest"] == r["ring_lr0_z1"]["digest"] and
+        r["ring_lr0_z0"]["losses"] == r["ring_lr0_z1"]["losses"]
+        for r in ranks)
+    res["ranks_equal"] = all(r[n]["digest"] == r0[n]["digest"]
+                             for r in ranks for n in ("ring", "ulysses"))
+    res["zero1"] = all(r["ring_z1"]["zero1"] for r in ranks)
+    if not (max(res["loss_rel_err"].values()) <= LM_NUM_LOSS_RTOL and
+            max(res["update_err"].values()) <= LM_NUM_UPDATE_TOL):
+        raise RuntimeError("%s: off the CPU float64 trajectory: %r"
+                           % (tag, res))
+    if not (res["zero1_equals_replicated_at_lr0"] and res["ranks_equal"]
+            and res["zero1"]):
+        raise RuntimeError("%s: an exchange differs: %r" % (tag, res))
+    faults = {f: max(max(r[f]["update_err"]) for r in ranks)
+              for f in RING_FAULTS if f in r0}
+    return res, faults
+
+
+def phase_train_lm_sp_numerics():
+    """train_lm_numerics's cut sequence-parallel on cuda:0 (see
+    LM_SP_NUM_*): ring and Ulysses at sp=2 and dp=2 x sp=2 against the CPU
+    float64 trajectory, ZeRO-1 with sp, a dp=2 x sp=2 checkpoint resumed
+    at dp=1, and three planted ring faults."""
+    from mxnet_tpu_torch import checkpoint as ckpt
+    from mxnet_tpu_torch import dist
+    from mxnet_tpu_torch.transformer import TransformerTrainStep
+
+    cfg32 = lm_config(**LM_NUM, dtype="float32", param_dtype="float32")
+    cfg64 = lm_config(**LM_NUM, dtype="float64", param_dtype="float64")
+    w0 = TransformerTrainStep(cfg32, device="cpu", seed=0).params_numpy()
+    ref, ref_p = _lm_numerics_run(cfg64, "cpu", w0, LM_SP_NUM_STEPS,
+                                  np.float64, sequences=LM_SP_NUM_SEQS)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_lmspnum_")
+    t0 = time.perf_counter()
+    try:
+        torch.cuda.empty_cache()
+        sp2 = dist.launch(_lm_sp_numerics_rank, 2,
+                          (w0, ref, ref_p, (1, 2), None), backend="gloo",
+                          device="cuda:0", timeout_s=300)
+        dpsp = dist.launch(_lm_sp_numerics_rank, 4,
+                           (w0, ref, ref_p, (2, 2), ckdir), backend="gloo",
+                           device="cuda:0", timeout_s=300)
+        # dp=2 x sp=2 -> one device: resume the ZeRO-1 checkpoint
+        s = TransformerTrainStep(cfg32, learning_rate=LM_NUM_LR,
+                                 momentum=0.9, device="cuda", zero_stage=1)
+        payload = ckpt.load_checkpoint(ckdir, rank=0, num_ranks=1)
+        s.load_state(payload)
+        it = lm_iter(cfg32, LM_NUM_BATCH, LM_NUM_SEQ, LM_SP_NUM_SEQS, seed=1)
+        it.skip_batches(ckpt.scale_resume_skip(payload, LM_NUM_BATCH))
+        ws, resumed = s.params_numpy(), []
+        for _ in range(LM_SP_NUM_STEPS - LM_SP_NUM_CKPT):
+            b = it.next()
+            s.step(b.data[0], b.label[0])
+            resumed.append({k: v.astype(np.float64)
+                            for k, v in s.params_numpy().items()})
+        want = dpsp[0]["ring_z1"]["params"][LM_SP_NUM_CKPT:]
+        resume_err = max(_update_err(g, w, ws)
+                         for g, w in zip(resumed, want))
+        elastic = payload.get("elastic")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    sp2_res, faults = _lm_sp_num_check("train_lm_sp_numerics (sp=2)", sp2,
+                                       cfg32)
+    dpsp_res, _ = _lm_sp_num_check("train_lm_sp_numerics (dp=2 x sp=2)",
+                                   dpsp, cfg32)
+    row = {"phase": "train_lm_sp_numerics", "config": LM_NUM,
+           "global_batch": LM_NUM_BATCH, "seq": LM_NUM_SEQ,
+           "steps": LM_SP_NUM_STEPS, "dtype": "float32",
+           "reference": "the port on the CPU, float64, one device",
+           "cpu_losses": ref.tolist(),
+           "loss_rtol": LM_NUM_LOSS_RTOL, "update_tol": LM_NUM_UPDATE_TOL,
+           "sp2": sp2_res, "dp2_sp2": dpsp_res,
+           "resume_dp2_sp2_to_one_device_update_err": resume_err,
+           "resume_elastic": elastic,
+           "fault_update_err": faults, "wall_s": wall}
+    emit(row)
+    if not resume_err <= LM_NUM_UPDATE_TOL:
+        raise RuntimeError("train_lm_sp_numerics: the dp=2 x sp=2 "
+                           "checkpoint resumed at dp=1 is off by %g"
+                           % resume_err)
+    if not (len(faults) == len(RING_FAULTS)
+            and min(faults.values()) > LM_NUM_UPDATE_TOL):
+        raise RuntimeError("train_lm_sp_numerics: the check cannot tell a "
+                           "planted fault from the reference: %r"
+                           % (faults,))
+    return row
+
+
+def _module_dp_rank(ref_path, runs):
+    """One rank of ``module_dp_numerics``: Module(context=[gpu(0),
+    gpu(1)]) fits per ``runs`` (tag, kvstore, fault), each against the
+    one-device trajectory in ``ref_path``."""
+    import mxnet_tpu_torch as mx
+
+    _rank_setup()
+    ref = np.load(ref_path)
+    w0, aux0, flat0, X, y, ref_p, aux_names = _module_dp_inputs(mx, ref)
+    out = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for tag, kv, fault in runs:
+            params, losses, mod = _fit_steps(
+                [mx.gpu(0), mx.gpu(1)], w0, aux0, X, y, 1,
+                batch=MODULE_DP["batch"] * MODULE_DP["ranks"], kvstore=kv,
+                fault=fault)
+            out[tag] = {"update_err": [_update_err(p, r, flat0)
+                                       for p, r in zip(params, ref_p)],
+                        "aux_update_err": _update_err(
+                            {k: params[-1][k] for k in aux_names},
+                            {k: ref_p[-1][k] for k in aux_names},
+                            {k: flat0[k] for k in aux_names}),
+                        "ranks": mod._dp.num_ranks,
+                        "losses": losses.tolist()}
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return out
+
+
+def _module_dp_inputs(mx, ref):
+    """The start (Xavier from numpy seed 0, float64), the global batches
+    and the one-device trajectory, from the arrays of ``ref``."""
+    w0 = {k[3:]: mx.nd.array(ref[k], ctx=mx.cpu(), dtype="float64")
+          for k in ref.files if k.startswith("w0/")}
+    aux0 = {k[3:]: mx.nd.array(ref[k], ctx=mx.cpu(), dtype="float64")
+            for k in ref.files if k.startswith("x0/")}
+    flat0 = {k[3:]: ref[k] for k in ref.files
+             if k.startswith(("w0/", "x0/"))}
+    ref_p = [{k[3:]: ref[k] for k in ref.files if k.startswith("p%d/" % i)}
+             for i in range(MODULE_DP["steps"])]
+    aux_names = sorted(k[3:] for k in ref.files if k.startswith("x0/"))
+    return w0, aux0, flat0, ref["X"], ref["y"], ref_p, aux_names
+
+
+def _placement_mlp(mx):
+    """A two-group MLP (ref: tests/test_model_parallel.py): the hidden
+    layer in group dev1, the head in dev2."""
+    with mx.name.NameManager():
+        data = mx.sym.Variable("data")
+        with mx.AttrScope(ctx_group="dev1"):
+            h = mx.sym.Activation(mx.sym.FullyConnected(
+                data, num_hidden=256, name="fc1"), act_type="relu")
+        with mx.AttrScope(ctx_group="dev2"):
+            out = mx.sym.FullyConnected(h, num_hidden=10, name="fc2")
+            return mx.sym.SoftmaxOutput(out, name="softmax")
+
+
+def _placement_check(mx, group2ctxs):
+    """The MLP placed by ``group2ctxs`` against the unplaced run on
+    gpu(0), float64, MODULE_DP["mlp_steps"] steps: the update error, and
+    the device each layer's weight lives on."""
+    rng = np.random.RandomState(5)
+    n = MODULE_DP["mlp_batch"] * MODULE_DP["mlp_steps"]
+    X, y = rng.randn(n, 64), rng.randint(0, 10, n).astype(np.float64)
+    w0 = {"fc1_weight": rng.randn(256, 64) * 0.1, "fc1_bias": np.zeros(256),
+          "fc2_weight": rng.randn(10, 256) * 0.1, "fc2_bias": np.zeros(10)}
+    start = {k: mx.nd.array(v, ctx=mx.cpu(), dtype="float64")
+             for k, v in w0.items()}
+    runs = {}
+    for tag, g2c in (("unplaced", None), ("placed", group2ctxs)):
+        params, _, mod = _fit_steps(mx.gpu(0), start, {}, X, y, 1,
+                                    batch=MODULE_DP["mlp_batch"],
+                                    symbol=_placement_mlp(mx),
+                                    group2ctxs=g2c)
+        runs[tag] = (params, {k: str(mod._exec.arg_dict[k]._data.device)
+                              for k in ("fc1_weight", "fc2_weight")})
+    err = max(_update_err(p, u, w0) for p, u in zip(runs["placed"][0],
+                                                    runs["unplaced"][0]))
+    return {"update_err": err, "devices": runs["placed"][1]}
+
+
+def phase_module_dp_numerics():
+    """The multi-context Module, kvstore tpu/nccl and group2ctx placement
+    on the card (see MODULE_DP)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import dist
+
+    gb = MODULE_DP["batch"] * MODULE_DP["ranks"]
+    X, y = _fit_data(gb, FIT_NUM["image"], FIT_NUM["classes"],
+                     MODULE_DP["steps"], seed=9)
+    X = X.astype(np.float64)
+    start = mx.mod.Module(sym_resnet50(FIT_NUM["classes"]),
+                          context=mx.cpu())
+    start.bind([("data", (gb, 3, FIT_NUM["image"], FIT_NUM["image"]))],
+               [("softmax_label", (gb,))])
+    _cast_module(start, torch.float64)
+    np.random.seed(0)
+    start.init_params(mx.init.Xavier())
+    w0, aux0 = start.get_params()
+    flat0 = {k: v.asnumpy() for k, v in list(w0.items()) +
+             list(aux0.items())}
+    aux_names = sorted(aux0)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref_p, ref_loss, _ = _fit_steps(mx.gpu(0), w0, aux0, X, y, 1,
+                                        batch=gb)
+        # no process group here: the list collapses onto cuda:0
+        collapsed, _, cmod = _fit_steps([mx.gpu(0), mx.gpu(1)], w0, aux0,
+                                        X, y, 1, batch=gb)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    collapse_bitwise = all(np.array_equal(c[k], r[k]) for c, r in
+                           zip(collapsed, ref_p) for k in r)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moddp_")
+    ref_path = str(Path(tmp) / "reference.npz")
+    arrays = {"X": X, "y": y}
+    arrays.update({"w0/" + k: v.asnumpy() for k, v in w0.items()})
+    arrays.update({"x0/" + k: v.asnumpy() for k, v in aux0.items()})
+    for i, p in enumerate(ref_p):
+        arrays.update({"p%d/%s" % (i, k): v for k, v in p.items()})
+    np.savez(ref_path, **arrays)
+    runs = (("local", "local", None), ("tpu", "tpu", None),
+            ("nccl", "nccl", None),
+            ("grad_not_reduced", "local", "grad_not_reduced"))
+    try:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = dist.launch(_module_dp_rank, MODULE_DP["ranks"],
+                          (ref_path, runs), backend="gloo",
+                          device="cuda:0", timeout_s=300)
+        gloo_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    good = {"rank%d_%s" % (r, tag): max(rank[tag]["update_err"])
+            for r, rank in enumerate(out) for tag in ("local", "tpu", "nccl")}
+    aux_err = max(rank[tag]["aux_update_err"] for rank in out
+                  for tag in ("local", "tpu", "nccl"))
+    fault = max(max(rank["grad_not_reduced"]["update_err"])
+                for rank in out)
+    placed = _placement_check(mx, {"dev1": mx.cpu(), "dev2": mx.gpu(0)})
+    row = {"phase": "module_dp_numerics", "model": "sym_resnet50",
+           "cut": {"batch_per_rank": MODULE_DP["batch"],
+                   "ranks": MODULE_DP["ranks"], "image": FIT_NUM["image"],
+                   "classes": FIT_NUM["classes"],
+                   "steps": MODULE_DP["steps"]},
+           "dtype": "float64", "backend": "gloo, 2 ranks sharing cuda:0",
+           "reference": "one-device Module on the card, global batch %d"
+                        % gb,
+           "reference_ce": ref_loss.tolist(),
+           "update_err": good, "aux_update_err": aux_err,
+           "tol": FIT_NUM_TOL, "ranks": [rank["local"]["ranks"]
+                                         for rank in out],
+           "collapsed_one_process_bitwise": collapse_bitwise,
+           "collapsed_ranks": cmod._dp.num_ranks,
+           "fault_grad_not_reduced_update_err": fault,
+           "placement_host_and_card": placed, "gloo_s": gloo_s}
+    if torch.cuda.device_count() >= 2:
+        row["placement_two_cards"] = _placement_check(
+            mx, {"dev1": mx.gpu(0), "dev2": mx.gpu(1)})
+    else:
+        row["placement_two_cards"] = {
+            "ran": False, "why": "%d visible card"
+                                 % torch.cuda.device_count()}
+    emit(row)
+    if not (max(good.values()) <= FIT_NUM_TOL and aux_err <= FIT_NUM_TOL
+            and row["ranks"] == [2, 2]):
+        raise RuntimeError("module_dp_numerics: the two-context Module is "
+                           "off the one-device trajectory: %r" % (row,))
+    if not (collapse_bitwise and row["collapsed_ranks"] == 1):
+        raise RuntimeError("module_dp_numerics: the collapsed list differs "
+                           "from one device")
+    if not fault > FIT_NUM_TOL:
+        raise RuntimeError("module_dp_numerics: the check cannot tell an "
+                           "unreduced gradient (%g) from the reference"
+                           % fault)
+    placements = [placed] + ([row["placement_two_cards"]]
+                             if "update_err" in row["placement_two_cards"]
+                             else [])
+    if not all(p["update_err"] <= FIT_NUM_TOL for p in placements) or \
+            placed["devices"] != {"fc1_weight": "cpu",
+                                  "fc2_weight": "cuda:0"}:
+        raise RuntimeError("module_dp_numerics: group2ctx placement is off "
+                           "the unplaced run: %r" % (placements,))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -3960,6 +4672,18 @@ def main() -> int:
     remat_num = phase_remat_numerics()
     lm_dp = phase_train_lm_dp(lm)
     lm_dp_num = phase_train_lm_dp_numerics()
+    lm_sp = phase_train_lm_sp()
+    lm_sp_num = phase_train_lm_sp_numerics()
+    phase_module_dp_numerics()
+    sp_counts = {
+        "train_lm_sp_%s_per_step_rank%d" % (impl, r): c
+        for impl, v in lm_sp["per_impl"].items()
+        for r, c in enumerate(v["launches_per_step_per_rank"])}
+    sp_num_counts = {
+        "train_lm_sp_numerics_%s_%s_rank%d" % (mesh, impl, r):
+            lm_sp_num[mesh]["launches"]["rank%d_%s" % (r, impl)]
+        for mesh in ("sp2", "dp2_sp2") for impl in ("ring", "ulysses")
+        for r in range(2 if mesh == "sp2" else 4)}
     dp_counts = dp["runs"][1]["kernel_launches"]
     lm_dp_counts = lm_dp["per_rank"][0]["kernel_launches"]
     memory_counts = {"remat": remat_row["kernel_launches"],
@@ -3991,6 +4715,10 @@ def main() -> int:
                              "train_lm_dp_numerics": lm_dp_num[
                                  "kernel_launches"]["flash_attention_fwd"],
                              **{k: v["flash_attention_fwd"]
+                                for k, v in sp_counts.items()},
+                             **{k: v["flash_attention_fwd"]
+                                for k, v in sp_num_counts.items()},
+                             **{k: v["flash_attention_fwd"]
                                 for k, v in memory_counts.items()}},
         "max_abs_err": max(r["max_err"] for r in rows),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
@@ -4003,6 +4731,10 @@ def main() -> int:
         "train_shape": bwd_row["shape"],
         "train_ms_with_lse": bwd_row["fwd_lse_ms"],
         "train_ms_without_lse": bwd_row["fwd_ms"],
+        # the forward's bound at the train shape (its lse's 4 bytes a
+        # row are not counted: 0.8 % of the bytes)
+        "train_bound_ms": attention_bound(*bwd_row["shape"], True,
+                                          torch.bfloat16)[0],
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
         "kernel_route": bwd_row["route"],
@@ -4025,6 +4757,10 @@ def main() -> int:
                                  lm_dp["per_rank"][0]["steps_counted"],
                              "train_lm_dp_numerics": lm_dp_num[
                                  "kernel_launches"]["flash_attention_bwd"],
+                             **{k: v["flash_attention_bwd"]
+                                for k, v in sp_counts.items()},
+                             **{k: v["flash_attention_bwd"]
+                                for k, v in sp_num_counts.items()},
                              **{k: v["flash_attention_bwd"]
                                 for k, v in memory_counts.items()}},
         "max_abs_err": max(r["max_err"] for r in bwd_rows),

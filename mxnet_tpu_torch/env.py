@@ -83,9 +83,12 @@ register("MXNET_MODULE_BULK_SIZE", "int", None,
 
 # transformer/
 register("MXNET_ATTENTION_IMPL", "str", "flash",
-         "Transformer attention implementation.  The port has 'flash' "
-         "(the single-device kernel); 'ring' and 'ulysses' are not "
-         "ported yet and raise.")
+         "Transformer attention implementation: 'flash' (the "
+         "single-device kernels), 'ring' (K/V rotating over the mesh's "
+         "'sp' axis, the kernels on every visible step) or 'ulysses' "
+         "(an all-to-all from sequence to heads over 'sp', the kernels "
+         "on the full sequence); ring and ulysses need an sp axis, "
+         "flash refuses one.")
 
 # serving/server.py
 register("MXNET_SERVE_QUEUE_MAX", "int", 128,

@@ -23,10 +23,13 @@ package's ``apply_node``) and runs it directly:
 Random ops draw from the per-device ``torch.Generator`` of
 ``mx.random`` (``mx.random.seed`` reseeds it), where the JAX package
 folds the node index into a fresh key; parity tests never compare
-draws.  One device only: a ``group2ctx`` that places a group away from
-the executor's context raises (model parallelism, ROADMAP A6b).  The
-profiler spans of the JAX package's Forward/Backward wait for ROADMAP
-A11.
+draws.  ``group2ctx`` places the graph (model parallelism,
+:func:`place_nodes`): each op node runs on its ``ctx_group``'s device,
+its inputs copied across at group boundaries (autograd carries the
+gradients back), the argument, gradient and aux cells of a variable
+live on its placed device, and the outputs come back to the executor's
+device.  The profiler spans of the JAX package's Forward/Backward wait
+for ROADMAP A11.
 
 The memory tier is the JAX package's (``remat.py``):
 
@@ -58,25 +61,44 @@ __all__ = ["Executor", "build_graph_eval", "place_nodes"]
 
 
 def place_nodes(symbol, default_ctx: Context,
-                group2ctx: Optional[Dict[str, Context]]) -> None:
-    """The PlaceDevice pass (ref: graph_executor.cc:406) on one device:
-    nothing to place when every ``ctx_group`` maps to ``default_ctx``;
-    any other placement raises (ROADMAP A6b).  ``ctx_group`` attributes
-    stay on the nodes and in the JSON either way."""
+                group2ctx: Optional[Dict[str, Context]]):
+    """The PlaceDevice pass (ref: graph_executor.cc:406, nnvm
+    PlaceDevice; counterpart ``mxnet_tpu/executor.py:48-85``): assign
+    every graph node a Context.
+
+    Op nodes take their ``__ctx_group__`` attribute's mapped context;
+    variables with a group of their own take theirs, the others the
+    context of their first consumer (the reference allocates inputs on
+    the consuming op's device); everything else ``default_ctx``.
+    Returns ``{id(node): Context}``, or None when placement is trivial
+    (no group maps away from the default).  Each placed context resolves
+    to its device here, so a missing card raises at bind."""
     if not group2ctx:
         return None
-    for node in symbol._topo():
+    topo = symbol._topo()
+    placement: Dict[int, Context] = {}
+    nontrivial = False
+    for node in topo:
         group = node.attrs.get("__ctx_group__", node.attrs.get("ctx_group"))
-        if group is None:
+        if node.is_variable and group is None:
+            continue  # un-grouped variables inherit a consumer below
+        ctx = Context(group2ctx.get(str(group), default_ctx)) if group \
+            else default_ctx
+        ctx.torch_device()
+        placement[id(node)] = ctx
+        if ctx != default_ctx:
+            nontrivial = True
+    if not nontrivial:
+        return None
+    for node in topo:
+        if node.is_variable:
             continue
-        ctx = group2ctx.get(str(group), default_ctx)
-        if Context(ctx) != default_ctx:
-            raise MXNetError(
-                "group2ctx places ctx_group %r of node %r on %r, away from "
-                "the executor's %r: model-parallel placement is not ported "
-                "to mxnet_tpu_torch yet (ROADMAP A6b)"
-                % (str(group), node.name, ctx, default_ctx))
-    return None
+        for parent, _ in node.inputs:
+            if parent.is_variable and id(parent) not in placement:
+                placement[id(parent)] = placement[id(node)]
+    for node in topo:
+        placement.setdefault(id(node), default_ctx)
+    return placement
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +247,9 @@ def _remat_plan(topo, flat_outputs, aux_names, key_of=None):
     return plan
 
 
-def build_graph_eval(symbol, collect_internals: bool = False) -> Callable:
+def build_graph_eval(symbol, collect_internals: bool = False,
+                     placement: Optional[Dict[int, Context]] = None
+                     ) -> Callable:
     """Build ``fn(arg_vals, aux_vals, generator, training) -> (outputs,
     aux_updates)`` over tensors (``aux_updates``: name -> new value).
 
@@ -238,7 +262,11 @@ def build_graph_eval(symbol, collect_internals: bool = False) -> Callable:
     Under ``MXNET_REMAT_POLICY=stage|conv_block`` (or the mirror) a walk
     that records a graph runs the segments of :func:`_remat_plan` (or
     :func:`_mirror_plan`) under checkpoints (``fn.remat_plan``); the
-    Monitor tap keeps the inline walk."""
+    Monitor tap keeps the inline walk.
+
+    With ``placement`` (:func:`place_nodes`) each op node runs on its
+    context's device: inputs from another device are copied there, and
+    a random op draws from that device's generator."""
     from . import remat as _remat
 
     topo = symbol._topo()
@@ -266,10 +294,19 @@ def build_graph_eval(symbol, collect_internals: bool = False) -> Callable:
                 if parent.is_variable and parent.name in aux_names:
                     writes.append((k, parent.name))
         plan[id(node)] = (op, params, writes)
+    devices = None if placement is None else \
+        {k: c.torch_device() for k, c in placement.items()}
 
     def apply_node(node, args, generator, training):
         """One op node -> (visible outputs, [(aux name, value)])."""
         op, params, writes = plan[id(node)]
+        if devices is not None:
+            dev = devices[id(node)]
+            args = [a if a.device == dev else a.to(dev) for a in args]
+            if op.rng:
+                from . import random as _random
+
+                generator = _random.generator(dev)
         if op.train_aware:
             params = dict(params, _training=training)
         if op.rng:
@@ -377,8 +414,8 @@ class Executor:
             grad_req = dict(zip(self._arg_names, grad_req))
         self._grad_req = grad_req
         self._group2ctx = dict(group2ctx) if group2ctx else None
-        place_nodes(symbol, self._ctx, self._group2ctx)
-        self._eval = build_graph_eval(symbol)
+        self._placement = place_nodes(symbol, self._ctx, self._group2ctx)
+        self._eval = build_graph_eval(symbol, placement=self._placement)
         self._eval_internals = None
         self._grad_names = [k for k in self._arg_names
                             if self._grad_req.get(k, "null") != "null"]
@@ -416,8 +453,14 @@ class Executor:
         from .symbol.infer import infer_shape
 
         ctx = Context(ctx) if ctx is not None else current_context()
-        place_nodes(symbol, ctx, group2ctx)
-        dev = ctx.torch_device()
+        placement = place_nodes(symbol, ctx, group2ctx)
+        ctx.torch_device()  # a missing card raises here, naming mx.cpu()
+        # each variable's cells live on its placed context
+        var_ctx: Dict[str, Context] = {}
+        if placement is not None:
+            for node in symbol._topo():
+                if node.is_variable:
+                    var_ctx[node.name] = placement[id(node)]
         shapes = {k: v for k, v in kwargs.items()
                   if isinstance(v, (tuple, list))}
         arg_shapes, out_shapes, aux_shapes = infer_shape(symbol, **shapes)
@@ -425,9 +468,10 @@ class Executor:
         arg_names = symbol.list_arguments()
         aux_names = symbol.list_auxiliary_states()
 
-        def cell(shape, dt):
-            return NDArray.from_raw(
-                torch.zeros(tuple(shape), dtype=dt, device=dev), ctx)
+        def cell(shape, dt, name):
+            c = var_ctx.get(name, ctx)
+            return NDArray.from_raw(torch.zeros(
+                tuple(shape), dtype=dt, device=c.torch_device()), c)
 
         arg_dict: Dict[str, NDArray] = {}
         grad_dict: Dict[str, Optional[NDArray]] = {}
@@ -437,12 +481,13 @@ class Executor:
                 raise MXNetError("simple_bind: could not infer shape of %r"
                                  % name)
             dt = torch_dtype(type_dict.get(name, "float32"))
-            arg_dict[name] = cell(shape, dt)
+            arg_dict[name] = cell(shape, dt, name)
             req = grad_req if isinstance(grad_req, str) \
                 else grad_req.get(name, "null")
-            grad_dict[name] = cell(shape, dt) if req != "null" else None
+            grad_dict[name] = cell(shape, dt, name) if req != "null" \
+                else None
         for name, shape in zip(aux_names, aux_shapes):
-            aux_dict[name] = cell(shape, torch.float32)
+            aux_dict[name] = cell(shape, torch.float32, name)
         # out_shapes rides along: the constructor must not re-run the
         # whole-graph inference this bind just performed
         return Executor(symbol, ctx, arg_dict, grad_dict, aux_dict, grad_req,
@@ -562,8 +607,9 @@ class Executor:
 
     def _eval_monitored(self):
         if self._eval_internals is None:
-            self._eval_internals = build_graph_eval(self._symbol,
-                                                    collect_internals=True)
+            self._eval_internals = build_graph_eval(
+                self._symbol, collect_internals=True,
+                placement=self._placement)
         return self._eval_internals
 
     def _fire_monitor(self, internals) -> None:
@@ -654,6 +700,8 @@ class Executor:
         preserved); (re)make cells only on first use or when a shape
         changed."""
         self._forward_done = True
+        outs = [o if o.device == self._device else o.to(self._device)
+                for o in outs]
         if len(self.outputs) != len(outs):
             self.outputs = [NDArray.from_raw(o, self._ctx) for o in outs]
             return
@@ -668,7 +716,8 @@ class Executor:
         for name, val in aux_upd.items():
             cell = self.aux_dict.get(name)
             if cell is not None:
-                cell._data = val.to(cell._data.dtype)
+                cell._data = val.to(device=cell._data.device,
+                                    dtype=cell._data.dtype)
 
     # -- parameter management ------------------------------------------
     @property

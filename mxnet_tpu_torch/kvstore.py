@@ -1,4 +1,4 @@
-"""KVStore, single process: ``local`` and ``device``.
+"""KVStore, single process: ``local``, ``device``, ``tpu`` and ``nccl``.
 
 Counterpart: ``mxnet_tpu/kvstore.py`` ``KVStore`` (:153-452; ref:
 include/mxnet/kvstore.h, src/kvstore/kvstore_local.h).  ``push`` sums the
@@ -6,9 +6,14 @@ values pushed for a key, ``pull`` copies the stored value out, and
 ``set_optimizer`` moves the update into the store (update_on_kvstore),
 with the optimizer's states saved in the JAX package's format.
 ``rank`` / ``num_workers`` follow the rank contract (kvstore.h:254-306):
-after ``dist.initialize()`` they are the process group's.  The other
-kinds (``tpu``, ``nccl``, ``dist_*``) are not ported: creating one
-raises and names the queue item.  The profiler spans, byte counters
+after ``dist.initialize()`` they are the process group's.  ``tpu`` and
+``nccl`` are the base store under their names: the JAX package's
+``KVStoreTPU`` merges a multi-key push one bucket at a time, which
+computes the same sums as the per-key push; the port keeps the per-key
+sum until a workload that pushes several values a key is timed on the
+card (the gradient exchange of a multi-context ``Module`` runs in
+``parallel.dp.DataParallelRunner``, not in the store).  The ``dist_*``
+kinds are the parameter-server tier (ROADMAP A10): creating one raises.  The profiler spans, byte counters
 and flight-recorder entries of the JAX package's verbs wait for the
 observability port (ROADMAP A11).
 """
@@ -164,16 +169,12 @@ class KVStore:
 
 
 def create(name: str = "local") -> KVStore:
-    """ref: src/kvstore/kvstore.cc KVStore::Create.  ``local`` and
-    ``device`` only; the other kinds raise."""
+    """ref: src/kvstore/kvstore.cc KVStore::Create.  ``local``,
+    ``device``, ``tpu`` and ``nccl`` build the base store under that
+    name; the ``dist_*`` kinds raise (ROADMAP A10)."""
     if not isinstance(name, str) or name not in _VALID:
         raise MXNetError("unknown kvstore type %r" % (name,))
     if name.startswith("dist"):
         raise MXNetError("kvstore %r is the parameter-server tier, not "
                          "ported (ROADMAP A10)" % name)
-    if name in ("tpu", "nccl"):
-        raise MXNetError("kvstore %r (the in-step multi-device fast path) "
-                         "is not ported (ROADMAP A6b); train data-parallel "
-                         "through parallel.dp.FusedTrainStep over a dp "
-                         "mesh" % name)
     return KVStore(name)

@@ -129,8 +129,10 @@ class BulkTrainLoop:
             for k in range(len(batches)):
                 for name in io_names:
                     cell = ex.arg_dict[name]
-                    cell._data = stacked[name][k].to(cell._data.dtype)
-                outs = ex.run_train_step()
+                    rows = stacked[name][k] if mod._dp is None \
+                        else mod._dp.local(stacked[name][k])
+                    cell._data = rows.to(cell._data.dtype)
+                outs = mod._run_train_step()
                 # the output cells are refilled by the next step: keep
                 # this step's values in cells of their own
                 out.append([NDArray.from_raw(o._data.clone(), ex._ctx)

@@ -3,9 +3,17 @@
 Counterpart: ``mxnet_tpu/module/module.py`` (ref:
 python/mxnet/module/module.py, bind/forward/backward/update at
 :570-629).  One device: ``Module(context=None)`` takes the current
-context, the card (without one the bind raises and names ``mx.cpu()``);
-a context list of more than one device, the reference's data-parallel
-executor group, is ROADMAP A6b and raises.  Batches arrive as host data
+context, the card (without one the bind raises and names ``mx.cpu()``).
+A context list of more than one device, the reference's data-parallel
+executor group, runs through ``parallel.dp.DataParallelRunner``: under
+a process group of as many ranks (``python -m mxnet_tpu_torch.dist -n
+N``), each rank binds its executor to its own device for its rows of
+the global batch, with the global batch's BatchNorm moments, loss
+normalisations and gradients (summed over the ranks, bucket by bucket)
+and outputs; without one the list collapses onto one device with a
+warning, as in the JAX package.  ``group2ctxs`` places ctx groups on
+their devices (``executor.place_nodes``); with more than one context it
+raises, as the reference build does.  Batches arrive as host data
 (``io`` iterators build them on ``mx.cpu()``): ``_feed`` casts each to
 its argument's dtype and moves it to the module's device.
 """
@@ -39,14 +47,27 @@ class Module(BaseModule):
             context = current_context()
         self._context_list = list(context) \
             if isinstance(context, (list, tuple)) else [context]
-        if len(self._context_list) != 1:
-            raise MXNetError(
-                "Module over %d contexts: multi-device data parallelism is "
-                "not ported to mxnet_tpu_torch yet (ROADMAP A6b); pass one "
-                "context" % len(self._context_list))
-        self._ctx = Context(self._context_list[0])
+        self._num_device = len(self._context_list)
+        # data-parallel runner (parallel/dp.py) when #ctx > 1
+        self._dp = None
+        # group2ctxs: dict (one mapping for the module) or list of dicts
+        # (reference: one per context; one executor takes the first)
+        if isinstance(group2ctxs, (list, tuple)):
+            group2ctxs = group2ctxs[0] if group2ctxs else None
+        if group2ctxs and self._num_device > 1:
+            raise ValueError(
+                "group2ctxs model parallelism cannot be combined with "
+                "multi-context data parallelism in this build; use "
+                "parallel.FusedTrainStep with a dp mesh instead")
+        if self._num_device > 1:
+            from ..parallel.dp import DataParallelRunner
+
+            self._dp = DataParallelRunner(self._context_list)
+            self._ctx = self._dp.context
+        else:
+            self._ctx = Context(self._context_list[0])
         self._ctx.torch_device()  # no card: raise now, naming mx.cpu()
-        self._num_device = 1
+        self._dp_outputs = None
         arg_name_set = set(symbol.list_arguments())
         self._data_names = list(data_names or [])
         # labels absent from the symbol are dropped, like the reference's
@@ -58,11 +79,6 @@ class Module(BaseModule):
             self._label_names = [n for n in symbol.list_arguments()
                                  if n.endswith("_label")]
         self._fixed_param_names = list(fixed_param_names or [])
-        # group2ctxs: dict (one mapping for the module) or list of dicts
-        # (reference: one per context); the executor raises for any
-        # placement away from the module's device (ROADMAP A6b)
-        if isinstance(group2ctxs, (list, tuple)):
-            group2ctxs = group2ctxs[0] if group2ctxs else None
         self._group2ctxs = group2ctxs
 
         arg_names = symbol.list_arguments()
@@ -128,6 +144,9 @@ class Module(BaseModule):
 
         shapes = {d.name: d.shape for d in self._data_shapes}
         shapes.update({d.name: d.shape for d in self._label_shapes})
+        if self._dp is not None:
+            # each rank's executor takes its rows of the global batch
+            shapes = {k: self._dp.local_shape(v) for k, v in shapes.items()}
 
         req = grad_req
         if not for_training:
@@ -189,6 +208,9 @@ class Module(BaseModule):
             elif initializer is not None:
                 desc = InitDesc(name, attrs.get(name))
                 initializer(desc, arr)
+        if self._dp is not None:
+            self._dp.broadcast([ex.arg_dict[n] for n in self._param_names] +
+                               [ex.aux_dict[n] for n in self._aux_names])
         self.params_initialized = True
 
     def get_params(self):
@@ -265,7 +287,12 @@ class Module(BaseModule):
         if is_train is None:
             is_train = self.for_training
         self._feed(data_batch)
-        self._exec.forward(is_train=is_train)
+        if self._dp is None:
+            self._exec.forward(is_train=is_train)
+            return
+        with self._dp.batch_stats():
+            self._exec.forward(is_train=is_train)
+        self._dp_outputs = self._dp.gather(self._exec.outputs)
 
     def _feed(self, data_batch):
         """Copy a batch into the bound executor's argument cells, cast to
@@ -279,6 +306,8 @@ class Module(BaseModule):
         for k, v in feed.items():
             if k not in self._exec.arg_dict:
                 raise MXNetError("forward: unknown argument %r" % k)
+            if self._dp is not None:
+                v = self._dp.local(v)
             self._exec._assign_input(k, v)
 
     def forward_backward(self, data_batch):
@@ -286,11 +315,28 @@ class Module(BaseModule):
         (ref: the cached-opr RunOps fast path, graph_executor.cc:1440)."""
         assert self.binded and self.params_initialized
         self._feed(data_batch)
-        self._exec.run_train_step()
+        self._run_train_step()
+
+    def _run_train_step(self):
+        """The executor's fused step; over ranks, under the global
+        batch's statistics, then the gradients summed over the ranks and
+        the outputs gathered.  Returns the outputs."""
+        if self._dp is None:
+            return self._exec.run_train_step()
+        with self._dp.batch_stats():
+            self._exec.run_train_step()
+        self._dp.reduce_grads(self._exec.grad_dict, self._param_names)
+        self._dp_outputs = self._dp.gather(self._exec.outputs)
+        return self._dp_outputs
 
     def backward(self, out_grads=None):
         assert self.binded and self.params_initialized
-        self._exec.backward(out_grads=out_grads)
+        if self._dp is None:
+            self._exec.backward(out_grads=out_grads)
+            return
+        with self._dp.batch_stats():
+            self._exec.backward(out_grads=out_grads)
+        self._dp.reduce_grads(self._exec.grad_dict, self._param_names)
 
     def update(self):
         """ref: module.py:629 update → kvstore push/pull or local updater."""
@@ -355,7 +401,11 @@ class Module(BaseModule):
         return self._bulk_loop.run(batches)
 
     def get_outputs(self, merge_multi_context=True):
+        """The outputs of the last forward (over ranks: the global
+        batch's)."""
         assert self.binded
+        if self._dp is not None and self._dp_outputs is not None:
+            return self._dp_outputs
         return self._exec.outputs
 
     def get_input_grads(self, merge_multi_context=True):

@@ -1,9 +1,11 @@
 """Parallel primitives of the port.  Counterpart: ``mxnet_tpu/parallel/``
-(the attention kernels with their gradient, ``mesh`` (dp meshes over a
-process group), ``buckets`` (the bucket plan and its all-reduce) and
-``dp`` (``FusedTrainStep`` on one device or data-parallel, ZeRO-1);
-``import mxnet_tpu_torch.parallel.dp`` for it).  Ring / Ulysses sequence
-parallelism is ROADMAP A6b."""
+(the attention kernels with their gradient, ``mesh`` (meshes of named
+axes over a process group, a subgroup per axis), ``buckets`` (the bucket
+plan and its all-reduce), ``dp`` (``FusedTrainStep`` on one device or
+data-parallel, ZeRO-1, and the multi-context ``Module``'s
+``DataParallelRunner``), ``ring_attention`` and ``sequence`` (ring and
+Ulysses attention over an ``sp`` axis, on the flash kernels); import
+the submodules for them)."""
 from .attention import (FlashAttention, attention_reference,
                         flash_attention, flash_attention_bwd,
                         flash_attention_bwd_reference, flash_attention_fwd,

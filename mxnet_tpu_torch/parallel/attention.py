@@ -35,6 +35,11 @@ The gradient, for training (the JAX package trains through the scan
   * ``flash_attention_train`` — attention with a gradient: autograd of
     ``flash_attention`` on CPU tensors, the two kernels (through the
     autograd Function ``FlashAttention``) on CUDA tensors.
+
+For the sequence-parallel impls (``ring_attention.py``): ``merge_partials``
+combines two partial results ``(o, lse)`` of attention over disjoint
+key blocks into the result over their union, in float32 (elementwise
+PyTorch on either device: it is no kernel).
 """
 from __future__ import annotations
 
@@ -48,7 +53,8 @@ from .. import _build
 
 __all__ = ["attention_reference", "flash_attention", "flash_attention_fwd",
            "kernel_route", "bwd_route", "flash_attention_bwd_reference",
-           "flash_attention_bwd", "FlashAttention", "flash_attention_train"]
+           "flash_attention_bwd", "FlashAttention", "flash_attention_train",
+           "merge_partials"]
 
 _NEG_INF = -1e30
 
@@ -137,6 +143,27 @@ def _lse(m, l):
     row), so that ``exp(s - lse)`` recomputes P = 0 there."""
     return torch.where(l == 0.0, float("inf"),
                        m + torch.log(torch.where(l == 0.0, 1.0, l)))
+
+
+def merge_partials(o1, lse1, o2, lse2):
+    """Attention over the union of two disjoint key blocks from the
+    partial results over each: ``o`` (B, Tq, H, D) normalised within its
+    block and ``lse`` (B, H, Tq) the log-sum-exp of its scaled scores.
+    Returns ``(o, lse)`` in float32: ``lse = logaddexp(lse1, lse2)`` and
+    ``o = o1 * exp(lse1 - lse) + o2 * exp(lse2 - lse)``.  A partial with
+    ``lse = -inf`` (no key seen: an empty accumulator, or a fully masked
+    block) weighs 0 and leaves the other untouched; both empty gives an
+    empty result (o 0, lse -inf)."""
+    f32 = torch.float32
+    lse1, lse2 = lse1.to(f32), lse2.to(f32)
+    lse = torch.logaddexp(lse1, lse2)
+    empty = lse == float("-inf")
+    safe = torch.where(empty, 0.0, lse)
+    w1 = torch.where(lse1 == float("-inf"), 0.0, torch.exp(lse1 - safe))
+    w2 = torch.where(lse2 == float("-inf"), 0.0, torch.exp(lse2 - safe))
+    o = o1.to(f32) * w1.transpose(1, 2)[..., None] + \
+        o2.to(f32) * w2.transpose(1, 2)[..., None]
+    return o, lse
 
 
 def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=False,

@@ -207,28 +207,37 @@ def unpack(flat: torch.Tensor, keys, like: Mapping) -> Dict:
     return out
 
 
+def _axis_group(mesh, axis: Optional[str]):
+    """``(n, process group)`` of a mesh axis, or of the whole mesh."""
+    if axis is None:
+        return mesh.size, mesh.group
+    return mesh.axis_size(axis), mesh.axis_group(axis)
+
+
 def bucketed_reduce(grads: Mapping, plan: Sequence[Bucket], mesh, *,
                     mean: bool = False, impl: Optional[str] = None,
-                    flats: Optional[Sequence] = None) -> Dict:
+                    flats: Optional[Sequence] = None,
+                    axis: Optional[str] = None) -> Dict:
     """Reduce ``grads`` (``{key: this rank's tensor}``) bucket by bucket
-    over the mesh's process group; returns ``{key: reduced tensor}``.
-    One flat concat and one all-reduce (sum) per bucket, in plan order;
-    ``mean`` then multiplies by ``1/n``.  ``flats`` (pre-packed
-    buffers, :func:`pack_flats`) skip the concat and are reduced in
-    place; ``grads`` then supplies the shapes."""
+    over the mesh's process group (or the subgroup of its ``axis``);
+    returns ``{key: reduced tensor}``.  One flat concat and one
+    all-reduce (sum) per bucket, in plan order; ``mean`` then multiplies
+    by ``1/n``.  ``flats`` (pre-packed buffers, :func:`pack_flats`) skip
+    the concat and are reduced in place; ``grads`` then supplies the
+    shapes."""
     import torch.distributed as dist
 
     if impl is None:
         impl = impl_name()
     elif impl not in _IMPLS:
         raise ValueError("bucket impl %r: one of %s" % (impl, _IMPLS))
-    n = mesh.size
+    n, group = _axis_group(mesh, axis)
     out: Dict = {}
     for i, bucket in enumerate(plan):
         flat = flats[i] if flats is not None else \
             _flat_copy([grads[k] for k in bucket.keys])
         if n > 1:
-            dist.all_reduce(flat, group=mesh.group)
+            dist.all_reduce(flat, group=group)
             if mean:
                 scale_(flat, n)
         out.update(unpack(flat, bucket.keys, grads))
@@ -250,16 +259,35 @@ class OverlappedReduce:
     The update therefore does not depend on the order in which the
     buckets land.  Every rank runs the same graph, so every rank issues
     the same collectives in the same order.  ``overlap=False`` issues
-    them all after backward (the monolithic reduction)."""
+    them all after backward (the monolithic reduction).
+
+    The collectives run over the whole mesh, or over the subgroup of
+    ``axis``; ``pre_axis`` first all-reduces each bucket over that
+    axis's subgroup (sequence parallelism: the sp ranks of a replica sum
+    their partial gradients, then dp all-reduces, or under ZeRO-1
+    reduce-scatters: the same sums in the same order either way, so the
+    two agree bit for bit).  The pre-reduction is async too: the
+    bucket's collective over ``axis`` is chained to it when the next
+    bucket lands (or in ``finish()``), on a side stream for CUDA
+    tensors so that backward's stream never waits for it.  A one-rank
+    ``axis`` issues no second collective."""
 
     def __init__(self, plan: Sequence[Bucket], mesh, *,
-                 scatter: bool = False, overlap: bool = True):
+                 scatter: bool = False, overlap: bool = True,
+                 axis: Optional[str] = None,
+                 pre_axis: Optional[str] = None):
         self.plan = list(plan)
         self.mesh = mesh
         self.scatter = bool(scatter)
         self.overlap = bool(overlap)
+        self._n, self._group = _axis_group(mesh, axis)
+        # a 1-tuple: the group itself may be None, the default group
+        self._pre = None if pre_axis is None else \
+            (_axis_group(mesh, pre_axis)[1],)
         self._where = {k: i for i, b in enumerate(self.plan)
                        for k in b.keys}
+        self._chain: List = []     # pre-reduced buckets awaiting axis's
+        self._side = None          # the chain's CUDA stream
         self._handles: list = []
         self.issue_order: List[int] = []
 
@@ -307,21 +335,57 @@ class OverlappedReduce:
             self._grads.pop(k, None)
         if self._prescale > 1:
             scale_(flat, self._prescale)
-        n = self.mesh.size
+        n = self._n
         if self.scatter:
             pad = (-flat.numel()) % n
             if pad:
                 flat = torch.cat([flat, flat.new_zeros(pad)])
-            shard = flat.new_empty(flat.numel() // n)
-            work = dist.reduce_scatter_tensor(shard, flat,
-                                              group=self.mesh.group,
-                                              async_op=True)
-            self._work[i] = (shard, work)
-        else:
-            work = dist.all_reduce(flat, group=self.mesh.group,
-                                   async_op=True)
-            self._work[i] = (flat, work)
+        # the shard is allocated on backward's stream, which reads it
+        shard = flat.new_empty(flat.numel() // n) if self.scatter and \
+            n > 1 else flat
         self.issue_order.append(i)
+        if self._pre is None:
+            self._work[i] = self._post(flat, shard, None)
+            return
+        self._drain()
+        pre = dist.all_reduce(flat, group=self._pre[0], async_op=True)
+        if n == 1:
+            self._work[i] = (shard, [pre])
+        else:
+            self._chain.append((i, flat, shard, pre))
+
+    def _post(self, flat, shard, pre):
+        """``axis``'s collective of one bucket, after ``pre`` (the
+        bucket's pre-reduction, or None); ``(result, [handles])``."""
+        import torch.distributed as dist
+
+        works = [] if pre is None else [pre]
+        if pre is not None:
+            pre.wait()
+        if self._n == 1:
+            return shard, works
+        if self.scatter:
+            works.append(dist.reduce_scatter_tensor(
+                shard, flat, group=self._group, async_op=True))
+        else:
+            works.append(dist.all_reduce(flat, group=self._group,
+                                         async_op=True))
+        return shard, works
+
+    def _drain(self) -> None:
+        """Chain ``axis``'s collective to every pre-reduced bucket, in
+        issue order.  On CUDA the wait and the issue run on a side
+        stream: the collective waits for the pre-reduction there, and
+        backward's stream runs on."""
+        chain, self._chain = self._chain, []
+        for i, flat, shard, pre in chain:
+            if flat.is_cuda:
+                if self._side is None:
+                    self._side = torch.cuda.Stream(device=flat.device)
+                with torch.cuda.stream(self._side):
+                    self._work[i] = self._post(flat, shard, pre)
+            else:
+                self._work[i] = self._post(flat, shard, pre)
 
     def finish(self) -> List[torch.Tensor]:
         """Issue what backward left, wait for everything; the reduced
@@ -333,11 +397,13 @@ class OverlappedReduce:
                     self._grads[k] = p.grad
                     p.grad = None
         for i in range(len(self.plan)):
-            if self._work[i] is None:
+            if self._work[i] is None and i not in self.issue_order:
                 self._issue(i)
+        self._drain()
         out = []
-        for flat, work in self._work:
-            work.wait()
+        for flat, works in self._work:
+            for work in works:
+                work.wait()
             out.append(flat)
         self._params = None
         self._work = []

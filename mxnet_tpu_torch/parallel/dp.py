@@ -47,8 +47,8 @@ with its semantics:
     forward and backward (``remat.py``): the block runs as a block
     trace, and its forward and loss are the mirror's boundary.
 
-Tensor-parallel ``param_spec_fn`` and mesh axes other than ``dp``
-(ROADMAP A6b) raise.
+Tensor-parallel ``param_spec_fn`` (ROADMAP A6b) and mesh axes other
+than ``dp`` raise (sequence parallelism is ``TransformerTrainStep``'s).
 """
 from __future__ import annotations
 
@@ -66,7 +66,8 @@ from .. import optimizer as _opt
 from . import buckets as _buckets
 from .mesh import Mesh
 
-__all__ = ["FusedTrainStep", "shard_batch", "replicate", "as_mesh",
+__all__ = ["FusedTrainStep", "DataParallelRunner", "shard_batch",
+           "replicate", "as_mesh",
            "zero1_stage", "zero1_bucket_elems", "zero1_momentum_buffers",
            "zero1_restage_flats", "zero1_flats_to_tree",
            "zero1_tree_to_flats", "zero1_bucketed_update",
@@ -83,12 +84,14 @@ def _mesh_size(mesh) -> int:
     return int(size) if size is not None else 1
 
 
-def as_mesh(mesh, who: str, exc=MXNetError) -> Optional[Mesh]:
-    """The dp mesh a train step runs over: None for one device (a mesh
-    of one device outside a process group).  A mesh
-    with another axis of more than one device (sequence or tensor
-    parallelism, ROADMAP A6b), or a device list of more than one device
-    that is not a ``parallel.mesh.Mesh``, raises ``exc``."""
+def as_mesh(mesh, who: str, exc=MXNetError, axes=("dp",)
+            ) -> Optional[Mesh]:
+    """The mesh a train step runs over: None for one device (a mesh of
+    one device outside a process group).  ``axes`` are the axes the step
+    takes (``FusedTrainStep``: dp; ``TransformerTrainStep``: dp and sp).
+    A mesh with another axis of more than one device, or a device list
+    of more than one device that is not a ``parallel.mesh.Mesh``, raises
+    ``exc``."""
     if mesh is None:
         return None
     if not isinstance(mesh, Mesh):
@@ -99,31 +102,39 @@ def as_mesh(mesh, who: str, exc=MXNetError) -> Optional[Mesh]:
                 "one per device: call dist.initialize() on every rank, "
                 "then parallel.mesh.data_parallel_mesh(%d)" % (who, n, n, n))
         return None
-    extra = {a: s for a, s in mesh.shape.items() if a != "dp" and s > 1}
+    extra = {a: s for a, s in mesh.shape.items() if a not in axes and s > 1}
     if extra:
-        raise exc("%s: mesh axes %s (sequence or tensor parallelism) are "
-                  "not ported (ROADMAP A6b); use a dp-only mesh"
-                  % (who, extra))
+        raise exc("%s: mesh axes %s are not taken here (it runs over %s); "
+                  "tensor-parallel shardings are ROADMAP A6b"
+                  % (who, extra, "/".join(axes)))
     if "dp" not in mesh.axis_names:
         raise exc("%s: the mesh needs a 'dp' axis (got %s)"
                   % (who, mesh.axis_names))
     return mesh if mesh.size > 1 or mesh.collective else None
 
 
-def shard_batch(arr, mesh):
-    """This rank's rows ``[r*B/n, (r+1)*B/n)`` of a global batch (an
-    NDArray or a tensor); the batch itself on one device.  A batch that
-    does not divide over the dp ranks raises."""
+def shard_batch(arr, mesh, seq_axis: Optional[str] = None):
+    """This rank's block of a global batch (an NDArray or a tensor): the
+    rows ``[d*B/n, (d+1)*B/n)`` at its index d on the mesh's ``dp`` axis
+    of n ranks, and with ``seq_axis`` the columns ``[s*T/m, (s+1)*T/m)``
+    at its index s on that axis of m ranks (``P("dp", "sp")``); the
+    batch itself on one device.  A batch that does not divide raises."""
     if mesh is None or mesh.size == 1:
         return arr
     t = arr._data if isinstance(arr, NDArray) else arr
-    b, n = int(t.shape[0]), mesh.size
-    if b % n:
-        raise ValueError("the global batch of %d rows does not divide "
-                         "over the mesh's %d dp ranks" % (b, n))
-    rows = t[mesh.rank * (b // n):(mesh.rank + 1) * (b // n)]
-    return NDArray.from_raw(rows, arr.context) \
-        if isinstance(arr, NDArray) else rows
+    for dim, axis in ((0, "dp"), (1, seq_axis)):
+        n = mesh.axis_size(axis) if axis in mesh.shape else 1
+        if n == 1:
+            continue
+        size = int(t.shape[dim])
+        if size % n:
+            raise ValueError("the global batch's %d %s do not divide over "
+                             "the mesh's %d %s ranks"
+                             % (size, ("rows", "positions")[dim], n, axis))
+        i, w = mesh.axis_index(axis), size // n
+        t = t.narrow(dim, i * w, w)
+    return NDArray.from_raw(t, arr.context) \
+        if isinstance(arr, NDArray) else t
 
 
 def replicate(arr, mesh):
@@ -253,21 +264,24 @@ def zero1_tree_to_flats(tree, plan, n: int) -> list:
 
 def zero1_bucketed_update(grads, params, mom_shards, plan, mesh, *, lr,
                           momentum, wd, mean_n=None, flats=None,
-                          scattered=None):
+                          scattered=None, sp_axis=None):
     """One ZeRO-1 step over the bucket plan on this rank.
 
     ``grads`` / ``params``: ``{key: tensor}`` (this rank's UNreduced
     gradients; the replicated parameters); ``mom_shards``: this rank's
     momentum shard per bucket.  Per bucket, in plan order: flat concat
-    (or ``flats[i]``), padded to a multiple of n → reduce-scatter (or
-    ``scattered[i]``, already reduce-scattered) → multiply by
-    ``1/mean_n`` → the fused update of this rank's shard → all-gather of
-    the parameter shards (issued asynchronously, so bucket k's gather
-    overlaps bucket k+1's update).  Returns ``({key: new param}, [new
-    momentum shards])``."""
+    (or ``flats[i]``), padded to a multiple of n (the mesh's dp size) →
+    with ``sp_axis`` an all-reduce over that axis (its ranks hold
+    partial gradients of one replica) → reduce-scatter over dp (or
+    ``scattered[i]``, already reduced) → multiply by ``1/mean_n`` → the
+    fused update of this rank's shard → all-gather of the parameter
+    shards over dp (issued asynchronously, so bucket k's gather overlaps
+    bucket k+1's update).  Returns ``({key: new param}, [new momentum
+    shards])``."""
     import torch.distributed as dist
 
-    n, r = mesh.size, mesh.rank
+    n, r = mesh.axis_size("dp"), mesh.axis_index("dp")
+    group = mesh.axis_group("dp")
     mean_n = n if mean_n is None else int(mean_n)
     gathers, new_moms = [], []
     for bi, bucket in enumerate(plan):
@@ -279,8 +293,10 @@ def zero1_bucketed_update(grads, params, mom_shards, plan, mesh, *, lr,
             pad = (-flat_g.numel()) % n
             if pad:
                 flat_g = torch.cat([flat_g, flat_g.new_zeros(pad)])
+            if sp_axis is not None:
+                dist.all_reduce(flat_g, group=mesh.axis_group(sp_axis))
             gsh = flat_g.new_empty(flat_g.numel() // n)
-            dist.reduce_scatter_tensor(gsh, flat_g, group=mesh.group)
+            dist.reduce_scatter_tensor(gsh, flat_g, group=group)
         if mean_n > 1:
             _buckets.scale_(gsh, mean_n)
         flat_w = _opt.pack_flat([params[k] for k in bucket.keys])
@@ -296,7 +312,7 @@ def zero1_bucketed_update(grads, params, mom_shards, plan, mesh, *, lr,
         new_moms.append(m_new)
         full = w_new.new_empty(shard * n)
         gathers.append((bucket, size, full, dist.all_gather_into_tensor(
-            full, w_new.contiguous(), group=mesh.group, async_op=True)))
+            full, w_new.contiguous(), group=group, async_op=True)))
     out = {}
     for bucket, size, full, work in gathers:
         work.wait()
@@ -315,6 +331,119 @@ def momenta_bytes_per_device(moms) -> int:
         per_device[key] = per_device.get(key, 0) + \
             m.numel() * m.element_size()
     return max(per_device.values()) if per_device else 0
+
+
+class DataParallelRunner:
+    """The data-parallel side of a ``Module`` over a context list
+    (counterpart: ``mxnet_tpu/parallel/dp.py:353-394``; ref:
+    executor_group.py decide_slices).
+
+    Under a process group of as many ranks as contexts, each rank binds
+    its executor to its own device (``dist.device()``: two ranks may
+    share one card over gloo) for its rows of the global batch, and the
+    step keeps the JAX package's global-batch numerics: inside
+    :meth:`batch_stats` BatchNorm's moments and SoftmaxOutput's
+    normalisations are the global batch's (``ops.nn``'s sync path),
+    :meth:`reduce_grads` sums each gradient over the ranks (the
+    gradient of the global batch: with ``normalization="null"`` a sum,
+    as the one-device ``Module`` at the global batch has it), and
+    :meth:`gather` returns the global batch's outputs.  Parameters and
+    aux states start from rank 0's (:meth:`broadcast`).
+
+    Without a process group (or in a one-rank group) a list of more
+    than one context collapses onto this process's device, with the JAX
+    package's warning: the same math on one device.  A list that does
+    not match a multi-rank group raises."""
+
+    def __init__(self, contexts, bucket_bytes: Optional[int] = None):
+        from .. import dist
+        from ..context import Context
+        from .mesh import data_parallel_mesh
+
+        n, world = len(contexts), dist.num_processes()
+        if world > 1:
+            if n != world:
+                raise ValueError(
+                    "Module over %d contexts on a process group of %d "
+                    "ranks: one context a rank (start %d processes)"
+                    % (n, world, n))
+            self.mesh = data_parallel_mesh()
+            dev = dist.device()
+            self.context = Context("cpu") if dev.type == "cpu" \
+                else Context("gpu", dev.index or 0)
+        else:
+            _log.warning("requested %d devices, runtime has %d - "
+                         "collapsing (parallelism reduced)", n, world)
+            self.mesh = None
+            self.context = Context(contexts[0])
+        self._cap = bucket_bytes
+        self._plans: Dict = {}
+
+    @property
+    def num_ranks(self) -> int:
+        return self.mesh.size if self.mesh is not None else 1
+
+    def local_shape(self, shape) -> tuple:
+        """The per-rank shape of a global batch input."""
+        n, b = self.num_ranks, int(shape[0])
+        if b % n:
+            raise ValueError("the global batch of %d rows does not divide "
+                             "over the %d ranks" % (b, n))
+        return (b // n,) + tuple(shape[1:])
+
+    def local(self, arr):
+        """This rank's rows of a global batch (an NDArray or a tensor)."""
+        return shard_batch(arr, self.mesh)
+
+    def batch_stats(self):
+        """The context of a forward: batch statistics and loss
+        normalisations over the global batch."""
+        import contextlib
+
+        from ..ops import nn as nn_ops
+
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return nn_ops.cross_device_batch_stats("dp", self.mesh)
+
+    def reduce_grads(self, grad_dict, names) -> None:
+        """Sum the gradients ``grad_dict[name]`` over the ranks, bucket by
+        bucket (``parallel.buckets``), written back into their cells."""
+        if self.mesh is None:
+            return
+        live = {k: grad_dict[k]._data for k in names
+                if grad_dict.get(k) is not None}
+        key = tuple((k, tuple(v.shape), str(v.dtype))
+                    for k, v in live.items())
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = self._plans[key] = _buckets.plan_for_arrays(
+                live, self._cap)
+        out = _buckets.bucketed_reduce(live, plan, self.mesh, mean=False,
+                                       impl="psum")
+        for k, v in out.items():
+            grad_dict[k]._data = v
+
+    def gather(self, outputs):
+        """The global batch's outputs from every rank's rows, in rank
+        order (NDArrays)."""
+        if self.mesh is None:
+            return outputs
+        import torch.distributed as dist
+
+        out = []
+        for o in outputs:
+            t = o._data.contiguous()
+            full = t.new_empty((t.shape[0] * self.mesh.size,) +
+                               tuple(t.shape[1:]))
+            dist.all_gather_into_tensor(full, t, group=self.mesh.group)
+            out.append(NDArray.from_raw(full, o.context))
+        return out
+
+    def broadcast(self, cells) -> None:
+        """Every rank takes rank 0's value of each cell (NDArrays)."""
+        for c in cells:
+            replicate(c, self.mesh)
 
 
 def _refuse(param_spec_fn):

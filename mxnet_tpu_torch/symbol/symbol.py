@@ -228,9 +228,9 @@ class Symbol:
                     **kwargs):
         """Allocate arrays from shapes and bind (ref: GraphExecutor::Init,
         src/executor/graph_executor.cc:512; python symbol.py simple_bind).
-        ``ctx`` defaults to the current context, the card.  A
-        ``group2ctx`` that places a group away from ``ctx`` raises
-        (model parallelism is ROADMAP A6b)."""
+        ``ctx`` defaults to the current context, the card.
+        ``group2ctx`` places each ctx group on its context (model
+        parallelism, ``executor.place_nodes``)."""
         from ..executor import Executor
 
         return Executor.simple_bind(self, ctx=ctx, grad_req=grad_req,

@@ -1,7 +1,7 @@
 """Decoder-only transformer LM.  Counterpart: ``mxnet_tpu/transformer/``
-(the model, its generation forwards, training on one device or
-data-parallel with ZeRO-1, and the synthetic token stream; sequence
-parallelism waits for ROADMAP A6b)."""
+(the model, its generation forwards, training on one device,
+data-parallel with ZeRO-1 or sequence-parallel over a dp x sp mesh with
+ring or Ulysses attention, and the synthetic token stream)."""
 from .data import LMTokenIter, make_corpus
 from .model import (ATTENTION_IMPLS, TransformerConfig, apply,
                     apply_decode, apply_prefill, attention_impl,

@@ -5,7 +5,9 @@ offset-chain: token ``t+1 = (t + delta) % V`` with ``delta`` drawn from
 a small fixed set — a learnable bigram structure (the loss drops below
 ``log(V)`` within a few steps).  It is made with numpy's
 ``RandomState`` exactly as the JAX package makes it, so the two
-packages train on the same bits for the same arguments.
+packages train on the same bits for the same arguments.  Batches are
+global: a train step over a mesh takes its rank's (dp, sp) block of
+each (``parallel.dp.shard_batch``).
 """
 from __future__ import annotations
 

@@ -5,10 +5,12 @@ function of a flat ``{name: tensor}`` parameter dict with the JAX
 package's names, shapes and ``(in, out)`` orientation (``x @ W``), so
 ``convert.params_from_jax`` carries parameters across unchanged.
 
-Only the single-device ``flash`` attention is ported: ``apply`` takes
-the attention as an ``attn_fn`` (:func:`make_attn_fn` binds the
-training attention, ``parallel.attention.flash_attention_train``: the
-Hopper forward and backward kernels on the card), and the generation
+``apply`` takes the attention as an ``attn_fn``: :func:`make_attn_fn`
+binds the training attention, ``flash`` on one sequence
+(``parallel.attention.flash_attention_train``: the Hopper forward and
+backward kernels on the card), or ``ring`` / ``ulysses`` on a sequence
+sharded over a mesh's ``sp`` axis (``parallel.ring_attention``,
+``parallel.sequence``: the same kernels under them), and the generation
 prefill runs the forward kernel (``flash_attention_fwd``) where the JAX
 package runs the dense ``_masked_attn``.  Decode keeps the gather and
 the masked attention in plain PyTorch, as the JAX package leaves them
@@ -34,7 +36,7 @@ __all__ = [
     "dense_causal_attn", "gather_kv", "apply_prefill", "apply_decode",
 ]
 
-ATTENTION_IMPLS = ("flash",)
+ATTENTION_IMPLS = ("flash", "ring", "ulysses")
 
 
 class TransformerConfig(NamedTuple):
@@ -74,26 +76,56 @@ def _acc_dtype(compute: torch.dtype) -> torch.dtype:
 
 def attention_impl(override: Optional[str] = None) -> str:
     """The selected attention implementation: explicit argument wins,
-    else ``MXNET_ATTENTION_IMPL`` (default ``flash``).  The
-    sequence-parallel impls of the JAX package (``ring``, ``ulysses``)
-    are not ported yet and raise, as does any unknown name."""
+    else ``MXNET_ATTENTION_IMPL`` (default ``flash``).  Unknown names
+    raise: a typo'd impl silently falling back would train the wrong
+    kernel."""
     impl = override if override is not None \
         else _env.get_str("MXNET_ATTENTION_IMPL")
     if impl not in ATTENTION_IMPLS:
         raise ValueError(
-            "attention impl %r is not available in mxnet_tpu_torch; pick "
-            "one of %s" % (impl, "/".join(ATTENTION_IMPLS)))
+            "unknown attention impl %r (MXNET_ATTENTION_IMPL); pick one "
+            "of %s" % (impl, "/".join(ATTENTION_IMPLS)))
     return impl
 
 
-def make_attn_fn(impl: Optional[str] = None, causal: bool = True):
+def make_attn_fn(impl: Optional[str] = None, sp_axis: Optional[str] = None,
+                 causal: bool = True, mesh=None):
     """Bind an attention impl to ``fn(q, k, v) -> out`` over
-    (B, T, H, Dh) activations, with a gradient: ``flash`` is the Hopper
-    forward and backward kernels on CUDA tensors and autograd of their
-    plain version on CPU tensors
-    (``parallel.attention.flash_attention_train``)."""
-    attention_impl(impl)
-    return functools.partial(flash_attention_train, causal=causal)
+    (B, T_local, H, Dh) activations, with a gradient (the JAX package's
+    rules, ``mxnet_tpu/transformer/model.py:87-120``).
+
+    Without ``sp_axis``: ``flash``, the Hopper forward and backward
+    kernels on CUDA tensors and autograd of their plain version on CPU
+    tensors (``parallel.attention.flash_attention_train``); ``ring`` and
+    ``ulysses`` raise (their collectives need the axis).  With
+    ``sp_axis`` (a mesh axis of ``mesh``) the fn is a per-rank body over
+    this rank's slice of the sequence: ``ring`` or ``ulysses``; ``flash``
+    raises, because attention over a sequence shard alone is wrong math,
+    not a slower variant."""
+    impl = attention_impl(impl)
+    if sp_axis is None:
+        if impl != "flash":
+            raise ValueError(
+                "attention impl %r needs a sequence-parallel mesh axis; "
+                "build the step over a mesh with 'sp' (or select "
+                "MXNET_ATTENTION_IMPL=flash)" % impl)
+        return functools.partial(flash_attention_train, causal=causal)
+    if mesh is None:
+        raise ValueError("make_attn_fn: sp_axis %r needs the mesh it "
+                         "names" % (sp_axis,))
+    if impl == "ring":
+        from ..parallel.ring_attention import ring_attention
+
+        return functools.partial(ring_attention, mesh=mesh,
+                                 axis_name=sp_axis, causal=causal)
+    if impl == "ulysses":
+        from ..parallel.sequence import ulysses_attention
+
+        return functools.partial(ulysses_attention, mesh=mesh,
+                                 axis_name=sp_axis, causal=causal)
+    raise ValueError(
+        "attention impl %r cannot run sequence-sharded (sp axis %r); "
+        "pick ring or ulysses" % (impl, sp_axis))
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Transformer-LM training: the train step and a checkpointed fit loop,
-on one device or data-parallel over a dp mesh.
+on one device, data-parallel over a dp mesh, or sequence-parallel over
+a dp x sp mesh.
 
 Counterpart: ``mxnet_tpu/transformer/train.py`` ``TransformerTrainStep``
 (:46-757).  The JAX package compiles forward, loss, backward, the
@@ -20,7 +21,17 @@ then either
     (``parallel.dp.zero1_bucketed_update``): each rank holds 1/dp of the
     momenta.
 
-Every rank receives the GLOBAL batch and trains on its rows.  Same
+Every rank receives the GLOBAL batch and trains on its block of it:
+its rows at its ``dp`` index and, on an ``sp`` axis, its slice of the
+sequence at its ``sp`` index (``P("dp", "sp")``), at positions offset by
+``sp_index * T/sp``; the attention (``MXNET_ATTENTION_IMPL=ring`` or
+``ulysses``) runs over the sp axis on the flash kernels
+(``parallel.ring_attention``, ``parallel.sequence``).  The loss is the
+mean over every rank (each holds the same token count), and each
+gradient bucket is summed over the whole mesh, then scaled by
+``1/(dp*sp)``: an all-reduce over sp, then an all-reduce over dp
+(replicated) or a reduce-scatter over dp (ZeRO-1: the momenta shard over
+dp).  Same
 parameter names, same update, same checkpoint layout (the momenta blob
 in ``optimizer_states`` with ``zero_stage``, ``dp``, ``n_buckets`` and
 ``bucket_elems``; ZeRO-1 momenta as the global flat buffers), so a
@@ -35,8 +46,7 @@ world sizes the skip is ``checkpoint.scale_resume_skip``'s), the
 loss-spike divergence guard, the heartbeat, the tokens/s gauge and the
 chaos ``kill`` / delay hooks.
 
-Not ported (raise with the ROADMAP item): sequence parallelism (ring /
-Ulysses, an ``sp`` mesh axis: A6b); the SDC fingerprint vote,
+Not ported (raise with the ROADMAP item): the SDC fingerprint vote,
 ``bitflip_param`` chaos and tuned bucket plans (A11).  ZeRO stage 1 on
 one device warns and stays replicated, as in the JAX package.
 """
@@ -77,8 +87,9 @@ class TransformerTrainStep:
     ----------
     cfg : TransformerConfig (``dtype`` is the compute dtype; parameters
         are stored in ``param_dtype``).
-    mesh : None (one device) or a ``parallel.mesh`` dp mesh; an ``sp``
-        axis raises (ROADMAP A6b).
+    mesh : None (one device) or a ``parallel.mesh`` mesh with a ``dp``
+        axis and optionally an ``sp`` axis (sequence parallelism: the
+        attention impl must be ``ring`` or ``ulysses`` there).
     learning_rate, momentum, weight_decay : the SGD-momentum update.
     attn_impl / remat / zero_stage : explicit overrides for
         ``MXNET_ATTENTION_IMPL`` / ``MXNET_REMAT_POLICY`` /
@@ -103,7 +114,8 @@ class TransformerTrainStep:
                  device=None):
         from ..parallel.dp import as_mesh
 
-        self.mesh = as_mesh(mesh, "TransformerTrainStep", exc=ValueError)
+        self.mesh = as_mesh(mesh, "TransformerTrainStep", exc=ValueError,
+                            axes=("dp", "sp"))
         self.cfg = cfg
         self.device = resolve_device(device)
         self._lr = float(learning_rate)
@@ -118,7 +130,16 @@ class TransformerTrainStep:
 
     @property
     def n_dp(self) -> int:
-        """Data-parallel replicas (ranks of the mesh)."""
+        """Data-parallel replicas (the mesh's dp axis)."""
+        return self.mesh.axis_size("dp") if self.mesh is not None else 1
+
+    @property
+    def n_sp(self) -> int:
+        """Sequence-parallel ranks of a replica (the mesh's sp axis)."""
+        return self.mesh.axis_size("sp") if self.mesh is not None else 1
+
+    @property
+    def _n_total(self) -> int:
         return self.mesh.size if self.mesh is not None else 1
 
     # -- build ----------------------------------------------------------
@@ -134,7 +155,14 @@ class TransformerTrainStep:
                 "ported to mxnet_tpu_torch yet (ROADMAP A11); set it to 0")
         self._impl = _model.attention_impl(self._attn_impl)
         self._policy = remat_policy(self._remat)
-        self._attn_fn = _model.make_attn_fn(self._impl)
+        n_sp = self.n_sp
+        self._sp_axis = "sp" if n_sp > 1 else None
+        self._attn_fn = _model.make_attn_fn(self._impl, self._sp_axis,
+                                            mesh=self.mesh)
+        if self._sp_axis and self._impl == "ulysses" and cfg.n_heads % n_sp:
+            raise ValueError(
+                "ulysses attention shards heads over sp: n_heads %d must "
+                "divide by sp axis size %d" % (cfg.n_heads, n_sp))
         gen = torch.Generator().manual_seed(self._seed)
         self._params = _model.init_params(gen, cfg, device=self.device)
         self._names = list(self._params)
@@ -167,8 +195,13 @@ class TransformerTrainStep:
         else:
             self._moms = {k: torch.zeros_like(v)
                           for k, v in self._params.items()}
+        # every bucket summed over the whole mesh: over sp first (the
+        # partial gradients of one replica), then all-reduced over dp,
+        # or reduce-scattered under ZeRO-1 (the same sums in the same
+        # order, so the two agree bit for bit)
         self._reducer = None if self.mesh is None else \
-            _buckets.OverlappedReduce(plan, self.mesh, scatter=self._zero1)
+            _buckets.OverlappedReduce(plan, self.mesh, scatter=self._zero1,
+                                      axis="dp", pre_axis=self._sp_axis)
         self._built = True
 
     # -- introspection --------------------------------------------------
@@ -220,17 +253,20 @@ class TransformerTrainStep:
         from .. import optimizer as _opt
         from ..parallel.dp import shard_batch
 
-        names, mesh = self._names, self.mesh
-        tokens, labels = shard_batch(tokens, mesh), shard_batch(labels, mesh)
+        names, mesh, sp = self._names, self.mesh, self._sp_axis
+        tokens = shard_batch(tokens, mesh, seq_axis=sp)
+        labels = shard_batch(labels, mesh, seq_axis=sp)
         params = {k: v.detach().requires_grad_(True)
                   for k, v in self._params.items()}
         if mesh is not None:
+            offset = mesh.axis_index(sp) * int(tokens.shape[1]) if sp \
+                else 0
             # each bucket's collective is issued from backward
             self._reducer.arm(params)
             try:
                 loss = _model.lm_loss(_model.apply(
                     params, tokens, self.cfg, attn_fn=self._attn_fn,
-                    remat=self._policy), labels)
+                    pos_offset=offset, remat=self._policy), labels)
                 loss.backward()
                 flats = self._reducer.finish()
             finally:
@@ -251,21 +287,22 @@ class TransformerTrainStep:
         return loss.detach()
 
     def _dp_update(self, params, flats, loss):
-        """The dp update from the reduced bucket flats (sums); returns
-        the loss averaged over ranks (the reference's pmean)."""
+        """The update from the reduced bucket flats (sums over every rank
+        of the mesh), scaled by ``1/(dp*sp)``; returns the loss averaged
+        over every rank (the reference's pmean over dp and sp)."""
         import torch.distributed as dist
 
         from .. import optimizer as _opt
         from ..parallel import buckets as _buckets
         from ..parallel.dp import zero1_bucketed_update
 
-        n, mesh = self.n_dp, self.mesh
+        n, mesh = self._n_total, self.mesh
         live = {k: v.detach() for k, v in params.items()}
         if self._zero1:
             new_p, self._moms = zero1_bucketed_update(
                 None, live, self._moms, self._bucket_plan, mesh,
                 lr=self._lr, momentum=self._momentum, wd=self._wd,
-                scattered=flats)
+                mean_n=n, scattered=flats)
             self._params = {k: new_p[k] for k in self._names}
         else:
             grads = {}
@@ -281,7 +318,7 @@ class TransformerTrainStep:
 
     def step(self, tokens, labels):
         """One optimizer step on a global (B, T) batch (on a mesh, this
-        rank trains on its rows); returns the scalar loss (averaged over
+        rank trains on its block); returns the scalar loss (averaged over
         ranks) as a tensor on the device, not synchronised."""
         if not self._built:
             self._build()
@@ -314,7 +351,7 @@ class TransformerTrainStep:
             for m in self._moms:
                 full = m.new_empty(m.numel() * self.n_dp)
                 dist.all_gather_into_tensor(full, m.contiguous(),
-                                            group=self.mesh.group)
+                                            group=self.mesh.axis_group("dp"))
                 moms.append(full.cpu())
         else:
             moms = {k: v.detach().cpu() for k, v in self._moms.items()}
@@ -395,7 +432,7 @@ class TransformerTrainStep:
         elif self._zero1:
             flats = zero1_tree_to_flats(moms, plan, self.n_dp)
         if self._zero1:
-            r = self.mesh.rank
+            r = self.mesh.axis_index("dp")
             self._moms = []
             for f in flats:
                 shard = f.numel() // self.n_dp
@@ -522,10 +559,14 @@ class TransformerTrainStep:
         return losses
 
     def _rank_batch(self, train_iter) -> Optional[int]:
-        """The rows of each global batch this rank trains on (the
-        iterator's batch over the dp ranks)."""
+        """This rank's share of each global batch, in sequences: the
+        iterator's batch over every rank of the mesh (dp x sp), so that
+        with the world size it gives the global sample position (None
+        where the batch does not divide)."""
         b = getattr(train_iter, "batch_size", None)
-        return None if b is None else int(b) // self.n_dp
+        if b is None or int(b) % self._n_total:
+            return None
+        return int(b) // self._n_total
 
     @staticmethod
     def _next_batch(train_iter):

@@ -491,3 +491,77 @@ def test_the_planted_dp_faults_read_above_the_limit_and_undo_themselves():
             1e3 * cs.DP_NUM_TOL
     assert cs._update_err(ranks[1]["grad_not_reduced"], ranks[1]["clean"],
                           w0) > 1e3 * cs.DP_NUM_TOL
+
+
+def test_the_sp_phases_follow_the_dp_phases_and_precede_the_kernel_line():
+    src = (REPO / "chip_smoke.py").read_text()
+    main = src[src.index("def main()"):]
+    order = [main.index(p) for p in ("phase_train_lm_dp_numerics()",
+                                     "phase_train_lm_sp()",
+                                     "phase_train_lm_sp_numerics()",
+                                     "phase_module_dp_numerics()",
+                                     '"phase": "kernels"')]
+    assert order == sorted(order)
+    for path in ("sp_counts.items()", "sp_num_counts.items()"):
+        assert main.count(path) == 2
+
+
+def test_the_planted_ring_faults_read_above_the_limit_and_undo_themselves():
+    """train_lm_sp_numerics's faults on two gloo CPU ranks (the LM of
+    tests/test_torch_transformer_sp.py at dp=1 x sp=2, float64): the
+    diagonal step unmasked, the merge dropped and the dk/dv accumulators
+    kept away from home each move the parameters far past
+    LM_NUM_UPDATE_TOL; a clean run after them equals the one before."""
+    import torch_sp_cases as cases
+    from mxnet_tpu import transformer as jtr
+    from mxnet_tpu_torch import dist
+
+    cfg = dict(vocab_size=64, n_layers=2, d_model=32, n_heads=2, d_ff=64)
+    p0 = jtr.TransformerTrainStep(
+        jtr.TransformerConfig(**cfg, dtype="float64",
+                              param_dtype="float64"), seed=0).params_numpy()
+    spec = dict(cfg=cfg, mesh=(1, 2), p0=p0, steps=2,
+                iter=dict(batch_size=4, seq_len=16, vocab_size=64,
+                          num_sequences=32),
+                step=dict(learning_rate=0.05, bucket_bytes=4096))
+    ranks = dist.launch(cases.ring_fault_cases, 2, (spec,), device="cpu",
+                        threads=1, timeout_s=300)
+    for got in ranks:
+        for k, v in got.items():
+            assert "error" not in v, v
+        clean = got[None]
+        assert all(np.array_equal(clean[k], got["after"][k]) for k in clean)
+        for f in cs.RING_FAULTS:
+            assert cs._update_err(got[f], clean, p0) > \
+                1e2 * cs.LM_NUM_UPDATE_TOL, f
+
+
+def test_the_sp_attention_check_holds_ring_and_ulysses_and_reads_each_fault():
+    """train_lm_sp's attention check (``_sp_attention_check``) on two
+    gloo CPU ranks, float32 at a cut shape: ring and Ulysses within
+    float32 round-off of the plain versions on the full sequence, and
+    each planted ring fault read above the check's limits on some
+    rank."""
+    import torch_sp_cases as cases
+    from mxnet_tpu_torch import dist
+
+    spec = dict(cfg=dict(vocab_size=64, n_layers=1, d_model=32, n_heads=4,
+                         d_ff=64), batch=2, seq=32, sp=2)
+    ranks = dist.launch(cases.sp_attention_check_cases, 2, (spec,),
+                        device="cpu", threads=1, timeout_s=300)
+    limits = (cs.SP_ATTN_FWD_RTOL, cs.BWD_HEAD_RTOL[torch.bfloat16],
+              cs.BWD_AUTOGRAD_RTOL[torch.bfloat16])
+
+    def worst(a):
+        return (a["o"], max(a["grads_from_its_output"].values()),
+                max(a["grads_float32"].values()))
+
+    for got in ranks:
+        for k, v in got.items():
+            assert "error" not in v, v
+        for impl in ("ring", "ulysses"):
+            assert got[impl]["finite"]
+            assert max(worst(got[impl])) <= 1e-5, (impl, got[impl])
+    for f in cs.RING_FAULTS:
+        assert any(e > lim for got in ranks
+                   for e, lim in zip(worst(got[f]), limits)), f

@@ -328,7 +328,17 @@ def test_meshes_never_collapse_and_refuse_what_is_queued(ranks):
     assert got["mesh_too_large"].startswith("ValueError: mesh shape (3,) "
                                             "needs 3 ranks")
     assert got["batch_indivisible"].startswith("ValueError")
-    assert "A6b" in got["sp_axis"]
+    # a dp x sp mesh builds for sequence parallelism (rank r at (0, r),
+    # the whole sequence axis its line, the batch's columns split) and
+    # FusedTrainStep takes dp alone
+    for r in (0, 1):
+        sp = _got(ranks, "contract", r)["sp_axis"]
+        assert sp["shape"] == {"dp": 1, "sp": 2}
+        assert tuple(sp["index"]) == (0, r)
+        assert sp["sp_ranks"] == [0, 1] and sp["dp_ranks"] == [r]
+        np.testing.assert_array_equal(
+            sp["rows"], np.arange(8.0).reshape(4, 2)[:, r:r + 1])
+    assert "mesh axes {'sp': 2} are not taken here" in got["sp_axis_fused"]
     # no process group here: one device, and two devices raise
     assert tmesh.current_device_count() == 1
     assert tmesh.data_parallel_mesh(1).size == 1

@@ -228,12 +228,30 @@ def test_world_size_counts_processes_in_both_packages(ranks, spec):
 
 
 def test_sequence_parallel_mesh_is_refused():
+    """Sequence parallelism is ported (tests/test_torch_transformer_sp.py
+    trains on it): over a one-rank (1, 1) dp x sp mesh the step builds
+    (an sp axis of one rank shards nothing: flash runs, ring raises);
+    what stays refused is flash on an sp axis of more than one rank,
+    and Ulysses whose heads do not divide over sp."""
+    import torch_sp_cases
+
+    out = dist.launch(torch_sp_cases.one_rank_sp, 1, (), device="cpu",
+                      threads=1, timeout_s=300)[0]
+    assert out["shape"] == {"dp": 1, "sp": 1}
+    assert out["impl"] == "flash" and np.isfinite(out["loss"])
+    assert "needs a sequence-parallel mesh axis" in out["ring"]
     devs = np.empty(2, dtype=object)
     devs[:] = ["cpu", "cpu"]
-    mesh = tmesh.Mesh(devs.reshape(1, 2), ("dp", "sp"))
-    with pytest.raises(ValueError, match="ROADMAP A6b"):
+    mesh = tmesh.Mesh(devs.reshape(1, 2), ("dp", "sp"), collective=True)
+    toks = np.zeros((2, 16), np.int64)
+    with pytest.raises(ValueError, match="sequence-sharded"):
         ttr.TransformerTrainStep(ttr.TransformerConfig(**CFG), mesh=mesh,
-                                 device="cpu")
+                                 attn_impl="flash", device="cpu").step(
+            toks, toks)
+    with pytest.raises(ValueError, match="must divide by sp axis size 2"):
+        ttr.TransformerTrainStep(
+            ttr.TransformerConfig(**dict(CFG, n_heads=1)), mesh=mesh,
+            attn_impl="ulysses", device="cpu").attention_impl
     # a dp mesh larger than the process group (none here) raises
     with pytest.raises(ValueError, match="needs 2 ranks"):
         tmesh.data_parallel_mesh(2)

@@ -135,12 +135,22 @@ def _rank_contract(spec):
            "kv_rank": kv.rank, "kv_num_workers": kv.num_workers,
            "rank_info": diagnostics._rank_info(),
            "rows": dp.shard_batch(torch.from_numpy(rows), m).numpy()}
+    # a dp x sp mesh: sequence parallelism builds for the transformer
+    # step, with this rank's coordinates and subgroups; FusedTrainStep
+    # still takes dp alone
+    sp = dp.as_mesh(_mesh.make_mesh((1, 2), ("dp", "sp")), "step",
+                    axes=("dp", "sp"))
+    out["sp_axis"] = {"shape": dict(sp.shape),
+                      "index": (sp.axis_index("dp"), sp.axis_index("sp")),
+                      "sp_ranks": sp.axis_ranks("sp"),
+                      "dp_ranks": sp.axis_ranks("dp"),
+                      "rows": dp.shard_batch(torch.from_numpy(rows), sp,
+                                             seq_axis="sp").numpy()}
     for what, call in (("mesh_too_large",
                         lambda: _mesh.data_parallel_mesh(3)),
                        ("batch_indivisible",
                         lambda: dp.shard_batch(torch.zeros(3, 2), m)),
-                       ("sp_axis", lambda: dp.as_mesh(
-                           _mesh.make_mesh((1, 2), ("dp", "sp")), "step"))):
+                       ("sp_axis_fused", lambda: dp.as_mesh(sp, "step"))):
         try:
             call()
             out[what] = None
@@ -291,3 +301,94 @@ def transformer_cases(spec) -> dict:
         ("from_dp1", lambda s: lm_fit(s, steps=6, zero_stage=1,
                                       resume=d["port_dp1"])),
     ], spec)
+
+
+# ---------------------------------------------------------------------------
+# the multi-context Module (parallel.dp.DataParallelRunner)
+# ---------------------------------------------------------------------------
+def module_sym(mx, kind):
+    """The nets of tests/test_torch_module.py, in either package."""
+    with mx.name.NameManager():
+        x = mx.sym.Variable("data")
+        if kind == "conv_bn":
+            x = mx.sym.Convolution(x, num_filter=4, kernel=(3, 3),
+                                   pad=(1, 1), name="c1")
+            x = mx.sym.BatchNorm(x, fix_gamma=False, name="bn1")
+            x = mx.sym.Activation(x, act_type="relu")
+            x = mx.sym.Pooling(x, kernel=(2, 2), stride=(2, 2),
+                               pool_type="max")
+            x = mx.sym.FullyConnected(mx.sym.Flatten(x), num_hidden=4,
+                                      name="fc")
+        else:
+            x = mx.sym.FullyConnected(x, num_hidden=16, name="fc1")
+            x = mx.sym.Activation(x, act_type="relu")
+            x = mx.sym.FullyConnected(x, num_hidden=4, name="fc2")
+        return mx.sym.SoftmaxOutput(x, name="softmax")
+
+
+def module_fit(spec, kind, contexts=2, kvstore="local", bulk=1,
+               fault=None):
+    """The port's Module over ``contexts`` cpu contexts (the ranks of
+    the group, or collapsed onto one device) from the spec's start
+    parameters, float64, ``fit`` 2 epochs of batch 8; the parameters,
+    aux states and the per-batch training metric."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import convert
+
+    X, y = spec["data"][kind]
+    it = mx.io.NDArrayIter(X, y, batch_size=spec["batch"])
+    ctx = [mx.cpu(i) for i in range(contexts)] if contexts > 1 \
+        else mx.cpu()
+    mod = mx.mod.Module(module_sym(mx, kind), context=ctx)
+    mod.bind(it.provide_data, it.provide_label)
+    ex = mod._exec
+    for d in (ex.arg_dict, ex.aux_dict, ex.grad_dict):
+        for cell in d.values():
+            if cell is not None:
+                cell._data = cell._data.to(torch.float64)
+    args, aux = convert.module_params_from_jax(*spec["start"][kind],
+                                               ctx=mx.cpu())
+    mod.init_params(arg_params=args, aux_params=aux)
+    if fault == "grad_not_reduced" and mod._dp is not None \
+            and mod._dp.mesh.rank == 1:
+        # rank 1 joins every collective but keeps its own gradients
+        reduce = mod._dp.reduce_grads
+
+        def keep_local(grad_dict, names):
+            local = {k: grad_dict[k]._data for k in names
+                     if grad_dict.get(k) is not None}
+            reduce(grad_dict, names)
+            for k, v in local.items():
+                grad_dict[k]._data = v
+
+        mod._dp.reduce_grads = keep_local
+    saved = mx.engine._bulk_size, mx.engine._bulk_explicit
+    mx.engine.set_bulk_size(bulk)
+    try:
+        mod.fit(it, num_epoch=2, kvstore=kvstore, optimizer="sgd",
+                optimizer_params=(("learning_rate", spec["lr"]),
+                                  ("momentum", 0.9), ("wd", 1e-3)))
+    finally:
+        mx.engine._bulk_size, mx.engine._bulk_explicit = saved
+    a, x = mod.get_params()
+    return {"args": {k: v.asnumpy() for k, v in a.items()},
+            "aux": {k: v.asnumpy() for k, v in x.items()},
+            "num_device": mod._num_device,
+            "ranks": 1 if mod._dp is None else mod._dp.num_ranks,
+            "bulk_groups": 0 if mod._bulk_loop is None
+            else mod._bulk_loop.groups}
+
+
+def module_cases(spec) -> dict:
+    """Every rank-side case of tests/test_torch_module_dp.py."""
+    cases = []
+    for kind in ("mlp", "conv_bn"):
+        cases.append((kind, lambda s, k=kind: module_fit(s, k)))
+    for kv in ("tpu", "nccl"):
+        cases.append(("conv_bn_" + kv,
+                      lambda s, v=kv: module_fit(s, "conv_bn", kvstore=v)))
+    cases.append(("conv_bn_bulk2", lambda s: module_fit(s, "conv_bn",
+                                                        bulk=2)))
+    cases.append(("conv_bn_fault", lambda s: module_fit(
+        s, "conv_bn", fault="grad_not_reduced")))
+    return run_cases(cases, spec)
