@@ -19,7 +19,9 @@ CPU and against none, with planted faults), then the LM
 sequence-parallel (ring and Ulysses attention over an sp axis, the
 flash kernels on every step; float32 against the CPU in float64, with
 planted faults) and the multi-context ``Module`` with ``group2ctx``
-placement.
+placement.  After the first ResNet phases it trains ResNet-50 fed from
+records through the input tier (the decode pool and the pinned,
+stream-ordered device stage).
 
     python3 chip_smoke.py
 
@@ -145,6 +147,20 @@ Phases:
            within 1e-4 relative; step 2's loss and the update within 5
            times the distance of the CPU's own float32 run from float64
            (see ``NUMERICS_FP32_FACTOR``)
+  input    the input tier: >= 1024 seeded records (``bench.py:531-538``:
+           256x256x3 JPEG quality 90; raw 224x224x3 HWC payloads where
+           the native library was built without libjpeg: ``codec``),
+           rounded up to whole batches of 128 a worker; the native
+           ``ImageRecordIter`` on one thread (``decode_ips_1thread``),
+           the decode pool at W = min(8, cores - 1) (``pool_ips``), one
+           uint8 batch to the card from pageable, pinned and registered
+           slot memory (``h2d_GBps``); the card's first 4 batches, two
+           pool runs and a stream resumed at batch 3 held bitwise
+           (digests); ResNet-50 v1 bf16 batch 128 through
+           ``FusedTrainStep`` fed by ``InputPipeline`` (3 epochs, the
+           first discarded: ``e2e_ips``, ``feed_efficiency`` over the
+           ``train`` phase's img/s, the idle share of 6 traced steps);
+           cores, W, slot bytes, the size of ``/dev/shm``, ``codec``
   train_lm GPT-2-small width (vocab 32000, 12 layers, d_model 768, 12
            heads, d_ff 3072), bf16 compute over float32 parameters,
            ``TransformerTrainStep`` (SGD lr 0.01 momentum 0.9, remat
@@ -1867,6 +1883,389 @@ def phase_train():
     if not row["bf16_first_loss_rel_err"] <= BF16_LOSS_RTOL:
         raise RuntimeError("train: bf16 first loss %g against float32 %g"
                            % (rows[-1]["first_loss"], f32_loss))
+    return row
+
+
+# ---------------------------------------------------------------------------
+# input: records -> decode pool -> pinned device stage -> ResNet-50 training
+# ---------------------------------------------------------------------------
+# bench.py:531-538 writes 256x256x3 seeded uint8 images as JPEG quality
+# 90; at least INPUT_RECORDS of them, rounded up to whole batches for
+# every decode worker (input_records), so that no step trains on padding
+INPUT_RECORDS = 1024
+INPUT_JPEG_SIDE, INPUT_JPEG_QUALITY = 256, 90
+INPUT_SIDE, INPUT_BATCH = 224, 128
+INPUT_EPOCHS = 3            # the first is discarded
+INPUT_CHECK_BATCHES = 4     # card batches held bitwise to host batches
+INPUT_RESUME_AT = 3         # the resumed stream skips this many batches
+INPUT_H2D_REPS = 10
+INPUT_PROFILE_STEPS = 6     # traced steps for the idle share
+
+
+def input_codec():
+    """(codec, what decided it): ``jpeg`` where the native library
+    decodes JPEG and PIL can write it, else ``raw``: HWC uint8 payloads
+    at the input size, the native pipeline's passthrough (no decode)."""
+    from mxnet_tpu_torch import _native
+
+    try:
+        import PIL
+        pil = PIL.__version__
+    except ImportError:
+        pil = None
+    jpeg = _native.has_jpeg()
+    return ("jpeg" if jpeg and pil else "raw",
+            {"native_jpeg": jpeg, "pil": pil})
+
+
+def input_workers() -> int:
+    """W = min(8, cores - 1), at least 1."""
+    return max(1, min(8, (os.cpu_count() or 1) - 1))
+
+
+def input_records(workers: int) -> int:
+    """INPUT_RECORDS rounded up to a whole number of batches a worker."""
+    per = workers * INPUT_BATCH
+    return per * -(-INPUT_RECORDS // per)
+
+
+def write_input_records(d, codec, n):
+    """``n`` seeded records (numpy seed 0, labels i % 1000) with their
+    ``.idx``: JPEGs as bench.py writes them, or raw HWC uint8 payloads at
+    the input size.  Returns (rec, idx, bytes written)."""
+    from mxnet_tpu_torch import recordio
+
+    rec, idx = os.path.join(d, "input.rec"), os.path.join(d, "input.idx")
+    rng = np.random.RandomState(0)
+    w = recordio.MXIndexedRecordIO(idx, rec, "w")
+    for i in range(n):
+        head = recordio.IRHeader(0, float(i % 1000), i, 0)
+        if codec == "jpeg":
+            img = rng.randint(0, 255, (INPUT_JPEG_SIDE, INPUT_JPEG_SIDE, 3),
+                              dtype=np.uint8)
+            w.write_idx(i, recordio.pack_img(head, img,
+                                             quality=INPUT_JPEG_QUALITY))
+        else:
+            img = rng.randint(0, 255, (INPUT_SIDE, INPUT_SIDE, 3),
+                              dtype=np.uint8)
+            w.write_idx(i, recordio.pack(head, img.tobytes()))
+    w.close()
+    return rec, idx, os.path.getsize(rec)
+
+
+def input_iter_kwargs(rec, idx):
+    return dict(path_imgrec=rec, path_imgidx=idx,
+                data_shape=(3, INPUT_SIDE, INPUT_SIDE),
+                batch_size=INPUT_BATCH, shuffle=True, rand_crop=True,
+                rand_mirror=True, preprocess_threads=1, dtype="uint8",
+                seed=0)
+
+
+def batch_digest(data, label) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in (data, label):
+        t = t._data if hasattr(t, "_data") else t
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _epoch_digests(pipe, limit=None):
+    out = []
+    while limit is None or len(out) < limit:
+        try:
+            b = pipe.next()
+        except StopIteration:
+            break
+        out.append(batch_digest(b.data[0], b.label[0]))
+    return out
+
+
+def host_census():
+    """What else runs on the host as the phase starts: the live threads
+    of this process (but the main one) by name, the child processes,
+    and the load average."""
+    import threading
+
+    me = os.getpid()
+    children = 0
+    for pid in os.listdir("/proc"):
+        try:
+            with open("/proc/%s/stat" % pid) as f:
+                children += int(f.read().rsplit(")", 1)[1].split()[1]) == me
+        except (OSError, ValueError, IndexError):
+            continue
+    names = sorted(t.name for t in threading.enumerate()
+                   if t is not threading.main_thread())
+    return {"threads": names, "child_processes": children,
+            "loadavg_1m": os.getloadavg()[0]}
+
+
+def _h2d_gbps(src, dev, non_blocking):
+    """GB/s of copying ``src`` to ``dev`` at batch granularity: the
+    median of ``INPUT_H2D_REPS`` copies between CUDA events."""
+    times = []
+    for i in range(INPUT_H2D_REPS + 2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        src.to(dev, non_blocking=non_blocking)
+        end.record()
+        end.synchronize()
+        if i >= 2:
+            times.append(start.elapsed_time(end) / 1e3)
+    return src.numel() * src.element_size() / statistics.median(times) / 1e9
+
+
+def input_h2d(pool, dev):
+    """Host-to-device GB/s of one uint8 batch from pageable memory, from
+    pinned memory (the caching host allocator's) and from a registered
+    pool slot, and the ms that ``pin_memory()`` (the ``stage`` mode's
+    host copy) takes for it."""
+    from mxnet_tpu_torch import io_pipeline as iop
+
+    x = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 255, (INPUT_BATCH, 3, INPUT_SIDE, INPUT_SIDE), dtype=np.uint8))
+    t0 = time.perf_counter()
+    for _ in range(INPUT_H2D_REPS):
+        pinned = x.pin_memory()
+    pin_ms = (time.perf_counter() - t0) / INPUT_H2D_REPS * 1e3
+    reg = iop._Registered(pool)
+    try:
+        w, s, m = pool.slot_maps()[0]
+        view = pool._spec.views(m)[0][0]
+        view[...] = x.numpy()
+        slot = torch.from_numpy(view)
+        row = {"bytes": x.numel(),
+               "pageable_GBps": _h2d_gbps(x, dev, False),
+               "pinned_GBps": _h2d_gbps(pinned, dev, True),
+               "registered_slot_GBps": _h2d_gbps(slot, dev, True),
+               "registered_slot_is_pinned": bool(slot.is_pinned()),
+               "pin_memory_copy_ms": pin_ms}
+        del slot, view
+    finally:
+        reg.release()
+    return row
+
+
+def _input_profile(step, pipe, steps, untraced_ms):
+    """``steps`` train steps fed by ``pipe`` under torch.profiler: device
+    busy ms a step (kernels; the copies apart), the idle share against
+    the untraced step time, and the copy engine's ms a batch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            b = pipe.next()
+            loss = step(b.data[0], b.label[0])[0]
+        float(loss.asnumpy())
+        wall = time.perf_counter() - t0
+    events = [(ev.name, ev.device_time_total) for ev in prof.events()
+              if ev.device_type == DeviceType.CUDA
+              and not getattr(ev, "is_user_annotation", False)]
+    busy = sum(us for n, us in events if not n.startswith("Memcpy"))
+    h2d = sum(us for n, us in events if n.startswith("Memcpy HtoD"))
+    busy_ms = busy / 1e3 / steps
+    return {"steps": steps, "traced_wall_ms_per_step": wall * 1e3 / steps,
+            "device_busy_ms_per_step": busy_ms,
+            "idle_share": 1.0 - busy_ms / untraced_ms,
+            "idle_share_traced": 1.0 - busy_ms / (wall * 1e3 / steps),
+            "h2d_device_ms_per_batch": h2d / 1e3 / steps}
+
+
+def _input_e2e(net, w0, fn, workers, profile_steps=0):
+    """ResNet-50 v1 bf16 at batch 128 through ``FusedTrainStep`` fed by
+    ``InputPipeline`` on the card: INPUT_EPOCHS epochs, the first
+    discarded; images/s and the step's ms over the rest, the kernel
+    counts of the path, and with ``profile_steps`` the idle share of
+    that many more steps under the profiler."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import convert, gluon
+    from mxnet_tpu_torch import io_pipeline as iop
+    from mxnet_tpu_torch.parallel.dp import FusedTrainStep
+
+    net.cast("float32")
+    convert.load_block_params(net, w0)
+    step = FusedTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                          learning_rate=TRAIN_LR, momentum=TRAIN_MOMENTUM,
+                          dtype="bfloat16")
+    t_up = time.perf_counter()
+    pipe = iop.InputPipeline(fn, num_workers=workers, device=mx.gpu(0))
+    try:
+        losses, times, images = [], [], []
+        # the path: counts start at 0 here and are read just after
+        _reset_kernel_counts()
+        for epoch in range(INPUT_EPOCHS):
+            pipe.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = 0
+            for b in pipe:
+                loss = step(b.data[0], b.label[0])[0]
+                n += b.data[0].shape[0] - b.pad
+            losses.append(float(loss.asnumpy()))
+            times.append(time.perf_counter() - t0)
+            images.append(n)
+            if epoch == 0:
+                first_s = time.perf_counter() - t_up
+        counts = _kernel_counts()
+        steps = sum(images[1:]) // INPUT_BATCH
+        wall = sum(times[1:])
+        prof = None
+        if profile_steps:
+            pipe.reset()
+            prof = _input_profile(step, pipe, profile_steps,
+                                  wall * 1e3 / steps)
+        return {"pin": pipe.pin_mode, "workers": workers,
+                "e2e_ips": sum(images[1:]) / wall,
+                "step_ms": wall * 1e3 / steps, "epochs": INPUT_EPOCHS,
+                "epoch_s": times, "first_epoch_with_startup_s": first_s,
+                "losses": losses, "kernel_launches": counts,
+                "profile": prof}
+    finally:
+        pipe.close()
+        del step
+
+
+def phase_input(train_row):
+    """The input tier on the card: records written from a seed, the
+    native decode pipeline on one thread, the decode pool at W workers,
+    the host-to-device link, and ResNet-50 bf16 training fed by
+    ``InputPipeline``; the card's batches, a repeated stream and a
+    resumed stream held bitwise."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import io as mio
+    from mxnet_tpu_torch import io_pipeline as iop
+
+    dev = torch.device("cuda", 0)
+    cores = os.cpu_count() or 1
+    workers = input_workers()
+    codec, codec_why = input_codec()
+    census = host_census()
+    stage_s, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        stage_s[name], t_lap[0] = now - t_lap[0], now
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_input_")
+    try:
+        t0 = time.perf_counter()
+        n_rec = input_records(workers)
+        rec, idx, rec_bytes = write_input_records(tmp, codec, n_rec)
+        write_s = time.perf_counter() - t0
+        kw = input_iter_kwargs(rec, idx)
+        fn = iop.make_record_iter_fn(**kw)
+
+        # stage 1: the native pipeline alone, one thread
+        it = mio.ImageRecordIter(**kw)
+        seen = 0
+        t0 = time.perf_counter()
+        for b in it:
+            seen += b.data[0].shape[0] - b.pad
+        decode_ips = seen / (time.perf_counter() - t0)
+        del it
+        lap("write_and_decode")
+
+        # stage 2: the pool at W workers, host side (epochs 2 and 3)
+        pool = iop.ShardedDecodePool(fn, num_workers=workers)
+        try:
+            t_up = time.perf_counter()
+            seen = 0
+            for epoch in range(3):
+                pool.reset()
+                if epoch == 1:
+                    t0, seen = time.perf_counter(), 0
+                while True:
+                    try:
+                        hb = pool.next_host()
+                    except StopIteration:
+                        break
+                    seen += INPUT_BATCH - hb.pad
+                    pool.recycle(hb)
+                if epoch == 0:
+                    pool_first_s = time.perf_counter() - t_up
+            pool_ips = seen / (time.perf_counter() - t0)
+            slot_bytes = pool.slot_nbytes
+            slots = pool.slots_per_worker
+            start_method = pool.start_method
+            # stage 3: the link at batch granularity
+            h2d = input_h2d(pool, dev)
+        finally:
+            pool.close()
+        shm = shutil.disk_usage(iop._shm_dir())
+        lap("pool_and_h2d")
+
+        # the data, bitwise: the card's first batches against the host
+        # stream; two runs of the pool; a stream resumed mid-epoch
+        with iop.InputPipeline(fn, num_workers=workers,
+                               device=False) as host:
+            run_a = _epoch_digests(host)
+        with iop.InputPipeline(fn, num_workers=workers,
+                               device=mx.gpu(0)) as card:
+            card_first = _epoch_digests(card, INPUT_CHECK_BATCHES)
+        # resumed as a fresh process would: the same epoch (the native
+        # iterator reshuffles and redraws its crops every epoch)
+        with iop.InputPipeline(fn, num_workers=workers,
+                               device=mx.gpu(0)) as card:
+            card.skip_batches(INPUT_RESUME_AT)
+            resumed = _epoch_digests(card)
+            card_cursor = card.cursor
+        with iop.InputPipeline(fn, num_workers=workers,
+                               device=False) as host:
+            run_b = _epoch_digests(host)
+        checks = {
+            "card_batches_equal_host": card_first ==
+            run_a[:INPUT_CHECK_BATCHES],
+            "pool_stream_repeats": run_a == run_b,
+            "resumed_stream_equal": resumed == run_a[INPUT_RESUME_AT:],
+            "resumed_cursor": card_cursor == len(run_a) * INPUT_BATCH}
+        lap("checks")
+
+        # stage 4: end to end
+        net = resnet50(mx.gpu(0))
+        w0 = {k: p.data().asnumpy()
+              for k, p in net.collect_params().items()}
+        lap("build_net")
+        main_run = _input_e2e(net, w0, fn, workers, INPUT_PROFILE_STEPS)
+        lap("e2e")
+        del net
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    synthetic = next(r["images_per_s"] for r in train_row["runs"]
+                     if r["batch"] == INPUT_BATCH)
+    row = {"phase": "input", "codec": codec, **codec_why, "cores": cores,
+           "workers": workers, "start_method": start_method,
+           "records": n_rec, "record_bytes": rec_bytes,
+           "image": (INPUT_JPEG_SIDE if codec == "jpeg" else INPUT_SIDE),
+           "jpeg_quality": INPUT_JPEG_QUALITY if codec == "jpeg" else None,
+           "write_s": write_s, "batch": INPUT_BATCH,
+           "slot_bytes": slot_bytes, "slots_per_worker": slots,
+           "pool_mapped_bytes": slot_bytes * slots * workers,
+           "dev_shm_bytes": shm.total, "dev_shm_free_bytes": shm.free,
+           "decode_ips_1thread": decode_ips, "pool_ips": pool_ips,
+           "pool_first_epoch_with_startup_s": pool_first_s,
+           "h2d": h2d, "h2d_GBps": {"pageable": h2d["pageable_GBps"],
+                                    "pinned": h2d["pinned_GBps"]},
+           "e2e_ips": main_run["e2e_ips"],
+           "train_synthetic_ips": synthetic,
+           "feed_efficiency": main_run["e2e_ips"] / synthetic,
+           "idle_share": main_run["profile"]["idle_share"],
+           "pin_mode": main_run["pin"], "e2e": main_run,
+           "checks": checks, "stage_s": stage_s, "host": census,
+           "kernel_launches": main_run["kernel_launches"]}
+    emit(row)
+    if not all(checks.values()):
+        raise RuntimeError("input: a stream check failed: %r" % checks)
+    if not h2d["registered_slot_is_pinned"]:
+        raise RuntimeError("input: the registered slot is not page-locked")
+    if not np.isfinite(main_run["losses"]).all():
+        raise RuntimeError("input: a loss is not finite: %r" % main_run)
     return row
 
 
@@ -4658,6 +5057,7 @@ def main() -> int:
     ndrow = phase_ndarray()
     train = phase_train()
     phase_train_numerics()
+    inp = phase_input(train)
     lm = phase_train_lm()
     phase_train_lm_numerics()
     fit = phase_fit()
@@ -4690,6 +5090,7 @@ def main() -> int:
                      "memory_remat": memory["kernel_launches"],
                      "large_batch_remat": large["kernel_launches"],
                      "remat_numerics": remat_num["kernel_launches"]}
+    inp_counts = inp["kernel_launches"]
     main_row, bwd_row = rows[0], bwd_rows[0]
     add_row = next(r for r in add_rows if "kernel_ms" in r)
     kernels = [{
@@ -4719,7 +5120,8 @@ def main() -> int:
                              **{k: v["flash_attention_fwd"]
                                 for k, v in sp_num_counts.items()},
                              **{k: v["flash_attention_fwd"]
-                                for k, v in memory_counts.items()}},
+                                for k, v in memory_counts.items()},
+                             "input": inp_counts["flash_attention_fwd"]},
         "max_abs_err": max(r["max_err"] for r in rows),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -4762,7 +5164,8 @@ def main() -> int:
                              **{k: v["flash_attention_bwd"]
                                 for k, v in sp_num_counts.items()},
                              **{k: v["flash_attention_bwd"]
-                                for k, v in memory_counts.items()}},
+                                for k, v in memory_counts.items()},
+                             "input": inp_counts["flash_attention_bwd"]},
         "max_abs_err": max(r["max_err"] for r in bwd_rows),
         "ms": bwd_row["kernel_ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
@@ -4782,7 +5185,8 @@ def main() -> int:
                              "dp": dp_counts["rtc_add"],
                              "train_lm_dp": lm_dp_counts["rtc_add"],
                              **{k: v["rtc_add"]
-                                for k, v in memory_counts.items()}},
+                                for k, v in memory_counts.items()},
+                             "input": inp_counts["rtc_add"]},
         "max_abs_err": max(r["max_err"] for r in add_rows),
         "ms": add_row["kernel_ms"], "plain_ms": add_row["plain_ms"],
         "bound_ms": add_row["bound_ms"], "bound_by": add_row["bound_by"],

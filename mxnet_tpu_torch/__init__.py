@@ -36,11 +36,17 @@ Ported so far:
   ``BucketingModule``, ``SequentialModule``, ``PythonModule``),
   ``metric``, ``lr_scheduler``, ``callback``, ``monitor``, ``model``
   (checkpoints, ``FeedForward``), the ``io`` iterators, and Gluon's
-  ``HybridBlock.export`` / ``SymbolBlock``.
+  ``HybridBlock.export`` / ``SymbolBlock``;
+* the input tier — ``recordio``, ``io.ImageRecordIter`` /
+  ``ImageDetRecordIter`` on the native decode pipeline (``_native``,
+  host C++ built by ``g++`` at first use), ``io_pipeline`` (the sharded
+  decode pool and the pinned, stream-ordered device stage), ``image``
+  and ``gluon.data``.
 """
 from . import base, context, convert, env, parallel, serving, transformer
 from . import autograd, engine, ndarray, rtc
 from . import io, remat
+from . import recordio, image, io_pipeline
 from . import ndarray as nd
 from . import random
 from . import initializer
@@ -64,7 +70,7 @@ from .ndarray import NDArray
 rnd = random
 
 __all__ = ["convert", "env", "parallel", "serving", "transformer", "io",
-           "remat", "nd",
+           "remat", "recordio", "image", "io_pipeline", "nd",
            "ndarray", "autograd", "engine", "rtc", "base", "context",
            "random", "initializer", "init", "optimizer", "kvstore", "kv",
            "gluon", "name", "attribute", "symbol", "sym", "executor",

@@ -35,6 +35,11 @@ injects:
     mid-run, like a preemption that did not say goodbye.  Match keys:
     ``step``, ``rank``, ``nth``, ``count``.
 
+  * ``slow_decode``       — sleep ``ms`` (default 100) in the matching
+    decode-pool worker after it decodes a batch (``io_pipeline``): a
+    seeded straggler the pool absorbs as degraded throughput, never a
+    deadlock.  Match keys: ``worker``, ``nth``, ``count``, ``ms``.
+
 The other training-side kinds of the JAX package (drop_push, nan_grad,
 corrupt_shard, bitflip_param, ...) parse here too but nothing in the
 port injects them yet (``bitflip_param`` waits for the SDC defense,
@@ -53,6 +58,7 @@ __all__ = ["Rule", "parse_spec", "rules", "enabled", "fault",
            "maybe_slow_request", "should_fail_execute",
            "should_cancel_request", "maybe_stall_decode_tick",
            "should_fail_version", "maybe_delay", "should_kill",
+           "maybe_slow_decode",
            "KILL_EXIT_CODE", "injected_total", "reset"]
 
 _log = logging.getLogger(__name__)
@@ -283,6 +289,19 @@ def maybe_stall_decode_tick(model: str, **ctx) -> Optional[dict]:
     ms = float(r.params.get("ms", 50.0))
     time.sleep(ms / 1e3)
     return {"kind": "stall_decode_tick", "ms": ms}
+
+
+def maybe_slow_decode(worker: int, **ctx) -> Optional[dict]:
+    """slow_decode hook (an io_pipeline decode worker, after it decoded
+    one batch): sleep ms when a rule matches this worker.  Runs inside
+    the worker process (rules parsed there from the inherited
+    MXNET_CHAOS).  Returns ``{"kind", "ms"}`` when it fired."""
+    r = fault("slow_decode", worker=worker, **ctx)
+    if r is None:
+        return None
+    ms = float(r.params.get("ms", 100.0))
+    time.sleep(ms / 1e3)
+    return {"kind": "slow_decode", "ms": ms}
 
 
 def should_fail_execute(model: str, **ctx) -> bool:

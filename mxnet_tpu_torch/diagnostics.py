@@ -8,7 +8,10 @@ Counterpart: ``mxnet_tpu/diagnostics.py``, the subset serving uses —
 dashboard reads either package), :func:`validate_prom_text`, the
 preemption and dump hooks, :func:`touch_heartbeat`, ``EXIT_PREEMPTED``,
 and for training :class:`DivergenceGuard`, :func:`loss_signal` and the
-``mxnet_transformer_tokens_per_second`` gauge.  The guard always
+``mxnet_transformer_tokens_per_second`` gauge; for the input tier
+the io feeds (``feed_io_bytes``, ``feed_io_queue_depth``,
+``feed_io_decode_seconds``, ``feed_io_worker_death``) under the JAX
+package's metric names.  The guard always
 raises: its supervised exit (84) comes with the elastic supervisor
 (ROADMAP A11).  The collective flight
 recorder is not ported (the port has no collectives yet), so the
@@ -36,6 +39,8 @@ __all__ = [
     "run_dump_hooks", "install_signal_handlers",
     "touch_heartbeat", "DivergenceError",
     "DivergenceGuard", "tokens_per_second_gauge",
+    "feed_io_bytes", "feed_io_queue_depth", "feed_io_decode_seconds",
+    "feed_io_worker_death",
 ]
 
 _log = logging.getLogger(__name__)
@@ -704,3 +709,56 @@ class DivergenceGuard:
             "loss diverged at step %s (window %d, factor %.2f); restore "
             "from the last verified checkpoint" % (step, self.window,
                                                     self.factor))
+
+
+# ---------------------------------------------------------------------------
+# the input tier's feeds (io.py, io_pipeline.py); guarded so telemetry
+# never fails the input pipeline
+# ---------------------------------------------------------------------------
+def feed_io_bytes(nbytes: int) -> None:
+    """Cumulative ``mxnet_io_bytes_total``: bytes the iterators'
+    fetch path materialized."""
+    try:
+        metrics.counter("mxnet_io_bytes_total",
+                        help="host bytes materialized by the "
+                             "input pipeline").inc(int(nbytes))
+    except Exception:
+        pass
+
+
+def feed_io_queue_depth(depth: int) -> None:
+    """``mxnet_io_queue_depth``: batches on the card waiting ahead of
+    the consumer (the device stage's queue).  Persistently 0 while the
+    step is input-bound means the decode pool is the bottleneck;
+    persistently full means the card is."""
+    try:
+        metrics.gauge("mxnet_io_queue_depth",
+                      help="input-pipeline prefetch queue depth "
+                           "(batches ready ahead of the consumer)"
+                      ).set(int(depth))
+    except Exception:
+        pass
+
+
+def feed_io_decode_seconds(seconds: float) -> None:
+    """``mxnet_io_decode_seconds``: one decode-pool worker's wall time
+    for one batch (shipped with the batch's slot message)."""
+    try:
+        metrics.histogram("mxnet_io_decode_seconds",
+                          help="per-batch decode wall time in the "
+                               "input-pipeline worker pool"
+                          ).observe(float(seconds))
+    except Exception:
+        pass
+
+
+def feed_io_worker_death() -> None:
+    """``mxnet_io_worker_deaths_total``: decode workers that died and
+    whose shard the parent adopted inline."""
+    try:
+        metrics.counter("mxnet_io_worker_deaths_total",
+                        help="decode-pool workers that died "
+                             "(shard adopted inline by the parent)"
+                        ).inc()
+    except Exception:
+        pass

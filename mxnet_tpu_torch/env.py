@@ -261,3 +261,26 @@ register("MXNET_GRAD_ACCUM_STEPS", "int", 1,
          "per-device batch splits into this many microbatches whose "
          "gradients are summed before ONE exchange and update; it must "
          "divide the batch.")
+
+# image/image.py
+register("MXNET_CPU_WORKER_NTHREADS", "int", 1,
+         "Decode worker threads for ImageIter augmentation.")
+
+# io_pipeline.py — the sharded multi-process decode pool and the
+# asynchronous device stage
+register("MXNET_IO_WORKERS", "int", 0,
+         "Decode-pool worker processes for io_pipeline.InputPipeline; "
+         "0 means cpu_count-1 (min 1).  Each worker owns a disjoint "
+         "num_parts/part_index record slice.")
+register("MXNET_IO_PREFETCH_DEPTH", "int", 2,
+         "Device-prefetch depth: how many batches the device stage keeps "
+         "copied ahead of the consumer (2 = double buffering: batch k+1 "
+         "crosses to the card while k computes).")
+register("MXNET_IO_POOL_SLOTS", "int", 4,
+         "Shared-memory batch slots per decode worker; bounds how far "
+         "a worker can run ahead of the consumer (backpressure).")
+register("MXNET_IO_START_METHOD", "str", None,
+         "Decode-pool start method: 'fork' or 'spawn'.  Unset picks "
+         "fork when the backing iterator has the host-only next_raw "
+         "contract (workers never touch torch or CUDA, so forking a "
+         "parent that holds a CUDA context is safe), spawn otherwise.")

@@ -1,8 +1,8 @@
 """Gluon — the imperative NN API.
 
 Counterpart: ``mxnet_tpu/gluon/__init__.py``.  Ported: parameters,
-blocks, ``nn`` layers, losses, ``Trainer`` and the ResNet zoo.
-``gluon.rnn``, ``gluon.data`` and ``gluon.utils`` are queued (ROADMAP
+blocks, ``nn`` layers, losses, ``Trainer``, the ResNet zoo and
+``gluon.data``.  ``gluon.rnn`` and ``gluon.utils`` are queued (ROADMAP
 A12).
 """
 from .parameter import (Parameter, Constant, ParameterDict,
@@ -12,3 +12,4 @@ from .trainer import Trainer
 from . import nn
 from . import loss
 from . import model_zoo
+from . import data

@@ -1,0 +1,7 @@
+"""Vision data.
+
+Counterpart: ``mxnet_tpu/gluon/data/vision/``.
+"""
+from .datasets import (MNIST, FashionMNIST, CIFAR10, CIFAR100,
+                       ImageRecordDataset, ImageFolderDataset)
+from . import transforms
