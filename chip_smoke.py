@@ -19,7 +19,9 @@ CPU and against none, with planted faults), then the LM
 sequence-parallel (ring and Ulysses attention over an sp axis, the
 flash kernels on every step; float32 against the CPU in float64, with
 planted faults) and the multi-context ``Module`` with ``group2ctx``
-placement.  After the first ResNet phases it trains ResNet-50 fed from
+placement, then ResNet-50 tensor-parallel over a dp x mp mesh and over
+the parameter server (``dist_sync``, 2-bit compression), each held
+against one device in float64 with planted faults.  After the first ResNet phases it trains ResNet-50 fed from
 records through the input tier (the decode pool and the pinned,
 stream-ordered device stage).
 
@@ -266,6 +268,34 @@ Phases:
            rank's gradient left unreduced above the limit; group2ctx
            placement (a group on the host, one on the card) against the
            unplaced run, across two cards where there are two
+  tp       ResNet-50 v1 bf16 at batch 128, 224^2, tensor-parallel over
+           a dp=1 x mp=2 mesh (two gloo ranks on cuda:0): the classifier
+           and every conv of >= 256 output channels over mp
+           (``__graft_entry__.py:136-149``'s rule); img/s and step ms
+           (two ranks share the card: not comparable with ``train``),
+           the parameter + momenta bytes a rank against the replicated
+           step's, the mp collectives a step by verb
+  tp_numerics
+           a float64 conv net with BatchNorm (a column-parallel conv
+           with its bias, a column- and a row-parallel Dense, parameters
+           gathered on use) at dp=1 x mp=2 and dp=2 x mp=2 on cuda:0
+           against the one-device step at the global batch: 1e-10 of
+           the update, aux included; two planted faults above it (the
+           input gradient's mp all-reduce skipped, a shard's gradient
+           not reduced over dp); a global read = the one-device values
+  dist     a loopback parameter-server cluster from the port's launcher
+           (2 workers on cuda:0, 1 server): ResNet-50 v1 bf16 at batch
+           32 a worker through gluon.Trainer over dist_sync with the
+           server's SGD, img/s a worker, step ms, push and pull bytes a
+           step from the counters, seconds a step in push, pull and on
+           the server; again under MXNET_GRADIENT_COMPRESSION=2bit (the
+           push bytes are the 2-bit codes, the pull bytes dense)
+  dist_numerics
+           a float64 conv net: 2 workers x batch 8 over dist_sync
+           against one process at batch 16 under local (1e-10 of the
+           update); a worker's push dropped from a round above it; the
+           card's 2-bit codes and residuals = the host's byte for byte
+           over steps; dist_async applies every push once
   kernels  every kernel and its status
 """
 from __future__ import annotations
@@ -3114,7 +3144,7 @@ def phase_export():
 # DP["rounds"] windows taken in turns (a window: DP["warmup"] steps,
 # then DP["steps"] timed), so that drift of the host or the card's
 # clocks falls on every variant alike
-DP = dict(batch=128, warmup=2, steps=5, rounds=3, profile_steps=2)
+DP = dict(batch=128, warmup=2, steps=5, rounds=2, profile_steps=2)
 DP_VARIANTS = (("one_device", None), ("bucketed", {}),
                ("zero1", {"zero_stage": 1}),
                ("monolithic", {"bucket_bytes": 0}))
@@ -5034,6 +5064,622 @@ def phase_module_dp_numerics():
     return row
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism (parallel/tensor.py) and the parameter server
+# ---------------------------------------------------------------------------
+TP = dict(batch=128, warmup=1, steps=2, mp=2)
+TP_NUM = dict(batch=4, image=8, classes=5, steps=2, lr=0.1, momentum=0.9,
+              wd=1e-4)
+TP_NUM_TOL = 1e-10
+TP_FAULTS = ("input_grad_not_reduced", "shard_grad_not_reduced")
+
+
+def tp_resnet_spec(P, mp=TP["mp"]):
+    """``__graft_entry__.py:136-149``'s spec at ResNet-50 widths: the
+    classifier's weight and bias over ``mp`` by class, every conv weight
+    of at least 256 output channels over ``mp`` by output channel."""
+    def spec(name, shape):
+        if name.endswith("dense0_weight") and shape[0] % mp == 0:
+            return P("mp", None)
+        if name.endswith("dense0_bias") and shape[0] % mp == 0:
+            return P("mp")
+        if name.endswith("weight") and len(shape) == 4 and \
+                shape[0] >= 256 and shape[0] % mp == 0:
+            return P("mp", None, None, None)
+        return None
+    return spec
+
+
+def tp_net(pkg, prefix="tp_"):
+    """The tensor-parallel numerics net (either package): a conv with a
+    bias, BatchNorm, a conv without one, BatchNorm, global pooling and
+    two Dense layers."""
+    nn = pkg.gluon.nn
+    net = nn.HybridSequential(prefix=prefix)
+    with net.name_scope():
+        net.add(nn.Conv2D(8, 3, padding=1), nn.BatchNorm(),
+                nn.Activation("relu"),
+                nn.Conv2D(6, 3, padding=1, use_bias=False), nn.BatchNorm(),
+                nn.Activation("relu"), nn.GlobalAvgPool2D(),
+                nn.Dense(8), nn.Activation("relu"), nn.Dense(5))
+    return net
+
+
+def tp_spec(P):
+    """``tp_net``'s spec over ``mp``: column-parallel ``conv2d0`` (its
+    bias with it) and ``dense0``, row-parallel ``dense1``, and gathered
+    on use: ``conv2d1``'s weight over its input channels (a short spec),
+    BatchNorm's gamma and running mean."""
+    table = (("conv2d0_weight", P("mp", None, None, None)),
+             ("conv2d0_bias", P("mp")),
+             ("conv2d1_weight", P(None, "mp")),
+             ("batchnorm0_gamma", P("mp")),
+             ("batchnorm0_running_mean", P("mp")),
+             ("dense0_weight", P("mp", None)),
+             ("dense0_bias", P("mp")),
+             ("dense1_weight", P(None, "mp")))
+
+    def spec(name, shape):
+        for suffix, sp in table:
+            if name.endswith(suffix):
+                return sp
+        return None
+    return spec
+
+
+def _global_bytes(step) -> int:
+    """Parameter bytes of the replicated step (every cell in full),
+    read from the global shapes (no gather)."""
+    return sum(int(np.prod(p.data().shape)) * step._value(i).element_size()
+               for i, p in enumerate(step._cells))
+
+
+def _tp_rank():
+    """One rank of ``tp``: warm-up, then timed steps, one of them with
+    its collectives counted."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import dist, gluon
+    from mxnet_tpu_torch.parallel import tensor
+    from mxnet_tpu_torch.parallel.dp import FusedTrainStep
+    from mxnet_tpu_torch.parallel.mesh import make_mesh
+
+    _rank_setup()
+    mesh = make_mesh((1, TP["mp"]), ("dp", "mp"))
+    ctx = mx.gpu(dist.device().index)
+    net = resnet50(ctx)
+    data, label = train_batch(TP["batch"], ctx)
+    step = FusedTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                          mesh=mesh, learning_rate=TRAIN_LR,
+                          momentum=TRAIN_MOMENTUM, dtype="bfloat16",
+                          param_spec_fn=tp_resnet_spec(tensor.P))
+    torch.cuda.reset_peak_memory_stats()
+    warm = step.run_steps(data, label, steps=TP["warmup"]).asnumpy()
+    with _CollectiveCount() as count:
+        step.run_steps(data, label, steps=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = step.run_steps(data, label, steps=TP["steps"]).asnumpy()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TP["steps"] * 1e3
+    full = _global_bytes(step)
+    return {"step_ms": step_ms,
+            "images_per_s": TP["batch"] / step_ms * 1e3,
+            "first_loss": float(warm[0]), "last_loss": float(losses[-1]),
+            "sharded_params": len(step._layouts),
+            "modes": sorted({lay.mode for lay in step._layouts.values()}),
+            "param_bytes": step.param_bytes_per_rank(),
+            "momenta_bytes": step.optimizer_state_bytes_per_rank(),
+            "replicated_param_bytes": full,
+            "replicated_momenta_bytes": full,
+            "collectives_per_step": count.calls,
+            "kernel_launches": _kernel_counts(),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_tp():
+    """ResNet-50 v1 bf16 tensor-parallel over dp=1 x mp=2 on two gloo
+    ranks sharing cuda:0 (see TP)."""
+    from mxnet_tpu_torch import dist
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = dist.launch(_tp_rank, TP["mp"], (), backend="gloo",
+                        device="cuda:0", timeout_s=600)
+    r0 = ranks[0]
+    state = r0["param_bytes"] + r0["momenta_bytes"]
+    rep = r0["replicated_param_bytes"] + r0["replicated_momenta_bytes"]
+    row = {"phase": "tp", "model": "resnet50_v1", "dtype": "bfloat16",
+           "mesh": {"dp": 1, "mp": TP["mp"]},
+           "backend": "gloo, %d ranks sharing cuda:0" % TP["mp"],
+           "batch": TP["batch"], "image": 224,
+           "spec": "__graft_entry__.py:136-149 at ResNet-50 widths",
+           "ranks": ranks, "state_bytes_per_rank": state,
+           "replicated_state_bytes": rep,
+           "state_ratio": state / rep,
+           "images_per_s": r0["images_per_s"], "step_ms": r0["step_ms"],
+           "wall_s": time.perf_counter() - t0}
+    emit(row)
+    for r in ranks:
+        if not (np.isfinite(r["first_loss"]) and np.isfinite(r["last_loss"])):
+            raise RuntimeError("tp: a loss is not finite: %r" % (r,))
+        if not (r["param_bytes"] < r["replicated_param_bytes"] and
+                r["collectives_per_step"].get("all_gather_into_tensor")):
+            raise RuntimeError("tp: the step did not shard: %r" % (r,))
+    if ranks[0]["last_loss"] != ranks[1]["last_loss"]:
+        raise RuntimeError("tp: the mp ranks' losses differ")
+    return row
+
+
+def _tp_num_rank(w0, data, label, shape, faults):
+    """One rank of ``tp_numerics`` on ``shape`` (dp, mp): the clean run,
+    then each planted fault (set on every rank, so the collectives stay
+    paired); the parameters of each (a global read)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import convert, dist, gluon
+    from mxnet_tpu_torch.parallel import tensor
+    from mxnet_tpu_torch.parallel.dp import FusedTrainStep
+    from mxnet_tpu_torch.parallel.mesh import make_mesh
+
+    _rank_setup()
+    torch.backends.cudnn.deterministic = True
+    mesh = make_mesh(shape, ("dp", "mp"))
+    ctx = mx.gpu(dist.device().index)
+    out = {}
+    for fault in (None,) + tuple(faults):
+        net = tp_net(mx)
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        with mx.autograd.pause():
+            net(mx.nd.zeros((2,) + data.shape[2:], ctx=ctx))
+        convert.load_block_params(net, w0)
+        step = FusedTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                              mesh=mesh, learning_rate=TP_NUM["lr"],
+                              momentum=TP_NUM["momentum"],
+                              weight_decay=TP_NUM["wd"], dtype="float64",
+                              param_spec_fn=tp_spec(tensor.P))
+        if fault:
+            tensor.FAULTS.add(fault)
+        try:
+            losses = step.run_steps(mx.nd.array(data, ctx=ctx),
+                                    mx.nd.array(label, ctx=ctx)).asnumpy()
+        finally:
+            tensor.FAULTS.discard(fault)
+        out[fault or "clean"] = {
+            "losses": losses.tolist(),
+            "params": {k: p.data().asnumpy()
+                       for k, p in net.collect_params().items()},
+            "param_bytes": step.param_bytes_per_rank(),
+            "sharded": len(step._layouts)}
+    return out
+
+
+def phase_tp_numerics():
+    """The float64 tensor-parallel net on cuda:0 at dp=1 x mp=2 and
+    dp=2 x mp=2 against the one-device step at the global batch."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import convert, dist, gluon
+    from mxnet_tpu_torch.parallel.dp import FusedTrainStep
+
+    rng = np.random.RandomState(5)
+    gb = TP_NUM["batch"] * 2
+    data = rng.uniform(-1, 1, (TP_NUM["steps"], gb, 3, TP_NUM["image"],
+                               TP_NUM["image"]))
+    label = rng.randint(0, TP_NUM["classes"],
+                        (TP_NUM["steps"], gb)).astype(np.float64)
+    ctx = mx.gpu(0)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        np.random.seed(0)
+        net = tp_net(mx)
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        with mx.autograd.pause():
+            net(mx.nd.zeros((2,) + data.shape[2:], ctx=ctx))
+        # float32 values (exact in float64): the step casts at build
+        w0 = {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+        step = FusedTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                              learning_rate=TP_NUM["lr"],
+                              momentum=TP_NUM["momentum"],
+                              weight_decay=TP_NUM["wd"], dtype="float64")
+        ref = step.run_steps(mx.nd.array(data, ctx=ctx),
+                             mx.nd.array(label, ctx=ctx)).asnumpy()
+        ref_p = {k: p.data().asnumpy()
+                 for k, p in net.collect_params().items()}
+    finally:
+        torch.backends.cudnn.deterministic = det
+    row = {"phase": "tp_numerics", "net": "tp_net (2 conv + BN, 2 Dense)",
+           "dtype": "float64", "global_batch": gb, "cut": TP_NUM,
+           "tol": TP_NUM_TOL,
+           "reference": "one device on the card, float64, global batch",
+           "reference_losses": ref.tolist()}
+    t0 = time.perf_counter()
+    for shape in ((1, 2), (2, 2)):
+        faults = TP_FAULTS if shape[0] > 1 else TP_FAULTS[:1]
+        ranks = dist.launch(_tp_num_rank, shape[0] * shape[1],
+                            (w0, data, label, shape, faults),
+                            backend="gloo", device="cuda:0", timeout_s=300)
+        tag = "dp%d_mp%d" % shape
+        good = [_update_err(r["clean"]["params"], ref_p, w0) for r in ranks]
+        loss = max(float(np.abs(np.array(r["clean"]["losses"]) - ref).max()
+                         / np.abs(ref).max()) for r in ranks)
+        fault = {f: max(_update_err(r[f]["params"], ref_p, w0)
+                        for r in ranks) for f in faults}
+        row[tag] = {"update_err": max(good), "loss_rel_err": loss,
+                    "fault_update_err": fault,
+                    "sharded_params": ranks[0]["clean"]["sharded"],
+                    "param_bytes_per_rank": ranks[0]["clean"]["param_bytes"],
+                    "full_param_bytes": int(sum(v.nbytes
+                                                for v in ref_p.values()))}
+    row["wall_s"] = time.perf_counter() - t0
+    emit(row)
+    for tag in ("dp1_mp2", "dp2_mp2"):
+        r = row[tag]
+        if not (r["update_err"] <= TP_NUM_TOL and
+                r["loss_rel_err"] <= TP_NUM_TOL):
+            raise RuntimeError("tp_numerics: %s is off the one-device "
+                               "float64 trajectory: %r" % (tag, r))
+        if not min(r["fault_update_err"].values()) > TP_NUM_TOL:
+            raise RuntimeError("tp_numerics: %s cannot tell a planted "
+                               "fault from the reference: %r" % (tag, r))
+        if not r["param_bytes_per_rank"] < r["full_param_bytes"]:
+            raise RuntimeError("tp_numerics: %s holds every parameter in "
+                               "full" % tag)
+    return row
+
+
+DIST = dict(batch=32, warmup=1, steps=2, workers=2, servers=1)
+DIST_NUM = dict(batch=8, image=8, classes=10, steps=3, lr=0.125,
+                momentum=0.9, wd=1e-3, async_pushes=5)
+DIST_NUM_TOL = 1e-10
+
+
+def _ps_cluster(kind, out_dir, env=None, timeout_s=600):
+    """A loopback cluster from the port's launcher: DIST's workers run
+    this script's ``--ps-worker`` mode for ``kind`` on cuda:0, each
+    writing ``rank{r}.json`` (and arrays) into ``out_dir``; raises unless
+    every worker exits 0.  Returns the workers' results."""
+    from mxnet_tpu_torch.launch import launch_local
+
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--ps-worker",
+           kind, str(out_dir)]
+    e = {"OMP_NUM_THREADS": "2"}
+    e.update(env or {})
+    codes = launch_local(DIST["workers"], DIST["servers"], cmd, env=e,
+                         grace_s=5.0)
+    if codes != [0] * DIST["workers"]:
+        raise RuntimeError("%s: the PS workers exited %r" % (kind, codes))
+    out = []
+    for r in range(DIST["workers"]):
+        with open(Path(out_dir) / ("rank%d.json" % r)) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _ps_dist_worker(kv, out_dir):
+    """A ``dist`` worker: ResNet-50 bf16 at DIST's batch through
+    gluon.Trainer over the store with the server's SGD (rescale
+    1/(batch x workers)); each step's push, pull and server seconds and
+    bytes."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, diagnostics, gluon
+
+    ctx = mx.gpu(0)
+    nw, b = kv.num_workers, DIST["batch"]
+    net = resnet50(ctx, seed=0)
+    net.cast("bfloat16")
+    data, label = train_batch(b * nw, ctx)
+    data = data[kv.rank * b:(kv.rank + 1) * b].astype("bfloat16")
+    label = label[kv.rank * b:(kv.rank + 1) * b]
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": TRAIN_LR,
+                             "momentum": TRAIN_MOMENTUM,
+                             "rescale_grad": 1.0 / (b * nw)}, kvstore=kv)
+    trainer._init_kvstore()
+    ctr = {op: diagnostics.metrics.counter("mxnet_kvstore_bytes_total",
+                                           labels={"op": op})
+           for op in ("push", "pull")}
+    rows = []
+    for i in range(DIST["warmup"] + DIST["steps"]):
+        kv.barrier()
+        before = {op: c.value for op, c in ctr.items()}
+        srv0 = sum(s["apply_s"] for s in kv.server_stats())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with autograd.record():
+            loss = loss_fn(net(data), label)
+        loss.backward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer._allreduce_grads()
+        t2 = time.perf_counter()
+        trainer._update()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        srv1 = sum(s["apply_s"] for s in kv.server_stats())
+        rows.append({"step_ms": (t3 - t0) * 1e3,
+                     "compute_ms": (t1 - t0) * 1e3,
+                     "push_s": t2 - t1, "pull_s": t3 - t2,
+                     "server_s": srv1 - srv0,
+                     "push_bytes": ctr["push"].value - before["push"],
+                     "pull_bytes": ctr["pull"].value - before["pull"],
+                     "loss": float(loss.mean().asscalar())})
+    timed = rows[DIST["warmup"]:]
+    n_elems = [int(np.prod(p.data().shape))
+               for p in net.collect_params().values()
+               if p.grad_req != "null"]
+    return {"steps": rows,
+            "step_ms": statistics.median(r["step_ms"] for r in timed),
+            "images_per_s_per_worker":
+                b / statistics.median(r["step_ms"] for r in timed) * 1e3,
+            "push_s": statistics.median(r["push_s"] for r in timed),
+            "pull_s": statistics.median(r["pull_s"] for r in timed),
+            "server_s": statistics.median(r["server_s"] for r in timed),
+            "push_bytes": timed[-1]["push_bytes"],
+            "pull_bytes": timed[-1]["pull_bytes"],
+            "keys": len(n_elems), "grad_elements": sum(n_elems),
+            "codes_bytes": sum((n + 3) // 4 for n in n_elems),
+            "dense_push_bytes": 2 * sum(n_elems),
+            "compressed": kv._gc is not None,
+            "kernel_launches": _kernel_counts()}
+
+
+def dist_num_net(mx, ctx):
+    """The float64 parameter-server numerics net: a conv, max pooling
+    and two Dense layers (no BatchNorm: a worker's batch statistics are
+    its own rows')."""
+    nn = mx.gluon.nn
+    np.random.seed(0)
+    net = nn.HybridSequential(prefix="dn_")
+    with net.name_scope():
+        net.add(nn.Conv2D(8, 3, padding=1), nn.Activation("relu"),
+                nn.MaxPool2D(2), nn.Dense(16), nn.Activation("relu"),
+                nn.Dense(DIST_NUM["classes"]))
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    with mx.autograd.pause():
+        net(mx.nd.zeros((2, 3, DIST_NUM["image"], DIST_NUM["image"]),
+                        ctx=ctx))
+    net.cast("float64")
+    return net
+
+
+def dist_num_data():
+    rng = np.random.RandomState(9)
+    gb = DIST_NUM["batch"] * DIST["workers"]
+    data = rng.uniform(-1, 1, (DIST_NUM["steps"], gb, 3, DIST_NUM["image"],
+                               DIST_NUM["image"]))
+    label = rng.randint(0, DIST_NUM["classes"],
+                        (DIST_NUM["steps"], gb)).astype(np.float64)
+    return data, label
+
+
+def ps_train(kv, net, data, label, prefix, drop=None):
+    """``DIST_NUM["steps"]`` SGD steps of ``net`` through ``kv`` on this
+    worker's rows of each global batch (all of them on one process):
+    the summed gradient of each parameter pushed under ``prefix + name``
+    and the server-updated value pulled back.  ``drop=(rank, step)``:
+    that worker's part of that round is lost (it pushes zeros)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+
+    ctx = next(iter(net.collect_params().values())).list_ctx()[0]
+    nw, r = kv.num_workers, kv.rank
+    b = data.shape[1] // nw
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    for p in params:
+        kv.init(prefix + p.name, p.data())
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    for k in range(len(data)):
+        x = mx.nd.array(data[k, r * b:(r + 1) * b], ctx=ctx, dtype="float64")
+        y = mx.nd.array(label[k, r * b:(r + 1) * b], ctx=ctx)
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        for p in params:
+            g = p.grad()
+            if drop == (r, k):
+                g = g * 0
+            kv.push(prefix + p.name, g)
+        for p in params:
+            kv.pull(prefix + p.name, out=p.data())
+    return {p.name: p.data().asnumpy() for p in params}
+
+
+def _ps_num_optimizer(nw):
+    import mxnet_tpu_torch as mx
+
+    return mx.optimizer.SGD(learning_rate=DIST_NUM["lr"],
+                            momentum=DIST_NUM["momentum"],
+                            wd=DIST_NUM["wd"],
+                            rescale_grad=1.0 / (DIST_NUM["batch"] * nw))
+
+
+def _ps_num_worker(kv, out_dir):
+    """A ``dist_numerics`` worker over dist_sync: the clean run and a run
+    with rank 1's part of step 1 dropped, under their own keys."""
+    import mxnet_tpu_torch as mx
+
+    data, label = dist_num_data()
+    kv.set_optimizer(_ps_num_optimizer(kv.num_workers))
+    out = {}
+    for tag, drop in (("clean", None), ("dropped_push", (1, 1))):
+        net = dist_num_net(mx, mx.gpu(0))
+        out[tag] = ps_train(kv, net, data, label, tag + ":", drop)
+        kv.barrier()
+    if kv.rank == 0:
+        np.savez(Path(out_dir) / "params.npz",
+                 **{t + "/" + k: v for t, ps in out.items()
+                    for k, v in ps.items()})
+    return {"keys": len(out["clean"])}
+
+
+def _ps_async_worker(kv, out_dir):
+    """A dist_async worker: a constant gradient pushed P times; every
+    push applies exactly once."""
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.gpu(0)
+    lr, g, w0 = 0.25, 0.5, 4.0
+    kv.set_optimizer(mx.optimizer.SGD(learning_rate=lr, momentum=0.0,
+                                      rescale_grad=1.0, wd=0.0))
+    kv.init("x", mx.nd.ones((1024,), ctx=ctx) * w0)
+    for _ in range(DIST_NUM["async_pushes"]):
+        kv.push("x", mx.nd.ones((1024,), ctx=ctx) * g)
+    kv.barrier()
+    out = mx.nd.zeros((1024,), ctx=ctx)
+    kv.pull("x", out=out)
+    want = w0 - lr * g * kv.num_workers * DIST_NUM["async_pushes"]
+    return {"value": float(out.asnumpy()[0]), "want": want,
+            "exact": bool((out.asnumpy() == want).all())}
+
+
+def ps_worker_main(kind, out_dir) -> None:
+    """This script as a PS worker (``--ps-worker``): runs ``kind`` over
+    the launcher's cluster and writes its result to
+    ``out_dir/rank{r}.json``."""
+    import mxnet_tpu_torch as mx
+
+    _rank_setup()
+    torch.backends.cudnn.deterministic = kind == "dist_numerics"
+    store = "dist_async" if kind == "dist_async" else "dist_sync"
+    kv = mx.kv.create(store)
+    fn = {"dist": _ps_dist_worker, "dist_numerics": _ps_num_worker,
+          "dist_async": _ps_async_worker}[kind]
+    res = fn(kv, out_dir)
+    res["rank"] = kv.rank
+    kv.barrier()
+    kv.close()
+    with open(Path(out_dir) / ("rank%d.json" % res["rank"]), "w") as f:
+        json.dump(res, f)
+
+
+def phase_dist():
+    """ResNet-50 v1 bf16 over dist_sync on a loopback cluster (see DIST),
+    then the same under MXNET_GRADIENT_COMPRESSION=2bit."""
+    runs = {}
+    t0 = time.perf_counter()
+    for tag, env in (("dense", {}),
+                     ("2bit", {"MXNET_GRADIENT_COMPRESSION": "2bit"})):
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_ps_")
+        try:
+            ranks = _ps_cluster("dist", tmp, env)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        runs[tag] = {k: ranks[0][k] for k in (
+            "step_ms", "images_per_s_per_worker", "push_s", "pull_s",
+            "server_s", "push_bytes", "pull_bytes", "keys",
+            "grad_elements", "codes_bytes", "dense_push_bytes",
+            "compressed", "kernel_launches")}
+        runs[tag]["losses"] = [[s["loss"] for s in r["steps"]]
+                               for r in ranks]
+        runs[tag]["step_ms_per_worker"] = [r["step_ms"] for r in ranks]
+        runs[tag]["compute_ms"] = statistics.median(
+            s["compute_ms"] for s in ranks[0]["steps"][DIST["warmup"]:])
+    row = {"phase": "dist", "model": "resnet50_v1", "dtype": "bfloat16",
+           "store": "dist_sync", "workers": DIST["workers"],
+           "servers": DIST["servers"], "batch_per_worker": DIST["batch"],
+           "image": 224, "optimizer": "server SGD lr %g momentum %g"
+           % (TRAIN_LR, TRAIN_MOMENTUM),
+           "placement": "2 workers on cuda:0, scheduler and server on "
+                        "the host", "runs": runs,
+           "wall_s": time.perf_counter() - t0}
+    emit(row)
+    d, c = runs["dense"], runs["2bit"]
+    if not all(np.isfinite(x) for r in (d, c) for ls in r["losses"]
+               for x in ls):
+        raise RuntimeError("dist: a loss is not finite: %r" % (row,))
+    if d["push_bytes"] != d["dense_push_bytes"] or d["compressed"]:
+        raise RuntimeError("dist: the dense push bytes %r are not the "
+                           "gradients' %r" % (d["push_bytes"],
+                                              d["dense_push_bytes"]))
+    if not (c["compressed"] and c["push_bytes"] == c["codes_bytes"]
+            and c["pull_bytes"] == d["pull_bytes"]):
+        raise RuntimeError("dist: the 2-bit push bytes %r are not the "
+                           "codes' %r (or the pull bytes moved)"
+                           % (c["push_bytes"], c["codes_bytes"]))
+    return row
+
+
+def _codes_on_card_vs_host(steps=4):
+    """The card's 2-bit codes and residuals against the host's numpy
+    computation over ``steps`` calls of seeded gradients (the residual
+    carries), at a ResNet-50 layer's and classifier's sizes."""
+    from mxnet_tpu_torch.gradient_compression import GradientCompression
+
+    rng = np.random.RandomState(13)
+    card, host = GradientCompression(), GradientCompression()
+    shapes = {"conv": (512, 512, 3, 3), "fc": (1000, 2048)}
+    same, n = True, 0
+    for _ in range(steps):
+        for key, shape in shapes.items():
+            g = (rng.randn(*shape) * 0.3).astype(np.float32)
+            c_codes, _ = card.compress(key, torch.from_numpy(g).cuda())
+            h_codes, _ = host.compress(key, g)
+            same &= c_codes.cpu().numpy().tobytes() == h_codes
+            same &= card.residual(key).cpu().numpy().tobytes() == \
+                host.residual(key).tobytes()
+            n += g.size
+    return {"bitwise": bool(same), "steps": steps, "elements": n,
+            "shapes": {k: list(v) for k, v in shapes.items()}}
+
+
+def phase_dist_numerics():
+    """The float64 net over dist_sync on the card against one process at
+    the global batch under kvstore local; a dropped push; the 2-bit codes
+    on the card against the host; dist_async's exactly-once."""
+    import mxnet_tpu_torch as mx
+
+    data, label = dist_num_data()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        kv = mx.kv.create("local")
+        kv.set_optimizer(_ps_num_optimizer(DIST["workers"]))
+        net = dist_num_net(mx, mx.gpu(0))
+        w0 = {p.name: p.data().asnumpy()
+              for p in net.collect_params().values()}
+        ref = ps_train(kv, net, data, label, "ref:")
+    finally:
+        torch.backends.cudnn.deterministic = det
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_psnum_")
+    try:
+        _ps_cluster("dist_numerics", tmp)
+        with np.load(Path(tmp) / "params.npz") as f:
+            got = {t: {k.split("/", 1)[1]: f[k] for k in f.files
+                       if k.startswith(t + "/")}
+                   for t in ("clean", "dropped_push")}
+        asy = _ps_cluster("dist_async", tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    codes = _codes_on_card_vs_host()
+    row = {"phase": "dist_numerics", "net": "dist_num_net (conv, 2 Dense)",
+           "dtype": "float64", "workers": DIST["workers"],
+           "batch_per_worker": DIST_NUM["batch"], "cut": DIST_NUM,
+           "reference": "one process on the card, kvstore local, batch %d"
+                        % (DIST_NUM["batch"] * DIST["workers"]),
+           "tol": DIST_NUM_TOL,
+           "update_err": _update_err(got["clean"], ref, w0),
+           "fault_dropped_push_update_err":
+               _update_err(got["dropped_push"], ref, w0),
+           "codes_card_vs_host": codes,
+           "async": asy, "wall_s": time.perf_counter() - t0}
+    emit(row)
+    if not row["update_err"] <= DIST_NUM_TOL:
+        raise RuntimeError("dist_numerics: dist_sync is off the one-process "
+                           "trajectory: %r" % (row,))
+    if not row["fault_dropped_push_update_err"] > DIST_NUM_TOL:
+        raise RuntimeError("dist_numerics: the check cannot tell a dropped "
+                           "push from the reference: %r" % (row,))
+    if not codes["bitwise"]:
+        raise RuntimeError("dist_numerics: the card's 2-bit codes differ "
+                           "from the host's")
+    if not all(r["exact"] for r in asy):
+        raise RuntimeError("dist_numerics: dist_async did not apply every "
+                           "push once: %r" % (asy,))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -5075,6 +5721,12 @@ def main() -> int:
     lm_sp = phase_train_lm_sp()
     lm_sp_num = phase_train_lm_sp_numerics()
     phase_module_dp_numerics()
+    # both paths run in their ranks' and workers' processes, which count
+    # their own launches
+    tp_counts = phase_tp()["ranks"][0]["kernel_launches"]
+    phase_tp_numerics()
+    dist_counts = phase_dist()["runs"]["dense"]["kernel_launches"]
+    phase_dist_numerics()
     sp_counts = {
         "train_lm_sp_%s_per_step_rank%d" % (impl, r): c
         for impl, v in lm_sp["per_impl"].items()
@@ -5121,7 +5773,9 @@ def main() -> int:
                                 for k, v in sp_num_counts.items()},
                              **{k: v["flash_attention_fwd"]
                                 for k, v in memory_counts.items()},
-                             "input": inp_counts["flash_attention_fwd"]},
+                             "input": inp_counts["flash_attention_fwd"],
+                             "tp": tp_counts["flash_attention_fwd"],
+                             "dist": dist_counts["flash_attention_fwd"]},
         "max_abs_err": max(r["max_err"] for r in rows),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -5165,7 +5819,9 @@ def main() -> int:
                                 for k, v in sp_num_counts.items()},
                              **{k: v["flash_attention_bwd"]
                                 for k, v in memory_counts.items()},
-                             "input": inp_counts["flash_attention_bwd"]},
+                             "input": inp_counts["flash_attention_bwd"],
+                             "tp": tp_counts["flash_attention_bwd"],
+                             "dist": dist_counts["flash_attention_bwd"]},
         "max_abs_err": max(r["max_err"] for r in bwd_rows),
         "ms": bwd_row["kernel_ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
@@ -5186,7 +5842,9 @@ def main() -> int:
                              "train_lm_dp": lm_dp_counts["rtc_add"],
                              **{k: v["rtc_add"]
                                 for k, v in memory_counts.items()},
-                             "input": inp_counts["rtc_add"]},
+                             "input": inp_counts["rtc_add"],
+                             "tp": tp_counts["rtc_add"],
+                             "dist": dist_counts["rtc_add"]},
         "max_abs_err": max(r["max_err"] for r in add_rows),
         "ms": add_row["kernel_ms"], "plain_ms": add_row["plain_ms"],
         "bound_ms": add_row["bound_ms"], "bound_by": add_row["bound_by"],
@@ -5205,4 +5863,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--ps-worker":
+        ps_worker_main(sys.argv[2], sys.argv[3])
+        sys.exit(0)
     sys.exit(main())

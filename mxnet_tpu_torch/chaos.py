@@ -40,10 +40,16 @@ injects:
     seeded straggler the pool absorbs as degraded throughput, never a
     deadlock.  Match keys: ``worker``, ``nth``, ``count``, ``ms``.
 
-The other training-side kinds of the JAX package (drop_push, nan_grad,
-corrupt_shard, bitflip_param, ...) parse here too but nothing in the
-port injects them yet (``bitflip_param`` waits for the SDC defense,
-ROADMAP A11).
+  * ``drop_push``         — a parameter-server push (``_ps.Client``)
+    loses its response (``mode=response``, the default: the server got
+    it, the retry resends it and the server drops the duplicate) or its
+    request (``mode=request``).  Match keys: ``rank``, ``key``, ``nth``,
+    ``count``, ``mode``.
+
+The other training-side kinds of the JAX package (nan_grad,
+corrupt_shard, bitflip_param, drop_sparse_pull, ...) parse here too but
+nothing in the port injects them yet (``bitflip_param`` waits for the
+SDC defense, ROADMAP A11; ``drop_sparse_pull`` for sparse storage, A10).
 """
 from __future__ import annotations
 

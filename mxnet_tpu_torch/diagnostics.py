@@ -11,7 +11,10 @@ and for training :class:`DivergenceGuard`, :func:`loss_signal` and the
 ``mxnet_transformer_tokens_per_second`` gauge; for the input tier
 the io feeds (``feed_io_bytes``, ``feed_io_queue_depth``,
 ``feed_io_decode_seconds``, ``feed_io_worker_death``) under the JAX
-package's metric names.  The guard always
+package's metric names; for the parameter server the dead peers its
+heartbeat reports (:func:`set_dead_peers` / :func:`dead_peers`, the
+``mxnet_ps_dead_peers`` gauge) and the kvstore byte counter
+(:func:`feed_kvstore_bytes`).  The guard always
 raises: its supervised exit (84) comes with the elastic supervisor
 (ROADMAP A11).  The collective flight
 recorder is not ported (the port has no collectives yet), so the
@@ -40,7 +43,8 @@ __all__ = [
     "touch_heartbeat", "DivergenceError",
     "DivergenceGuard", "tokens_per_second_gauge",
     "feed_io_bytes", "feed_io_queue_depth", "feed_io_decode_seconds",
-    "feed_io_worker_death",
+    "feed_io_worker_death", "set_dead_peers", "dead_peers",
+    "feed_kvstore_bytes",
 ]
 
 _log = logging.getLogger(__name__)
@@ -236,6 +240,22 @@ def touch_heartbeat(min_interval_s: float = 0.5) -> Optional[str]:
         return path
     except OSError:
         return None
+
+
+_dead_peers_lock = threading.Lock()
+_dead_peers: List[str] = []
+
+
+def set_dead_peers(peers) -> None:
+    """Record the peers the parameter server's heartbeat declared dead
+    (``_ps.Heartbeat`` feeds this from the scheduler's ``dead_nodes``)."""
+    with _dead_peers_lock:
+        _dead_peers[:] = [str(p) for p in (peers or [])]
+
+
+def dead_peers() -> List[str]:
+    with _dead_peers_lock:
+        return list(_dead_peers)
 
 
 # ---------------------------------------------------------------------------
@@ -715,6 +735,17 @@ class DivergenceGuard:
 # the input tier's feeds (io.py, io_pipeline.py); guarded so telemetry
 # never fails the input pipeline
 # ---------------------------------------------------------------------------
+def feed_kvstore_bytes(op: str, nbytes: int) -> None:
+    """Cumulative ``mxnet_kvstore_bytes_total{op=...}`` feed (the bytes a
+    kvstore verb put on the wire); never fails the verb it measures."""
+    try:
+        metrics.counter("mxnet_kvstore_bytes_total",
+                        help="cumulative kvstore payload bytes",
+                        labels={"op": op}).inc(int(nbytes))
+    except Exception:
+        pass
+
+
 def feed_io_bytes(nbytes: int) -> None:
     """Cumulative ``mxnet_io_bytes_total``: bytes the iterators'
     fetch path materialized."""

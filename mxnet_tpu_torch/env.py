@@ -284,3 +284,36 @@ register("MXNET_IO_START_METHOD", "str", None,
          "fork when the backing iterator has the host-only next_raw "
          "contract (workers never touch torch or CUDA, so forking a "
          "parent that holds a CUDA context is safe), spawn otherwise.")
+
+# kvstore.py — gradient compression on the dist wire
+register("MXNET_GRADIENT_COMPRESSION", "str", None,
+         "Enable worker-side gradient compression on dist kvstores at "
+         "create ('2bit' is the supported type): pushes travel as "
+         "packed 2-bit codes with per-key error feedback, "
+         "mxnet_kvstore_bytes_total{op=push} counts the compressed "
+         "wire bytes.  Unset disables.")
+register("MXNET_GRADIENT_COMPRESSION_THRESHOLD", "float", 0.5,
+         "2-bit compression threshold: values >= t encode +t, <= -t "
+         "encode -t, the rest 0 with the residual carried locally.")
+
+# kvstore_server.py — parameter-server sync mode
+register("MXNET_KVSTORE_SYNC_TIMEOUT", "float", 600.0,
+         "Sync-pull progress deadline (seconds, resets on every applied "
+         "round) before a stalled round aborts.")
+
+# _ps.py — parameter-server transport
+register("MXNET_PS_SECRET", "str", None,
+         "Shared HMAC secret authenticating PS messages.")
+register("MXNET_PS_REQUEST_TIMEOUT", "float", 900.0,
+         "Client-side PS request timeout (s); exceeds the server sync "
+         "window so tolerated stragglers are not aborted client-side.")
+register("MXNET_PS_HEARTBEAT_INTERVAL", "float", 5.0,
+         "Node -> scheduler heartbeat period (s); each beat also asks "
+         "for the dead peers (diagnostics.dead_peers).")
+register("MXNET_PS_RETRY_MAX", "int", 3,
+         "Transport retries per PS request after a timeout/connection "
+         "failure (reconnect + resend with exponential backoff); 0 "
+         "fails fast.")
+register("MXNET_PS_RETRY_BACKOFF_S", "float", 0.1,
+         "Initial retry backoff (s); doubles per attempt with +-50% "
+         "jitter.")

@@ -228,23 +228,6 @@ class Module(BaseModule):
             return
         assert self.binded and self.params_initialized
 
-        if isinstance(optimizer, str):
-            idx2name = {i: n for i, n in enumerate(self._param_names)}
-            opt_params = dict(optimizer_params)
-            # reference default: grads are batch-summed, so the optimizer
-            # rescales by 1/batch_size (ref: module.py init_optimizer
-            # "rescale_grad = 1.0/batch_size", scaled by num_workers for
-            # dist_sync stores)
-            # (the dist stores that scale it by the worker count are
-            # ROADMAP A10: creating one raises below)
-            if "rescale_grad" not in opt_params and self._data_shapes:
-                batch_size = self._data_shapes[0].shape[0]
-                opt_params["rescale_grad"] = 1.0 / max(batch_size, 1)
-            optimizer = _opt.create(optimizer, param_idx2name=idx2name,
-                                    **opt_params)
-        self._optimizer = optimizer
-        self._updater = _opt.get_updater(optimizer)
-
         from ..kvstore import create as kv_create, KVStore
 
         if kvstore is None:
@@ -253,6 +236,24 @@ class Module(BaseModule):
             self._kvstore = kvstore
         else:
             self._kvstore = kv_create(kvstore)
+        if isinstance(optimizer, str):
+            idx2name = {i: n for i, n in enumerate(self._param_names)}
+            opt_params = dict(optimizer_params)
+            # reference default: grads are batch-summed, so the optimizer
+            # rescales by 1/batch_size (ref: module.py init_optimizer
+            # "rescale_grad = 1.0/batch_size"), the batch scaled by the
+            # store's workers for a dist sync store: its servers sum
+            # every worker's gradient
+            if "rescale_grad" not in opt_params and self._data_shapes:
+                batch_size = self._data_shapes[0].shape[0]
+                kind = getattr(self._kvstore, "type", "")
+                if "dist" in kind and "_sync" in kind:
+                    batch_size *= self._kvstore.num_workers
+                opt_params["rescale_grad"] = 1.0 / max(batch_size, 1)
+            optimizer = _opt.create(optimizer, param_idx2name=idx2name,
+                                    **opt_params)
+        self._optimizer = optimizer
+        self._updater = _opt.get_updater(optimizer)
         # update_on_kvstore decision (ref: model.py:58 _create_kvstore
         # rules): the optimizer runs on the store whenever there is one
         self._update_on_kvstore = self._kvstore is not None
@@ -263,11 +264,7 @@ class Module(BaseModule):
                 self._kvstore.init(i, self._exec.arg_dict[name])
         if self._preloaded_states is not None:
             with open(self._preloaded_states, "rb") as f:
-                states = f.read()
-            if self._update_on_kvstore and self._kvstore is not None:
-                self._kvstore._opt_updater.set_states(states)
-            else:
-                self._updater.set_states(states)
+                self._set_optimizer_states(f.read())
             self._preloaded_states = None
         self.optimizer_initialized = True
 
@@ -456,14 +453,23 @@ class Module(BaseModule):
         params, aux (BN moments), and the optimizer/momenta blob.  On a
         dist kvstore, rank 0 gathers the server-held states (other
         ranks shard None — params are replicated, momenta live
-        server-side); locally it is the active Updater's pickle.  The
-        port has the local stores only (the dist tier is ROADMAP A10)."""
+        server-side); locally it is the active Updater's pickle."""
+        from ..kvstore import KVStoreDist
+
         arg_params, aux_params = self.get_params()
         opt_states = None
+        kv = self._kvstore
         try:
-            updater = self._active_updater()
-            if updater is not None:
-                opt_states = updater.get_states(dump_optimizer=True)
+            if isinstance(kv, KVStoreDist):
+                if kv.rank == 0:
+                    # bounded: a preemption hook must not wait out the
+                    # full PS request timeout
+                    opt_states = kv.get_optimizer_states_bytes(
+                        dump_optimizer=True, timeout=5.0)
+            else:
+                updater = self._active_updater()
+                if updater is not None:
+                    opt_states = updater.get_states(dump_optimizer=True)
         except Exception:
             self.logger.exception(
                 "checkpoint: optimizer state capture failed — the shard "
@@ -477,19 +483,59 @@ class Module(BaseModule):
         init_params(arg_params=...)).  Dist kvstore: rank 0 pushes the
         gathered server states back, then everyone barriers so no
         worker races ahead of the restore."""
+        from ..kvstore import KVStoreDist
+
         opt_states = payload.get("optimizer_states")
-        if opt_states is not None:
+        kv = self._kvstore
+        if isinstance(kv, KVStoreDist):
+            if kv.rank == 0 and opt_states is not None:
+                kv.set_optimizer_states_bytes(opt_states)
+            kv.barrier()
+        elif opt_states is not None:
             updater = self._active_updater()
             if updater is not None:
                 updater.set_states(opt_states)
+
+    def _optimizer_states(self) -> bytes:
+        """The active optimizer states (a dist store: every server's,
+        gathered)."""
+        from ..kvstore import KVStoreDist
+
+        if isinstance(self._kvstore, KVStoreDist):
+            return self._kvstore.get_optimizer_states_bytes()
+        return self._active_updater().get_states()
+
+    def _set_optimizer_states(self, states: bytes) -> None:
+        """Install saved optimizer states (a dist store: rank 0 sends
+        them to the servers, every rank waits at the barrier)."""
+        from ..kvstore import KVStoreDist
+
+        kv = self._kvstore
+        if isinstance(kv, KVStoreDist):
+            if kv.rank == 0:
+                kv.set_optimizer_states_bytes(states)
+            kv.barrier()
+        else:
+            self._active_updater().set_states(states)
+
+    def save_optimizer_states(self, fname: str) -> None:
+        """ref: module.py save_optimizer_states."""
+        assert self.optimizer_initialized
+        with open(fname, "wb") as f:
+            f.write(self._optimizer_states())
+
+    def load_optimizer_states(self, fname: str) -> None:
+        """ref: module.py load_optimizer_states."""
+        assert self.optimizer_initialized
+        with open(fname, "rb") as f:
+            self._set_optimizer_states(f.read())
 
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
         """ref: module.py save_checkpoint → model.py:366."""
         arg_params, aux_params = self.get_params()
         save_checkpoint(prefix, epoch, self._symbol, arg_params, aux_params)
         if save_optimizer_states:
-            with open("%s-%04d.states" % (prefix, epoch), "wb") as f:
-                f.write(self._active_updater().get_states())
+            self.save_optimizer_states("%s-%04d.states" % (prefix, epoch))
 
     @staticmethod
     def load(prefix, epoch, load_optimizer_states=False, **kwargs):

@@ -525,6 +525,11 @@ def _owned(outs, raws):
     return res
 
 
+#: op hooks (innermost last): ``hook(op, body, tensors)`` returns None
+#: or a thunk that computes the op instead of ``body(*tensors)``
+_OP_HOOKS: list = []
+
+
 def invoke(op: Union[str, _op_registry.Op], inputs: Sequence[NDArray],
            params: Optional[dict] = None,
            out: Optional[Union[NDArray, Sequence[NDArray]]] = None,
@@ -560,7 +565,10 @@ def invoke(op: Union[str, _op_registry.Op], inputs: Sequence[NDArray],
         if not raw:
             # creation ops allocate on the target device directly
             stack.enter_context(out_ctx.torch_device())
-        outs = fn(*raw)
+        # a tensor-parallel step routes ops on sharded parameters
+        # (parallel.tensor.dispatch)
+        thunk = _OP_HOOKS[-1](op, fn, raw) if _OP_HOOKS else None
+        outs = fn(*raw) if thunk is None else thunk()
         tupled = _owned(outs if isinstance(outs, tuple) else (outs,), raw)
         if ctx is not None and raw:
             dev = ctx.torch_device()

@@ -73,8 +73,13 @@ def _cross_device_group():
     a rank of a process group."""
     if not _cross_device_axis:
         return None
-    mesh = _cross_device_axis[-1][1]
+    axis, mesh = _cross_device_axis[-1]
     if mesh is not None:
+        if axis in mesh.shape and mesh.axis_size(axis) < mesh.size:
+            # a sub-axis (dp of a dp x mp mesh): the ranks of the other
+            # axes hold the same rows
+            n = mesh.axis_size(axis)
+            return (n, mesh.axis_group(axis)) if n > 1 else None
         return (mesh.size, mesh.group) if mesh.collective or mesh.size > 1 \
             else None
     dist = torch.distributed

@@ -47,8 +47,18 @@ with its semantics:
     forward and backward (``remat.py``): the block runs as a block
     trace, and its forward and loss are the mirror's boundary.
 
-Tensor-parallel ``param_spec_fn`` (ROADMAP A6b) and mesh axes other
-than ``dp`` raise (sequence parallelism is ``TransformerTrainStep``'s).
+Tensor parallelism (``param_spec_fn``, ``parallel.tensor``): on a mesh
+with axes beside ``dp`` (``make_mesh((d, m), ("dp", "mp"))``), or with
+a spec function that shards any parameter, every rank builds the same
+step and holds its shard of each sharded parameter and of its momentum;
+layers split their compute over the spec's axis or gather the parameter
+on use (``parallel/tensor.py`` says which).  As in the JAX package the
+step then keeps the monolithic reduction (no buckets: ``zero_stage=1``
+warns and the momenta take the parameters' layout), gradients and sync
+BN's moments are reduced over the dp axis only, and the step is the
+unsharded step at the global batch.  ``run_steps``, ``accum_steps`` and
+the remat policies run unchanged.  Sequence parallelism (an ``sp``
+axis) is ``TransformerTrainStep``'s.
 """
 from __future__ import annotations
 
@@ -104,8 +114,7 @@ def as_mesh(mesh, who: str, exc=MXNetError, axes=("dp",)
         return None
     extra = {a: s for a, s in mesh.shape.items() if a not in axes and s > 1}
     if extra:
-        raise exc("%s: mesh axes %s are not taken here (it runs over %s); "
-                  "tensor-parallel shardings are ROADMAP A6b"
+        raise exc("%s: mesh axes %s are not taken here (it runs over %s)"
                   % (who, extra, "/".join(axes)))
     if "dp" not in mesh.axis_names:
         raise exc("%s: the mesh needs a 'dp' axis (got %s)"
@@ -446,14 +455,6 @@ class DataParallelRunner:
             replicate(c, self.mesh)
 
 
-def _refuse(param_spec_fn):
-    """Raise for the options of the tensor-parallel tier."""
-    if param_spec_fn is not None:
-        raise MXNetError("FusedTrainStep in mxnet_tpu_torch: not ported: "
-                         "param_spec_fn (ROADMAP A6b: tensor-parallel "
-                         "shardings)")
-
-
 class FusedTrainStep:
     """Forward + loss + backward + gradient exchange + SGD-momentum
     update, on one device or over a dp mesh (one process per device).
@@ -462,8 +463,12 @@ class FusedTrainStep:
     ----------
     block : an initialised gluon HybridBlock
     loss_fn : a gluon Loss block
-    mesh : None (one device) or a ``parallel.mesh`` dp mesh; every rank
-        builds the same step and feeds it the same global batches
+    mesh : None (one device) or a ``parallel.mesh`` mesh with a ``dp``
+        axis (and tensor-parallel axes beside it); every rank builds the
+        same step and feeds it the same global batches
+    param_spec_fn : ``fn(name, shape)`` -> a ``parallel.tensor.P`` over
+        the mesh's non-dp axes, or None (replicated), for every
+        parameter (tensor parallelism)
     learning_rate, momentum, weight_decay : the SGD-momentum update
     dtype : compute and parameter dtype (``block.cast`` at build); None
         keeps float32
@@ -484,8 +489,13 @@ class FusedTrainStep:
                  momentum=0.9, weight_decay=0.0, param_spec_fn=None,
                  dtype=None, bucket_bytes=None, fused_update=True,
                  zero_stage=None, accum_steps=None):
-        _refuse(param_spec_fn)
-        self.mesh = as_mesh(mesh, "FusedTrainStep")
+        self._spec_fn = param_spec_fn
+        self._spec_mesh = mesh if isinstance(mesh, Mesh) else None
+        self.mesh = as_mesh(mesh, "FusedTrainStep", axes=tuple(
+            getattr(mesh, "axis_names", ("dp",))))
+        # the tensor-parallel step: a mesh with an axis beside dp
+        self._tp = self.mesh is not None and \
+            tuple(self.mesh.axis_names) != ("dp",)
         ctxs = [c for p in block.collect_params().values()
                 for c in p.list_ctx()]
         self._ctx = ctxs[0] if ctxs else current_context()
@@ -544,12 +554,16 @@ class FusedTrainStep:
             _buckets.impl_name()
             for p in self._cells:
                 replicate(p.data(), mesh)
+        self._layouts = self._shard_params()
+        if mesh is not None:
             cap = self._bucket_bytes if self._bucket_bytes is not None \
                 else _buckets.bucket_cap_bytes()
-            entries = [(i, tuple(self._cells[i].data()._data.shape),
+            entries = [(i, tuple(self._value(i).shape),
                         _buckets.dtype_name(self._cells[i].data().dtype))
                        for i in self._diff]
-            self._bucketed = cap != 0
+            # tensor parallel: the monolithic reduction over dp, as the
+            # JAX package (its gradients are not pure dp replicas)
+            self._bucketed = cap != 0 and not self._tp
             if self._bucketed:
                 self._plan, _ = _buckets.plan_with_tuning(
                     entries, self._bucket_bytes)
@@ -557,9 +571,10 @@ class FusedTrainStep:
                 # monolithic: one all-reduce per dtype run, after backward
                 self._plan = _buckets.partition(entries, 1 << 62)
             self._zero1 = stage == 1 and self._bucketed
-            self._reducer = _buckets.OverlappedReduce(
-                self._plan, mesh, scatter=self._zero1,
-                overlap=self._bucketed)
+            if not self._tp:
+                self._reducer = _buckets.OverlappedReduce(
+                    self._plan, mesh, scatter=self._zero1,
+                    overlap=self._bucketed)
         if stage == 1 and not self._zero1:
             _log.warning("MXNET_ZERO_STAGE=1 requested but this step is "
                          "not on the bucketed multi-device dp path — "
@@ -568,9 +583,44 @@ class FusedTrainStep:
             self._moms = zero1_momentum_buffers(self._plan, mesh.size,
                                                 self._device)
         else:
-            self._moms = [torch.zeros_like(p.data()._data.detach())
-                          for p in self._cells]
+            self._moms = [torch.zeros_like(self._value(i).detach())
+                          for i in range(len(self._cells))]
         self._built = True
+
+    def _shard_params(self) -> Dict[int, object]:
+        """``param_spec_fn``'s layouts, ``{cell index: Layout}``; each
+        sharded parameter's cell then holds this rank's shard."""
+        if self._spec_fn is None:
+            return {}
+        from . import tensor as _tensor
+
+        out = {}
+        for i, p in enumerate(self._cells):
+            shape = tuple(p.data().shape)
+            lay = _tensor.layout_for(p.name, shape,
+                                     self._spec_fn(p.name, shape),
+                                     self._spec_mesh)
+            if lay is not None:
+                _tensor.shard_parameter(p, lay)
+                out[i] = lay
+        return out
+
+    def _value(self, i: int) -> torch.Tensor:
+        """Cell ``i``'s tensor on this rank: its shard where sharded."""
+        if i in self._layouts:
+            from . import tensor as _tensor
+
+            return _tensor.shard_parameter(self._cells[i],
+                                           self._layouts[i]).shard
+        return self._cells[i].data()._data
+
+    def param_bytes_per_rank(self) -> Optional[int]:
+        """Parameter bytes resident on this rank (a sharded parameter
+        counts its shard)."""
+        if not self._built:
+            return None
+        return sum(self._value(i).numel() * self._value(i).element_size()
+                   for i in range(len(self._cells)))
 
     def optimizer_state_bytes_per_rank(self) -> Optional[int]:
         """Momenta bytes resident on this rank's device, from the live
@@ -641,6 +691,8 @@ class FusedTrainStep:
         if data.dtype != self._compute_dtype:
             data = data.to(self._compute_dtype)
         micro = self._microbatches(data, label)
+        if self._tp:
+            return self._tp_step(micro)
         params = [p.data()._data for p in self._cells]
         if self.mesh is None:
             new_p, loss, out = self._one_device_step(params, micro)
@@ -735,16 +787,88 @@ class FusedTrainStep:
             loss = loss / n
         return new_p, loss, out
 
+    def _tp_step(self, micro):
+        """The tensor-parallel step: forward and backward per microbatch
+        with the sharded parameters read through ``parallel.tensor``
+        (this rank's shard, or the gathered value), the gradients summed
+        and scaled by ``1/A``, averaged over the dp axis in one
+        all-reduce per dtype, then the update of the shards and the
+        replicated parameters; every batch statistic is the global
+        batch's (over dp: the other axes' ranks hold the same rows)."""
+        import torch.distributed as dist
+
+        from ..ops import nn as nn_ops
+        from . import tensor as _tensor
+
+        mesh, lays = self.mesh, self._layouts
+        cells = {i: _tensor.shard_parameter(self._cells[i], lay)
+                 for i, lay in lays.items()}
+        diff_set = set(self._diff)
+        params = []
+        for i, p in enumerate(self._cells):
+            if i in lays:
+                t = cells[i].shard.detach()
+                params.append(t.requires_grad_() if i in diff_set else t)
+            else:
+                params.append(p.data()._data)
+        diff = [params[i] for i in self._diff]
+        acc, losses, outs = None, [], []
+        with _tensor.sharded_scope(), \
+                nn_ops.cross_device_batch_stats("dp", mesh):
+            for x, y in micro:
+                for i, cell in cells.items():
+                    if i not in diff_set:    # aux: the newest value
+                        params[i] = cell.shard.detach()
+                    _tensor.live_value(cell, params[i])
+                loss, out = self._forward(x, y)
+                got = torch.autograd.grad(loss, diff, allow_unused=True)
+                got = [torch.zeros_like(p) if g is None else g
+                       for p, g in zip(diff, got)]
+                acc = got if acc is None else \
+                    [a + g for a, g in zip(acc, got)]
+                losses.append(loss.detach())
+                outs.append(out.detach())
+        a = len(micro)
+        if a > 1:
+            acc = [g * torch.tensor(1.0 / a, dtype=g.dtype) for g in acc]
+        grads = dict(zip(self._diff, acc))
+        n_dp = mesh.axis_size("dp")
+        with torch.no_grad():
+            if n_dp > 1:
+                red = _buckets.bucketed_reduce(grads, self._plan, mesh,
+                                               mean=True, axis="dp")
+                if "shard_grad_not_reduced" in _tensor.FAULTS:
+                    k = next(i for i in self._diff if i in lays)
+                    red[k] = grads[k]
+                grads = red
+            new_p, new_m = self._update(params, grads)
+            for i in self._diff:
+                self._moms[i] = new_m[i]
+            loss, out = self._mean_of(losses, outs)
+            if n_dp > 1:
+                loss = loss.clone()
+                dist.all_reduce(loss, group=mesh.axis_group("dp"))
+                loss = loss / n_dp
+        for i, p in enumerate(self._cells):
+            if i in cells:
+                cells[i].settle(new_p[i].detach() if i in diff_set
+                                else cells[i].shard.detach())
+            elif i in diff_set:
+                p.data()._set_data(new_p[i].detach())
+        return loss, out
+
     def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's rows of ``t``, in rank order (the global batch's
-        logits)."""
+        """Every dp rank's rows of ``t``, in rank order (the global
+        batch's logits)."""
         if self.mesh is None:
             return t
         import torch.distributed as dist
 
+        n = self.mesh.axis_size("dp")
         t = t.contiguous()
-        full = t.new_empty((t.shape[0] * self.mesh.size,) + t.shape[1:])
-        dist.all_gather_into_tensor(full, t, group=self.mesh.group)
+        full = t.new_empty((t.shape[0] * n,) + t.shape[1:])
+        dist.all_gather_into_tensor(full, t,
+                                    group=self.mesh.axis_group("dp"))
         return full
 
     def run_steps(self, data, label, steps=None) -> NDArray:

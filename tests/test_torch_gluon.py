@@ -317,13 +317,17 @@ def test_sgd_update_matches_the_jax_op():
 
 def test_queued_kinds_raise_and_name_the_queue():
     # tpu and nccl are ported (tests/test_torch_module_dp.py); the
-    # parameter-server kinds wait for A10
+    # parameter-server kinds too (tests/test_torch_dist_kvstore.py):
+    # without the launcher's env they are the one-process store
     assert type(mx.kv.create("tpu")) is mx.kvstore.KVStore
     assert mx.kv.create("tpu").type == "tpu"
     assert mx.kv.create("nccl").type == "nccl"
-    for kind, item in (("dist_sync", "A10"), ("dist_async", "A10")):
-        with pytest.raises(mx.MXNetError, match=item):
-            mx.kv.create(kind)
+    for kind in ("dist_sync", "dist_async", "dist_device_sync"):
+        kv = mx.kv.create(kind)
+        assert type(kv) is mx.kvstore.KVStore and kv.type == kind
+        assert (kv.rank, kv.num_workers) == (0, 1)
+    with pytest.raises(mx.MXNetError, match="A10 sparse"):
+        mx.kv.create("dist_sync").row_sparse_pull("k", row_ids=[0])
     with pytest.raises(mx.MXNetError, match="A12"):
         mx.optimizer.create("adam")
     # SymbolBlock landed with the symbol path; the sparse symbols wait

@@ -372,10 +372,26 @@ def _resume_stream(iop, pipe_cls, payload):
     return pipe_cls.seen
 
 
+@pytest.fixture
+def per_batch_fit():
+    """Both engines as imported (no explicit bulk size) for the test,
+    restored after: the checkpoint cadence below is the per-batch
+    loop's, and some JAX-package test files leave an explicit bulk size
+    behind in the process (ROADMAP's watch list), which moves the JAX
+    fit's checkpoints to its group ends."""
+    saved = [(e, e._bulk_size, e._bulk_explicit)
+             for e in (jmx.engine, tmx.engine)]
+    for e in (jmx.engine, tmx.engine):
+        e._bulk_size, e._bulk_explicit = 15, None
+    yield
+    for e, size, explicit in saved:
+        e._bulk_size, e._bulk_explicit = size, explicit
+
+
 @pytest.mark.parametrize("writer,reader", [("jax", "torch"),
                                            ("torch", "jax")])
 def test_checkpoint_cursor_resumes_the_other_package(tmp_path, writer,
-                                                     reader):
+                                                     reader, per_batch_fit):
     """``Module.fit`` over a pipeline checkpoints every 5 steps (12 steps
     an epoch: the newest is step 10); the other package resumes its own
     pipeline there and reads batches 10 and 11 of the same stream: the

@@ -47,6 +47,9 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import mxnet_tpu_torch.attribute\n"
         "import mxnet_tpu_torch.symbol.legacy_json\n"
         "import mxnet_tpu_torch.dist, mxnet_tpu_torch.parallel.mesh\n"
+        "import mxnet_tpu_torch.parallel.tensor, mxnet_tpu_torch._ps\n"
+        "import mxnet_tpu_torch.kvstore_server, mxnet_tpu_torch.launch\n"
+        "import mxnet_tpu_torch.gradient_compression\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mxnet_tpu', 'ml_dtypes'))\n"
         # kernels are built at first launch, never at import; NVRTC and

@@ -161,7 +161,9 @@ def test_settle_forward_moves_no_running_statistic():
     # stays replicated) — the dp path is tests/test_torch_dp.py's
     (dict(bucket_bytes=1 << 20), {}, None),
     (dict(zero_stage=1), {}, None),
-    (dict(param_spec_fn=lambda name, shape: None), {}, "A6b"),
+    # a spec function on one device: every parameter replicated (the
+    # sharded step is tests/test_torch_tp.py's)
+    (dict(param_spec_fn=lambda name, shape: None), {}, None),
     # the memory tier runs (tests/test_torch_grad_accum.py and
     # tests/test_torch_remat.py hold its numbers)
     (dict(accum_steps=2), {}, None),
