@@ -21,7 +21,11 @@ flash kernels on every step; float32 against the CPU in float64, with
 planted faults) and the multi-context ``Module`` with ``group2ctx``
 placement, then ResNet-50 tensor-parallel over a dp x mp mesh and over
 the parameter server (``dist_sync``, 2-bit compression), each held
-against one device in float64 with planted faults.  After the first ResNet phases it trains ResNet-50 fed from
+against one device in float64 with planted faults, then sparse storage
+(LibSVM CSR batches, the sparse products, lazy row updates) and the
+recommender tier at full width on the local store and over
+``dist_sync``, held against its dense control, the CPU and one worker,
+with planted faults.  After the first ResNet phases it trains ResNet-50 fed from
 records through the input tier (the decode pool and the pinned,
 stream-ordered device stage).
 
@@ -296,6 +300,44 @@ Phases:
            update); a worker's push dropped from a round above it; the
            card's 2-bit codes and residuals = the host's byte for byte
            over steps; dist_async applies every push once
+  sparse   a seeded LibSVM file (8192 rows over 2**20 features, 8-56
+           nonzeros a row: example/sparse/linear_classification's shape
+           at a million features) through ``LibSVMIter`` at batch 512
+           (parse rows/s); on the card ``sparse.dot(csr, W)`` and
+           ``dot(csr.T, G)`` with W (2**20, 16) float32 against float64
+           numpy (1e-5 of each output row's magnitude); SGD momentum
+           0.9, Adam and AdaGrad lazy updates over two batches' columns
+           (touched rows against float64 numpy at 1e-5, untouched rows
+           and states bitwise); rsp add / subtract / retain exact; a
+           ``.params`` file with a CSR and a row-sparse array round
+           trip bitwise; the products' and the lazy update's times
+           beside their bytes bounds, the dense product of the
+           densified batch, ``torch.sparse.mm`` and a dense
+           ``sgd_mom_update`` on the same weight
+  recommender
+           bench.py:1121's row at RecommenderConfig's full width (8
+           fields of 65536 x 16, MLP (64, 32), batch 128, 4 shards a
+           table) on the local store on the card: 20 timed steps of the
+           sparse tier, then of the dense control (SGD lr 0.05,
+           clickstream seed 7): samples/s, speedup, mean unique rows,
+           the pulled bytes and their ratio (<= 2x the ideal); the lr 0
+           pin over 4 steps bitwise; two identical runs of each held
+           side by side (bitwise or not: reported); 5 sparse steps under
+           torch.profiler (device busy, idle share) and the host syncs a
+           step; then dist_sync, 2 workers on cuda:0 and 2 servers, each
+           worker on its part of the stream: 8 steps (samples/s a
+           worker, row-sparse bytes a step against the formula, the
+           shard keys on both servers), then 4 under 2-bit compression
+           (push bytes = ``rows_wire_nbytes``)
+  recommender_numerics
+           tests/test_sparse.py:485-524's configuration (3 fields,
+           vocab 500, dim 4, MLP (8,), batch 16, 3 shards, 8 steps),
+           float32: sparse against the dense control (bitwise at lr 0;
+           1e-6 / 1e-7 at lr 0.05), the card against the port on the
+           CPU (losses 1e-6, update 1e-5), 2 workers at batch 8 over
+           dist_sync against one local worker at batch 16 (1e-5); two
+           planted faults above 1e-2 (momentum decayed on untouched
+           rows; pushed rows permuted against their ids)
   kernels  every kernel and its status
 """
 from __future__ import annotations
@@ -310,6 +352,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -5332,19 +5375,20 @@ DIST_NUM = dict(batch=8, image=8, classes=10, steps=3, lr=0.125,
 DIST_NUM_TOL = 1e-10
 
 
-def _ps_cluster(kind, out_dir, env=None, timeout_s=600):
+def _ps_cluster(kind, out_dir, env=None, timeout_s=600, servers=None):
     """A loopback cluster from the port's launcher: DIST's workers run
     this script's ``--ps-worker`` mode for ``kind`` on cuda:0, each
-    writing ``rank{r}.json`` (and arrays) into ``out_dir``; raises unless
-    every worker exits 0.  Returns the workers' results."""
+    writing ``rank{r}.json`` (and arrays) into ``out_dir``, beside
+    ``servers`` servers (DIST's by default); raises unless every worker
+    exits 0.  Returns the workers' results."""
     from mxnet_tpu_torch.launch import launch_local
 
     cmd = [sys.executable, str(Path(__file__).resolve()), "--ps-worker",
            kind, str(out_dir)]
     e = {"OMP_NUM_THREADS": "2"}
     e.update(env or {})
-    codes = launch_local(DIST["workers"], DIST["servers"], cmd, env=e,
-                         grace_s=5.0)
+    codes = launch_local(DIST["workers"], servers or DIST["servers"], cmd,
+                         env=e, grace_s=5.0)
     if codes != [0] * DIST["workers"]:
         raise RuntimeError("%s: the PS workers exited %r" % (kind, codes))
     out = []
@@ -5544,7 +5588,8 @@ def ps_worker_main(kind, out_dir) -> None:
     store = "dist_async" if kind == "dist_async" else "dist_sync"
     kv = mx.kv.create(store)
     fn = {"dist": _ps_dist_worker, "dist_numerics": _ps_num_worker,
-          "dist_async": _ps_async_worker}[kind]
+          "dist_async": _ps_async_worker, "recommender": _ps_rec_worker,
+          "recommender_numerics": _ps_rec_num_worker}[kind]
     res = fn(kv, out_dir)
     res["rank"] = kv.rank
     kv.barrier()
@@ -5680,6 +5725,775 @@ def phase_dist_numerics():
     return row
 
 
+# ---------------------------------------------------------------------------
+# sparse storage and the recommender tier
+# ---------------------------------------------------------------------------
+# the shape of example/sparse/linear_classification at a million features
+SPARSE = dict(rows=8192, features=2 ** 20, nnz=(8, 56), batch=512, dim=16,
+              seed=11)
+SPARSE_RTOL = 1e-5
+# bench.py:1110's batch and shards at RecommenderConfig's own width
+REC = dict(batch=128, shards=4, warmup=2, steps=20, lr=0.05, seed=7,
+           lr0_steps=4, profile_steps=5, sync_steps=2, dist_steps=8,
+           dist_2bit_steps=4, workers=2, servers=2)
+# tests/test_sparse.py:485-524's configuration
+REC_NUM = dict(cfg=dict(n_fields=3, vocab=500, embed_dim=4,
+                        mlp_hidden=(8,)),
+               batch=16, shards=3, steps=8, lr=0.05, samples=256, seed=1)
+REC_NUM_LOSS_TOL = 1e-6
+REC_NUM_UPDATE_TOL = 1e-5
+REC_FAULT_MIN = 1e-2
+
+
+def write_libsvm(path, rows, features, nnz, seed) -> int:
+    """A seeded LibSVM file: ``rows`` lines, a 0/1 label and ``nnz[0]``
+    to ``nnz[1]`` distinct sorted feature ids (uniform over
+    ``features``) with N(0, 1) values; returns the stored elements."""
+    rng = np.random.RandomState(seed)
+    counts = rng.randint(nnz[0], nnz[1] + 1, rows)
+    labels = rng.randint(0, 2, rows)
+    total = 0
+    with open(path, "w") as f:
+        for n, y in zip(counts, labels):
+            cols = np.unique(rng.randint(0, features, n))
+            while cols.size < n:
+                cols = np.unique(np.concatenate(
+                    [cols, rng.randint(0, features, n - cols.size)]))
+            vals = rng.randn(n)
+            f.write("%d %s\n" % (y, " ".join(
+                "%d:%.6g" % cv for cv in zip(cols, vals))))
+            total += int(n)
+    return total
+
+
+def csr_dot_bound(nnz, rows, dim, touched_rows, features, transpose):
+    """(bound_ms, bound_by) of ``dot(csr, W)`` / ``dot(csr.T, G)``
+    float32: the CSR parts read once (values 4, column ids 8, row
+    pointers 8 bytes), the dense rows the product needs (the touched
+    rows of W; all of G) read once, the output written once (csr.T's is
+    a whole ``features x dim`` table); 2 operations a stored element a
+    column against the float32 peak."""
+    nbytes = nnz * 12 + (rows + 1) * 8
+    if transpose:
+        nbytes += rows * dim * 4 + features * dim * 4
+    else:
+        nbytes += touched_rows * dim * 4 + rows * dim * 4
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = 2.0 * nnz * dim / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def lazy_update_bound(n_rows, dim, n_states):
+    """(bound_ms, "bytes") of one lazy row update: the gradient rows and
+    ids read, the weight and state rows read and written."""
+    nbytes = n_rows * (8 + dim * 4 * (1 + 2 * (1 + n_states)))
+    return nbytes / PEAK_BYTES_S * 1e3, "bytes"
+
+
+def lazy_reference(name, w0, steps, lr, momentum=0.9, beta1=0.9,
+                   beta2=0.999, eps_adam=1e-8, eps_adagrad=1e-7):
+    """The lazy update in float64 numpy over ``w0`` (the rows touched by
+    any step): ``steps`` is a list of (positions into w0, gradient
+    rows).  Returns the weight and state rows."""
+    import math
+
+    w = np.asarray(w0, np.float64).copy()
+    s1, s2 = np.zeros_like(w), np.zeros_like(w)
+    for t, (pos, g) in enumerate(steps, 1):
+        g = np.asarray(g, np.float64)
+        if name == "sgd":
+            s1[pos] = momentum * s1[pos] - lr * g
+            w[pos] += s1[pos]
+        elif name == "adam":
+            lr_t = lr * math.sqrt(1.0 - beta2 ** t) / (1.0 - beta1 ** t)
+            s1[pos] = beta1 * s1[pos] + (1.0 - beta1) * g
+            s2[pos] = beta2 * s2[pos] + (1.0 - beta2) * g * g
+            w[pos] -= lr_t * s1[pos] / (np.sqrt(s2[pos]) + eps_adam)
+        else:
+            s1[pos] += g * g
+            w[pos] -= lr * g / np.sqrt(s1[pos] + eps_adagrad)
+    return w, {"sgd": [s1], "adam": [s1, s2], "adagrad": [s1]}[name]
+
+
+def _rel(got, want) -> float:
+    want = np.asarray(want, np.float64)
+    return float(np.abs(np.asarray(got, np.float64) - want).max()
+                 / max(np.abs(want).max(), 1e-30))
+
+
+def _sparse_parts_equal(a, b) -> bool:
+    names = ("data", "indices") + (("indptr",) if a.stype == "csr" else ())
+    return a.stype == b.stype and a.shape == b.shape and all(
+        np.array_equal(getattr(a, n).asnumpy(), getattr(b, n).asnumpy())
+        for n in names)
+
+
+def sparse_checks(ctx, batches, features, dim, seed, timed=True):
+    """The card's sparse storage on ``batches`` (LibSVM CSR batches on
+    the host): the two CSR products against float64 numpy (row-scaled),
+    SGD momentum / Adam / AdaGrad lazy updates over two batches' columns
+    against float64 numpy with untouched rows and states held bitwise,
+    rsp add / subtract / retain exact, a ``.params`` round trip bitwise;
+    with ``timed`` the times and bounds."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import sparse as sp
+    from mxnet_tpu_torch.ops import optimizer_ops
+
+    dev = ctx.torch_device()
+    rng = np.random.RandomState(seed)
+    w_np = rng.randn(features, dim).astype(np.float32)
+    csr_h = batches[0].data[0]
+    rows = csr_h.shape[0]
+    data = csr_h.data.asnumpy().astype(np.float64)
+    cols = csr_h.indices.asnumpy()
+    row_of = np.repeat(np.arange(rows), np.diff(csr_h.indptr.asnumpy()))
+    csr = csr_h.copyto(ctx)
+    w = mx.nd.array(w_np, ctx=ctx)
+    g_np = rng.randn(rows, dim).astype(np.float32)
+    g = mx.nd.array(g_np, ctx=ctx)
+    out = sp.dot(csr, w)
+    out_t = sp.dot(csr, g, transpose_a=True)
+    ref = np.zeros((rows, dim))
+    np.add.at(ref, row_of, data[:, None] * w_np[cols])
+    ref_t = np.zeros((features, dim))
+    np.add.at(ref_t, cols, data[:, None] * g_np[row_of])
+    row = {"nnz": int(data.size), "batch_shape": list(csr.shape),
+           "dot_err": row_scaled_err(out._data.cpu(), torch.from_numpy(ref)),
+           "dot_t_err": row_scaled_err(out_t._data.cpu(),
+                                       torch.from_numpy(ref_t))}
+    # lazy updates over two batches' columns
+    r1 = np.unique(cols)
+    r2 = np.unique(batches[1].data[0].indices.asnumpy())
+    union = np.union1d(r1, r2)
+    g1 = rng.randn(r1.size, dim).astype(np.float32)
+    g2 = rng.randn(r2.size, dim).astype(np.float32)
+    untouched = torch.ones(features, dtype=torch.bool, device=dev)
+    untouched[torch.from_numpy(union).to(dev)] = False
+    lazy = {}
+    for name, kw in (("sgd", {"momentum": 0.9}), ("adam", {}),
+                     ("adagrad", {})):
+        opt = mx.optimizer.create(name, learning_rate=0.1, **kw)
+        wt = mx.nd.array(w_np, ctx=ctx)
+        state = opt.create_state(0, wt)
+        states = list(state) if isinstance(state, tuple) else [state]
+        for r, gr in ((r1, g1), (r2, g2)):
+            opt.update(0, wt, sp.row_sparse_array(
+                (gr, r), shape=(features, dim), ctx=ctx), state)
+        want_w, want_s = lazy_reference(
+            name, w_np[union], [(np.searchsorted(union, r1), g1),
+                                (np.searchsorted(union, r2), g2)], 0.1)
+        idx = torch.from_numpy(union).to(dev)
+        lazy[name] = {
+            "weight_err": _rel(wt._data[idx].cpu(), want_w),
+            "state_err": max(_rel(s._data[idx].cpu(), ws)
+                             for s, ws in zip(states, want_s)),
+            "untouched_bitwise": bool(
+                torch.equal(wt._data[untouched],
+                            torch.from_numpy(w_np).to(dev)[untouched])
+                and all(int(torch.count_nonzero(s._data[untouched])) == 0
+                        for s in states))}
+    row["lazy"] = lazy
+    row["touched_rows"] = [int(r1.size), int(r2.size)]
+    # row-sparse arithmetic, exact in float32
+    a = sp.row_sparse_array((g1, r1), shape=(features, dim), ctx=ctx)
+    b = sp.row_sparse_array((g2, r2), shape=(features, dim), ctx=ctx)
+    va = np.zeros((union.size, dim), np.float32)
+    vb = np.zeros((union.size, dim), np.float32)
+    va[np.searchsorted(union, r1)] = g1
+    vb[np.searchsorted(union, r2)] = g2
+    keep = np.isin(r1, r2)
+    arith = {}
+    for fn, want in (("add", va + vb), ("subtract", va - vb)):
+        got = getattr(sp, fn)(a, b)
+        arith[fn] = bool(np.array_equal(got.indices.asnumpy(), union)
+                         and np.array_equal(got.data.asnumpy(), want))
+    kept = sp.retain(a, r2)
+    arith["retain"] = bool(
+        np.array_equal(kept.indices.asnumpy(), r1[keep])
+        and np.array_equal(kept.data.asnumpy(), g1[keep]))
+    row["rsp_ops_exact"] = arith
+    # a .params file with a CSR and a row-sparse array from the card
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_params_")
+    try:
+        f = os.path.join(tmp, "sparse.params")
+        mx.nd.save(f, {"csr": csr, "rsp": a})
+        back = mx.nd.load(f, ctx=ctx)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["params_roundtrip_bitwise"] = bool(
+        _sparse_parts_equal(back["csr"], csr)
+        and _sparse_parts_equal(back["rsp"], a)
+        and back["csr"].context == ctx)
+    if not timed:
+        return row
+    touched_w = int(np.unique(cols).size)
+    times = {"dot_ms": time_ms(lambda: sp.dot(csr, w)),
+             "dot_t_ms": time_ms(lambda: sp.dot(csr, g, transpose_a=True))}
+    # the plain version: the dense product of the densified batch
+    dense_csr = csr.todense()
+    times["dot_dense_ms"] = time_ms(lambda: mx.nd.dot(dense_csr, w))
+    p = csr._parts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "support is in beta state"
+        lib = torch.sparse_csr_tensor(p["indptr"], p["indices"], p["data"],
+                                      csr.shape, check_invariants=False)
+    times["dot_library_ms"] = time_ms(lambda: torch.sparse.mm(lib, w._data))
+    times["dot_bound_ms"], times["dot_bound_by"] = csr_dot_bound(
+        row["nnz"], rows, dim, touched_w, features, False)
+    times["dot_t_bound_ms"], times["dot_t_bound_by"] = csr_dot_bound(
+        row["nnz"], rows, dim, touched_w, features, True)
+    wt = w._data.clone()
+    mt = torch.zeros_like(wt)
+    gd = torch.from_numpy(g1).to(dev)
+    rt = torch.from_numpy(r1).to(dev)
+    times["lazy_sgd_mom_ms"] = time_ms(lambda: optimizer_ops.lazy_update_(
+        "_sparse_sgd_mom_update", wt, gd, rt, (mt,), lr=0.1, momentum=0.9))
+    g_dense = torch.zeros_like(wt)
+    g_dense[rt] = gd
+    times["dense_sgd_mom_ms"] = time_ms(lambda: optimizer_ops._sgd_mom_update(
+        wt, g_dense, mt, lr=0.1, momentum=0.9))
+    times["lazy_bound_ms"], _ = lazy_update_bound(r1.size, dim, 1)
+    times["dense_bound_ms"] = 5 * wt.numel() * 4 / PEAK_BYTES_S * 1e3
+    opt = mx.optimizer.create("sgd", learning_rate=0.1, momentum=0.9)
+    wt_nd = mx.nd.array(w_np, ctx=ctx)
+    st = opt.create_state(0, wt_nd)
+    grad = sp.row_sparse_array((g1, r1), shape=(features, dim), ctx=ctx)
+
+    def host_update():
+        opt.update(0, wt_nd, grad, st)
+        torch.cuda.synchronize()
+
+    for _ in range(3):
+        host_update()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        host_update()
+    times["optimizer_update_host_ms"] = (time.perf_counter() - t0) / 20e-3
+    row.update(times)
+    return row
+
+
+def phase_sparse():
+    """LibSVM -> CSR batches -> the card's sparse ops (see SPARSE)."""
+    import mxnet_tpu_torch as mx
+
+    _reset_kernel_counts()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_libsvm_")
+    try:
+        path = os.path.join(tmp, "train.libsvm")
+        t0 = time.perf_counter()
+        nnz = write_libsvm(path, SPARSE["rows"], SPARSE["features"],
+                           SPARSE["nnz"], SPARSE["seed"])
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        it = mx.io.LibSVMIter(data_libsvm=path,
+                              data_shape=(SPARSE["features"],),
+                              batch_size=SPARSE["batch"])
+        parse_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batches = list(it)
+        batch_s = time.perf_counter() - t0
+        file_mb = os.path.getsize(path) / 1e6
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = {"phase": "sparse", "cut": SPARSE, "file_mb": file_mb,
+           "stored_elements": nnz, "write_s": write_s,
+           "parse_rows_per_s": SPARSE["rows"] / parse_s,
+           "batches": len(batches),
+           "batches_per_s": len(batches) / batch_s,
+           "batch_stype": batches[0].data[0].stype}
+    row.update(sparse_checks(mx.gpu(0), batches, SPARSE["features"],
+                             SPARSE["dim"], SPARSE["seed"]))
+    row["kernel_launches"] = _kernel_counts()
+    row["wall_s"] = time.perf_counter() - t_phase
+    emit(row)
+    bad = [k for k in ("dot_err", "dot_t_err") if not row[k] <= SPARSE_RTOL]
+    bad += ["lazy:" + n for n, v in row["lazy"].items()
+            if not (v["weight_err"] <= SPARSE_RTOL
+                    and v["state_err"] <= SPARSE_RTOL
+                    and v["untouched_bitwise"])]
+    bad += [k for k, v in row["rsp_ops_exact"].items() if not v]
+    if not row["params_roundtrip_bitwise"]:
+        bad.append("params_roundtrip")
+    if row["batch_stype"] != "csr" or len(batches) != \
+            -(-SPARSE["rows"] // SPARSE["batch"]):
+        bad.append("batches")
+    if bad:
+        raise RuntimeError("sparse: %s failed: %r" % (bad, row))
+    return row
+
+
+def rec_fit(ctx, cfg, kv, sparse, lr, steps, batch, shards, seed,
+            warmup=0, momentum=0.0, rescale=1.0, params=None,
+            num_parts=1, part_index=0, optimizer=None, batches=None):
+    """A RecommenderTrainStep on ``kv`` fed by the clickstream of
+    ``seed`` (``batches`` batches a part, default ``warmup + steps +
+    2``): ``warmup`` untimed steps, then ``steps`` timed ones with the
+    byte counters' deltas; returns (trainer, iterator, result)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import diagnostics
+    from mxnet_tpu_torch import recommender as rec
+
+    it = rec.ClickstreamIter(batch_size=batch, n_fields=cfg.n_fields,
+                             vocab=cfg.vocab,
+                             num_samples=batch * num_parts
+                             * (batches or warmup + steps + 2),
+                             seed=seed, num_parts=num_parts,
+                             part_index=part_index)
+    if optimizer is None:
+        optimizer = mx.optimizer.SGD(learning_rate=lr, momentum=momentum,
+                                     wd=0.0, rescale_grad=rescale)
+    trainer = rec.RecommenderTrainStep(
+        cfg, kv, optimizer=optimizer, n_shards=shards if sparse else 1,
+        seed=0, sparse=sparse, params=params, ctx=ctx)
+    if warmup:
+        trainer.fit(it, warmup)
+    ctrs = {op: diagnostics.metrics.counter("mxnet_kvstore_bytes_total",
+                                            labels={"op": op})
+            for op in ("row_sparse_pull", "row_sparse_push", "pull",
+                       "push")}
+    base = {op: c.value for op, c in ctrs.items()}
+    res = trainer.fit(it, steps)
+    res["counter_deltas"] = {op: c.value - base[op]
+                             for op, c in ctrs.items()}
+    return trainer, it, res
+
+
+def rec_state(trainer) -> dict:
+    """Every table row and head parameter of ``trainer``'s store, as
+    numpy (a pull of every row: the traffic is not counted here)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import recommender as rec
+
+    cfg, kv, ctx = trainer.cfg, trainer.kv, trainer.ctx
+    out = {}
+    for name in rec.table_names(cfg):
+        if trainer.sparse:
+            out[name] = trainer.tables[name].pull_rows(
+                kv, np.arange(cfg.vocab))
+        else:
+            o = mx.nd.zeros((cfg.vocab, cfg.embed_dim), ctx=ctx)
+            kv.pull("rec:" + name, out=o)
+            out[name] = o.asnumpy()
+    for name in rec.dense_param_names(cfg):
+        o = mx.nd.zeros(tuple(trainer.dense_params[name].shape), ctx=ctx)
+        kv.pull("rec:" + name, out=o)
+        out[name] = o.asnumpy()
+    return out
+
+
+def rec_update_err(got, want, start) -> float:
+    """The worst parameter's max |got - want| over its update's largest
+    element (|want - start|)."""
+    return max(float(np.abs(np.asarray(got[k], np.float64) - want[k]).max())
+               / max(float(np.abs(np.asarray(want[k], np.float64)
+                                  - start[k]).max()), 1e-30)
+               for k in want)
+
+
+def pulled_bytes_ratio(sparse_deltas, dense_deltas):
+    """The sparse tier's table traffic (its row_sparse_pull bytes) over
+    the dense control's (its pull bytes less the sparse run's, which
+    are the MLP head's, pulled alike by both)."""
+    tables = dense_deltas["pull"] - sparse_deltas["pull"]
+    return sparse_deltas["row_sparse_pull"] / max(tables, 1), tables
+
+
+def _digest_state(state) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(state):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(state[k]).tobytes())
+    return h.hexdigest()[:16]
+
+
+def count_host_syncs(fn) -> int:
+    """The synchronizing CUDA calls ``fn`` makes, from
+    ``torch.cuda.set_sync_debug_mode("warn")``'s warnings."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum(1 for w in caught if "synchroniz" in str(w.message))
+
+
+def _rec_profile(trainer, it, steps, untraced_ms):
+    """``steps`` sparse steps under torch.profiler: device-busy ms a
+    step (kernels and copies), the idle share against the untraced step
+    time, the copies' ms and the launches a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.fit(it, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [(ev.name, ev.device_time_total) for ev in prof.events()
+              if ev.device_type == DeviceType.CUDA
+              and not getattr(ev, "is_user_annotation", False)]
+    busy = sum(us for _, us in events) / 1e3 / steps
+    copies = sum(us for n, us in events if n.startswith("Memcpy")) \
+        / 1e3 / steps
+    return {"steps": steps, "traced_wall_ms_per_step": wall * 1e3 / steps,
+            "device_busy_ms_per_step": busy,
+            "copy_ms_per_step": copies,
+            "idle_share": 1.0 - busy / untraced_ms,
+            "idle_share_traced": 1.0 - busy / (wall * 1e3 / steps),
+            "device_ops_per_step": len(events) / steps}
+
+
+def phase_recommender():
+    """bench.py:1121's row at RecommenderConfig's full width on the
+    card's local store, its profile and host syncs, two identical runs
+    compared bitwise, then a dist_sync cluster (see REC)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import recommender as rec
+
+    _reset_kernel_counts()
+    t_phase = time.perf_counter()
+    ctx = mx.gpu(0)
+    cfg = rec.RecommenderConfig()
+    common = dict(batch=REC["batch"], shards=REC["shards"], seed=REC["seed"])
+    runs, states = {}, {}
+    for tag, sparse in (("sparse", True), ("dense", False),
+                        ("sparse_again", True), ("dense_again", False)):
+        trainer, it, res = rec_fit(ctx, cfg, mx.kv.create("local"), sparse,
+                                   REC["lr"], REC["steps"],
+                                   warmup=REC["warmup"], **common)
+        runs[tag] = res
+        states[tag] = rec_state(trainer)
+        if tag == "sparse":
+            untraced_ms = 1e3 * REC["batch"] / res["samples_per_s"]
+            profile = _rec_profile(trainer, it, REC["profile_steps"],
+                                   untraced_ms)
+            syncs = count_host_syncs(
+                lambda: trainer.fit(it, REC["sync_steps"]))
+            sparse_trainer = trainer
+        del trainer
+    s, d = runs["sparse"], runs["dense"]
+    ratio, dense_table_bytes = pulled_bytes_ratio(s["counter_deltas"],
+                                                  d["counter_deltas"])
+    ideal = s["mean_unique_rows_per_batch"] / (cfg.n_fields * cfg.vocab)
+    lr0 = {}
+    for tag, sparse in (("sparse", True), ("dense", False)):
+        lr0[tag] = rec_fit(ctx, cfg, mx.kv.create("local"), sparse, 0.0,
+                           REC["lr0_steps"], **common)[2]["losses"]
+    keys = [k for t in sparse_trainer.tables.values() for k in t.keys]
+    del sparse_trainer
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rec_")
+    try:
+        dist = _ps_cluster("recommender", tmp, servers=REC["servers"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dist_s = time.perf_counter() - t0
+    row = {
+        "phase": "recommender", "config": dict(cfg._asdict()),
+        "cut": REC, "store": "local on cuda:0",
+        "table_rows": cfg.n_fields * cfg.vocab,
+        "table_mb": cfg.n_fields * cfg.vocab * cfg.embed_dim * 4 / 1e6,
+        "samples_per_s_sparse": s["samples_per_s"],
+        "samples_per_s_dense_control": d["samples_per_s"],
+        "speedup_vs_dense": s["samples_per_s"] / d["samples_per_s"],
+        "step_ms_sparse": 1e3 * REC["batch"] / s["samples_per_s"],
+        "step_ms_dense": 1e3 * REC["batch"] / d["samples_per_s"],
+        "mean_unique_rows_per_batch": s["mean_unique_rows_per_batch"],
+        "pulled_bytes_sparse": s["counter_deltas"]["row_sparse_pull"],
+        "pulled_bytes_dense_tables": dense_table_bytes,
+        "pushed_bytes_sparse": s["counter_deltas"]["row_sparse_push"],
+        "pushed_bytes_dense": d["counter_deltas"]["push"],
+        "pulled_bytes_ratio": ratio, "ideal_ratio": ideal,
+        "ratio_over_ideal": ratio / ideal,
+        "first_last_loss_sparse": [s["losses"][0], s["losses"][-1]],
+        "first_last_loss_dense": [d["losses"][0], d["losses"][-1]],
+        "lr0_losses_bitwise": lr0["sparse"] == lr0["dense"],
+        "lr0_max_abs_diff": max(abs(a - b) for a, b in
+                                zip(lr0["sparse"], lr0["dense"])),
+        "repeat": {tag: {
+            "losses_bitwise": runs[tag]["losses"]
+            == runs[tag + "_again"]["losses"],
+            "state_bitwise": _digest_state(states[tag])
+            == _digest_state(states[tag + "_again"]),
+            "state_max_abs_diff": max(
+                float(np.abs(states[tag][k] - states[tag + "_again"][k])
+                      .max()) for k in states[tag])}
+            for tag in ("sparse", "dense")},
+        "profile": profile,
+        "host_syncs_per_step": syncs / REC["sync_steps"],
+        "dist": dist, "dist_wall_s": dist_s,
+        "shard_keys": len(keys)}
+    row["kernel_launches"] = _kernel_counts()
+    row["wall_s"] = time.perf_counter() - t_phase
+    emit(row)
+    bad = []
+    if not ratio <= 2 * ideal:
+        bad.append("pulled-bytes ratio %g over 2x the ideal %g"
+                   % (ratio, ideal))
+    if not row["lr0_losses_bitwise"]:
+        bad.append("the lr 0 pin")
+    if not all(np.isfinite(x) for x in s["losses"] + d["losses"]):
+        bad.append("a loss is not finite")
+    for r in dist:
+        if r["servers_used"] != list(range(REC["servers"])):
+            bad.append("rank %d: the shard keys use servers %r"
+                       % (r["rank"], r["servers_used"]))
+        if r["push_bytes_2bit"] != r["push_bytes_2bit_expected"]:
+            bad.append("rank %d: 2-bit push bytes %r, rows_wire_nbytes "
+                       "%r" % (r["rank"], r["push_bytes_2bit"],
+                               r["push_bytes_2bit_expected"]))
+        if r["push_bytes_per_step"] != r["push_bytes_per_step_expected"]:
+            bad.append("rank %d: push bytes %r, want %r" % (
+                r["rank"], r["push_bytes_per_step"],
+                r["push_bytes_per_step_expected"]))
+    if bad:
+        raise RuntimeError("recommender: %s" % bad)
+    return row
+
+
+def _rec_shard_push_bytes(cfg, shards, ids, compressed):
+    """The row_sparse_push bytes of one sparse step on ``ids``: per field
+    and shard key, its unique rows x (row bytes + 8), or the 2-bit
+    ``rows_wire_nbytes`` (an empty shard moves 0 bytes)."""
+    from mxnet_tpu_torch.gradient_compression import GradientCompression
+
+    per = -(-cfg.vocab // shards)
+    total = 0
+    for f in range(cfg.n_fields):
+        counts = np.bincount(np.unique(ids[:, f]) // per, minlength=shards)
+        for c in counts:
+            total += (GradientCompression.rows_wire_nbytes(c, cfg.embed_dim)
+                      if compressed and c else
+                      int(c) * (cfg.embed_dim * 4 + 8))
+    return total
+
+
+def _ps_rec_worker(kv, out_dir):
+    """A ``recommender`` worker: REC's full-width sparse tier over
+    dist_sync on this worker's part of the clickstream, then under 2-bit
+    compression; bytes a step against the formulas."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import diagnostics
+    from mxnet_tpu_torch import recommender as rec
+
+    ctx = mx.gpu(0)
+    cfg = rec.RecommenderConfig()
+    nw, r = kv.num_workers, kv.rank
+    trainer, it, _ = rec_fit(
+        ctx, cfg, kv, True, REC["lr"], 0, REC["batch"], REC["shards"],
+        REC["seed"], warmup=1, rescale=1.0 / nw, num_parts=nw,
+        part_index=r,
+        batches=2 + REC["dist_steps"] + REC["dist_2bit_steps"])
+    ctr = {op: diagnostics.metrics.counter("mxnet_kvstore_bytes_total",
+                                           labels={"op": op})
+           for op in ("row_sparse_pull", "row_sparse_push")}
+    out = {"rank": r, "servers_used": sorted({
+        kv._server_idx(k) for t in trainer.tables.values()
+        for k in t.keys})}
+    for tag, steps in (("dense_wire", REC["dist_steps"]),
+                       ("2bit", REC["dist_2bit_steps"])):
+        if tag == "2bit":
+            kv.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+        step_s, pulls, pushes, want = [], [], [], []
+        for _ in range(steps):
+            data, label, _pad = it.next_raw()
+            base = {op: c.value for op, c in ctr.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.step(data[0], label[0])
+            step_s.append(time.perf_counter() - t0)
+            pulls.append(ctr["row_sparse_pull"].value
+                         - base["row_sparse_pull"])
+            pushes.append(ctr["row_sparse_push"].value
+                          - base["row_sparse_push"])
+            want.append(_rec_shard_push_bytes(cfg, REC["shards"], data[0],
+                                              tag == "2bit"))
+        if tag == "2bit":
+            out.update(push_bytes_2bit=pushes,
+                       push_bytes_2bit_expected=want,
+                       step_ms_2bit=statistics.median(step_s) * 1e3)
+        else:
+            out.update(
+                step_ms=statistics.median(step_s) * 1e3,
+                samples_per_s_per_worker=REC["batch"]
+                / statistics.median(step_s),
+                pull_bytes_per_step=statistics.mean(pulls),
+                push_bytes_per_step=pushes,
+                push_bytes_per_step_expected=want)
+    return out
+
+
+def _ps_rec_num_worker(kv, out_dir):
+    """A ``recommender_numerics`` worker: REC_NUM's sparse tier at half
+    the batch on this worker's part (rescale 1/nw: the loss is a
+    batch mean); rank 0 writes every parameter after the last step."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import recommender as rec
+
+    cfg = rec.RecommenderConfig(**REC_NUM["cfg"])
+    nw = kv.num_workers
+    with np.load(Path(out_dir) / "start.npz") as f:
+        start = {k: f[k] for k in f.files}
+    trainer, _, res = rec_fit(
+        mx.gpu(0), cfg, kv, True, REC_NUM["lr"], REC_NUM["steps"],
+        REC_NUM["batch"] // nw, REC_NUM["shards"], REC_NUM["seed"],
+        rescale=1.0 / nw, params=start, num_parts=nw,
+        part_index=kv.rank, batches=REC_NUM["samples"] // REC_NUM["batch"])
+    state = rec_state(trainer)
+    if kv.rank == 0:
+        np.savez(Path(out_dir) / "params.npz", **state)
+    return {"losses": res["losses"]}
+
+
+def _rec_num_start(cfg):
+    from mxnet_tpu_torch import recommender as rec
+
+    p = rec.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    return {k: v.numpy() for k, v in p.items()}
+
+
+def decaying_sgd(**kw):
+    """Planted fault: an SGD whose lazy update also decays the momentum
+    of every row the gradient does not carry."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import sparse as sp
+
+    class DecayingSGD(mx.optimizer.SGD):
+        def update(self, index, weight, grad, state):
+            super().update(index, weight, grad, state)
+            if state is not None and isinstance(grad,
+                                                sp.RowSparseNDArray):
+                rest = torch.ones(state.shape[0], dtype=torch.bool,
+                                  device=state._data.device)
+                rest[grad._parts()["indices"]] = False
+                state._data[rest] *= self.momentum
+                state._bump_version()
+
+    return DecayingSGD(**kw)
+
+
+@contextlib.contextmanager
+def permuted_push_rows():
+    """Planted fault: every row-sparse push carries its gradient rows in
+    reverse order against their ids."""
+    from mxnet_tpu_torch.recommender import train
+
+    orig = train.ShardedEmbeddingTable.push_rows
+
+    def push_rows(self, kv, rows, values, always_all_shards=True):
+        return orig(self, kv, rows, values.flip(0), always_all_shards)
+
+    train.ShardedEmbeddingTable.push_rows = push_rows
+    try:
+        yield
+    finally:
+        train.ShardedEmbeddingTable.push_rows = orig
+
+
+def rec_numerics(ctx, ref_ctx):
+    """REC_NUM on ``ctx``: sparse against dense control (lr 0 and lr),
+    against the same run on ``ref_ctx``, and the two planted faults
+    against the clean run at momentum 0.9."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import recommender as rec
+
+    cfg = rec.RecommenderConfig(**REC_NUM["cfg"])
+    start = _rec_num_start(cfg)
+    kw = dict(steps=REC_NUM["steps"], batch=REC_NUM["batch"],
+              shards=REC_NUM["shards"], seed=REC_NUM["seed"], params=start,
+              batches=REC_NUM["samples"] // REC_NUM["batch"])
+
+    def run(c, sparse, lr, momentum=0.0, optimizer=None):
+        trainer, _, res = rec_fit(c, cfg, mx.kv.create("local"), sparse,
+                                  lr, momentum=momentum,
+                                  optimizer=optimizer, **kw)
+        return res["losses"], rec_state(trainer)
+
+    s0, d0 = run(ctx, True, 0.0), run(ctx, False, 0.0)
+    s1, d1 = run(ctx, True, REC_NUM["lr"]), run(ctx, False, REC_NUM["lr"])
+    ref = run(ref_ctx, True, REC_NUM["lr"])
+    clean_m = run(ctx, True, REC_NUM["lr"], momentum=0.9)
+    decayed = run(ctx, True, REC_NUM["lr"], optimizer=decaying_sgd(
+        learning_rate=REC_NUM["lr"], momentum=0.9, wd=0.0))
+    with permuted_push_rows():
+        permuted = run(ctx, True, REC_NUM["lr"])
+    return {
+        "lr0_bitwise": s0[0] == d0[0] and all(
+            np.array_equal(s0[1][k], d0[1][k]) for k in start),
+        "sparse_vs_dense_loss_abs": max(abs(a - b)
+                                        for a, b in zip(s1[0], d1[0])),
+        # numpy's allclose at rtol 1e-6, atol 1e-7
+        "sparse_vs_dense_loss_close": all(
+            abs(a - b) <= 1e-7 + 1e-6 * abs(b) for a, b in zip(s1[0], d1[0])),
+        "sparse_vs_dense_update_err": rec_update_err(s1[1], d1[1], start),
+        "vs_ref_loss_abs": max(abs(a - b) for a, b in zip(s1[0], ref[0])),
+        "vs_ref_update_err": rec_update_err(s1[1], ref[1], start),
+        "fault_momentum_decay_update_err":
+            rec_update_err(decayed[1], clean_m[1], start),
+        "fault_permuted_rows_update_err":
+            rec_update_err(permuted[1], s1[1], start),
+        "_sparse_state": s1[1], "_start": start}
+
+
+def phase_recommender_numerics():
+    """REC_NUM on the card against its dense control and the port on the
+    CPU, two planted faults, and 2 workers over dist_sync against one
+    local worker at the doubled batch."""
+    import mxnet_tpu_torch as mx
+
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    row = {"phase": "recommender_numerics"}
+    row.update(rec_numerics(mx.gpu(0), mx.cpu()))
+    local, start = row.pop("_sparse_state"), row.pop("_start")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_recnum_")
+    try:
+        np.savez(Path(tmp) / "start.npz", **start)
+        ranks = _ps_cluster("recommender_numerics", tmp,
+                            servers=REC["servers"])
+        with np.load(Path(tmp) / "params.npz") as f:
+            dist = {k: f[k] for k in f.files}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row.update(cut=REC_NUM,
+               dtype="float32", loss_tol=REC_NUM_LOSS_TOL,
+               update_tol=REC_NUM_UPDATE_TOL, fault_min=REC_FAULT_MIN,
+               reference="the port on the CPU, float32",
+               dist_vs_local_update_err=rec_update_err(dist, local, start),
+               dist_losses=[r["losses"] for r in ranks],
+               kernel_launches=_kernel_counts(),
+               wall_s=time.perf_counter() - t0)
+    emit(row)
+    checks = {
+        "lr0_bitwise": row["lr0_bitwise"],
+        "sparse_vs_dense": row["sparse_vs_dense_loss_close"],
+        "sparse_vs_dense_update":
+            row["sparse_vs_dense_update_err"] <= REC_NUM_UPDATE_TOL,
+        "vs_ref_loss": row["vs_ref_loss_abs"] <= REC_NUM_LOSS_TOL,
+        "vs_ref_update": row["vs_ref_update_err"] <= REC_NUM_UPDATE_TOL,
+        "dist_vs_local":
+            row["dist_vs_local_update_err"] <= REC_NUM_UPDATE_TOL,
+        "fault_momentum_decay":
+            row["fault_momentum_decay_update_err"] >= REC_FAULT_MIN,
+        "fault_permuted_rows":
+            row["fault_permuted_rows_update_err"] >= REC_FAULT_MIN}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError("recommender_numerics: %s failed: %r"
+                           % (bad, row))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -5727,6 +6541,10 @@ def main() -> int:
     phase_tp_numerics()
     dist_counts = phase_dist()["runs"]["dense"]["kernel_launches"]
     phase_dist_numerics()
+    sparse_counts = {"sparse": phase_sparse()["kernel_launches"],
+                     "recommender": phase_recommender()["kernel_launches"],
+                     "recommender_numerics":
+                         phase_recommender_numerics()["kernel_launches"]}
     sp_counts = {
         "train_lm_sp_%s_per_step_rank%d" % (impl, r): c
         for impl, v in lm_sp["per_impl"].items()
@@ -5775,7 +6593,9 @@ def main() -> int:
                                 for k, v in memory_counts.items()},
                              "input": inp_counts["flash_attention_fwd"],
                              "tp": tp_counts["flash_attention_fwd"],
-                             "dist": dist_counts["flash_attention_fwd"]},
+                             "dist": dist_counts["flash_attention_fwd"],
+                             **{k: v["flash_attention_fwd"]
+                                for k, v in sparse_counts.items()}},
         "max_abs_err": max(r["max_err"] for r in rows),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -5821,7 +6641,9 @@ def main() -> int:
                                 for k, v in memory_counts.items()},
                              "input": inp_counts["flash_attention_bwd"],
                              "tp": tp_counts["flash_attention_bwd"],
-                             "dist": dist_counts["flash_attention_bwd"]},
+                             "dist": dist_counts["flash_attention_bwd"],
+                             **{k: v["flash_attention_bwd"]
+                                for k, v in sparse_counts.items()}},
         "max_abs_err": max(r["max_err"] for r in bwd_rows),
         "ms": bwd_row["kernel_ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
@@ -5844,7 +6666,9 @@ def main() -> int:
                                 for k, v in memory_counts.items()},
                              "input": inp_counts["rtc_add"],
                              "tp": tp_counts["rtc_add"],
-                             "dist": dist_counts["rtc_add"]},
+                             "dist": dist_counts["rtc_add"],
+                             **{k: v["rtc_add"]
+                                for k, v in sparse_counts.items()}},
         "max_abs_err": max(r["max_err"] for r in add_rows),
         "ms": add_row["kernel_ms"], "plain_ms": add_row["plain_ms"],
         "bound_ms": add_row["bound_ms"], "bound_by": add_row["bound_by"],

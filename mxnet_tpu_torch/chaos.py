@@ -46,10 +46,16 @@ injects:
     request (``mode=request``).  Match keys: ``rank``, ``key``, ``nth``,
     ``count``, ``mode``.
 
+  * ``drop_sparse_pull``  — the same fault against a parameter-server
+    ``row_sparse_pull`` (the ``pull_rows`` exchange): a read, so the
+    retry reads again and the pulled values stay bitwise those of a
+    clean run.  Match keys: ``rank``, ``key``, ``nth``, ``count``,
+    ``mode``.
+
 The other training-side kinds of the JAX package (nan_grad,
-corrupt_shard, bitflip_param, drop_sparse_pull, ...) parse here too but
-nothing in the port injects them yet (``bitflip_param`` waits for the
-SDC defense, ROADMAP A11; ``drop_sparse_pull`` for sparse storage, A10).
+corrupt_shard, bitflip_param, ...) parse here too but nothing in the
+port injects them yet (``bitflip_param`` waits for the SDC defense,
+ROADMAP A11).
 """
 from __future__ import annotations
 

@@ -15,13 +15,18 @@ float32).
 the host) or a torch tensor (encoded where it lies: on the card the
 codes and the residual are computed there, so only the packed codes
 cross PCIe).  Both give the same bytes: the same float32 additions,
-comparisons and subtractions, element by element.  Row-sparse pushes
-(a residual that follows each row) wait for sparse storage (ROADMAP A10
-sparse) and raise.
+comparisons and subtractions, element by element.
+
+A row-sparse push (:meth:`GradientCompression.compress_rows`) encodes
+its values and keeps the residual per (key, row id): a row's remainder
+waits for that row's next push, whatever rows the batches between
+carry.  The row ids travel exact beside the codes
+(:meth:`rows_wire_nbytes`).  It runs on the host: the rows of one push
+are few, and their ids key a dict.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -39,6 +44,7 @@ class GradientCompression:
         self.type = type
         self.threshold = float(threshold)
         self._residual: Dict = {}
+        self._row_residual: Dict = {}
 
     def get_params(self) -> Dict[str, str]:
         return {"type": self.type, "threshold": str(self.threshold)}
@@ -75,12 +81,7 @@ class GradientCompression:
         decoded[pos] = self.threshold
         decoded[neg] = -self.threshold
         self._residual[key] = (flat - decoded).reshape(grad.shape)
-        pad = (-codes.size) % 4
-        if pad:
-            codes = np.concatenate([codes, np.zeros(pad, np.uint8)])
-        packed = (codes[0::4] | (codes[1::4] << 2) | (codes[2::4] << 4)
-                  | (codes[3::4] << 6))
-        return packed.tobytes(), tuple(grad.shape)
+        return self._pack(codes), tuple(grad.shape)
 
     def _compress_tensor(self, key, grad):
         import torch
@@ -111,11 +112,51 @@ class GradientCompression:
         """The key's carried residual (numpy or a tensor), or None."""
         return self._residual.get(key)
 
-    def compress_rows(self, key, rows, values):
-        raise NotImplementedError(
-            "2-bit compression of row-sparse pushes (a residual per row) "
-            "needs sparse storage, which is not ported (ROADMAP A10 "
-            "sparse)")
+    @staticmethod
+    def rows_wire_nbytes(n_rows: int, row_elements: int) -> int:
+        """On-wire payload of one compressed row-sparse push: the 8-byte
+        int64 row ids (exact) and the 2-bit codes of the values."""
+        return int(n_rows) * 8 + GradientCompression.wire_nbytes(
+            int(n_rows) * int(row_elements))
+
+    def compress_rows(self, key, rows, values) -> Tuple[bytes, tuple]:
+        """A row-sparse ``(rows, values)`` gradient plus each row's
+        carried residual -> the packed 2-bit codes of the values and
+        their shape ``(len(rows), row elements)``; decode with
+        :meth:`decompress`.  ``values`` may be a tensor (it moves to the
+        host)."""
+        import torch
+
+        if isinstance(values, torch.Tensor):
+            values = values.detach().cpu().numpy()
+        rows = np.asarray(rows, dtype=np.int64).reshape(-1)
+        values = np.asarray(values, dtype=np.float32).reshape(rows.size, -1)
+        store = self._row_residual.setdefault(key, {})
+        work = values.copy()
+        for i, r in enumerate(rows):
+            res = store.get(int(r))
+            if res is not None:
+                work[i] += res
+        pos = work >= self.threshold
+        neg = work <= -self.threshold
+        codes = np.zeros(work.shape, dtype=np.uint8)
+        codes[pos] = 1
+        codes[neg] = 2
+        decoded = np.zeros_like(work)
+        decoded[pos] = self.threshold
+        decoded[neg] = -self.threshold
+        err = work - decoded
+        for i, r in enumerate(rows):
+            store[int(r)] = err[i]
+        return self._pack(codes.ravel()), tuple(values.shape)
+
+    @staticmethod
+    def _pack(codes: np.ndarray) -> bytes:
+        pad = (-codes.size) % 4
+        if pad:
+            codes = np.concatenate([codes, np.zeros(pad, np.uint8)])
+        return (codes[0::4] | (codes[1::4] << 2) | (codes[2::4] << 4)
+                | (codes[3::4] << 6)).tobytes()
 
     def decompress(self, codes: bytes, shape: tuple) -> np.ndarray:
         packed = np.frombuffer(codes, dtype=np.uint8)

@@ -26,8 +26,9 @@ every batch on ``mx.cpu()`` instead, whatever the current context; the
 consumer (``Module``, ``TransformerTrainStep``, a Gluon loop) moves it
 to its own device, and ``io_pipeline.InputPipeline`` moves it to the
 card ahead of the step.  The io profiler spans of the fetch path and
-the ``PrefetchingIter::wait`` span wait for ROADMAP A11's profiler;
-``LibSVMIter`` (sparse storage) for A10.
+the ``PrefetchingIter::wait`` span wait for ROADMAP A11's profiler.
+``LibSVMIter`` streams a LibSVM file into one CSR triple on the host
+and serves CSR batches (``ndarray.sparse``), never densified.
 """
 from __future__ import annotations
 
@@ -48,8 +49,8 @@ from .context import cpu
 from .ndarray import NDArray, array
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "MNISTIter",
-           "ImageRecordIter", "ImageDetRecordIter", "CSVIter", "ResizeIter",
-           "PrefetchingIter"]
+           "ImageRecordIter", "ImageDetRecordIter", "CSVIter", "LibSVMIter",
+           "ResizeIter", "PrefetchingIter"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -135,6 +136,12 @@ class DataIter:
 
 
 def _nbytes(a) -> int:
+    from .ndarray import sparse as _sp
+
+    if isinstance(a, _sp.BaseSparseNDArray):
+        # the stored parts: a sparse batch is never densified
+        return sum(t.numel() * t.element_size()
+                   for t in a._parts().values())
     if isinstance(a, NDArray):
         return a._data.numel() * a._data.element_size()
     return int(getattr(a, "nbytes", 0) or 0)
@@ -392,6 +399,120 @@ class CSVIter(DataIter):
 
     def next_raw(self):
         return self._inner.next_raw()
+
+
+class LibSVMIter(DataIter):
+    """LibSVM text -> CSR data batches (ref: src/io/iter_libsvm.cc:200
+    LibSVMIter; counterpart ``mxnet_tpu/io.py:420-540``).
+
+    Lines are ``<label> <index>:<value> ...`` with 0-based indices.  The
+    file streams into one CSR triple, never densified, so a
+    million-feature file loads in O(nnz).  Labels are dense, or CSR from
+    a separate LibSVM label file.  A multi-dimensional ``data_shape``
+    flattens to ``prod(shape)`` columns.  With ``round_batch`` the last
+    batch wraps to the first rows and reports them as ``pad``.  Batches
+    are CSR arrays on ``mx.cpu()`` (see the module docstring)."""
+
+    def __init__(self, data_libsvm, data_shape, label_libsvm=None,
+                 label_shape=None, batch_size=1, round_batch=True,
+                 **kwargs):
+        super().__init__(batch_size)
+        self._ncol = int(_np.prod([int(d) for d in data_shape]))
+        labels, self._data = self._parse(data_libsvm, self._ncol)
+        self._n = len(self._data[2]) - 1
+        if label_libsvm is not None:
+            lcol = int(_np.prod([int(d) for d in (label_shape or (1,))]))
+            _, self._label_csr = self._parse(label_libsvm, lcol)
+            self._lcol = lcol
+            n_lab = len(self._label_csr[2]) - 1
+            if n_lab != self._n:
+                raise MXNetError("label file has %d rows, data file has %d"
+                                 % (n_lab, self._n))
+            self._label = None
+        else:
+            self._label_csr = None
+            self._label = _np.asarray(labels, dtype=_np.float32)
+        self._round_batch = round_batch
+        self._cursor = 0
+
+    @staticmethod
+    def _parse(path, ncol):
+        """Stream ``label idx:val ...`` lines -> (labels, (data, cols,
+        indptr)) host arrays."""
+        labels = []
+        vals: list = []
+        cols: list = []
+        indptr = [0]
+        with open(path) as f:
+            for lineno, line in enumerate(f, 1):
+                parts = line.split()
+                if not parts:
+                    continue
+                labels.append(float(parts[0]))
+                for tok in parts[1:]:
+                    idx_s, _, val_s = tok.partition(":")
+                    idx = int(idx_s)
+                    if not 0 <= idx < ncol:
+                        raise MXNetError(
+                            "%s:%d: feature index %d outside [0, %d)"
+                            % (path, lineno, idx, ncol))
+                    cols.append(idx)
+                    vals.append(float(val_s))
+                indptr.append(len(vals))
+        return labels, (_np.asarray(vals, _np.float32),
+                        _np.asarray(cols, _np.int64),
+                        _np.asarray(indptr, _np.int64))
+
+    @staticmethod
+    def _rows_to_csr(row_ids, triple, ncol):
+        """The CSR matrix of rows ``row_ids`` of ``triple``: one gather
+        of their stored elements."""
+        from .ndarray import sparse as _sp
+
+        d, c, p = triple
+        starts = p[row_ids]
+        counts = p[row_ids + 1] - starts
+        indptr = _np.zeros(len(row_ids) + 1, _np.int64)
+        _np.cumsum(counts, out=indptr[1:])
+        pos = (_np.repeat(starts - indptr[:-1], counts)
+               + _np.arange(indptr[-1], dtype=_np.int64))
+        return _sp.csr_matrix((d[pos], c[pos], indptr),
+                              shape=(len(row_ids), ncol), ctx=cpu())
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size, self._ncol), "float32")]
+
+    @property
+    def provide_label(self):
+        if self._label_csr is not None:
+            return [DataDesc("label", (self.batch_size, self._lcol),
+                             "float32")]
+        return [DataDesc("label", (self.batch_size,), "float32")]
+
+    def reset(self):
+        self._cursor = 0
+
+    def next(self) -> DataBatch:
+        if self._cursor >= self._n:
+            raise StopIteration
+        return _instrumented_fetch(self._next_batch)
+
+    def _next_batch(self) -> DataBatch:
+        end = self._cursor + self.batch_size
+        pad = 0
+        if end > self._n:
+            if not self._round_batch:
+                raise StopIteration
+            pad = end - self._n
+        idx = _np.arange(self._cursor, end) % self._n
+        self._cursor = end
+        data = self._rows_to_csr(idx, self._data, self._ncol)
+        if self._label_csr is not None:
+            label = self._rows_to_csr(idx, self._label_csr, self._lcol)
+        else:
+            label = array(self._label[idx], ctx=cpu())
+        return DataBatch([data], [label], pad=pad)
 
 
 class ResizeIter(DataIter):

@@ -27,10 +27,19 @@ value to the host once, through a pinned buffer the key reuses
 ``dist_sync`` on the host); with 2-bit compression the codes and the
 residual are computed on the card and only the codes cross PCIe; a pull
 writes into the device array in place.  Every verb feeds
-``mxnet_kvstore_bytes_total{op=push|pull|allreduce}``.  Row-sparse
-pulls and pushes raise (ROADMAP A10 sparse), as do the SDC vote's
-exchanges (A11); the profiler spans and flight-recorder entries of the
-JAX package's verbs wait for the observability port (A11).
+``mxnet_kvstore_bytes_total{op=push|pull|allreduce}``.
+
+Row-sparse storage (``ndarray.sparse``): several row-sparse values
+pushed for a key merge into one row-sparse sum (ref: comm.h
+ReduceRowSparse), an updater receives it and its lazy update touches
+only those rows; ``row_sparse_pull`` gathers only the requested unique
+rows, on the store's device in process (ref: kvstore_local.h
+PullRowSparseImpl) or from the servers (``pull_rows``).  Such pushes and
+pulls count under ``op=row_sparse_push`` / ``op=row_sparse_pull``:
+unique rows x (row payload + 8 bytes of row id), or the row ids and the
+2-bit codes of the values under compression.  The SDC vote's exchanges
+raise (ROADMAP A11); the profiler spans and flight-recorder entries of
+the JAX package's verbs wait for the observability port (A11).
 """
 from __future__ import annotations
 
@@ -40,8 +49,9 @@ import pickle
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as _np
+import torch
 
-from .base import MXNetError
+from .base import MXNetError, torch_dtype
 from .ndarray import NDArray
 from . import optimizer as _opt
 
@@ -66,14 +76,77 @@ def _int_key(k):
 
 def _payload_nbytes(value) -> int:
     """The bytes of a push / pull payload: NDArrays or nested lists of
-    them."""
+    them (a row-sparse array: its rows and their int64 ids)."""
+    from .ndarray import sparse as _sp
+
     if value is None:
         return 0
     if isinstance(value, (list, tuple)):
         return sum(_payload_nbytes(v) for v in value)
+    if isinstance(value, _sp.RowSparseNDArray):
+        p = value._parts()
+        return sum(t.numel() * t.element_size()
+                   for t in (p["data"], p["indices"]))
     if isinstance(value, NDArray):
         return value._data.numel() * value._data.element_size()
     return 0
+
+
+def _all_row_sparse(value) -> bool:
+    """Every leaf of a push payload is row-sparse: the push counts under
+    ``op=row_sparse_push``."""
+    from .ndarray import sparse as _sp
+
+    if isinstance(value, _sp.RowSparseNDArray):
+        return True
+    if isinstance(value, (list, tuple)) and value:
+        return all(_all_row_sparse(v) for v in value)
+    return False
+
+
+def _unique_rows(rid) -> _np.ndarray:
+    """The sorted unique int64 row ids of a ``row_ids`` argument (the
+    host holds them: they are the request's metadata)."""
+    if isinstance(rid, NDArray):
+        rid = rid.asnumpy()
+    return _np.unique(_np.asarray(rid).astype(_np.int64).ravel())
+
+
+def _row_ids_per_key(keys, row_ids):
+    rids = _as_list(row_ids)
+    if len(rids) == 1 and len(keys) > 1:
+        rids = rids * len(keys)
+    return [_unique_rows(r) for r in rids]
+
+
+def _rsp_pull_wire_nbytes(outs, rows_per_key) -> int:
+    """The bytes of one row_sparse_pull: per key, the unique requested
+    rows x (row payload + 8-byte row id), whatever the table's size."""
+    total = 0
+    for olist, rows in zip(outs, rows_per_key):
+        o = _as_list(olist)[0]
+        row_elems = 1
+        for d in o.shape[1:]:
+            row_elems *= int(d)
+        itemsize = torch_dtype(o.dtype).itemsize
+        total += int(rows.size) * (row_elems * itemsize + 8)
+    return total
+
+
+def _merge_values(vs):
+    """The sum of one key's pushed values: row-sparse values stay
+    row-sparse (ref: comm.h ReduceRowSparse), others add densely."""
+    from .ndarray import sparse as _sp
+
+    if all(isinstance(v, _sp.RowSparseNDArray) for v in vs):
+        merged = vs[0]
+        for v in vs[1:]:
+            merged = _sp.add(merged, v)
+        return merged
+    acc = vs[0]._data
+    for v in vs[1:]:
+        acc = acc + v._data.to(acc.device)
+    return NDArray.from_raw(acc, vs[0].context)
 
 
 def _feed_bytes(op: str, nbytes: int) -> None:
@@ -124,9 +197,12 @@ class KVStore:
 
     def push(self, key, value, priority: int = 0) -> None:
         """Sum every value pushed for a key (ref: kvstore_local.h Push ->
-        Comm::Reduce); with an updater, apply it to the stored value."""
+        Comm::Reduce); with an updater, apply it to the stored value.
+        An all-row-sparse push counts under ``op=row_sparse_push``."""
+        op = "row_sparse_push" if _all_row_sparse(value) else "push"
+        nbytes = self._push_wire_nbytes(key, value)
         self._do_push(key, value, priority)
-        _feed_bytes("push", self._push_wire_nbytes(key, value))
+        _feed_bytes(op, nbytes)
 
     def _push_wire_nbytes(self, key, value) -> int:
         """The bytes one push puts on the wire (the payload; the dist
@@ -150,12 +226,7 @@ class KVStore:
         keys, values = _key_value(key, value)
         for k, vlist in zip(keys, values):
             vs = _as_list(vlist)
-            merged = vs[0]
-            if len(vs) > 1:
-                acc = vs[0]._data
-                for v in vs[1:]:
-                    acc = acc + v._data.to(acc.device)
-                merged = NDArray.from_raw(acc, vs[0].context)
+            merged = _merge_values(vs) if len(vs) > 1 else vs[0]
             if self._updater is not None:
                 if k not in self._store:
                     raise MXNetError("push before init on key %r" % k)
@@ -178,9 +249,38 @@ class KVStore:
             for o in _as_list(olist):
                 src.copyto(o)
 
-    def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        raise MXNetError("row_sparse_pull needs sparse storage, which is "
-                         "not ported (ROADMAP A10 sparse)")
+    def row_sparse_pull(self, key, out=None, priority=0,
+                        row_ids=None) -> None:
+        """Pull only the rows named in ``row_ids`` (deduplicated) into
+        ``out``: a RowSparseNDArray holding those rows, or a dense array
+        holding them and zeros elsewhere (ref: kvstore_dist.h:258
+        PullRowSparseImpl)."""
+        if row_ids is None:
+            raise MXNetError("row_sparse_pull requires row_ids (matches "
+                             "reference)")
+        if out is None:
+            raise MXNetError("row_sparse_pull requires out (matches "
+                             "reference)")
+        keys, outs = _key_value(key, out)
+        rows = _row_ids_per_key(keys, row_ids)
+        self._do_row_sparse_pull(keys, outs, rows)
+        _feed_bytes("row_sparse_pull", _rsp_pull_wire_nbytes(outs, rows))
+
+    def _do_row_sparse_pull(self, keys, outs, rows_per_key) -> None:
+        """In process: a gather of the requested rows on the stored
+        value's device; the full table never moves."""
+        for k, olist, rows in zip(keys, outs, rows_per_key):
+            # the source pull() would read: a pending push wins when no
+            # updater is installed
+            if self._updater is not None or k not in self._pending:
+                src = self._store.get(k, self._pending.get(k))
+            else:
+                src = self._pending[k]
+            if src is None:
+                raise MXNetError("pull on uninitialised key %r" % k)
+            idx = torch.from_numpy(rows).to(src._data.device)
+            _deliver_rows(olist, src.shape, src._data.detach().index_select(
+                0, idx), idx)
 
     def set_gradient_compression(self, compression_params) -> None:
         """Validate the params (an invalid type or threshold raises for
@@ -239,6 +339,27 @@ class KVStore:
     def load_optimizer_states(self, fname: str) -> None:
         with open(fname, "rb") as f:
             self.set_optimizer_states_bytes(f.read())
+
+
+def _deliver_rows(olist, shape, data: torch.Tensor,
+                  rows: torch.Tensor) -> None:
+    """Write pulled ``rows`` of a ``shape`` table into each out: a
+    RowSparseNDArray takes them as its parts (on its own device, in its
+    dtype), a dense out takes them densified."""
+    from .ndarray import sparse as _sp
+
+    for o in _as_list(olist):
+        if isinstance(o, _sp.RowSparseNDArray):
+            dev = o._parts()["data"].device
+            o._sp_shape = tuple(shape)
+            o._sp_parts = {"data": data.to(dev, o._sp_dtype, copy=True),
+                           "indices": rows.to(dev, copy=True)}
+            o._dense_cache = None
+        else:
+            dense = torch.zeros(tuple(shape), dtype=o._data.dtype,
+                                device=o._data.device)
+            dense[rows.to(dense.device)] = data.to(dense.device, dense.dtype)
+            o._set_data(dense)
 
 
 class PSConnectionLost(MXNetError, ConnectionError):
@@ -361,9 +482,10 @@ class KVStoreDist(KVStore):
         return resp
 
     # ops safe to resend after a transport failure: init is idempotent,
-    # pulls are reads, pushes are deduped by pseq.  Control ops keep
-    # failing fast (a resent 'stop' could end a server under its peers).
-    _RETRY_OPS = frozenset(("init", "push", "pull"))
+    # pulls (pull_rows too) are reads, pushes are deduped by pseq.
+    # Control ops keep failing fast (a resent 'stop' could end a server
+    # under its peers).
+    _RETRY_OPS = frozenset(("init", "push", "pull", "pull_rows"))
 
     def _req_server(self, idx: int, msg):
         """A server request with bounded retry: on a transport failure
@@ -436,13 +558,16 @@ class KVStoreDist(KVStore):
         dtype = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
         if t.device.type == "cpu":
             return t.to(dtype).numpy()
+        # one flat buffer a key, grown as needed: a row-sparse push's
+        # row count changes from step to step
         buf = self._pinned.get(key)
-        if buf is None or buf.shape != t.shape or buf.dtype != dtype:
-            buf = torch.empty(t.shape, dtype=dtype, pin_memory=True)
+        if buf is None or buf.numel() < t.numel() or buf.dtype != dtype:
+            buf = torch.empty(t.numel(), dtype=dtype, pin_memory=True)
             self._pinned[key] = buf
-        buf.copy_(t, non_blocking=True)
+        view = buf[:t.numel()].view(t.shape)
+        view.copy_(t, non_blocking=True)
         torch.cuda.current_stream(t.device).synchronize()
-        return buf.numpy()
+        return view.numpy()
 
     def _merged(self, key, vlist):
         """One key's pushed values summed: on the card for
@@ -479,10 +604,26 @@ class KVStoreDist(KVStore):
         keys, values = _key_value(key, value)
 
         def one(k, vlist):
-            merged = self._merged(k, vlist)
             # pseq makes the push exactly-once under retry
             msg = {"op": "push", "key": k, "worker": self._rank,
                    "pseq": self._next_pseq(k)}
+            if _all_row_sparse(vlist):
+                # only the touched rows travel (ref: kvstore_dist.h:444
+                # EncodeRowSparseKey), the ids exact beside the values
+                # or their 2-bit codes (the residual follows each row)
+                merged = _merge_values(_as_list(vlist))
+                p = merged._parts()
+                rows = p["indices"].cpu().numpy()
+                msg.update(sparse=True, rows=rows, shape=tuple(merged.shape))
+                if self._gc is not None and rows.size:
+                    codes, _shape = self._gc.compress_rows(k, rows,
+                                                           p["data"])
+                    msg.update(compressed=True, data=codes)
+                else:
+                    msg["data"] = self._host(("rows", k), p["data"])
+                self._req_server(self._server_idx(k), msg)
+                return
+            merged = self._merged(k, vlist)
             if self._gc is not None:
                 codes, shape = self._gc.compress(k, merged)
                 if isinstance(codes, torch.Tensor):
@@ -497,15 +638,32 @@ class KVStoreDist(KVStore):
             (lambda k=k, v=v: one(k, v)) for k, v in zip(keys, values)])
 
     def _push_wire_nbytes(self, key, value) -> int:
-        """With compression on, the packed 2-bit codes of one merged
-        array a key (``ceil(n/4)`` bytes); else the payload."""
-        if self._gc is None:
-            return _payload_nbytes(value)
+        """The bytes a push puts on the wire, a key at a time: a
+        row-sparse value's merged rows x (row payload + 8-byte id), or
+        the ids and the values' 2-bit codes under compression
+        (``rows_wire_nbytes``); a dense value's payload, or the 2-bit
+        codes of one merged array (``ceil(n/4)`` bytes)."""
         from .gradient_compression import GradientCompression
 
-        _keys, values = _key_value(key, value)
-        return sum(GradientCompression.wire_nbytes(
-            _as_list(v)[0]._data.numel()) for v in values)
+        total = 0
+        for vlist in _key_value(key, value)[1]:
+            vs = _as_list(vlist)
+            if _all_row_sparse(vs):
+                n_rows = _np.unique(_np.concatenate(
+                    [v._parts()["indices"].cpu().numpy() for v in vs])).size
+                row_elems = int(_np.prod(vs[0].shape[1:]))
+                if self._gc is not None and n_rows:
+                    total += GradientCompression.rows_wire_nbytes(
+                        n_rows, row_elems)
+                else:
+                    total += n_rows * (
+                        row_elems * torch_dtype(vs[0].dtype).itemsize + 8)
+            elif self._gc is None:
+                total += _payload_nbytes(vlist)
+            else:
+                total += GradientCompression.wire_nbytes(
+                    vs[0]._data.numel())
+        return total
 
     def _do_pull(self, key, out=None, priority: int = 0,
                  ignore_sparse: bool = True) -> None:
@@ -527,10 +685,21 @@ class KVStoreDist(KVStore):
         self._fanout([
             (lambda k=k, o=o: one(k, o)) for k, o in zip(keys, outs)])
 
-    def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        raise MXNetError("row_sparse_pull over the parameter server needs "
-                         "sparse storage, which is not ported (ROADMAP A10 "
-                         "sparse)")
+    def _do_row_sparse_pull(self, keys, outs, rows_per_key) -> None:
+        """Each key's unique requested rows from its server
+        (``pull_rows``, ref: the row-sparse handler of
+        kvstore_dist_server.h:223), the keys' requests fanned out."""
+
+        def one(k, olist, rows):
+            resp = self._req_server(self._server_idx(k),
+                                    {"op": "pull_rows", "key": k,
+                                     "rows": rows, "worker": self._rank})
+            _deliver_rows(olist, _as_list(olist)[0].shape,
+                          torch.from_numpy(_np.asarray(resp["data"])),
+                          torch.from_numpy(_np.asarray(resp["rows"])))
+
+        self._fanout([(lambda k=k, o=o, r=r: one(k, o, r))
+                      for k, o, r in zip(keys, outs, rows_per_key)])
 
     # -- the optimizer travels to the servers --------------------------
     def set_optimizer(self, optimizer) -> None:

@@ -16,11 +16,17 @@ worker's pull after its push sees the round's update.  Departures:
     share the stored arrays' memory, in place; the JAX server moves each
     key to its default device for the update and back;
   * a round aggregates in the pushed dtype where it is wider than
-    float32 (float64 stays float64); the JAX server aggregates in
-    float32 whatever was pushed.
+    float32 (float64 stays float64), row-sparse rounds too; the JAX
+    server aggregates in float32 whatever was pushed, and casts sparse
+    values to float32 (its kvstore_server.py:292).
 
-Row-sparse pushes and pulls raise and name ROADMAP A10 sparse; the SDC
-fingerprint ops raise and name A11.
+A row-sparse push (ref: the row-sparse handler,
+kvstore_dist_server.h:223) stays sparse on the server: its rows and
+values aggregate in touched-rows space (:class:`_RspGrad`), the updater
+receives a ``RowSparseNDArray`` (its lazy update touches only the
+round's rows) and without an updater the aggregate replaces those rows;
+a round that touched no rows updates nothing.  ``pull_rows`` returns the
+requested rows.  The SDC fingerprint ops raise and name ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -37,8 +43,6 @@ from .gradient_compression import GradientCompression
 
 __all__ = ["KVStoreServer", "run_scheduler", "run_server", "init"]
 
-_SPARSE = ("row-sparse pushes and pulls need sparse storage, which is "
-           "not ported (ROADMAP A10 sparse)")
 _SDC = ("the SDC fingerprint vote is not ported (ROADMAP A11)")
 
 
@@ -56,6 +60,46 @@ def _agg_dtype(a: np.ndarray):
     """The dtype a round sums in: float32, or the pushed dtype where it
     is wider."""
     return np.promote_types(a.dtype, np.float32)
+
+
+class _RspGrad:
+    """A row-sparse gradient in flight through aggregation: only the
+    touched rows exist on the server (a dense (vocab, dim) buffer a push
+    is what a table too large for one node cannot afford).  Values keep
+    the aggregation dtype of :func:`_agg_dtype`."""
+
+    __slots__ = ("rows", "vals", "shape")
+
+    def __init__(self, rows, vals, shape):
+        self.rows = np.asarray(rows, dtype=np.int64).reshape(-1)
+        row_elems = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+        vals = np.asarray(vals)
+        self.vals = vals.astype(_agg_dtype(vals), copy=False).reshape(
+            self.rows.size, row_elems)
+        self.shape = tuple(int(d) for d in shape)
+
+    def dedup(self) -> "_RspGrad":
+        """Duplicate rows summed (workers deduplicate before the wire,
+        but the aggregate must not depend on it)."""
+        if self.rows.size == 0:
+            return self
+        uniq, inv = np.unique(self.rows, return_inverse=True)
+        if uniq.size == self.rows.size:
+            return self
+        out = np.zeros((uniq.size, self.vals.shape[1]), self.vals.dtype)
+        np.add.at(out, inv, self.vals)
+        return _RspGrad(uniq, out, self.shape)
+
+    def merged_with(self, other: "_RspGrad") -> "_RspGrad":
+        return _RspGrad(np.concatenate([self.rows, other.rows]),
+                        np.concatenate([self.vals, other.vals], axis=0),
+                        self.shape).dedup()
+
+    def todense(self) -> np.ndarray:
+        dense = np.zeros(self.shape, self.vals.dtype)
+        np.add.at(dense, self.rows,
+                  self.vals.reshape((self.rows.size,) + self.shape[1:]))
+        return dense
 
 
 class KVStoreServer:
@@ -164,7 +208,10 @@ class KVStoreServer:
         elif op == "pull":
             _ps.send_msg(conn, {"data": self._handle_pull(msg)})
         elif op == "pull_rows":
-            raise NotImplementedError(_SPARSE)
+            # ref: the row-sparse handler, kvstore_dist_server.h:223
+            data = self._handle_pull(msg)
+            rows = np.asarray(msg["rows"], dtype=np.int64)
+            _ps.send_msg(conn, {"data": data[rows], "rows": rows})
         elif op in ("sdc_report", "sdc_gather", "sdc_digest"):
             raise NotImplementedError(_SDC)
         elif op == "set_optimizer":
@@ -229,8 +276,22 @@ class KVStoreServer:
         a deduplicated resend (nothing applied)."""
         key = msg["key"]
         if msg.get("sparse"):
-            raise NotImplementedError(_SPARSE)
-        if msg.get("compressed"):
+            # only the touched rows travel, and they stay sparse here:
+            # aggregation, dedup and the update live in touched-rows
+            # space (ref: EncodeRowSparseKey push, kvstore_dist.h:444)
+            rows = np.asarray(msg["rows"], np.int64).reshape(-1)
+            shape = tuple(msg["shape"])
+            row_elems = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+            if msg.get("compressed"):
+                if self.gc is None:
+                    raise RuntimeError("compressed push without "
+                                       "set_compression")
+                vals = self.gc.decompress(msg["data"],
+                                          (rows.size, row_elems))
+            else:
+                vals = np.asarray(msg["data"])
+            grad = _RspGrad(rows, vals, shape).dedup()
+        elif msg.get("compressed"):
             if self.gc is None:
                 raise RuntimeError("compressed push without "
                                    "set_compression")
@@ -255,9 +316,10 @@ class KVStoreServer:
                 self.lock.notify_all()
                 return True
             if st.agg is None:
-                st.agg = grad.astype(_agg_dtype(grad), copy=True)
+                st.agg = (grad if isinstance(grad, _RspGrad)
+                          else grad.astype(_agg_dtype(grad), copy=True))
             else:
-                st.agg = st.agg + grad
+                st.agg = self._agg_add(st.agg, grad)
             st.parts += 1
             if st.parts >= self.num_workers:
                 # ref: ApplyUpdates once NumWorkers parts arrived
@@ -271,6 +333,19 @@ class KVStoreServer:
                 self.lock.notify_all()
         return True
 
+    @staticmethod
+    def _agg_add(agg, grad):
+        """One more push folded into the round's aggregate: two
+        row-sparse parts merge in touched-rows space; a round that mixes
+        storage types densifies."""
+        if isinstance(agg, _RspGrad) and isinstance(grad, _RspGrad):
+            return agg.merged_with(grad)
+        if isinstance(agg, _RspGrad):
+            return agg.todense() + grad
+        if isinstance(grad, _RspGrad):
+            return agg + grad.todense()
+        return agg + grad
+
     def _apply(self, key, merged):
         import time as _time
 
@@ -280,6 +355,29 @@ class KVStoreServer:
         self.applies += 1
 
     def _apply_now(self, key, merged):
+        if isinstance(merged, _RspGrad):
+            if key not in self.store:
+                raise RuntimeError("push before init on %r" % key)
+            if merged.rows.size == 0:
+                return  # a round that touched no rows updates no rows
+            stored = self.store[key]
+            vals = merged.vals.reshape((merged.rows.size,)
+                                       + stored.shape[1:])
+            if self.updater is not None:
+                # the lazy update of the optimizer touches only the rows
+                # this round carried (optimizer._rsp_grad)
+                from .context import Context
+                from .ndarray import sparse as _sparse
+
+                g = _sparse.row_sparse_array(
+                    (vals, merged.rows), shape=stored.shape,
+                    ctx=Context("cpu"), dtype=vals.dtype)
+                self.update_host(key, g, stored)
+            else:
+                # no optimizer: the aggregate replaces the touched rows,
+                # the others keep their stored values
+                stored[merged.rows] = vals.astype(stored.dtype)
+            return
         if self.updater is not None:
             if key not in self.store:
                 raise RuntimeError("push before init on %r" % key)
@@ -292,15 +390,16 @@ class KVStoreServer:
 
     def update_host(self, key, grad, stored):
         """Run the ``Updater`` on host tensors that share ``stored``'s
-        memory (in place)."""
+        memory (in place); ``grad`` is a numpy array or an NDArray (a
+        row-sparse one for a sparse round)."""
         import torch
 
         from .context import Context
         from .ndarray import NDArray
 
         cpu = Context("cpu")
-        g = NDArray.from_raw(torch.from_numpy(
-            np.ascontiguousarray(grad)), cpu)
+        g = grad if isinstance(grad, NDArray) else NDArray.from_raw(
+            torch.from_numpy(np.ascontiguousarray(grad)), cpu)
         host = torch.from_numpy(stored)
         w = NDArray.from_raw(host, cpu)
         self.updater(int(key) if str(key).isdigit() else key, g, w)

@@ -1,12 +1,14 @@
-"""``mx.nd`` — the imperative tensor namespace, dense part.
+"""``mx.nd`` — the imperative tensor namespace.
 
-Counterpart: ``mxnet_tpu/ndarray/__init__.py``.  ``sparse`` and
-``linalg`` are not ported yet.
+Counterpart: ``mxnet_tpu/ndarray/__init__.py``.  ``linalg`` is not
+ported yet (ROADMAP A12).
 """
 from .ndarray import (NDArray, invoke, array, zeros, ones, full, empty,
                       arange, eye, zeros_like, ones_like, concatenate,
                       moveaxis, maximum, minimum, waitall)
 from .utils import save, load, load_frombuffer
+from . import sparse
+from .sparse import BaseSparseNDArray, CSRNDArray, RowSparseNDArray
 from . import register as _register
 
 # imperative random namespace: mx.nd.random.uniform(...)
@@ -52,3 +54,14 @@ power = _scalar_aware_binary("broadcast_power", "_power_scalar",
                              "_rpower_scalar")
 modulo = _scalar_aware_binary("broadcast_mod", "_mod_scalar",
                               "_rmod_scalar")
+
+
+# reference names at the nd namespace (ref: cast_storage.cc,
+# sparse_retain.cc)
+from .sparse import cast_storage  # noqa: E402
+
+
+def _sparse_retain(data, indices):
+    """ref: src/operator/tensor/sparse_retain.cc: keep only the listed
+    rows of a row_sparse array."""
+    return data.retain(indices)

@@ -204,15 +204,22 @@ class NDArray:
         return NDArray.from_raw(self._data.detach().clone(), self._ctx)
 
     def tostype(self, stype: str) -> "NDArray":
+        """ref: NDArray.tostype: ``default`` is this array, ``csr`` /
+        ``row_sparse`` a compressed copy (``ndarray.sparse``)."""
         if stype == "default":
             return self
-        raise MXNetError("sparse storage (%r) is not ported to "
-                         "mxnet_tpu_torch yet" % stype)
+        from . import sparse as _sp
+
+        return _sp.cast_storage(self, stype)
 
     # -- autograd -------------------------------------------------------
     def attach_grad(self, grad_req: str = "write",
                     stype: Optional[str] = None) -> None:
-        """ref: python/mxnet/ndarray/ndarray.py attach_grad."""
+        """ref: python/mxnet/ndarray/ndarray.py attach_grad.  ``stype``
+        is checked and, as in the JAX package, the gradient buffer is
+        dense whatever it names."""
+        if stype not in (None, "default", "row_sparse", "csr"):
+            raise MXNetError("unknown storage type %r" % (stype,))
         grad = NDArray.from_raw(torch.zeros_like(self._data.detach()),
                                 self._ctx)
         autograd.mark_variables([self], [grad], grad_req)
@@ -598,10 +605,16 @@ def invoke(op: Union[str, _op_registry.Op], inputs: Sequence[NDArray],
 # ---------------------------------------------------------------------------
 # creation functions (ref: python/mxnet/ndarray/utils.py, init_op.cc)
 # ---------------------------------------------------------------------------
-def array(source_array, ctx: Optional[Context] = None, dtype=None) -> NDArray:
+def array(source_array, ctx: Optional[Context] = None, dtype=None,
+          stype: Optional[str] = None) -> NDArray:
     """Python-native sources default to float32 (ref: ndarray.py
-    array()); numpy arrays, tensors and NDArrays keep their dtype."""
+    array()); numpy arrays, tensors and NDArrays keep their dtype.
+    ``stype`` ``csr`` / ``row_sparse`` compresses the result."""
     ctx = ctx if ctx is not None else current_context()
+    if stype is not None and stype != "default":
+        from . import sparse as _sp
+
+        return _sp.cast_storage(array(source_array, ctx, dtype), stype)
     if isinstance(source_array, NDArray):
         src = source_array._data
     elif isinstance(source_array, (_np.ndarray, torch.Tensor)):
@@ -622,8 +635,9 @@ def empty(shape, ctx=None, dtype=None) -> NDArray:
 def zeros(shape, ctx=None, dtype=None, **kwargs) -> NDArray:
     stype = kwargs.pop("stype", None)
     if stype is not None and stype != "default":
-        raise MXNetError("sparse storage (%r) is not ported to "
-                         "mxnet_tpu_torch yet" % stype)
+        from . import sparse as _sp
+
+        return _sp.zeros(stype, shape, ctx, dtype)
     return invoke("_zeros", [], {"shape": as_shape(shape),
                                  "dtype": dtype_name(dtype)}, ctx=ctx)
 

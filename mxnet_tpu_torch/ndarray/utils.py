@@ -8,8 +8,9 @@ between the packages:
   magic, then per array the V2 magic ``0xF993FAC9`` (V1 ``0xF993FAC8``
   and pre-V1 records are read too), shape, context, mshadow type flag
   and raw little-endian data, then the name list
-  (src/ndarray/ndarray.cc:860-1100).  Dense storage only here: a
-  sparse record raises (sparse arrays are not ported yet);
+  (src/ndarray/ndarray.cc:860-1100).  Sparse records (storage type 1,
+  row_sparse with aux ``[indices]``; 2, csr with aux ``[indptr,
+  indices]``) load as ``ndarray.sparse`` arrays and save from them;
 * npz, the default: one member per array, ``__mx_list_<i>`` names for a
   list.  bfloat16 is stored as its 16-bit pattern under a
   ``<name>__mx_bf16`` member, written and read through
@@ -58,8 +59,9 @@ def save(fname: str,
         data = [data]
     arrays = list(data.values()) if isinstance(data, dict) else list(data)
     if format == "auto":
+        # the dtype attribute: a sparse array must not densify here
         representable = all(len(v.shape) > 0 and
-                            dtype_name(v._data.dtype) in _FLAG_NAMES
+                            dtype_name(v.dtype) in _FLAG_NAMES
                             for v in arrays)
         format = ("dmlc" if fname.endswith(".params") and representable
                   else "npz")
@@ -159,18 +161,27 @@ def _read_values(f, type_flag, shape):
 
 
 def _read_one_array(f):
+    """A dense record as a numpy array, a sparse one as ``(stype, shape,
+    values, aux arrays)``, a none-array slot as None."""
     magic = _read_u32(f)
     if magic == _V2_MAGIC:
         stype = _read_i32(f)
-        if stype != 0:
-            raise MXNetError(
-                "sparse storage type %d in the container: sparse arrays "
-                "are not ported to mxnet_tpu_torch yet" % stype)
+        naux = {0: 0, 1: 1, 2: 2}.get(stype)
+        if naux is None:
+            raise MXNetError("unknown storage type %d in container"
+                             % stype)
+        sshape = _read_shape64(f) if naux else None
         shape = _read_shape64(f)
         if len(shape) == 0:
             return None  # none-array slot
         _read_i32(f), _read_i32(f)  # context (dev_type, dev_id): ignored
-        return _read_values(f, _read_i32(f), shape)
+        type_flag = _read_i32(f)
+        aux = [(_read_i32(f), _read_shape64(f)) for _ in range(naux)]
+        values = _read_values(f, type_flag, sshape if naux else shape)
+        if not naux:
+            return values
+        return (stype, tuple(shape), values,
+                [_read_values(f, flag, ashape) for flag, ashape in aux])
     # V1 / legacy dense layouts
     if magic == _V1_MAGIC:
         shape = _read_shape64(f)
@@ -195,12 +206,28 @@ def _read_dmlc(f, ctx):
     arrays = [_read_one_array(f) for _ in range(count)]
     names = [_read_exact(f, _read_u64(f)).decode()
              for _ in range(_read_u64(f))]
-    out = [None if a is None else array(a, ctx=ctx) for a in arrays]
+    out = [_to_nd(a, ctx) for a in arrays]
     if names:
         if len(names) != len(out):
             raise MXNetError("container name/array count mismatch")
         return dict(zip(names, out))
     return out
+
+
+def _to_nd(a, ctx):
+    if a is None:
+        return None
+    if isinstance(a, _np.ndarray):
+        return array(a, ctx=ctx)
+    from . import sparse as _sp
+
+    stype, shape, values, aux = a
+    if stype == 1:  # row_sparse: aux = [indices]
+        return _sp.row_sparse_array((values, aux[0]), shape=shape, ctx=ctx,
+                                    dtype=values.dtype)
+    # csr: aux = [indptr, indices]
+    return _sp.csr_matrix((values, aux[1], aux[0]), shape=shape, ctx=ctx,
+                          dtype=values.dtype)
 
 
 def _write_shape64(f, shape):
@@ -216,16 +243,35 @@ def _write_one_array(f, nd):
         raise MXNetError(
             "the reference .params container cannot hold 0-d arrays; "
             "reshape to (1,) before saving (or use format='npz')")
-    values = nd.asnumpy()            # bfloat16 comes back as float32
+    from . import sparse as _sp
+
+    if isinstance(nd, _sp.RowSparseNDArray):
+        stype = 1
+        aux = [nd.indices.asnumpy().astype(_np.int64)]
+    elif isinstance(nd, _sp.CSRNDArray):
+        stype = 2
+        aux = [nd.indptr.asnumpy().astype(_np.int64),
+               nd.indices.asnumpy().astype(_np.int64)]
+    else:
+        stype, aux = 0, []
+    # bfloat16 comes back as float32; a sparse array's stored values only
+    values = nd.data.asnumpy() if stype else nd.asnumpy()
     if values.dtype not in _DTYPE_TO_FLAG:
         # bool, uint32, uint64 have no reference flag: widen to float32
         values = values.astype(_np.float32)
     f.write(struct.pack("<I", _V2_MAGIC))
-    f.write(struct.pack("<i", 0))     # dense storage
+    f.write(struct.pack("<i", stype))
+    if stype:
+        _write_shape64(f, values.shape)
     _write_shape64(f, tuple(nd.shape))
     f.write(struct.pack("<ii", 1, 0))  # context: cpu(0)
     f.write(struct.pack("<i", _DTYPE_TO_FLAG[values.dtype]))
+    for a in aux:
+        f.write(struct.pack("<i", _DTYPE_TO_FLAG[a.dtype]))
+        _write_shape64(f, a.shape)
     f.write(_np.ascontiguousarray(values).tobytes())
+    for a in aux:
+        f.write(_np.ascontiguousarray(a).tobytes())
 
 
 def _write_dmlc(f, arrays, names):

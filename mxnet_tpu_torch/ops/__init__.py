@@ -2,8 +2,9 @@
 
 Counterpart: ``mxnet_tpu/ops/``.  Importing this package registers every
 ported operator: the core modules (elementwise, reduce, matrix, init),
-``nn`` up to ``Pad``, three samplers of ``random_ops`` and the two SGD
-updates of ``optimizer_ops``.
+``nn`` up to ``Pad``, three samplers of ``random_ops``, the SGD, Adam
+and AdaGrad updates of ``optimizer_ops`` (dense and lazy), and the
+sparse ops of ``extra``.
 """
 from . import registry
 from .registry import Op, get, list_ops, register
@@ -16,5 +17,6 @@ from . import init_ops  # noqa: F401
 from . import nn  # noqa: F401
 from . import random_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
+from . import extra  # noqa: F401
 
 __all__ = ["Op", "get", "list_ops", "register", "registry"]

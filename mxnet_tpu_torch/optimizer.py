@@ -1,20 +1,31 @@
-"""Optimizers: the registry, SGD (with momentum), the fused multi-tensor
-SGD-momentum update, and the ``Updater``.
+"""Optimizers: the registry, SGD (with momentum), Adam, AdaGrad, the
+fused multi-tensor SGD-momentum update, and the ``Updater``.
 
-Counterpart: ``mxnet_tpu/optimizer.py`` (``Optimizer``, ``register`` /
-``create``, ``SGD``, ``pack_flat`` / ``unpack_flat`` and their ``_np``
-forms, ``fused_sgd_mom_flat``, ``fused_sgd_mom_grouped`` at :556-636,
-``Updater`` / ``get_updater``).  ``Optimizer.update`` runs the
-registered update op (``sgd_update`` / ``sgd_mom_update``) per key, as
-the reference; the fused forms work on raw tensors inside a train step.
+Counterpart: ``mxnet_tpu/optimizer.py`` (``_rsp_grad`` at :33-42,
+``Optimizer``, ``register`` / ``create``, ``SGD`` with its lazy branch
+at :152-160, ``Adam`` at :201, ``AdaGrad`` at :235, ``pack_flat`` /
+``unpack_flat`` and their ``_np`` forms, ``fused_sgd_mom_flat``,
+``fused_sgd_mom_grouped`` at :556-636, ``Updater`` / ``get_updater``).
+``Optimizer.update`` runs the registered update op (``sgd_update``,
+``sgd_mom_update``, ``adam_update``, ``adagrad_update``) per key, as the
+reference; the fused forms work on raw tensors inside a train step.  A
+row-sparse gradient takes the lazy update (SGD and Adam unless
+``lazy_update=False``, AdaGrad always): only its rows of the weight and
+the states are read and written, and every other row keeps its weight
+and its state bit for bit.  Departure: the lazy update writes those rows
+into the weight's and the states' own tensors and bumps their versions
+(as ``rtc`` launches do), so its work is the touched rows' whatever the
+table's size; the JAX package builds new arrays through the registered
+``_sparse_*_update`` ops, which the port keeps for ``nd`` callers.
 ``Updater.get_states`` pickles ``{index: numpy state}`` as the JAX
-package does.  The other optimizers (NAG, Adam, AdaGrad, RMSProp,
-AdaDelta, Ftrl, Adamax, Nadam, Signum, SGLD, DCASGD, FTML, LBSGD,
-Test) are queued (ROADMAP A12); ``create`` names them as such.
+package does.  The other optimizers (NAG, RMSProp, AdaDelta, Ftrl,
+Adamax, Nadam, Signum, SGLD, DCASGD, FTML, LBSGD, Test) are queued
+(ROADMAP A12); ``create`` names them as such.
 """
 from __future__ import annotations
 
 import io
+import math
 import pickle
 from typing import Any, Dict
 
@@ -23,15 +34,26 @@ import torch
 
 from .base import MXNetError
 from .ndarray import NDArray, invoke, zeros
+from .ops import optimizer_ops as _optimizer_ops
 
-__all__ = ["Optimizer", "SGD", "Updater", "get_updater", "create",
+__all__ = ["Optimizer", "SGD", "Adam", "AdaGrad", "Updater", "get_updater", "create",
            "register", "fused_sgd_mom_flat", "fused_sgd_mom_grouped",
            "pack_flat", "unpack_flat", "pack_flat_np", "unpack_flat_np"]
 
 _REGISTRY: Dict[str, type] = {}
-_QUEUED = ("nag", "adam", "adagrad", "adadelta", "rmsprop", "ftrl",
-           "adamax", "nadam", "signum", "sgld", "dcasgd", "ftml", "lbsgd",
-           "test")
+_QUEUED = ("nag", "adadelta", "rmsprop", "ftrl", "adamax", "nadam",
+           "signum", "sgld", "dcasgd", "ftml", "lbsgd", "test")
+
+
+def _rsp_grad(grad):
+    """``(gdata, rows)`` tensors of a row-sparse gradient for the lazy
+    row updates, else None (the dense path)."""
+    from .ndarray import sparse as _sparse
+
+    if isinstance(grad, _sparse.RowSparseNDArray):
+        p = grad._parts()
+        return p["data"], p["indices"]
+    return None
 
 
 def register(klass):
@@ -129,6 +151,20 @@ class Optimizer:
     def _clip(self):
         return self.clip_gradient if self.clip_gradient is not None else -1.0
 
+    def _lazy(self, op, weight, sp, states, **params) -> None:
+        """The lazy row update ``op`` (``ops.optimizer_ops.LAZY_RULES``)
+        of ``weight`` and ``states`` (NDArrays) from the row-sparse
+        gradient ``sp``, written into their tensors in place."""
+        gdata, rows = sp
+        dev = weight._data.device
+        _optimizer_ops.lazy_update_(
+            op, weight._data, gdata.to(dev), rows.to(dev),
+            tuple(s._data for s in states),
+            rescale_grad=self.rescale_grad, clip_gradient=self._clip(),
+            **params)
+        for cell in (weight,) + tuple(states):
+            cell._bump_version()
+
 
 @register
 class SGD(Optimizer):
@@ -148,7 +184,15 @@ class SGD(Optimizer):
     def update(self, index, weight, grad, state):
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
-        if state is None:
+        sp = _rsp_grad(grad) if self.lazy_update else None
+        if sp is not None:
+            if state is None:
+                self._lazy("_sparse_sgd_update", weight, sp, (), lr=lr,
+                           wd=wd)
+            else:
+                self._lazy("_sparse_sgd_mom_update", weight, sp, (state,),
+                           lr=lr, wd=wd, momentum=self.momentum)
+        elif state is None:
             invoke("sgd_update", [weight, grad],
                    {"lr": lr, "wd": wd, "rescale_grad": self.rescale_grad,
                     "clip_gradient": self._clip()}, out=weight)
@@ -157,6 +201,64 @@ class SGD(Optimizer):
                    {"lr": lr, "momentum": self.momentum, "wd": wd,
                     "rescale_grad": self.rescale_grad,
                     "clip_gradient": self._clip()}, out=weight)
+
+
+@register
+class Adam(Optimizer):
+    """ref: optimizer.py Adam (the bias corrections folded into lr)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, lazy_update=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lazy_update = lazy_update
+
+    def create_state(self, index, weight):
+        return (zeros(weight.shape, weight.context, dtype=weight.dtype),
+                zeros(weight.shape, weight.context, dtype=weight.dtype))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        lr *= math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
+        sp = _rsp_grad(grad) if self.lazy_update else None
+        params = {"lr": lr, "beta1": self.beta1, "beta2": self.beta2,
+                  "epsilon": self.epsilon, "wd": wd}
+        if sp is not None:
+            self._lazy("_sparse_adam_update", weight, sp, tuple(state),
+                       **params)
+            return
+        invoke("adam_update", [weight, grad] + list(state),
+               dict(params, rescale_grad=self.rescale_grad,
+                    clip_gradient=self._clip()), out=weight)
+
+
+@register
+class AdaGrad(Optimizer):
+    """ref: optimizer.py AdaGrad (a row-sparse gradient always takes the
+    lazy update, as in the reference)."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return zeros(weight.shape, weight.context, dtype=weight.dtype)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        params = {"lr": self._get_lr(index),
+                  "epsilon": self.float_stable_eps,
+                  "wd": self._get_wd(index)}
+        sp = _rsp_grad(grad)
+        if sp is not None:
+            self._lazy("_sparse_adagrad_update", weight, sp, (state,),
+                       **params)
+            return
+        invoke("adagrad_update", [weight, grad, state],
+               dict(params, rescale_grad=self.rescale_grad,
+                    clip_gradient=self._clip()), out=weight)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """``mx.sym`` — the symbolic graph namespace (ref: python/mxnet/symbol/).
 
 Counterpart: ``mxnet_tpu/symbol/__init__.py``.  One creator per op of
-the port's registry; ``linalg`` and ``sparse`` wait for their ops
-(ROADMAP A12, A10) and raise on use.
+the port's registry and ``sparse``; ``linalg`` waits for its ops
+(ROADMAP A12) and raises on use.
 """
 from .symbol import (Symbol, Variable, var, Group, load, load_json,
                      AttrScope, zeros, ones)

@@ -1,13 +1,27 @@
 """``mx.sym.sparse`` (ref: python/mxnet/symbol/sparse.py).
 
-Counterpart: ``mxnet_tpu/symbol/sparse.py``.  Sparse storage is not
-ported (ROADMAP A10), so every name raises.
+Counterpart: ``mxnet_tpu/symbol/sparse.py``.  Storage types are
+per-NDArray in this package and graphs run dense, so these creators
+build the same registered ops as their dense names; a CSR or row-sparse
+NDArray bound to a graph is read through its dense bridge (the surface
+of example/sparse/linear_classification/linear_model.py:29
+``mx.symbol.sparse.dot``).
 """
-from ..base import MXNetError
+from .symbol import create as _create
 
 
-def __getattr__(name):
-    if name.startswith("__"):
-        raise AttributeError(name)
-    raise MXNetError("mx.sym.sparse.%s: sparse storage is not ported to "
-                     "mxnet_tpu_torch yet (ROADMAP A10)" % name)
+def dot(lhs, rhs, transpose_a=False, transpose_b=False, **kwargs):
+    return _create("dot", lhs, rhs, transpose_a=transpose_a,
+                   transpose_b=transpose_b, **kwargs)
+
+
+def zeros_like(data, **kwargs):
+    return _create("zeros_like", data, **kwargs)
+
+
+def retain(data, indices, **kwargs):
+    return _create("_sparse_retain", data, indices, **kwargs)
+
+
+def elemwise_add(lhs, rhs, **kwargs):
+    return _create("elemwise_add", lhs, rhs, **kwargs)

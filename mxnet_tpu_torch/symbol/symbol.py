@@ -410,25 +410,16 @@ def create(op_name: str, *args, name: Optional[str] = None, **kwargs) -> Symbol:
     return Symbol([(node, -1 if _visible_outputs(node) > 1 else 0)])
 
 
-# ROADMAP items of the operators the port's registry does not hold yet:
-# sparse storage is A10, everything else (CustomOp, the Caffe/Torch
-# plugins, WarpCTC, RNN, linalg, contrib, the rest of ops/nn) the tail
-_SPARSE_OPS = ("cast_storage", "_sparse_", "_contrib_SparseEmbedding",
-               "_square_sum")
-
-
 def _lookup_op(op_name: str) -> _op_registry.Op:
     """The registered op, or an MXNetError naming the ROADMAP item that
-    brings it."""
+    brings it (A12, the op tail: CustomOp, the Caffe/Torch plugins,
+    WarpCTC, RNN, linalg, contrib and the rest of ops/nn)."""
     if _op_registry.exists(op_name):
         return _op_registry.get(op_name)
-    if op_name.startswith(_SPARSE_OPS):
-        item = "A10, sparse storage"
-    else:
-        item = "A12, the op tail: CustomOp, the Caffe/Torch plugins, " \
-               "RNN, linalg, contrib and the rest of ops/nn"
     raise MXNetError("operator %r is not ported to mxnet_tpu_torch yet "
-                     "(ROADMAP %s)" % (op_name, item))
+                     "(ROADMAP A12, the op tail: CustomOp, the Caffe/Torch "
+                     "plugins, RNN, linalg, contrib and the rest of ops/nn)"
+                     % op_name)
 
 
 def _input_required(op: _op_registry.Op, iname: str, kwargs: Dict[str, Any]) -> bool:

@@ -565,3 +565,126 @@ def test_the_sp_attention_check_holds_ring_and_ulysses_and_reads_each_fault():
     for f in cs.RING_FAULTS:
         assert any(e > lim for got in ranks
                    for e, lim in zip(worst(got[f]), limits)), f
+
+
+# ---------------------------------------------------------------------------
+# sparse storage and the recommender tier
+# ---------------------------------------------------------------------------
+def test_the_sparse_phases_follow_dist_and_report_launches():
+    src = (REPO / "chip_smoke.py").read_text()
+    main = src[src.index("def main()"):]
+    order = [main.index(p) for p in ("phase_dist_numerics()",
+                                     "phase_sparse()",
+                                     "phase_recommender()",
+                                     "phase_recommender_numerics()",
+                                     '"phase": "kernels"')]
+    assert order == sorted(order)
+    assert main.count("for k, v in sparse_counts.items()") == 3
+
+
+def test_the_libsvm_writer_reads_back_at_the_phase_shape(tmp_path):
+    """write_libsvm's rows carry nnz[0]..nnz[1] distinct sorted ids
+    within the feature count and 0/1 labels, the same file for the same
+    seed; LibSVMIter reads it into CSR batches, the last one padded."""
+    import mxnet_tpu_torch as mx
+
+    a, b = tmp_path / "a.libsvm", tmp_path / "b.libsvm"
+    n = cs.write_libsvm(str(a), 300, 2 ** 20, (8, 56), 5)
+    assert cs.write_libsvm(str(b), 300, 2 ** 20, (8, 56), 5) == n
+    assert a.read_bytes() == b.read_bytes()
+    it = mx.io.LibSVMIter(data_libsvm=str(a), data_shape=(2 ** 20,),
+                          batch_size=128)
+    batches = list(it)
+    assert len(batches) == 3 and batches[-1].pad == 84
+    assert it._n == 300 and it._data[0].size == n
+    for bt in batches:
+        counts = np.diff(bt.data[0].indptr.asnumpy())
+        assert counts.min() >= 8 and counts.max() <= 56
+        cols = bt.data[0].indices.asnumpy()
+        assert cols.min() >= 0 and cols.max() < 2 ** 20
+        assert set(np.unique(bt.label[0].asnumpy())) <= {0.0, 1.0}
+
+
+def test_sparse_bounds_count_the_bytes_the_data_needs():
+    # dot(csr, W): 16 stored elements, 10 touched rows of W, 4 rows out
+    ms, by = cs.csr_dot_bound(16, 4, 8, 10, 2 ** 20, False)
+    want = (16 * 12 + 5 * 8 + 10 * 8 * 4 + 4 * 8 * 4) / cs.PEAK_BYTES_S
+    assert by == "bytes" and ms == pytest.approx(want * 1e3)
+    # dot(csr.T, G) writes the whole (features, dim) output
+    ms_t, _ = cs.csr_dot_bound(16, 4, 8, 10, 2 ** 20, True)
+    assert ms_t == pytest.approx((16 * 12 + 5 * 8 + 4 * 8 * 4
+                                  + 2 ** 20 * 8 * 4) / cs.PEAK_BYTES_S * 1e3)
+    # a lazy update of 100 rows, one state: ids, g, w and m in and out
+    ms_l, _ = cs.lazy_update_bound(100, 16, 1)
+    assert ms_l == pytest.approx(100 * (8 + 16 * 4 * 5)
+                                 / cs.PEAK_BYTES_S * 1e3)
+
+
+def test_the_ideal_ratio_and_the_push_bytes_formula():
+    """The pulled-bytes ratio: row_sparse_pull bytes over the dense
+    control's table pulls (its pulls less the head's, which the sparse
+    run pulls alike); 8 id bytes on 64 row bytes put it at 1.125x the
+    unique-rows ideal.  The push formula: per field and shard, unique
+    rows x (row bytes + 8), or rows_wire_nbytes under 2-bit."""
+    from mxnet_tpu_torch import recommender as rec
+    from mxnet_tpu_torch.gradient_compression import GradientCompression
+
+    cfg = rec.RecommenderConfig(n_fields=2, vocab=100, embed_dim=16)
+    uniq = 30
+    sparse = {"row_sparse_pull": uniq * (16 * 4 + 8), "pull": 500}
+    dense = {"pull": 500 + 2 * 100 * 16 * 4}
+    ratio, tables = cs.pulled_bytes_ratio(sparse, dense)
+    assert tables == 2 * 100 * 16 * 4
+    assert ratio / (uniq / (2 * 100)) == pytest.approx(1.125)
+    ids = np.array([[0, 99], [0, 50], [49, 50], [3, 99]])
+    # shards of 25 rows: field 0 rows {0, 3, 49} -> 2 + 0 + 1 + 0;
+    # field 1 rows {50, 99} -> 0 + 0 + 1 + 1
+    assert cs._rec_shard_push_bytes(cfg, 4, ids, False) == 5 * 72
+    rw = GradientCompression.rows_wire_nbytes
+    assert cs._rec_shard_push_bytes(cfg, 4, ids, True) == \
+        rw(2, 16) + 3 * rw(1, 16)
+
+
+def test_sparse_checks_pass_on_the_cpu(tmp_path):
+    """The sparse phase's checks on CPU tensors at 4096 features: the
+    products within float32 round-off of float64, the lazy updates
+    exact on untouched rows, the rsp arithmetic exact, the .params
+    round trip bitwise."""
+    import mxnet_tpu_torch as mx
+
+    p = tmp_path / "t.libsvm"
+    cs.write_libsvm(str(p), 512, 4096, (8, 56), 11)
+    batches = list(mx.io.LibSVMIter(data_libsvm=str(p), data_shape=(4096,),
+                                    batch_size=128))
+    with mx.cpu():
+        row = cs.sparse_checks(mx.cpu(), batches, 4096, 16, 11, timed=False)
+    assert row["dot_err"] <= cs.SPARSE_RTOL
+    assert row["dot_t_err"] <= cs.SPARSE_RTOL
+    for name, v in row["lazy"].items():
+        assert v["untouched_bitwise"], name
+        assert v["weight_err"] <= cs.SPARSE_RTOL, name
+        assert v["state_err"] <= cs.SPARSE_RTOL, name
+    assert all(row["rsp_ops_exact"].values())
+    assert row["params_roundtrip_bitwise"]
+
+
+def test_the_recommender_numerics_pass_clean_and_read_each_fault():
+    """recommender_numerics' local checks with the CPU on both sides:
+    lr 0 bitwise, sparse = dense control, and each planted fault (the
+    momentum of untouched rows decayed; pushed rows permuted) above
+    REC_FAULT_MIN."""
+    import mxnet_tpu_torch as mx
+
+    with mx.cpu():
+        row = cs.rec_numerics(mx.cpu(), mx.cpu())
+    assert row["lr0_bitwise"] and row["sparse_vs_dense_loss_close"]
+    assert row["vs_ref_update_err"] == 0.0
+    assert row["sparse_vs_dense_update_err"] <= cs.REC_NUM_UPDATE_TOL
+    assert row["fault_momentum_decay_update_err"] >= cs.REC_FAULT_MIN
+    assert row["fault_permuted_rows_update_err"] >= cs.REC_FAULT_MIN
+    from mxnet_tpu_torch.recommender import train
+
+    # the permutation undoes itself
+    assert train.ShardedEmbeddingTable.push_rows.__name__ == "push_rows"
+    assert train.ShardedEmbeddingTable.push_rows.__qualname__ == \
+        "ShardedEmbeddingTable.push_rows"

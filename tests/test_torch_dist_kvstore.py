@@ -5,10 +5,12 @@ clusters on the CPU: the reference worker's exact arithmetic identities
 and ``Module.fit`` over ``dist_sync`` against the JAX package's
 ``Module.fit`` at the doubled batch under ``local``.
 
-Three clusters start once for this file, side by side: ``sync`` (2
+Five clusters start once for this file, side by side: ``sync`` (2
 workers, 2 servers: Module.fit, then the push/pull kinds), ``env`` (2
 workers, 1 server, ``MXNET_GRADIENT_COMPRESSION=2bit`` and a chaos
-``drop_push``) and ``async`` (2 workers, 1 server, ``dist_async``).  A
+``drop_push``), ``async`` (2 workers, 1 server, ``dist_async``),
+``sparse_wire`` (2 workers, 2 servers) and ``sparse_chaos`` (2 workers,
+1 server, a chaos ``drop_sparse_pull``).  A
 worker asserts its identities and exits non-zero on a failure.
 """
 import os
@@ -85,6 +87,11 @@ def clusters(tmp_path_factory):
                  "MXNET_CHAOS": "drop_push:rank=1,key=c,nth=2",
                  "MXNET_PS_RETRY_BACKOFF_S": "0.01"}),
         "async": (2, 1, cmd + ["async", "--device", "cpu"], {}),
+        "sparse_wire": (2, 2, cmd + ["sparse_wire", "--device", "cpu"],
+                        {}),
+        "sparse_chaos": (2, 1, cmd + ["sparse_chaos", "--device", "cpu"],
+                         {"MXNET_CHAOS": "drop_sparse_pull:rank=1,nth=2",
+                          "MXNET_PS_RETRY_BACKOFF_S": "0.01"}),
     }
     env = {"OMP_NUM_THREADS": "1"}
     with ThreadPoolExecutor(len(runs)) as pool:
@@ -98,8 +105,9 @@ def test_dist_sync_identities(clusters):
     """Push/pull sums, several values a key merged, shuffled orders and
     bursts, liveness, the server optimizer, optimizer states across 2
     server shards, the 2-bit wire at 1/16 of the bytes with bitwise
-    error feedback, compression after the optimizer, barriers and the
-    sparse / SDC refusals: every worker exits 0."""
+    error feedback, compression after the optimizer, barriers,
+    row-sparse pulls and pushes and the SDC refusals: every worker
+    exits 0."""
     assert clusters["codes"]["sync"] == [0, 0]
 
 
@@ -109,6 +117,20 @@ def test_dist_sync_env_compression_and_chaos_drop(clusters):
 
 def test_dist_async_applies_every_push_once(clusters):
     assert clusters["codes"]["async"] == [0, 0]
+
+
+def test_dist_sparse_wire_bytes_and_compression(clusters):
+    """2 workers x 2 servers: row-sparse pull / push bytes proportional
+    to unique rows (exact formulas), an empty part counted in its round,
+    and the 2-bit sparse push with per-row error feedback bitwise the
+    uncompressed control (``torch_dist_worker.run_sparse_wire``)."""
+    assert clusters["codes"]["sparse_wire"] == [0, 0]
+
+
+def test_dist_sparse_chaos_drop_pull(clusters):
+    """``drop_sparse_pull:rank=1,nth=2``: the retry absorbs the lost
+    response and every pulled value is bitwise the clean schedule's."""
+    assert clusters["codes"]["sparse_chaos"] == [0, 0]
 
 
 def test_module_fit_over_dist_sync_matches_jax_local_doubled_batch(
@@ -161,12 +183,25 @@ def test_local_set_gradient_compression_raises():
         kv.set_gradient_compression({"type": "1bit"})
 
 
-def _dispatch(msg, controller=None):
-    """One request through a server shard's dispatch (no cluster)."""
+def _server(controller=None):
+    """A server shard's state without its sockets: one worker, sync."""
+    import threading
+
     from mxnet_tpu_torch.kvstore_server import KVStoreServer
 
     srv = KVStoreServer.__new__(KVStoreServer)
     srv.controller = controller
+    srv.num_workers, srv.sync_mode = 1, True
+    srv.store, srv.state = {}, {}
+    srv.updater, srv.gc = None, None
+    srv.lock = threading.Condition()
+    srv.apply_s, srv.applies = 0.0, 0
+    return srv
+
+
+def _dispatch(msg, controller=None, srv=None):
+    """One request through a server shard's dispatch (no cluster)."""
+    srv = srv if srv is not None else _server(controller)
     a, b = socket.socketpair()
     try:
         _ps.send_msg(a, msg)
@@ -192,10 +227,78 @@ def test_server_command_channel_controller():
     assert got == [(7, "sync=0")]
 
 
+_TABLE = np.arange(12, dtype=np.float32).reshape(6, 2)
+
+
 @pytest.mark.parametrize("msg,item", [
-    ({"op": "pull_rows", "key": "k", "rows": [0]}, "A10 sparse"),
-    ({"op": "push", "key": "k", "sparse": True, "worker": 0}, "A10 sparse"),
+    ({"op": "pull_rows", "key": "k", "rows": np.array([4, 1])},
+     {"data": _TABLE[[4, 1]], "rows": [4, 1]}),
+    ({"op": "push", "key": "k", "sparse": True, "worker": 0,
+      "rows": np.array([2, 5, 2]), "shape": (6, 2),
+      "data": np.ones((3, 2), np.float32)},
+     {"stored_rows": {2: [2.0, 2.0], 5: [1.0, 1.0], 0: [0.0, 1.0]}}),
     ({"op": "sdc_report", "step": 0, "worker": 0, "fps": []}, "A11")])
 def test_sparse_and_sdc_server_ops_raise(msg, item):
-    _, err = _dispatch(msg)
-    assert item in err, err
+    """The row-sparse server ops answer (``pull_rows`` the requested
+    rows; a sparse push, duplicate rows summed, replaces only its rows
+    without an optimizer); the SDC ops still raise and name A11."""
+    srv = _server()
+    _dispatch({"op": "init", "key": "k", "data": _TABLE}, srv=srv)
+    _, reply = _dispatch(msg, srv=srv)
+    if isinstance(item, str):
+        assert item in reply, reply
+        return
+    if "data" in item:
+        np.testing.assert_array_equal(reply["data"], item["data"])
+        np.testing.assert_array_equal(reply["rows"], item["rows"])
+    for row, want in item.get("stored_rows", {}).items():
+        np.testing.assert_array_equal(srv.store["k"][row], want)
+
+
+def test_sparse_rounds_on_the_server():
+    """Two workers' row-sparse parts merge in touched-rows space; an
+    empty (0, dim) part counts toward the round; the updater gets a
+    row-sparse gradient and moves only its rows; float64 values sum in
+    float64 (the server's precision rule, as for dense pushes)."""
+    srv = _server()
+    srv.num_workers = 2
+    table = np.zeros((6, 2), np.float64)
+    _dispatch({"op": "init", "key": "t", "data": table}, srv=srv)
+
+    def push(worker, rows, vals, key="t"):
+        _dispatch({"op": "push", "key": key, "sparse": True,
+                   "worker": worker, "pseq": None, "shape": (6, 2),
+                   "rows": np.asarray(rows, np.int64),
+                   "data": np.asarray(vals).reshape(len(rows), 2)}, srv=srv)
+
+    push(0, [1], np.full((1, 2), 1.0 + 2.0 ** -40))
+    assert srv.state["t"].applied == 0
+    push(1, [], np.zeros((0, 2)))
+    assert srv.state["t"].applied == 1
+    # float32 would round 2**-40 away
+    np.testing.assert_array_equal(srv.store["t"][1], 1.0 + 2.0 ** -40)
+    np.testing.assert_array_equal(srv.store["t"][[0, 2, 3, 4, 5]], 0.0)
+    # a round of two empty parts updates nothing
+    push(0, [], np.zeros((0, 2)))
+    push(1, [], np.zeros((0, 2)))
+    assert srv.state["t"].applied == 2
+    np.testing.assert_array_equal(srv.store["t"][1], 1.0 + 2.0 ** -40)
+    # with an optimizer: the lazy update of the round's rows only
+    import pickle
+
+    _dispatch({"op": "set_optimizer", "payload": pickle.dumps(
+        tmx.optimizer.SGD(learning_rate=0.5, momentum=0.9))}, srv=srv)
+    _dispatch({"op": "init", "key": "u", "data": np.ones((6, 2),
+                                                         np.float32)},
+              srv=srv)
+    push(0, [0, 3], np.ones((2, 2)), key="u")
+    push(1, [3], np.ones((1, 2)), key="u")
+    u = srv.store["u"]
+    np.testing.assert_allclose(u[0], 0.5)
+    np.testing.assert_allclose(u[3], 0.0)
+    np.testing.assert_array_equal(u[[1, 2, 4, 5]], 1.0)
+    push(0, [0], np.zeros((1, 2)), key="u")
+    push(1, [], np.zeros((0, 2)), key="u")
+    # row 0's momentum carries (-0.5 * 0.9), row 3's does not move
+    np.testing.assert_allclose(srv.store["u"][0], 0.05, rtol=1e-6)
+    np.testing.assert_allclose(srv.store["u"][3], 0.0)

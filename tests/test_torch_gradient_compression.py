@@ -67,8 +67,24 @@ def test_wire_nbytes_and_validation():
 
 
 def test_row_sparse_residual_raises():
-    with pytest.raises(NotImplementedError, match="A10 sparse"):
-        TGC().compress_rows("k", np.array([1]), np.zeros((1, 4)))
+    """``compress_rows`` (landed with sparse storage) gives the JAX
+    package's codes byte for byte over rounds with changing row sets,
+    the residual following each (key, row), from numpy and from a
+    tensor; ``rows_wire_nbytes`` is the JAX package's."""
+    import torch
+
+    mine, mine_t, theirs = TGC(threshold=0.5), TGC(threshold=0.5), \
+        JGC(threshold=0.5)
+    rng = np.random.RandomState(5)
+    for key in ("k", "k", "k2", "k"):
+        rows = np.sort(rng.choice(12, rng.randint(0, 6), replace=False))
+        vals = (rng.randn(rows.size, 3) * 0.3).astype(np.float32)
+        want = theirs.compress_rows(key, rows, vals)
+        assert mine.compress_rows(key, rows, vals) == want
+        assert mine_t.compress_rows(key, rows, torch.from_numpy(vals)) == \
+            want
+    for n, d in ((0, 4), (3, 4), (7, 16)):
+        assert TGC.rows_wire_nbytes(n, d) == JGC.rows_wire_nbytes(n, d)
 
 
 @pytest.mark.parametrize("name", [

@@ -50,6 +50,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import mxnet_tpu_torch.parallel.tensor, mxnet_tpu_torch._ps\n"
         "import mxnet_tpu_torch.kvstore_server, mxnet_tpu_torch.launch\n"
         "import mxnet_tpu_torch.gradient_compression\n"
+        "import mxnet_tpu_torch.ndarray.sparse, mxnet_tpu_torch.ops.extra\n"
+        "import mxnet_tpu_torch.recommender\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mxnet_tpu', 'ml_dtypes'))\n"
         # kernels are built at first launch, never at import; NVRTC and
@@ -189,6 +191,32 @@ def test_transformer_training_defaults_to_cuda_and_raises_without_it():
     assert batch.data[0].context.device_type == "cpu"
     loss = step.step(batch.data[0], batch.label[0])
     assert loss.device.type == "cpu" and torch.isfinite(loss)
+
+
+def test_sparse_and_recommender_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import recommender as rec
+    from mxnet_tpu_torch.ndarray import sparse
+
+    for make in (lambda: sparse.zeros("csr", (2, 2)),
+                 lambda: sparse.row_sparse_array(np.eye(2)),
+                 lambda: mx.nd.zeros((2, 2), stype="row_sparse")):
+        with pytest.raises(mx.MXNetError, match=r"ctx=mx\.cpu\(\)"):
+            make()
+    cfg = rec.RecommenderConfig(n_fields=2, vocab=8, embed_dim=2,
+                                mlp_hidden=(4,))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rec.init_params(torch.Generator(), cfg)
+    with pytest.raises(mx.MXNetError, match=r"ctx=mx\.cpu\(\)"):
+        rec.RecommenderTrainStep(cfg, mx.kv.create("local"))
+    step = rec.RecommenderTrainStep(cfg, mx.kv.create("local"),
+                                    ctx=mx.cpu())
+    assert step.device.type == "cpu"
+    assert step.dense_params["out_w"].device.type == "cpu"
 
 
 def test_symbolic_entry_points_default_to_cuda_and_raise_without_it(

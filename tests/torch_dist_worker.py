@@ -13,11 +13,13 @@ Module.fit with ``--io DIR`` holding ``fit_in.npz``, then the push/pull
 identities, several values a key merged before the wire, adversarial
 orderings,
 liveness, the server optimizer, optimizer-state round trips, the 2-bit
-wire, compression with error feedback, barriers, and the sparse and SDC
-refusals), ``env`` (``MXNET_GRADIENT_COMPRESSION`` set by the launch, and
+wire, compression with error feedback, barriers, row-sparse pulls and
+pushes, and the SDC refusals), ``env`` (``MXNET_GRADIENT_COMPRESSION`` set by the launch, and
 ``MXNET_CHAOS=drop_push:rank=1,key=c,nth=2``: the env toggle, then a
 dropped push response absorbed by the retry), ``async`` (``dist_async``:
-every push applied exactly once).  A failed assertion exits non-zero, which fails the launch.
+every push applied exactly once), ``sparse_wire`` (2 workers, 2
+servers: row-sparse bytes, rounds and 2-bit per-row error feedback) and
+``sparse_chaos`` (``MXNET_CHAOS=drop_sparse_pull:rank=1,nth=2``).  A failed assertion exits non-zero, which fails the launch.
 """
 import argparse
 import os
@@ -246,12 +248,49 @@ def gradient_compression(kv):
     np.testing.assert_allclose(out.asnumpy(), -0.1, atol=1e-6)
 
 
+def row_sparse_pull(kv):
+    """Only the requested rows come back, into a row-sparse out and
+    into a dense one (zeros elsewhere)."""
+    from mxnet_tpu_torch.ndarray import sparse as sp
+
+    table = np.arange(20, dtype=np.float32).reshape(10, 2)
+    kv.init("emb", nd.array(table))
+    rows = np.array([1, 4, 7])
+    out = sp.zeros("row_sparse", (10, 2))
+    kv.row_sparse_pull("emb", out=out, row_ids=nd.array(rows))
+    want = np.zeros_like(table)
+    want[rows] = table[rows]
+    np.testing.assert_array_equal(out.indices.asnumpy(), rows)
+    np.testing.assert_array_equal(out.todense().asnumpy(), want)
+    dense = nd.zeros((10, 2))
+    kv.row_sparse_pull("emb", out=dense, row_ids=nd.array([7, 1, 4, 4]))
+    np.testing.assert_array_equal(dense.asnumpy(), want)
+
+
+def sparse_push(kv):
+    """After ``sync_optimizer`` (SGD lr 0.1, momentum 0.9, rescale
+    1/nw): row-sparse gradients travel as rows and the server's lazy
+    update moves only those rows."""
+    from mxnet_tpu_torch.ndarray import sparse as sp
+
+    nw = kv.num_workers
+    kv.init("rs", nd.zeros((6, 2)))
+    rows = np.array([1, 4])
+    vals = np.full((2, 2), float(nw), np.float32)
+    kv.push("rs", sp.row_sparse_array((nd.array(vals), nd.array(rows)),
+                                      shape=(6, 2)))
+    out = nd.zeros((6, 2))
+    kv.pull("rs", out=out)
+    o = out.asnumpy()
+    # every worker pushes nw on rows {1, 4}: the sum nw*nw, rescaled nw
+    np.testing.assert_allclose(o[[1, 4]], -0.1 * nw, rtol=1e-5)
+    np.testing.assert_array_equal(o[[0, 2, 3, 5]], 0.0)
+
+
 def refusals(kv):
-    """Row-sparse pulls name ROADMAP A10 sparse; the SDC exchanges A11."""
-    for fn, item in ((lambda: kv.row_sparse_pull(
-            "a", out=nd.zeros((4, 4)), row_ids=nd.array([0])), "A10"),
-            (lambda: kv.sdc_exchange(0, [1]), "A11"),
-            (lambda: kv.sdc_reference(["a"]), "A11")):
+    """The SDC exchanges name ROADMAP A11."""
+    for fn, item in ((lambda: kv.sdc_exchange(0, [1]), "A11"),
+                     (lambda: kv.sdc_reference(["a"]), "A11")):
         try:
             fn()
         except mx.MXNetError as e:
@@ -289,6 +328,8 @@ def run_sync(store, io_dir):
     kv._gc = None
     kv.barrier()
     sync_optimizer(kv)
+    row_sparse_pull(kv)
+    sparse_push(kv)
     optimizer_state_roundtrip(kv)
     gradient_compression(kv)
     refusals(kv)
@@ -358,9 +399,160 @@ def run_async():
     kv.close()
 
 
+def run_sparse_wire():
+    """Row-sparse wire bytes on a 2-server cluster are proportional to
+    UNIQUE ROWS (exact formulas, counter deltas), sync rounds keep
+    untouched rows, and the 2-bit sparse push round-trips bitwise
+    against the uncompressed control with per-row error feedback
+    (representable {-t, 0, +t} values; power-of-two sub-threshold
+    pushes).  Pull and uncompressed push move U * (row bytes + 8);
+    a compressed push U * 8 + ceil(U * dim / 4)."""
+    from mxnet_tpu_torch.gradient_compression import GradientCompression
+    from mxnet_tpu_torch.ndarray import sparse as sp
+
+    kv = mx.kv.create("dist_sync")
+    rank, nw = kv.rank, kv.num_workers
+    assert nw == 2
+    pull_ctr, push_ctr = _counter("row_sparse_pull"), \
+        _counter("row_sparse_push")
+    vocab, dim = 64, 4
+    table = np.arange(vocab * dim, dtype=np.float32).reshape(vocab, dim)
+    # two shard keys of two tables: the crc32 rule puts them on both
+    # servers (a table's shard keys share a server at 2 servers)
+    kv.init("emb0:s0", nd.array(table))
+    kv.init("emb1:s0", nd.array(table + 1.0))
+    assert {kv._server_idx("emb0:s0"), kv._server_idx("emb1:s0")} == {0, 1}
+    kv.barrier()
+
+    rows = np.array([3, 9, 31], np.int64)
+    base = pull_ctr.value
+    out = sp.zeros("row_sparse", (vocab, dim))
+    kv.row_sparse_pull("emb0:s0", out=out, row_ids=nd.array(rows))
+    d_pull = pull_ctr.value - base
+    assert d_pull == rows.size * (dim * 4 + 8), d_pull
+    np.testing.assert_array_equal(out.todense().asnumpy()[rows],
+                                  table[rows])
+
+    rows_p = np.array([1, 4], np.int64)
+    base = push_ctr.value
+    kv.push("emb1:s0", sp.row_sparse_array(
+        (np.full((2, dim), float(rank + 1), np.float32), rows_p),
+        shape=(vocab, dim)))
+    d_push = push_ctr.value - base
+    assert d_push == rows_p.size * (dim * 4 + 8), d_push
+    out = sp.zeros("row_sparse", (vocab, dim))
+    kv.row_sparse_pull("emb1:s0", out=out, row_ids=nd.array([0, 1, 4]))
+    o = out.todense().asnumpy()
+    np.testing.assert_array_equal(o[[1, 4]], float(sum(range(1, nw + 1))))
+    np.testing.assert_array_equal(o[0], table[0] + 1.0)
+    # a round in which this worker touched no row still counts as its
+    # part: the (0, dim) push travels and the round applies
+    kv.push("emb1:s0", sp.row_sparse_array(
+        (np.zeros((0, dim), np.float32), np.zeros(0, np.int64)),
+        shape=(vocab, dim)) if rank else sp.row_sparse_array(
+        (np.ones((1, dim), np.float32), np.array([2])), shape=(vocab, dim)))
+    out = sp.zeros("row_sparse", (vocab, dim))
+    kv.row_sparse_pull("emb1:s0", out=out, row_ids=nd.array([1, 2]))
+    np.testing.assert_array_equal(out.data.asnumpy(),
+                                  [[float(sum(range(1, nw + 1)))] * dim,
+                                   [1.0] * dim])
+    kv.barrier()
+
+    n_rows_c = 8
+    rows_c = np.arange(n_rows_c, dtype=np.int64)
+    vals_c = (((np.arange(n_rows_c * dim) % 3).astype(np.float32) - 1.0)
+              * 0.5).reshape(n_rows_c, dim)   # every value in {-t, 0, +t}
+    kv.init("gcs", nd.zeros((16, dim)))
+    base = push_ctr.value
+    kv.push("gcs", sp.row_sparse_array((vals_c, rows_c), shape=(16, dim)))
+    d_unc = push_ctr.value - base
+    assert d_unc == n_rows_c * (dim * 4 + 8), d_unc
+    out = sp.zeros("row_sparse", (16, dim))
+    kv.row_sparse_pull("gcs", out=out, row_ids=nd.array(rows_c))
+    unc_rows = out.todense().asnumpy()[rows_c].copy()
+    np.testing.assert_array_equal(unc_rows, nw * vals_c)
+
+    # the per-row error-feedback control, uncompressed
+    kv.set_optimizer(mx.optimizer.SGD(learning_rate=0.5, momentum=0.0,
+                                      rescale_grad=1.0 / nw, wd=0.0))
+    ef_rows = np.array([2, 5], np.int64)
+    kv.init("efs_raw", nd.zeros((8, dim)))
+    for _ in range(4):
+        kv.push("efs_raw", sp.row_sparse_array(
+            (np.full((2, dim), 0.25, np.float32), ef_rows), shape=(8, dim)))
+        out = sp.zeros("row_sparse", (8, dim))
+        kv.row_sparse_pull("efs_raw", out=out, row_ids=nd.array(ef_rows))
+    w_raw = out.todense().asnumpy()[ef_rows].copy()
+    np.testing.assert_array_equal(w_raw, -0.5)
+    kv.set_optimizer(None)
+    kv.barrier()
+
+    kv.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+    base = push_ctr.value
+    kv.push("gcs", sp.row_sparse_array((vals_c, rows_c), shape=(16, dim)))
+    d_comp = push_ctr.value - base
+    assert d_comp == GradientCompression.rows_wire_nbytes(n_rows_c, dim) \
+        == n_rows_c * 8 + (n_rows_c * dim + 3) // 4, d_comp
+    out = sp.zeros("row_sparse", (16, dim))
+    kv.row_sparse_pull("gcs", out=out, row_ids=nd.array(rows_c))
+    np.testing.assert_array_equal(out.todense().asnumpy()[rows_c], unc_rows)
+
+    kv.set_optimizer(mx.optimizer.SGD(learning_rate=0.5, momentum=0.0,
+                                      rescale_grad=1.0 / nw, wd=0.0))
+    kv.init("efs", nd.zeros((8, dim)))
+    for _ in range(4):
+        kv.push("efs", sp.row_sparse_array(
+            (np.full((2, dim), 0.25, np.float32), ef_rows), shape=(8, dim)))
+        out = sp.zeros("row_sparse", (8, dim))
+        kv.row_sparse_pull("efs", out=out, row_ids=nd.array(ef_rows))
+    np.testing.assert_array_equal(out.todense().asnumpy()[ef_rows], w_raw)
+    kv.barrier()
+    kv.close()
+
+
+def run_sparse_chaos():
+    """``MXNET_CHAOS=drop_sparse_pull:rank=1,nth=2``: rank 1's second
+    row_sparse_pull is served but its response is lost; the retry reads
+    again and every pulled value stays bitwise the clean schedule's."""
+    from mxnet_tpu_torch import chaos as _chaos
+    from mxnet_tpu_torch import diagnostics as _diag
+    from mxnet_tpu_torch.ndarray import sparse as sp
+
+    kv = mx.kv.create("dist_sync")
+    rank, nw = kv.rank, kv.num_workers
+    assert nw == 2
+    vocab, dim = 16, 2
+    table = np.arange(vocab * dim, dtype=np.float32).reshape(vocab, dim)
+    kv.init("emb:s0", nd.array(table))
+    rows = np.array([1, 7, 12], np.int64)
+    total = float(sum(range(1, nw + 1)))
+    for rnd in range(1, 4):
+        out = sp.zeros("row_sparse", (vocab, dim))
+        kv.row_sparse_pull("emb:s0", out=out, row_ids=nd.array(rows))
+        want = table[rows] if rnd == 1 else np.full((rows.size, dim), total,
+                                                     np.float32)
+        np.testing.assert_array_equal(out.todense().asnumpy()[rows], want)
+        kv.push("emb:s0", sp.row_sparse_array(
+            (np.full((rows.size, dim), float(rank + 1), np.float32), rows),
+            shape=(vocab, dim)))
+        out2 = sp.zeros("row_sparse", (vocab, dim))
+        kv.row_sparse_pull("emb:s0", out=out2, row_ids=nd.array(rows))
+        np.testing.assert_array_equal(out2.todense().asnumpy()[rows], total)
+    if rank == 1:
+        assert _chaos.injected_total("drop_sparse_pull") == 1
+        retries = _diag.metrics.counter("mxnet_ps_retries_total",
+                                        labels={"op": "pull_rows"})
+        assert retries.value >= 1, "a dropped pull absorbed without retry?"
+    else:
+        assert _chaos.injected_total() == 0
+    kv.barrier()
+    kv.close()
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("kind", choices=("sync", "env", "async"))
+    ap.add_argument("kind", choices=("sync", "env", "async", "sparse_wire",
+                                     "sparse_chaos"))
     ap.add_argument("--store", default="dist_sync",
                     choices=("dist_sync", "dist_device_sync"))
     ap.add_argument("--device", choices=("cpu", "gpu"), default="gpu")
@@ -372,6 +564,10 @@ def main():
             run_sync(args.store, args.io)
         elif args.kind == "env":
             run_env()
+        elif args.kind == "sparse_wire":
+            run_sparse_wire()
+        elif args.kind == "sparse_chaos":
+            run_sparse_chaos()
         else:
             run_async()
     print("worker OK", args.kind, flush=True)
