@@ -27,7 +27,10 @@ recommender tier at full width on the local store and over
 ``dist_sync``, held against its dense control, the CPU and one worker,
 with planted faults.  After the first ResNet phases it trains ResNet-50 fed from
 records through the input tier (the decode pool and the pinned,
-stream-ordered device stage).
+stream-ordered device stage).  Last come the observability tier's
+phases: ``mx.profiler``'s spans and counters, ``traceview``'s device
+traces of the training and serving windows, and the asynchronous
+checkpoint writer.
 
     python3 chip_smoke.py
 
@@ -338,6 +341,38 @@ Phases:
            dist_sync against one local worker at batch 16 (1e-5); two
            planted faults above 1e-2 (momentum decayed on untouched
            rows; pushed rows permuted against their ids)
+  profiler ``mx.profiler`` on the card: host us per ``nd.invoke`` over
+           a 2000-op chain stopped and running (profile_sync); the
+           ndarray chain at (4096, 4096) and 3 batches of the ``fit``
+           cell (symbolic ResNet-50, batch 32, local kvstore, SGD) with
+           the profiler on and profile_memory: the dump holds the op
+           names, ``Forward<...>`` / ``Backward<...>``,
+           ``Module::update``, ``SGD::update``, the kvstore verbs and
+           ``NDArrayIter::next``; ``kvstore:push_bytes`` = the
+           parameters' bytes x 3 exactly
+  traceview
+           ``MXNET_TRACE_DIR`` + ``MXNET_TRACE_STEPS=3`` on ``train_lm``
+           at full width: a summary of 3 steps whose windows hold 12
+           ``flash_fwd`` and 12 ``flash_bwd`` (dkv and dq) launches, all
+           ``wgmma``, and whose attributed device-busy ms a step is
+           within 10 % of ``lm_profile``'s for the same step right
+           after (the ``train_lm`` row's is reported beside); one
+           window each of ResNet-50 ``FusedTrainStep`` at batch 32
+           (phases), of the serving generation tier at the serve
+           cell's width (its prefill tick's flash launches, a multiple
+           of 12, all wgmma) and of the ``dp`` cell at one NCCL rank,
+           bucketed (its bucket scopes against the plan, the bucket
+           reduces found, ``plan_match``, the collectives by name)
+  ckpt_async
+           ``TransformerTrainStep.fit`` at the train_lm width, 6 steps
+           with a checkpoint every 2, on the asynchronous writer and
+           then blocking: save()'s return s, the blocking save's s,
+           wait()'s s, step ms with a write in flight against steady
+           steps; the asynchronous shard bitwise the blocking one and
+           verified, a resume from its step 4 bitwise the blocking run;
+           a SIGTERM to a child ``Module.fit`` (this script,
+           ``--ckpt-child``) while its writer holds a ``.tmp`` shard:
+           exit 83, every step verified, no ``.tmp`` left
   kernels  every kernel and its status
 """
 from __future__ import annotations
@@ -2577,13 +2612,16 @@ def lm_profile(step, it, steps, untraced_ms):
                  schedule=schedule(wait=0, warmup=1, active=steps)) as prof:
         for i, b in enumerate(batches):
             if i == 1:
-                torch.cuda.synchronize()
                 t0 = time.perf_counter()
             step.step(b.data[0], b.label[0])
             if i == steps:
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             else:
+                if i == 0:
+                    # the warm-up step's kernels end before the active
+                    # steps begin, or its tail counts as theirs
+                    torch.cuda.synchronize()
                 # (a step() after the last active step would end the
                 # cycle, and the profiler drops a finished cycle's events)
                 prof.step()
@@ -6494,6 +6532,767 @@ def phase_recommender_numerics():
     return row
 
 
+# ---------------------------------------------------------------------
+# the observability tier: mx.profiler, traceview, the async checkpoint
+# writer
+# ---------------------------------------------------------------------
+# profiler: the host cost of one nd.invoke over a chain of PROF_CHAIN
+# scalar ops on a (64, 64) array, stopped and running; the ndarray
+# chain at (ND_N, ND_N); PROF_BATCHES batches of the fit cell
+PROF_CHAIN = 2000
+PROF_BATCHES = 3
+# traceview: train_lm traced for TV_LM_STEPS windows after one warmup;
+# its attributed device-busy ms a step within TV_BUSY_RTOL of the
+# train_lm phase's lm_profile
+TV_LM_STEPS = 3
+TV_BUSY_RTOL = 0.10
+TV_SERVE_REQUESTS = 8
+# ckpt_async: train_lm's fit for CKPT["steps"] steps with a checkpoint
+# every CKPT["every"], asynchronous then blocking; the asynchronous
+# shard of CKPT["resume_at"] resumed to CKPT["steps"]
+CKPT = dict(steps=4, every=2, resume_at=2)
+# the SIGTERM child: Module.fit of an MLP (256 -> 6144 -> 6144 -> 10)
+# on the card, a checkpoint every 2 steps (~0.3 GB a shard with its
+# momenta), a 20 ms pause a batch; started at the phase's outset, it
+# builds its model and waits for a go file, so its start-up overlaps
+# the parent's runs
+CKPT_CHILD = dict(inputs=256, hidden=6144, batch=32, batches=200,
+                  every=2, pause_s=0.02)
+STEP_ANNOT_RE = re.compile(r"^mxnet:(step|serve):(\d+)(?::k=(\d+))?$")
+TRACE_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_windows(trace):
+    """Per ``mxnet:step`` window of a torch.profiler chrome trace (the
+    host-side annotations, in time order): the device events (kernels,
+    copies, memsets) launched inside it — by their host launch, through
+    the correlation id, where the trace holds it — counted by name, and
+    their device-busy ms."""
+    events = trace["traceEvents"]
+    wins = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                  for e in events if e.get("ph") == "X"
+                  and e.get("cat") == "user_annotation"
+                  and STEP_ANNOT_RE.match(str(e.get("name", ""))))
+    launch = {}
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if e.get("ph") == "X" and corr is not None and \
+                e.get("cat") in ("cuda_runtime", "cuda_driver"):
+            launch[corr] = float(e["ts"])
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in TRACE_DEVICE_CATS]
+    out = []
+    for t0, t1 in wins:
+        counts, busy = {}, 0.0
+        for e in dev:
+            t = launch.get((e.get("args") or {}).get("correlation"),
+                           float(e["ts"]))
+            if t0 <= t < t1:
+                counts[e["name"]] = counts.get(e["name"], 0) + 1
+                busy += float(e["dur"])
+        out.append({"launches": counts, "busy_ms": busy / 1e3,
+                    "wall_ms": (t1 - t0) / 1e3})
+    return out
+
+
+def flash_launches(counts):
+    """Flash-attention launches in a window's counts: forward, backward
+    (one ``flash_bwd_dkv`` a backward call, beside its ``flash_bwd_dq``)
+    and whether every one of them took the ``wgmma`` route."""
+    flash = {k: n for k, n in counts.items() if "flash_" in k}
+    return {"fwd": sum(n for k, n in flash.items() if "flash_fwd" in k),
+            "bwd": sum(n for k, n in flash.items() if "flash_bwd_dkv" in k),
+            "bwd_dq": sum(n for k, n in flash.items()
+                          if "flash_bwd_dq" in k),
+            "all_wgmma": all("wgmma" in k for k in flash)}
+
+
+def collective_launches(counts):
+    """NCCL kernel launches in a window's counts, by (cut) name."""
+    out = {}
+    for k, n in counts.items():
+        if "nccl" in k.lower():
+            out[k[:80]] = out.get(k[:80], 0) + n
+    return out
+
+
+@contextlib.contextmanager
+def _trace_armed(trace_dir, steps):
+    """The step tracer armed through its environment
+    (``MXNET_TRACE_DIR`` / ``MXNET_TRACE_STEPS``) and re-armed; yields
+    ``traceview.capture``."""
+    from mxnet_tpu_torch.traceview import capture
+
+    keys = ("MXNET_TRACE_DIR", "MXNET_TRACE_STEPS")
+    saved = {k: os.environ.get(k) for k in keys}
+    capture.reset()
+    os.environ.update(MXNET_TRACE_DIR=str(trace_dir),
+                      MXNET_TRACE_STEPS=str(steps))
+    try:
+        yield capture
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _captured(capture, what, timeout_s=0.0):
+    """The summary the tracer wrote (waiting up to ``timeout_s`` for a
+    capture finishing on another thread) and its raw trace's windows;
+    raises when there is none or when the trace holds no CUDA
+    activity."""
+    deadline = time.monotonic() + timeout_s
+    while capture.last_summary() is None and time.monotonic() < deadline:
+        time.sleep(0.05)
+    summ = capture.last_summary()
+    if summ is None:
+        raise RuntimeError("traceview: %s wrote no summary" % what)
+    if summ["capture"]["device"] == "cpu" or not summ["n_device_events"]:
+        raise RuntimeError("traceview: %s traced no CUDA activity: %r"
+                           % (what, summ["capture"]))
+    with open(summ["capture"]["trace_path"]) as f:
+        wins = trace_windows(json.load(f))
+    if len(wins) != summ["steps"]["n"]:
+        raise RuntimeError("traceview: %s: %d windows in the trace, %d "
+                           "in the summary" % (what, len(wins),
+                                               summ["steps"]["n"]))
+    return summ, wins
+
+
+def _busy_ms(summ):
+    """Attributed device-busy ms a step: every phase's mean."""
+    return sum((v["mean_s"] or 0.0) for v in summ["phases"].values()) * 1e3
+
+
+def _phase_ms(summ):
+    return {p: (v["mean_s"] or 0.0) * 1e3 for p, v in summ["phases"].items()}
+
+
+def phase_profiler():
+    """``mx.profiler`` on the card: the host cost of one ``nd.invoke``
+    with the profiler stopped and running (profile_sync), the ndarray
+    chain at (ND_N, ND_N) and PROF_BATCHES batches of the ``fit`` cell
+    (symbolic ResNet-50, batch 32, local kvstore, SGD) with the
+    profiler on and the memory counters sampled; the dump's spans and
+    the push byte counter against the parameters' bytes."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import profiler
+
+    nd, ctx = mx.nd, mx.gpu(0)
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_prof_")
+    try:
+        x0 = nd.ones((64, 64), ctx=ctx)
+
+        def chain():
+            x = x0
+            for _ in range(PROF_CHAIN // 2):
+                x = x * 1.0001
+                x = x + 0.0001
+            return x
+
+        chain().wait_to_read()
+        host_s = {}
+        for state in ("stopped", "running", "stopped_again"):
+            if state == "running":
+                profiler.set_config(filename=str(Path(tmp) / "chain.json"))
+                profiler.set_state("run")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = chain()
+            host_s[state] = time.perf_counter() - t0
+            out.wait_to_read()
+            if state == "running":
+                profiler.set_state("stop")
+                chain_ops = profiler.summary()["spans"]["operator"]
+
+        # the ndarray chain and the fit cell, profiler on
+        path = str(Path(tmp) / "profile.json")
+        profiler.set_config(filename=path, profile_memory=True)
+        profiler.set_state("run")
+        rng = np.random.RandomState(0)
+        n = ND_N
+        a = nd.array(rng.randn(n, n).astype(np.float32), ctx=ctx)
+        w = nd.array(rng.randn(n, n).astype(np.float32), ctx=ctx)
+        c = nd.array(rng.randn(1, n).astype(np.float32), ctx=ctx)
+        h = nd.dot(a, w) / float(n // 64)
+        z = nd.relu(nd.broadcast_add(h, c)) * nd.sigmoid(a + w)
+        m = z.mean(axis=1)
+        loss = float((m * m).sum().asnumpy())
+        X, y = _fit_data(FIT["batch"], FIT["image"], FIT["classes"],
+                         PROF_BATCHES)
+        it = mx.io.NDArrayIter(X, y, batch_size=FIT["batch"],
+                               label_name="softmax_label")
+        mod = mx.mod.Module(sym_resnet50(FIT["classes"]), context=ctx)
+        np.random.seed(0)
+        _reset_kernel_counts()
+        t0 = time.perf_counter()
+        mod.fit(it, num_epoch=1, optimizer="sgd", kvstore="local",
+                optimizer_params=(("learning_rate", FIT["lr"]),
+                                  ("momentum", FIT["momentum"])),
+                initializer=mx.init.Xavier())
+        fit_s = time.perf_counter() - t0
+        it.reset()
+        mod.forward(it.next(), is_train=False)
+        mod.get_outputs()[0].wait_to_read()
+        launches = _kernel_counts()
+        profiler.set_state("stop")          # dumps the trace
+        summ = profiler.summary()
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        if profiler.is_running():
+            profiler.set_state("stop")
+        profiler.set_config()
+        shutil.rmtree(tmp, ignore_errors=True)
+    spans = {}
+    for e in events:
+        if e.get("ph") == "X":
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+    last = {}
+    for e in events:
+        if e.get("ph") == "C":
+            last[e["name"]] = e["args"][e["name"]]
+    arg_params, _ = mod.get_params()
+    param_bytes = sum(v.size * 4 for v in arg_params.values())
+    out_name = mod.symbol.list_outputs()[0]
+    want_spans = ["dot", "relu", "sigmoid", "Forward<%s>" % out_name,
+                  "Backward<%s>" % out_name, "Module::update",
+                  "SGD::update", "KVStore::Push", "KVStore::Pull",
+                  "NDArrayIter::next"]
+    top = sorted(((n, s["total_ms"], s["count"])
+                  for cat in summ["spans"].values()
+                  for n, s in cat.items()), key=lambda r: -r[1])[:10]
+    row = {"phase": "profiler", "chain_invokes": PROF_CHAIN,
+           "host_us_per_invoke": {k: v / PROF_CHAIN * 1e6
+                                  for k, v in host_s.items()},
+           "profile_sync": True,
+           "chain_spans": {k: v["count"] for k, v in chain_ops.items()},
+           "ndarray_loss": loss,
+           "fit": {"batches": PROF_BATCHES, "batch": FIT["batch"],
+                   "kvstore": "local", "seconds": fit_s},
+           "span_counts": {k: spans.get(k, 0) for k in want_spans},
+           "n_span_names": len(spans), "n_events": len(events),
+           "push_bytes": last.get("kvstore:push_bytes"),
+           "pull_bytes": last.get("kvstore:pull_bytes"),
+           "param_bytes": param_bytes,
+           "push_bytes_want": param_bytes * PROF_BATCHES,
+           "memory_peak_bytes": last.get("memory:peak_bytes_in_use"),
+           "backward_ms": summ["spans"]["symbolic"][
+               "Backward<%s>" % out_name]["avg_ms"],
+           "backward_ms_min": summ["spans"]["symbolic"][
+               "Backward<%s>" % out_name]["min_ms"],
+           "update_ms": summ["spans"]["optimizer"]["Module::update"][
+               "avg_ms"],
+           "top_spans_ms": [[n[:60], ms, cnt] for n, ms, cnt in top],
+           "kernel_launches": launches,
+           "wall_s": time.perf_counter() - t_phase}
+    emit(row)
+    missing = [k for k in want_spans if not spans.get(k)]
+    if missing:
+        raise RuntimeError("profiler: the dump lacks spans %r" % missing)
+    if row["push_bytes"] != row["push_bytes_want"]:
+        raise RuntimeError("profiler: kvstore:push_bytes %r != the "
+                           "parameters' bytes x batches %r"
+                           % (row["push_bytes"], row["push_bytes_want"]))
+    if spans["Backward<%s>" % out_name] != PROF_BATCHES or \
+            spans["Module::update"] != PROF_BATCHES:
+        raise RuntimeError("profiler: %r steps stamped for %d batches"
+                           % (row["span_counts"], PROF_BATCHES))
+    if row["chain_spans"] != {"_mul_scalar": PROF_CHAIN // 2,
+                              "_plus_scalar": PROF_CHAIN // 2}:
+        raise RuntimeError("profiler: the chain stamped %r"
+                           % (row["chain_spans"],))
+    if not row["memory_peak_bytes"]:
+        raise RuntimeError("profiler: no memory counter on the card")
+    return row
+
+
+def _tv_dp_rank(trace_dir):
+    """traceview's dp cell on this process's rank: the bucketed
+    ResNet-50 bf16 step over the process group, one untraced and one
+    traced window."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import dist, gluon
+    from mxnet_tpu_torch.parallel.dp import FusedTrainStep
+    from mxnet_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    mesh = data_parallel_mesh()
+    ctx = mx.gpu(dist.device().index)
+    net = resnet50(ctx)
+    data, label = train_batch(DP["batch"] * mesh.size, ctx)
+    step = FusedTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                          mesh=mesh, learning_rate=TRAIN_LR,
+                          momentum=TRAIN_MOMENTUM, dtype="bfloat16")
+    with _trace_armed(trace_dir, 1) as capture:
+        for _ in range(2):
+            step.run_steps(data, label, steps=1).asnumpy()
+        summ, wins = _captured(capture, "dp")
+    with open(summ["capture"]["trace_path"]) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation"
+                 and str(e.get("name", "")).startswith("mxbkt")]
+    return {"summary": summ, "windows": wins,
+            "plan": step.bucket_accounting(),
+            "bucket_scopes": sorted(set(names))}
+
+
+def phase_traceview(lm_row):
+    """``traceview`` on the card through its environment: 3 windows of
+    ``train_lm`` (the flash launches a step, all wgmma, read from the
+    trace; the attributed device-busy ms against ``lm_profile``'s),
+    then one window each of ResNet-50 ``FusedTrainStep`` at batch 32,
+    of the serving generation tier, and of the ``dp`` cell at one NCCL
+    rank with its buckets (the bucket reduces found against the plan,
+    the other collectives by name).  Every trace must hold the kernel
+    of every launch in its windows."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import dist, gluon, serving
+    from mxnet_tpu_torch.parallel.dp import FusedTrainStep
+    from mxnet_tpu_torch.transformer import TransformerTrainStep
+    from mxnet_tpu_torch.transformer import model as tm
+
+    t_phase = time.perf_counter()
+    ctx = mx.gpu(0)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tv_"))
+    row = {"phase": "traceview"}
+    failed = []        # checked after the row is printed
+    try:
+        # train_lm
+        cfg = lm_config()
+        step = TransformerTrainStep(cfg, learning_rate=LM["lr"],
+                                    momentum=LM["momentum"],
+                                    remat=LM["remat"], seed=0)
+        it = lm_iter(cfg, LM["batch"], LM["seq"], LM_SEQUENCES)
+        step.bucket_plan_meta()
+        _reset_kernel_counts()
+        with _trace_armed(tmp / "lm", TV_LM_STEPS) as capture:
+            for _ in range(TV_LM_STEPS + 1):
+                b = it.next()
+                step.step(b.data[0], b.label[0])
+            torch.cuda.synchronize()
+            summ, wins = _captured(capture, "train_lm")
+        lm_launches = _kernel_counts()
+        # lm_profile of the same step right after, so the card's clocks
+        # are the capture's
+        ref = lm_profile(step, it, LM_PROFILE_STEPS,
+                         lm_row["step_ms"])["device_busy_ms_per_step"]
+        del step
+        flash = [flash_launches(w["launches"]) for w in wins]
+        busy = _busy_ms(summ)
+        row["train_lm"] = {
+            "steps": summ["steps"]["n"], "flash_per_window": flash,
+            "busy_ms_per_step": busy, "lm_profile_busy_ms": ref,
+            "busy_vs_lm_profile": busy / ref,
+            "train_lm_row_lm_profile_busy_ms":
+                lm_row["profile"]["device_busy_ms_per_step"],
+            "window_busy_ms": [w["busy_ms"] for w in wins],
+            "window_wall_ms": [w["wall_ms"] for w in wins],
+            "phase_ms_per_step": _phase_ms(summ),
+            "lost_launches": summ["capture"]["lost_launches"],
+            "idle_share_traced": 1.0 - busy / (summ["steps"]["mean_s"]
+                                               * 1e3),
+            "launches_per_step": sum(sum(w["launches"].values())
+                                     for w in wins) / len(wins),
+            "capture_cost_s": summ["capture"]["capture_cost_s"],
+            "kernel_launches": lm_launches}
+        n_layers = cfg.n_layers
+        if summ["steps"]["n"] != TV_LM_STEPS or any(
+                f["fwd"] != n_layers or f["bwd"] != n_layers
+                or f["bwd_dq"] != n_layers or not f["all_wgmma"]
+                for f in flash):
+            failed.append("train_lm windows %r (want %d steps of %d wgmma "
+                          "forward and backward launches)"
+                          % (flash, TV_LM_STEPS, n_layers))
+        if abs(busy / ref - 1.0) > TV_BUSY_RTOL:
+            failed.append("train_lm busy %.3f ms a step against "
+                          "lm_profile's %.3f" % (busy, ref))
+
+        # ResNet-50 FusedTrainStep at batch 32
+        net = resnet50(ctx)
+        rn = FusedTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                            learning_rate=TRAIN_LR,
+                            momentum=TRAIN_MOMENTUM, dtype="bfloat16")
+        data, label = train_batch(32, ctx)
+        with _trace_armed(tmp / "rn", 1) as capture:
+            for _ in range(2):
+                rn.run_steps(data, label, steps=1).asnumpy()
+            summ, wins = _captured(capture, "FusedTrainStep")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rn.run_steps(data, label, steps=3).asnumpy()
+        untraced_ms = (time.perf_counter() - t0) / 3 * 1e3
+        del rn, net
+        busy = _busy_ms(summ)
+        row["resnet50_b32"] = {
+            "steps": summ["steps"]["n"], "workload": summ["workload"],
+            "busy_ms_per_step": busy,
+            "wall_ms_per_step_traced": summ["steps"]["mean_s"] * 1e3,
+            "step_ms_untraced": untraced_ms,
+            "idle_share": 1.0 - busy / untraced_ms,
+            "idle_share_traced": 1.0 - busy / (summ["steps"]["mean_s"]
+                                               * 1e3),
+            "phase_ms_per_step": _phase_ms(summ),
+            "lost_launches": summ["capture"]["lost_launches"],
+            "launches_per_step": sum(wins[0]["launches"].values())}
+        for p in ("forward", "backward", "optimizer"):
+            if not row["resnet50_b32"]["phase_ms_per_step"][p] > 0:
+                failed.append("ResNet-50's %s phase is empty" % p)
+
+        # the serving generation tier at the serve cell's width
+        scfg = tm.TransformerConfig(dtype="bfloat16",
+                                    param_dtype="bfloat16", **GPT2_SMALL)
+        params = tm.init_params(torch.Generator().manual_seed(0), scfg)
+        rt = serving.GenerationRuntime("gpt2_small", params, scfg, **SERVE)
+        srv = serving.ModelServer()
+        srv.add_generator(rt)
+        rng = np.random.RandomState(1)
+        prompts = [rng.randint(1, scfg.vocab_size, size=int(n)) for n in
+                   np.linspace(16, SERVE["max_prompt"], TV_SERVE_REQUESTS)]
+        _reset_kernel_counts()
+        pb0 = rt.engine.prefill_batches
+        with _trace_armed(tmp / "serve", 1) as capture:
+            reqs = [srv.submit_generation("gpt2_small", p,
+                                          max_new=SERVE["max_new"],
+                                          deadline_ms=None)
+                    for p in prompts]
+            results = [r.wait(600.0) for r in reqs]
+            summ, wins = _captured(capture, "serving", timeout_s=60.0)
+        serve_launches = _kernel_counts()
+        prefill_batches = rt.engine.prefill_batches - pb0
+        drain = srv.drain(timeout_s=60.0)
+        del srv, rt, params
+        flash = flash_launches(wins[0]["launches"])
+        row["serve"] = {
+            "workload": summ["workload"], "steps": summ["steps"]["n"],
+            "requests": len(prompts),
+            "requests_ok": sum(len(r["tokens"]) == SERVE["max_new"]
+                               for r in results),
+            "window_flash": flash,
+            "window_busy_ms": wins[0]["busy_ms"],
+            "window_wall_ms": wins[0]["wall_ms"],
+            "window_launches": sum(wins[0]["launches"].values()),
+            "lost_launches": summ["capture"]["lost_launches"],
+            "prefill_batches": prefill_batches,
+            "drained": drain["drained"], "kernel_launches": serve_launches}
+        if row["serve"]["requests_ok"] != len(prompts):
+            failed.append("serving answered %d of %d"
+                          % (row["serve"]["requests_ok"], len(prompts)))
+        if not (flash["fwd"] > 0 and flash["fwd"] % scfg.n_layers == 0
+                and flash["all_wgmma"]):
+            failed.append("the traced serving tick holds %r flash "
+                          "launches (want a positive multiple of %d, all "
+                          "wgmma)" % (flash, scfg.n_layers))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the dp cell at one NCCL rank, bucketed: this process joins a
+    # one-rank group for it (a spawned rank costs a new process's start)
+    dtmp = tempfile.mkdtemp(prefix="chip_smoke_tvdp_")
+    try:
+        dist.initialize(init_method="file://" + os.path.join(dtmp, "rdv"),
+                        num_processes=1, process_id=0, backend="nccl")
+        res = _tv_dp_rank(os.path.join(dtmp, "tv"))
+    finally:
+        dist.shutdown()
+        shutil.rmtree(dtmp, ignore_errors=True)
+    summ, wins = res["summary"], res["windows"]
+    row["dp"] = {
+        "ranks": 1, "backend": "nccl", "batch_per_rank": DP["batch"],
+        "plan_buckets": len(res["plan"] or ()),
+        "bucket_scopes_in_trace": len(res["bucket_scopes"]),
+        "bucket_reduces_found": len(summ["buckets"]),
+        "plan_match": summ["plan_match"], "bucket_map": summ["bucket_map"],
+        "bucket_reduce_ms_per_step":
+            (summ["phases"]["bucket_reduce"]["mean_s"] or 0.0) * 1e3,
+        "collectives_per_step": collective_launches(wins[0]["launches"]),
+        "busy_ms_per_step": _busy_ms(summ),
+        "phase_ms_per_step": _phase_ms(summ),
+        "lost_launches": summ["capture"]["lost_launches"]}
+    row["wall_s"] = time.perf_counter() - t_phase
+    emit(row)
+    for key in ("train_lm", "resnet50_b32", "serve", "dp"):
+        if any(row[key]["lost_launches"]):
+            failed.append("the %s trace lost the kernels of %r launches "
+                          "in its windows" % (key,
+                                              row[key]["lost_launches"]))
+    if row["dp"]["bucket_scopes_in_trace"] != row["dp"]["plan_buckets"]:
+        failed.append("dp's trace holds %d bucket scopes for a plan of %d"
+                      % (row["dp"]["bucket_scopes_in_trace"],
+                         row["dp"]["plan_buckets"]))
+    if failed:
+        raise RuntimeError("traceview: %s" % "; ".join(failed))
+    return row
+
+
+def ckpt_child_main(ckdir) -> None:
+    """This script as the ``ckpt_async`` SIGTERM child
+    (``--ckpt-child``): ``Module.fit`` on the card with a checkpoint
+    every CKPT_CHILD["every"] steps on the asynchronous writer, paced by
+    a short pause a batch, until the parent's SIGTERM."""
+    import mxnet_tpu_torch as mx
+
+    c = CKPT_CHILD
+    go = os.path.join(os.path.dirname(ckdir), "go")
+    rng = np.random.RandomState(0)
+    X = rng.rand(c["batch"] * c["batches"], c["inputs"]).astype(np.float32)
+    y = rng.randint(0, 10, len(X)).astype(np.float32)
+    x = mx.sym.Variable("data")
+    for i in (1, 2):
+        x = mx.sym.Activation(mx.sym.FullyConnected(
+            x, num_hidden=c["hidden"], name="fc%d" % i), act_type="relu")
+    x = mx.sym.FullyConnected(x, num_hidden=10, name="fc3")
+    mod = mx.mod.Module(mx.sym.SoftmaxOutput(x, name="softmax"),
+                        context=mx.gpu(0))
+    it = mx.io.NDArrayIter(X, y, batch_size=c["batch"])
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(mx.init.Xavier())
+    torch.cuda.synchronize()
+    with open(go + ".ready", "w"):
+        pass
+    deadline = time.monotonic() + 600
+    while not os.path.exists(go):
+        if time.monotonic() > deadline:
+            raise SystemExit("ckpt child: no go file")
+        time.sleep(0.01)
+    mod.fit(it, num_epoch=1,
+            optimizer_params=(("learning_rate", 0.01), ("momentum", 0.9)),
+            checkpoint_every_n=c["every"], checkpoint_dir=ckdir,
+            batch_end_callback=lambda _p: time.sleep(c["pause_s"]))
+
+
+def _ckpt_child_start():
+    """Start the SIGTERM child (it builds its model, then waits for the
+    go file); returns its handle."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckterm_")
+    log = open(os.path.join(tmp, "child.log"), "w+")
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ckpt-child",
+         os.path.join(tmp, "ck")],
+        stdout=log, stderr=subprocess.STDOUT,
+        env=dict(os.environ, MXNET_CKPT_ASYNC="1"))
+    return {"child": child, "tmp": tmp, "log": log,
+            "t0": time.perf_counter()}
+
+
+def _ckpt_child_stop(handle) -> None:
+    child = handle["child"]
+    if child.poll() is None:
+        child.kill()
+        child.wait()
+    handle["log"].close()
+    shutil.rmtree(handle["tmp"], ignore_errors=True)
+
+
+def _ckpt_sigterm(handle):
+    """The SIGTERM child: let it fit, wait for a shard's ``.tmp`` (the
+    writer thread busy), send SIGTERM, expect exit 83 and a complete
+    verified directory."""
+    import signal
+
+    from mxnet_tpu_torch import checkpoint as ck
+
+    child, tmp, log = handle["child"], handle["tmp"], handle["log"]
+    ckdir = os.path.join(tmp, "ck")
+    try:
+        deadline = time.monotonic() + 180
+        while not os.path.exists(os.path.join(tmp, "go.ready")):
+            if child.poll() is not None or time.monotonic() > deadline:
+                raise RuntimeError("ckpt_async: the child did not get "
+                                   "ready (exit %r)" % child.poll())
+            time.sleep(0.01)
+        ready_s = time.perf_counter() - handle["t0"]
+        with open(os.path.join(tmp, "go"), "w"):
+            pass
+        seen = None
+        deadline = time.monotonic() + 120
+        while seen is None and child.poll() is None:
+            if time.monotonic() > deadline:
+                raise RuntimeError("ckpt_async: the child's writer never "
+                                   "started a shard")
+            for root, _, files in os.walk(ckdir):
+                if any(f.endswith(".ckpt.tmp") for f in files):
+                    seen = os.path.basename(root)
+                    break
+            time.sleep(0.002)
+        t_sig = time.perf_counter()
+        child.send_signal(signal.SIGTERM)
+        rc = child.wait(timeout=120)
+        exit_s = time.perf_counter() - t_sig
+        log.seek(0)
+        tail = log.read()[-2000:]
+        report = ck.verify_dir(ckdir) if os.path.isdir(ckdir) else None
+        latest = ck.latest_step(ckdir) if report else None
+        leftovers = [f for _, _, files in os.walk(ckdir) for f in files
+                     if f.endswith(".tmp")]
+    finally:
+        _ckpt_child_stop(handle)
+    out = {"writing_when_signalled": seen, "exit_code": rc,
+           "exit_s_after_sigterm": exit_s, "child_ready_s": ready_s,
+           "child_s": time.perf_counter() - handle["t0"],
+           "latest_step": latest, "verified_steps":
+               report["n_verified"] if report else 0,
+           "verify_ok": bool(report and report["ok"]),
+           "tmp_left": leftovers}
+    if rc != 83 or seen is None or not out["verify_ok"] or \
+            latest is None or leftovers:
+        raise RuntimeError("ckpt_async: the SIGTERM drain failed: %r\n%s"
+                           % (out, tail))
+    return out
+
+
+def phase_ckpt_async():
+    """``TransformerTrainStep.fit`` at the ``train_lm`` cell's width with
+    a checkpoint every CKPT["every"] steps, on the asynchronous writer
+    and then blocking: ``save()``'s return time, the blocking save's
+    time, ``wait()``'s time, the step ms while a write is in flight
+    against steady steps; the asynchronous shard bitwise the blocking
+    one and verified; a resume from it bitwise the uninterrupted run;
+    a SIGTERM to a child fit while its writer writes."""
+    from mxnet_tpu_torch import checkpoint as ck
+    from mxnet_tpu_torch.transformer import TransformerTrainStep
+
+    t_phase = time.perf_counter()
+    cfg = lm_config()
+    B, T = LM["batch"], LM["seq"]
+    managers, timing = [], {"save_s": [], "wait_s": []}
+    real_save, real_wait = ck.CheckpointManager.save, \
+        ck.CheckpointManager.wait
+
+    def save(self, *a, **k):
+        if self not in managers:
+            managers.append(self)
+        t0 = time.perf_counter()
+        out = real_save(self, *a, **k)
+        timing["save_s"].append(time.perf_counter() - t0)
+        return out
+
+    def wait(self, *a, **k):
+        t0 = time.perf_counter()
+        out = real_wait(self, *a, **k)
+        timing["wait_s"].append(time.perf_counter() - t0)
+        return out
+
+    def run(async_write, steps, ckdir=None, resume=None, seed=0):
+        os.environ["MXNET_CKPT_ASYNC"] = "1" if async_write else "0"
+        st = TransformerTrainStep(cfg, learning_rate=LM["lr"],
+                                  momentum=LM["momentum"],
+                                  remat=LM["remat"], seed=seed)
+        st.bucket_plan_meta()
+        real_step, step_ms = st.step, []
+
+        def timed(tokens, labels):
+            inflight = any(m._q.unfinished_tasks for m in managers)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_step(tokens, labels)
+            torch.cuda.synchronize()
+            step_ms.append([inflight, (time.perf_counter() - t0) * 1e3])
+            return out
+
+        st.step = timed
+        del managers[:]
+        timing["save_s"], timing["wait_s"] = [], []
+        t0 = time.perf_counter()
+        losses = st.fit(lm_iter(cfg, B, T, LM_SEQUENCES), steps,
+                        checkpoint_every_n=None if resume else CKPT["every"],
+                        checkpoint_dir=ckdir, resume_from=resume)
+        return {"losses": losses, "wall_s": time.perf_counter() - t0,
+                "step_ms": step_ms, "save_s": list(timing["save_s"]),
+                "wait_s": list(timing["wait_s"]),
+                "params": st.params_numpy()}
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    saved_env = os.environ.get("MXNET_CKPT_ASYNC")
+    handle = _ckpt_child_start()
+    ck.CheckpointManager.save, ck.CheckpointManager.wait = save, wait
+    try:
+        d_async, d_block = (os.path.join(tmp, n) for n in ("a", "b"))
+        _reset_kernel_counts()
+        arun = run(True, CKPT["steps"], d_async)
+        launches = _kernel_counts()
+        brun = run(False, CKPT["steps"], d_block)
+        resumed = run(True, CKPT["steps"], resume=os.path.join(
+            d_async, "step_%08d" % CKPT["resume_at"]), seed=1)
+        report = ck.verify_dir(d_async)
+        sa = ck.load_checkpoint(d_async, step=CKPT["steps"])
+        sb = ck.load_checkpoint(d_block, step=CKPT["steps"])
+    except BaseException:
+        _ckpt_child_stop(handle)
+        raise
+    finally:
+        ck.CheckpointManager.save, ck.CheckpointManager.wait = \
+            real_save, real_wait
+        if saved_env is None:
+            os.environ.pop("MXNET_CKPT_ASYNC", None)
+        else:
+            os.environ["MXNET_CKPT_ASYNC"] = saved_env
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def same(x, y):
+        if isinstance(x, torch.Tensor):
+            return isinstance(y, torch.Tensor) and torch.equal(
+                x.view(torch.int16), y.view(torch.int16))
+        return np.asarray(x).tobytes() == np.asarray(y).tobytes()
+
+    shard_differs = sorted(
+        k for k in sb["params"] if not same(sa["params"][k], sb["params"][k]))
+    # steady: no write in flight (the async run's, and the blocking
+    # run's steps, whose saves run between steps), first steps aside
+    steady = [ms for busy, ms in arun["step_ms"][1:] + brun["step_ms"][1:]
+              if not busy]
+    inflight = [ms for busy, ms in arun["step_ms"] if busy]
+    at = CKPT["resume_at"]
+    resume_differs = sorted(k for k in brun["params"] if not np.array_equal(
+        resumed["params"][k], brun["params"][k]))
+    term = _ckpt_sigterm(handle)
+    shard_bytes = sum(np.asarray(v).nbytes if not isinstance(
+        v, torch.Tensor) else v.numel() * v.element_size()
+        for v in sa["params"].values()) + len(sa["optimizer_states"] or b"")
+    row = {"phase": "ckpt_async", "config": "train_lm (GPT-2 small width, "
+           "bf16 over float32 parameters, 8 x 1024)", "ckpt": CKPT,
+           "shard_bytes": shard_bytes,
+           "async_save_return_s": arun["save_s"],
+           "blocking_save_s": brun["save_s"],
+           "async_wait_s": arun["wait_s"],
+           "async_fit_s": arun["wall_s"], "blocking_fit_s": brun["wall_s"],
+           "step_ms_steady_median": statistics.median(steady)
+           if steady else None,
+           "step_ms_write_in_flight_median": statistics.median(inflight)
+           if inflight else None,
+           "step_ms": arun["step_ms"],
+           "blocking_step_ms": [ms for _, ms in brun["step_ms"]],
+           "losses_equal": arun["losses"] == brun["losses"],
+           "shard_params_differ": shard_differs,
+           "shard_optimizer_states_equal":
+               sa["optimizer_states"] == sb["optimizer_states"],
+           "verify": {k: report[k] for k in ("ok", "n_steps",
+                                             "n_verified")},
+           "resume": {"from_step": at, "losses_equal":
+                      resumed["losses"] == brun["losses"][at:],
+                      "params_differ": resume_differs},
+           "sigterm": term, "kernel_launches": launches,
+           "wall_s": time.perf_counter() - t_phase}
+    emit(row)
+    if not (row["losses_equal"] and not shard_differs
+            and row["shard_optimizer_states_equal"]):
+        raise RuntimeError("ckpt_async: the asynchronous shard is not the "
+                           "blocking one bitwise: %r" % (row,))
+    if not (report["ok"] and report["n_verified"] == report["n_steps"]
+            == CKPT["steps"] // CKPT["every"]):
+        raise RuntimeError("ckpt_async: the asynchronous directory does "
+                           "not verify: %r" % (report,))
+    if not (row["resume"]["losses_equal"] and not resume_differs):
+        raise RuntimeError("ckpt_async: the resume from the asynchronous "
+                           "shard is not bitwise: %r" % (row["resume"],))
+    if not inflight:
+        raise RuntimeError("ckpt_async: no step ran with a write in "
+                           "flight: %r" % (arun["step_ms"],))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -6545,6 +7344,15 @@ def main() -> int:
                      "recommender": phase_recommender()["kernel_launches"],
                      "recommender_numerics":
                          phase_recommender_numerics()["kernel_launches"]}
+    t_obs = time.perf_counter()
+    prof = phase_profiler()
+    tv = phase_traceview(lm)
+    ckpt = phase_ckpt_async()
+    obs_s = time.perf_counter() - t_obs
+    obs_counts = {"profiler": prof["kernel_launches"],
+                  "traceview_train_lm": tv["train_lm"]["kernel_launches"],
+                  "traceview_serve": tv["serve"]["kernel_launches"],
+                  "ckpt_async": ckpt["kernel_launches"]}
     sp_counts = {
         "train_lm_sp_%s_per_step_rank%d" % (impl, r): c
         for impl, v in lm_sp["per_impl"].items()
@@ -6595,7 +7403,9 @@ def main() -> int:
                              "tp": tp_counts["flash_attention_fwd"],
                              "dist": dist_counts["flash_attention_fwd"],
                              **{k: v["flash_attention_fwd"]
-                                for k, v in sparse_counts.items()}},
+                                for k, v in sparse_counts.items()},
+                             **{k: v["flash_attention_fwd"]
+                                for k, v in obs_counts.items()}},
         "max_abs_err": max(r["max_err"] for r in rows),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -6643,7 +7453,9 @@ def main() -> int:
                              "tp": tp_counts["flash_attention_bwd"],
                              "dist": dist_counts["flash_attention_bwd"],
                              **{k: v["flash_attention_bwd"]
-                                for k, v in sparse_counts.items()}},
+                                for k, v in sparse_counts.items()},
+                             **{k: v["flash_attention_bwd"]
+                                for k, v in obs_counts.items()}},
         "max_abs_err": max(r["max_err"] for r in bwd_rows),
         "ms": bwd_row["kernel_ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
@@ -6668,7 +7480,9 @@ def main() -> int:
                              "tp": tp_counts["rtc_add"],
                              "dist": dist_counts["rtc_add"],
                              **{k: v["rtc_add"]
-                                for k, v in sparse_counts.items()}},
+                                for k, v in sparse_counts.items()},
+                             **{k: v["rtc_add"]
+                                for k, v in obs_counts.items()}},
         "max_abs_err": max(r["max_err"] for r in add_rows),
         "ms": add_row["kernel_ms"], "plain_ms": add_row["plain_ms"],
         "bound_ms": add_row["bound_ms"], "bound_by": add_row["bound_by"],
@@ -6676,7 +7490,8 @@ def main() -> int:
         "single_call_ms": add_row["single_call_ms"],
         "shape": add_row["shape"], "dtype": add_row["dtype"],
     }]
-    emit({"phase": "wall", "wall_s": time.perf_counter() - t_start})
+    emit({"phase": "wall", "wall_s": time.perf_counter() - t_start,
+          "observability_s": obs_s})
     emit({"phase": "kernels",
           "kernels": {k["name"]: "checked" for k in kernels}})
     emit({"kernels": kernels})
@@ -6689,5 +7504,8 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--ps-worker":
         ps_worker_main(sys.argv[2], sys.argv[3])
+        sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--ckpt-child":
+        ckpt_child_main(sys.argv[2])
         sys.exit(0)
     sys.exit(main())

@@ -41,7 +41,13 @@ Ported so far:
   ``ImageDetRecordIter`` on the native decode pipeline (``_native``,
   host C++ built by ``g++`` at first use), ``io_pipeline`` (the sharded
   decode pool and the pinned, stream-ordered device stage), ``image``
-  and ``gluon.data``.
+  and ``gluon.data``;
+* the observability tier — ``profiler`` (``mx.profiler``: spans, byte
+  and memory counters, chrome-trace dumps, ``dumps()`` / ``summary()``,
+  stamped across the nd, executor, optimizer, kvstore and io paths) and
+  ``traceview`` (torch.profiler device traces of the training and
+  serving dispatch windows, attributed into step phases and buckets);
+  ``checkpoint`` writes its shards on a background thread.
 """
 from . import base, context, convert, env, parallel, serving, transformer
 from . import autograd, engine, ndarray, rtc
@@ -60,6 +66,7 @@ from . import symbol as sym
 from . import metric, lr_scheduler, callback, monitor, model
 from . import module
 from . import module as mod
+from . import profiler, traceview
 from .attribute import AttrScope
 from .base import MXNetError
 from .context import (Context, cpu, cpu_pinned, current_context, gpu,
@@ -75,6 +82,6 @@ __all__ = ["convert", "env", "parallel", "serving", "transformer", "io",
            "random", "initializer", "init", "optimizer", "kvstore", "kv",
            "gluon", "name", "attribute", "symbol", "sym", "executor",
            "metric", "lr_scheduler", "callback", "monitor", "model",
-           "module", "mod", "AttrScope",
+           "module", "mod", "profiler", "traceview", "AttrScope",
            "Context", "cpu", "cpu_pinned", "gpu", "tpu",
            "current_context", "num_gpus", "NDArray", "MXNetError"]

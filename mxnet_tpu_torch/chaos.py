@@ -204,9 +204,11 @@ def enabled() -> bool:
 def _default_rank(ctx: Dict[str, Any]) -> Dict[str, Any]:
     if "rank" not in ctx:
         try:
-            from . import diagnostics as _diag
+            # the profiler's rank: a dist store's scheduler-assigned
+            # rank (set_rank) wins over the launcher env
+            from . import profiler as _profiler
 
-            ctx = dict(ctx, rank=_diag._rank_info()[0])
+            ctx = dict(ctx, rank=_profiler._dist_info()[0])
         except Exception:
             pass
     return ctx

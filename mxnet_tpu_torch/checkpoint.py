@@ -40,7 +40,15 @@ its key, so the JAX package reads a port shard unchanged (its
 state: resuming from it in the port warns that the random stream
 restarts.
 
-Not ported (queued in ROADMAP A10): the asynchronous writer thread.
+Writes are asynchronous by default (``MXNET_CKPT_ASYNC``, as in the
+JAX package): ``save()`` takes the snapshot synchronously — the
+parameters, the aux states, the optimizer-state bytes and the random
+state all reach host memory before it returns, because the port's
+optimizers and ``FusedTrainStep`` update the parameters in place — and
+the ``mx-ckpt-writer`` daemon thread then pickles, digests, fsyncs,
+renames, assembles the manifest and runs retention, touching no CUDA
+tensor.  ``wait(timeout)`` drains it; a writer error is raised by
+``wait()`` or by the next ``save()``.
 """
 from __future__ import annotations
 
@@ -52,8 +60,10 @@ import json
 import logging
 import os
 import pickle
+import queue
 import re
 import sys
+import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -239,6 +249,23 @@ def _dumps_payload(payload) -> bytes:
     buf = io.BytesIO()
     _Pickler(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(payload)
     return buf.getvalue()
+
+
+class _DigestingWriter:
+    """A file's ``write`` that also folds every byte into a sha256 and a
+    byte count: a payload pickled through it is hashed as it is written,
+    with no in-memory copy of the whole pickle (large array buffers go
+    straight from their memory to the file)."""
+
+    def __init__(self, f):
+        self._f = f
+        self.sha = hashlib.sha256()
+        self.nbytes = 0
+
+    def write(self, data) -> int:
+        self.sha.update(data)
+        self.nbytes += memoryview(data).nbytes
+        return self._f.write(data)
 
 
 def _loads_payload(data: bytes):
@@ -625,10 +652,11 @@ def _snapshot_params(params: Optional[Dict[str, Any]]) -> Dict[str, Any]:
 
 class CheckpointManager:
     """Writes (and garbage-collects) one rank's shard stream under a
-    shared checkpoint directory.  Writes are synchronous (the JAX
-    package's background writer is queued)."""
+    shared checkpoint directory, on the ``mx-ckpt-writer`` thread
+    unless ``async_write`` (default ``MXNET_CKPT_ASYNC``) is off."""
 
     def __init__(self, directory: str, keep: Optional[int] = None,
+                 async_write: Optional[bool] = None,
                  rank: Optional[int] = None,
                  num_ranks: Optional[int] = None):
         from . import env as _env
@@ -639,15 +667,25 @@ class CheckpointManager:
         self.num_ranks = max(n if num_ranks is None else int(num_ranks), 1)
         self.keep = _env.get_int("MXNET_CKPT_KEEP") if keep is None \
             else int(keep)
+        self.async_write = _env.get_bool("MXNET_CKPT_ASYNC") \
+            if async_write is None else bool(async_write)
+        self._q: "queue.Queue" = queue.Queue()
+        self._writer: Optional[threading.Thread] = None
+        self._errors: List[BaseException] = []
+        self._lock = threading.Lock()
         os.makedirs(directory, exist_ok=True)
 
     def save(self, step: int, *, params=None, aux_params=None,
              optimizer_states: Optional[bytes] = None,
              epoch: int = 0, nbatch: int = 0,
              iterator_state: Optional[dict] = None,
-             extra: Optional[dict] = None) -> str:
-        """Snapshot and write this rank's shard of ``step``; returns
-        its path."""
+             extra: Optional[dict] = None,
+             blocking: Optional[bool] = None) -> str:
+        """Snapshot now, write now (``blocking``) or on the writer
+        thread.  Returns the shard path that exists once the write
+        lands.  An error of an earlier asynchronous write is raised
+        here."""
+        self._raise_writer_error()
         payload = {
             "format_version": FORMAT_VERSION,
             "step": int(step), "epoch": int(epoch), "nbatch": int(nbatch),
@@ -663,23 +701,53 @@ class CheckpointManager:
             "extra": dict(extra) if extra else None,
         }
         path = shard_path(self.directory, step, self.rank)
-        self._write(int(step), payload, path)
+        sync = not self.async_write if blocking is None else blocking
+        if sync:
+            self._write(int(step), payload, path)
+        else:
+            self._ensure_writer()
+            self._q.put((int(step), payload, path))
         return path
 
+    def _ensure_writer(self) -> None:
+        with self._lock:
+            if self._writer is None or not self._writer.is_alive():
+                self._writer = threading.Thread(
+                    target=self._writer_loop, name="mx-ckpt-writer",
+                    daemon=True)
+                self._writer.start()
+
+    def _writer_loop(self) -> None:
+        while True:
+            step, payload, path = self._q.get()
+            try:
+                self._write(step, payload, path)
+            except BaseException as e:  # raised by wait()/next save
+                with self._lock:
+                    self._errors.append(e)
+            finally:
+                self._q.task_done()
+
+    def _raise_writer_error(self) -> None:
+        with self._lock:
+            if self._errors:
+                raise self._errors.pop(0)
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Block until the queued writes landed (``Queue.join`` has no
+        timeout, so this polls).  Raises the first writer error, if
+        any.  Returns False when ``timeout`` expired with writes
+        pending."""
+        t0 = time.monotonic()
+        while self._writer is not None and self._writer.is_alive() \
+                and self._q.unfinished_tasks:
+            if timeout is not None and time.monotonic() - t0 > timeout:
+                return False
+            time.sleep(0.01)
+        self._raise_writer_error()
+        return True
+
     def _write(self, step: int, payload: dict, path: str) -> None:
-        blob = _dumps_payload(payload)
-        # digest of the in-memory bytes, before they touch disk
-        digest = hashlib.sha256(blob).hexdigest()
-        sidecar = {
-            "rank": self.rank, "step": int(step),
-            "num_ranks": self.num_ranks,
-            "generation": int(payload.get("generation", 0)),
-            "bytes": len(blob), "sha256": digest,
-            "format_version": FORMAT_VERSION,
-            "param_fps": None,
-            "tree": {"params": _tree_spec(payload.get("params")),
-                     "aux_params": _tree_spec(payload.get("aux_params"))},
-        }
         # one retry: a peer rank's janitor may rmdir this step between
         # the makedirs and the replace
         for attempt in (0, 1):
@@ -687,9 +755,28 @@ class CheckpointManager:
                 os.makedirs(os.path.dirname(path), exist_ok=True)
                 tmp = path + ".tmp"
                 with open(tmp, "wb") as f:
-                    f.write(blob)
+                    # the pickle streams into the file and the digest:
+                    # the digest is of the bytes as they are written,
+                    # before they reach the disk; the array buffers are
+                    # never copied whole under the interpreter lock (a
+                    # writer thread holding it would stall the steps)
+                    out = _DigestingWriter(f)
+                    _Pickler(out, protocol=pickle.HIGHEST_PROTOCOL).dump(
+                        payload)
                     f.flush()
                     os.fsync(f.fileno())
+                digest = out.sha.hexdigest()
+                sidecar = {
+                    "rank": self.rank, "step": int(step),
+                    "num_ranks": self.num_ranks,
+                    "generation": int(payload.get("generation", 0)),
+                    "bytes": out.nbytes, "sha256": digest,
+                    "format_version": FORMAT_VERSION,
+                    "param_fps": None,
+                    "tree": {"params": _tree_spec(payload.get("params")),
+                             "aux_params": _tree_spec(
+                                 payload.get("aux_params"))},
+                }
                 os.replace(tmp, path)
                 sc = _sidecar_path(self.directory, step, self.rank)
                 with open(sc + ".tmp", "w") as f:
@@ -768,6 +855,7 @@ class CheckpointManager:
 def save_checkpoint(directory: str, step: int, **kw) -> str:
     """One-shot blocking save of this rank's shard (see
     :meth:`CheckpointManager.save` for the keyword surface)."""
+    kw.setdefault("blocking", True)
     return CheckpointManager(directory).save(step, **kw)
 
 

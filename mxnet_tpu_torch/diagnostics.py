@@ -14,10 +14,16 @@ the io feeds (``feed_io_bytes``, ``feed_io_queue_depth``,
 package's metric names; for the parameter server the dead peers its
 heartbeat reports (:func:`set_dead_peers` / :func:`dead_peers`, the
 ``mxnet_ps_dead_peers`` gauge) and the kvstore byte counter
-(:func:`feed_kvstore_bytes`).  The guard always
+(:func:`feed_kvstore_bytes`); for the device timeline the bucket plan
+a step builder stamps (:func:`set_bucket_plan` / :func:`bucket_plan`,
+which traceview matches collectives against) and the
+``mxnet_step_phase_seconds{phase}`` histograms its attribution feeds
+(:func:`feed_phase_seconds`).  The guard always
 raises: its supervised exit (84) comes with the elastic supervisor
-(ROADMAP A11).  The collective flight
-recorder is not ported (the port has no collectives yet), so the
+(ROADMAP A11b).  The port's collectives (the dp buckets, sync
+BatchNorm, sequence and tensor parallelism, the kvstore verbs) run
+without the collective flight recorder and its watchdog, which are
+queued (ROADMAP A11b), so the
 signal handlers here run the hooks only: SIGUSR1 runs the dump hooks;
 SIGTERM runs the dump hooks, then the preemption hooks, and exits 83
 when one ran.  Recompile
@@ -44,7 +50,8 @@ __all__ = [
     "DivergenceGuard", "tokens_per_second_gauge",
     "feed_io_bytes", "feed_io_queue_depth", "feed_io_decode_seconds",
     "feed_io_worker_death", "set_dead_peers", "dead_peers",
-    "feed_kvstore_bytes",
+    "feed_kvstore_bytes", "set_bucket_plan", "bucket_plan",
+    "feed_phase_seconds",
 ]
 
 _log = logging.getLogger(__name__)
@@ -675,7 +682,7 @@ class DivergenceGuard:
     ``mxnet_training_divergence_trips_total``).  :meth:`trip` raises
     :class:`DivergenceError`.  The JAX package's supervised exit and its
     flight-recorder dump are not ported: the port has no elastic
-    supervisor (ROADMAP A11) and no collectives."""
+    supervisor and no collective flight recorder yet (ROADMAP A11b)."""
 
     def __init__(self, window: Optional[int] = None,
                  factor: Optional[float] = None):
@@ -729,6 +736,53 @@ class DivergenceGuard:
             "loss diverged at step %s (window %d, factor %.2f); restore "
             "from the last verified checkpoint" % (step, self.window,
                                                     self.factor))
+
+
+# ---------------------------------------------------------------------------
+# the stamped bucket plan (traceview matches collectives against it)
+# ---------------------------------------------------------------------------
+_plan_lock = threading.Lock()
+_bucket_plan: Optional[dict] = None
+_bucket_plan_owner: Optional[int] = None
+
+
+def set_bucket_plan(plan_meta: Optional[dict],
+                    owner: Optional[int] = None) -> None:
+    """Stamp the bucket plan (``buckets.plan_meta``) of the step that
+    runs; step builders pass their ``id()`` as ``owner`` so a
+    monolithic rebuild only clears its own stale plan, never one a
+    different live bucketed step stamped."""
+    global _bucket_plan, _bucket_plan_owner
+    with _plan_lock:
+        if not plan_meta and _bucket_plan_owner is not None and \
+                owner is not None and _bucket_plan_owner != owner:
+            return
+        _bucket_plan = dict(plan_meta) if plan_meta else None
+        _bucket_plan_owner = owner if plan_meta else None
+
+
+def bucket_plan() -> Optional[dict]:
+    with _plan_lock:
+        return dict(_bucket_plan) if _bucket_plan else None
+
+
+def feed_phase_seconds(phase_steps) -> None:
+    """``mxnet_step_phase_seconds{phase}``: traceview's attributed
+    per-step phase durations, one histogram per phase.  ``phase_steps``
+    maps phase name to a list of per-step seconds.  Never fails the
+    capture it describes."""
+    try:
+        for phase, vals in (phase_steps or {}).items():
+            h = metrics.histogram(
+                "mxnet_step_phase_seconds",
+                help="measured device seconds per step phase "
+                     "(traceview attribution)",
+                labels={"phase": str(phase)})
+            for v in vals:
+                h.observe(float(v))
+        metrics.maybe_flush()
+    except Exception:
+        pass
 
 
 # ---------------------------------------------------------------------------

@@ -181,6 +181,24 @@ register("MXNET_PROCESS_ID", "int", 0,
 register("MXNET_NUM_PROCESSES", "int", 1,
          "Number of processes in the pod launch contract.")
 
+# profiler.py — trace autostart (worker subprocess contract)
+register("MXNET_PROFILER_AUTOSTART", "bool", False,
+         "Start tracing at import and dump at exit (worker "
+         "subprocesses).")
+register("MXNET_PROFILER_FILENAME", "str", "profile.json",
+         "Trace dump filename for the autostart path.")
+
+# traceview/ — the one torch.profiler capture site
+register("MXNET_TRACE_DIR", "str", None,
+         "Arm the traceview device-timeline capture: the next steady-"
+         "state training/serving dispatches are recorded through the "
+         "one torch.profiler wrapper and an attributed "
+         "traceview_summary_rank{K}.json lands here.")
+register("MXNET_TRACE_STEPS", "int", 3,
+         "Dispatch windows to record once MXNET_TRACE_DIR is set "
+         "(after one untraced warmup dispatch that absorbs the first "
+         "call's build).")
+
 # checkpoint.py
 register("MXNET_CKPT_DIR", "str", None,
          "Default checkpoint directory of TransformerTrainStep.fit when "
@@ -191,6 +209,13 @@ register("MXNET_CKPT_EVERY_N", "int", 0,
 register("MXNET_CKPT_KEEP", "int", 3,
          "Completed checkpoint steps retained per directory; older "
          "steps are garbage-collected after each save. 0 keeps all.")
+register("MXNET_CKPT_ASYNC", "bool", True,
+         "Write checkpoint shards on a background thread so the host "
+         "serialization overlaps the next steps (the device->host "
+         "snapshot itself is always synchronous).")
+register("MXNET_CKPT_DRAIN_S", "float", 5.0,
+         "How long the SIGTERM/watchdog preemption path waits for "
+         "in-flight collectives to drain before checkpointing.")
 register("MXNET_CKPT_VERIFY", "bool", True,
          "Verify shard sha256 digests against the step's MANIFEST.json "
          "on load; a corrupt newest step falls back to the newest "

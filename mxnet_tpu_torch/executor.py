@@ -28,8 +28,10 @@ draws.  ``group2ctx`` places the graph (model parallelism,
 its inputs copied across at group boundaries (autograd carries the
 gradients back), the argument, gradient and aux cells of a variable
 live on its placed device, and the outputs come back to the executor's
-device.  The profiler spans of the JAX package's Forward/Backward wait
-for ROADMAP A11.
+device.  ``forward`` and the training walk stamp the JAX package's
+``Forward<out>`` / ``Backward<out>`` profiler spans (cat ``symbolic``),
+synchronised to the card's work while the profiler runs with
+``profile_sync``, with the ``profile_memory`` samples around each.
 
 The memory tier is the JAX package's (``remat.py``):
 
@@ -430,9 +432,12 @@ class Executor:
 
                 shapes = {k: tuple(v.shape) for k, v in arg_dict.items()}
                 _, out_shapes, _ = infer_shape(symbol, **shapes)
-            self.outputs = [NDArray.from_raw(
-                torch.zeros(s, device=self._device), self._ctx)
-                for s in out_shapes if s is not None]
+            from .ndarray import zeros as _zeros
+
+            # through invoke, as the JAX package's executor (a running
+            # profiler stamps these allocations as it does there)
+            self.outputs = [_zeros(s, ctx=self._ctx)
+                            for s in out_shapes if s is not None]
             if len(self.outputs) != len(self._output_names):
                 self.outputs = []
         except MXNetError:
@@ -581,7 +586,11 @@ class Executor:
             if k not in self.arg_dict:
                 raise MXNetError("forward: unknown argument %r" % k)
             self._assign_input(k, v)
-        with torch.no_grad():
+        from . import profiler as _profiler
+
+        _profiler.sample_memory()  # high-water pre-sample (profile_memory)
+        with _profiler.span("Forward<%s>" % self._span_name(),
+                            cat="symbolic"), torch.no_grad():
             if self._monitor_callback is not None:
                 outs, aux_upd, internals = self._eval_monitored()(
                     self._arg_vals(), self._aux_vals(), self._generator(),
@@ -591,10 +600,17 @@ class Executor:
                 outs, aux_upd = self._eval(self._arg_vals(),
                                            self._aux_vals(),
                                            self._generator(), bool(is_train))
-        if is_train:
-            self._write_aux(aux_upd)
+            if _profiler.sync_enabled():
+                _profiler.sync_device(outs)  # the span is device time
+            if is_train:
+                self._write_aux(aux_upd)
+        _profiler.sample_memory()
         self._set_outputs(outs)
         return self.outputs
+
+    def _span_name(self) -> str:
+        """The profiler spans' label: the first output's name."""
+        return self._output_names[0] if self._output_names else "?"
 
     # -- monitor tap (ref: MXExecutorSetMonitorCallback ->
     #    GraphExecutor::ExecuteMonCallback, graph_executor.cc:1418) ------
@@ -680,7 +696,16 @@ class Executor:
         # the monitor tap fires on the fused-step path (fit's
         # forward_backward); a manual forward() already fired it
         monitored = self._monitor_callback is not None and update_outputs
-        outs, grads, aux_upd = self._train_step(cots, n_given, monitored)
+        from . import profiler as _profiler
+
+        _profiler.sample_memory()  # high-water pre-sample (profile_memory)
+        with _profiler.span("Backward<%s>" % self._span_name(),
+                            cat="symbolic"):
+            outs, grads, aux_upd = self._train_step(cots, n_given,
+                                                    monitored)
+            if _profiler.sync_enabled():
+                _profiler.sync_device(outs)
+        _profiler.sample_memory()
         self._write_aux(aux_upd)
         if update_outputs or not self._forward_done:
             self._set_outputs(outs)

@@ -25,8 +25,10 @@ current context is ``gpu(0)`` (the card by default), so the port builds
 every batch on ``mx.cpu()`` instead, whatever the current context; the
 consumer (``Module``, ``TransformerTrainStep``, a Gluon loop) moves it
 to its own device, and ``io_pipeline.InputPipeline`` moves it to the
-card ahead of the step.  The io profiler spans of the fetch path and
-the ``PrefetchingIter::wait`` span wait for ROADMAP A11's profiler.
+card ahead of the step.  While the profiler runs, every fetch stamps an
+``<Iterator>::next`` io span and the ``io:batch_bytes`` counter, and
+``PrefetchingIter`` the consumer's ``PrefetchingIter::wait`` on its
+queue, under the JAX package's names.
 ``LibSVMIter`` streams a LibSVM file into one CSR triple on the host
 and serves CSR batches (``ndarray.sparse``), never densified.
 """
@@ -44,6 +46,7 @@ from typing import List, Optional
 import numpy as _np
 
 from . import diagnostics as _diag
+from . import profiler as _profiler
 from .base import MXNetError
 from .context import cpu
 from .ndarray import NDArray, array
@@ -111,7 +114,7 @@ class DataIter:
     def next(self) -> DataBatch:
         if self.iter_next():
             return _instrumented_fetch(
-                lambda: DataBatch(self.getdata(), self.getlabel(),
+                self, lambda: DataBatch(self.getdata(), self.getlabel(),
                                   pad=self.getpad(),
                                   index=self.getindex()))
         raise StopIteration
@@ -152,12 +155,24 @@ def _batch_nbytes(batch) -> int:
     return sum(_nbytes(a) for a in list(batch.data) + list(batch.label))
 
 
-def _instrumented_fetch(produce):
+def _instrumented_fetch(it, produce):
     """Input-pipeline telemetry shared by every iterator's fetch path:
-    run ``produce()`` and feed the batch's bytes to the io-bytes
-    counter (``diagnostics.feed_io_bytes``, which never raises)."""
+    run ``produce()``, feed the batch's bytes to the io-bytes counter
+    (``diagnostics.feed_io_bytes``, which never raises) and, while the
+    profiler runs, stamp one ``<Iterator>::next`` io span on the
+    calling thread plus the cumulative ``io:batch_bytes`` counter."""
+    if not _profiler.is_running():
+        batch = produce()
+        _diag.feed_io_bytes(_batch_nbytes(batch))
+        return batch
+    start = _profiler._now_us()
     batch = produce()
-    _diag.feed_io_bytes(_batch_nbytes(batch))
+    nbytes = _batch_nbytes(batch)
+    _profiler.record_span(type(it).__name__ + "::next", start,
+                          _profiler._now_us() - start, cat="io",
+                          args={"bytes": nbytes})
+    _profiler.record_bytes("io:batch_bytes", nbytes, cat="io")
+    _diag.feed_io_bytes(nbytes)
     return batch
 
 
@@ -496,7 +511,7 @@ class LibSVMIter(DataIter):
     def next(self) -> DataBatch:
         if self._cursor >= self._n:
             raise StopIteration
-        return _instrumented_fetch(self._next_batch)
+        return _instrumented_fetch(self, self._next_batch)
 
     def _next_batch(self) -> DataBatch:
         end = self._cursor + self.batch_size
@@ -621,7 +636,15 @@ class PrefetchingIter(DataIter):
         self._start()
 
     def _fetch(self) -> Optional[DataBatch]:
-        return self._queue.get()
+        if not _profiler.is_running():
+            return self._queue.get()
+        # consumer-side stall time: how long the train loop blocked on
+        # the prefetch queue (the input-bound signal)
+        start = _profiler._now_us()
+        batch = self._queue.get()
+        _profiler.record_span("PrefetchingIter::wait", start,
+                              _profiler._now_us() - start, cat="io")
+        return batch
 
     def next(self) -> DataBatch:
         if self.current_batch is not None:
@@ -809,7 +832,7 @@ class ImageRecordIter(DataIter):
         return view
 
     def next(self) -> DataBatch:
-        return _instrumented_fetch(self._next_batch)
+        return _instrumented_fetch(self, self._next_batch)
 
     def _next_arrays(self):
         """One decoded batch as host numpy: ``(data, label, pad)``, the
@@ -1073,7 +1096,7 @@ class ImageDetRecordIter(DataIter):
         n = len(self._order)
         if self._cursor >= n:
             raise StopIteration
-        return _instrumented_fetch(self._next_batch)
+        return _instrumented_fetch(self, self._next_batch)
 
     def _next_batch(self) -> DataBatch:
         n = len(self._order)

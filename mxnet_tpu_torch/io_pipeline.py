@@ -43,8 +43,12 @@ context is safe; ``MXNET_IO_START_METHOD=spawn`` is there for
 iterators without ``next_raw``.  Telemetry: the per-batch decode time
 feeds ``mxnet_io_decode_seconds``, the consumer-side queue depth
 ``mxnet_io_queue_depth``, dead workers ``mxnet_io_worker_deaths_total``;
-the chaos kind ``slow_decode`` seeds a straggling worker.  The
-per-worker ``io:*`` profiler lanes wait for ROADMAP A11's profiler.
+the chaos kind ``slow_decode`` seeds a straggling worker.  While the
+profiler runs, each decoded batch stamps an ``io:decode`` span on its
+worker's own trace lane (tid ``IO_WORKER_TID_BASE + worker``, named
+``io:decode-worker <w>``) from the timestamps the worker took, and the
+device stage stamps ``io:device_put`` and the consumer ``io:wait``,
+under the JAX package's names.
 
 Departures: the JAX package's ``sharding=`` (a jax placement) is
 ``device=`` here, and its ``mark_disposable`` / ``take_disposable``
@@ -81,6 +85,7 @@ import numpy as _np
 import torch
 
 from . import diagnostics as _diag
+from . import profiler as _profiler
 from .base import MXNetError
 from .io import DataBatch, DataIter, _instrumented_fetch
 
@@ -93,6 +98,36 @@ _log = logging.getLogger(__name__)
 _SHM_PREFIX = "mxio-"
 
 _EPOCH_END = object()
+#: trace-lane base: decode worker w stamps spans on tid BASE+w
+IO_WORKER_TID_BASE = 100
+
+
+def _stamp_decode(worker: int, decode_s: float,
+                  t0_mono: Optional[float] = None) -> None:
+    """Per-batch decode evidence: the ``mxnet_io_decode_seconds``
+    histogram, and while the profiler runs a span on the worker's own
+    trace lane, anchored at the worker's ``time.monotonic()`` decode
+    start (CLOCK_MONOTONIC is one clock for every process of a host)
+    translated into the profiler's clock — not at the parent's
+    consumption, which would shift the lane by the batch's time in the
+    queue.  Never raises."""
+    _diag.feed_io_decode_seconds(decode_s)
+    if not _profiler.is_running():
+        return
+    try:
+        tid = IO_WORKER_TID_BASE + int(worker)
+        _profiler.register_tid_name(tid, "io:decode-worker %d" % worker)
+        dur = max(float(decode_s) * 1e6, 1.0)
+        now = _profiler._now_us()
+        start = now - dur
+        if t0_mono is not None:
+            age_us = (time.monotonic() - float(t0_mono)) * 1e6
+            if 0.0 <= age_us < 3600e6:  # a sane clock: the true anchor
+                start = now - age_us
+        _profiler.record_span("io:decode", start, dur, cat="io", tid=tid,
+                              args={"worker": int(worker)})
+    except Exception:
+        pass
 
 
 def _shm_dir() -> str:
@@ -240,7 +275,7 @@ def _decode_worker_main(worker_id, iter_fn, num_parts, part_index,
             v[...] = _np.asarray(a).reshape(v.shape)
         for v, a in zip(l_views, label):
             v[...] = _np.asarray(a).reshape(v.shape)
-        result_q.put(("b", epoch, slot, int(pad), decode_s))
+        result_q.put(("b", epoch, slot, int(pad), decode_s, t0))
 
 
 # ---------------------------------------------------------------------------
@@ -566,7 +601,7 @@ class ShardedDecodePool(DataIter):
             if not self._dead[w]:
                 self._free_qs[w].put(slot)
             return None
-        _diag.feed_io_decode_seconds(decode_s)
+        _stamp_decode(w, decode_s, msg[5] if len(msg) > 5 else None)
         d, lab = self._views[w][slot]
         return _HostBatch(w, slot, d, lab, int(pad), float(decode_s))
 
@@ -617,7 +652,7 @@ class ShardedDecodePool(DataIter):
             self._finished[w] = True
             return None
         decode_s = time.monotonic() - t0
-        _diag.feed_io_decode_seconds(decode_s)
+        _stamp_decode(w, decode_s, t0)
         return _HostBatch(w, None, data, label, int(pad), decode_s)
 
     # -- DataIter surface (host mode: safe copies) ----------------------
@@ -639,7 +674,7 @@ class ShardedDecodePool(DataIter):
                     self._ctrl_qs[w].put("reset")
 
     def next(self) -> DataBatch:
-        return _instrumented_fetch(self._next_copy)
+        return _instrumented_fetch(self, self._next_copy)
 
     def _next_copy(self) -> DataBatch:
         from .context import cpu
@@ -783,7 +818,7 @@ class InputPipeline(DataIter):
         if self._pending is not None:
             b, self._pending = self._pending, None
             return b
-        return _instrumented_fetch(self._next_impl)
+        return _instrumented_fetch(self, self._next_impl)
 
     def iter_next(self) -> bool:
         if self._pending is None:
@@ -861,10 +896,15 @@ class InputPipeline(DataIter):
             self._consumed_batches += 1
             return batch
         self._ensure_thread()
+        t0 = _profiler._now_us() if _profiler.is_running() else None
         while True:
             gen, item = self._q.get()
             if gen == self._gen:
                 break
+        if t0 is not None:
+            # consumer-side stall: the input-bound signal
+            _profiler.record_span("io:wait", t0,
+                                  _profiler._now_us() - t0, cat="io")
         _diag.feed_io_queue_depth(self._q.qsize())
         if item is None:
             t = self._thread
@@ -1007,7 +1047,13 @@ class InputPipeline(DataIter):
                 except StopIteration:
                     self._put(gen, None)
                     return
+                t0 = _profiler._now_us()
                 item = self._to_device(hb)
+                if _profiler.is_running():
+                    # the copy's issue on the device stage's thread
+                    _profiler.record_span(
+                        "io:device_put", t0, _profiler._now_us() - t0,
+                        cat="io", args={"worker": hb.worker})
             except Exception as e:
                 _log.exception("io_pipeline device stage failed")
                 self._error = e

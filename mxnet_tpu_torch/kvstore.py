@@ -37,12 +37,18 @@ rows, on the store's device in process (ref: kvstore_local.h
 PullRowSparseImpl) or from the servers (``pull_rows``).  Such pushes and
 pulls count under ``op=row_sparse_push`` / ``op=row_sparse_pull``:
 unique rows x (row payload + 8 bytes of row id), or the row ids and the
-2-bit codes of the values under compression.  The SDC vote's exchanges
-raise (ROADMAP A11); the profiler spans and flight-recorder entries of
-the JAX package's verbs wait for the observability port (A11).
+2-bit codes of the values under compression.  While the profiler runs,
+each verb stamps the JAX package's comms span (``KVStore::Push`` /
+``Pull`` / ``AllReduce`` / ``PullRowSparse``, with its bytes and store
+type) and cumulative ``kvstore:{push,pull,allreduce,row_sparse_pull}
+_bytes`` counter, and a dist store pins the profiler's rank to the one
+the scheduler assigned.  The SDC vote's exchanges raise (ROADMAP A11b);
+the verbs' flight-recorder entries come with the flight recorder
+(A11b).
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import pickle
@@ -51,6 +57,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as _np
 import torch
 
+from . import profiler as _profiler
 from .base import MXNetError, torch_dtype
 from .ndarray import NDArray
 from . import optimizer as _opt
@@ -155,6 +162,15 @@ def _feed_bytes(op: str, nbytes: int) -> None:
     _diag.feed_kvstore_bytes(op, nbytes)
 
 
+def _comms_span(prof: bool, name: str, args: dict):
+    """The profiler span of one verb, or a no-op context when no
+    profiling session runs (each verb's _do_* call stays at one
+    site)."""
+    if not prof:
+        return contextlib.nullcontext()
+    return _profiler.span(name, cat="comms", args=args)
+
+
 def _key_value(key, value):
     """Parallel lists of keys and values; a value is an NDArray or a
     per-device list of them (ref: kvstore_local.h GroupKVPairs)."""
@@ -201,7 +217,12 @@ class KVStore:
         An all-row-sparse push counts under ``op=row_sparse_push``."""
         op = "row_sparse_push" if _all_row_sparse(value) else "push"
         nbytes = self._push_wire_nbytes(key, value)
-        self._do_push(key, value, priority)
+        prof = _profiler.is_running()
+        with _comms_span(prof, "KVStore::Push",
+                         {"bytes": nbytes, "type": self._kind}):
+            self._do_push(key, value, priority)
+        if prof:
+            _profiler.record_bytes("kvstore:push_bytes", nbytes)
         _feed_bytes(op, nbytes)
 
     def _push_wire_nbytes(self, key, value) -> int:
@@ -211,16 +232,28 @@ class KVStore:
 
     def pull(self, key, out=None, priority: int = 0,
              ignore_sparse: bool = True) -> None:
-        self._do_pull(key, out, priority, ignore_sparse)
-        _feed_bytes("pull", _payload_nbytes(out))
+        nbytes = _payload_nbytes(out)
+        prof = _profiler.is_running()
+        with _comms_span(prof, "KVStore::Pull",
+                         {"bytes": nbytes, "type": self._kind}):
+            self._do_pull(key, out, priority, ignore_sparse)
+        if prof:
+            _profiler.record_bytes("kvstore:pull_bytes", nbytes)
+        _feed_bytes("pull", nbytes)
 
     def pushpull(self, key, value, out=None, priority: int = 0) -> None:
         """The allreduce verb: push, then pull into ``out`` (or back into
         ``value``)."""
-        self._do_push(key, value, priority)
-        self._do_pull(key, out if out is not None else value, priority,
-                      True)
-        _feed_bytes("allreduce", _payload_nbytes(value))
+        nbytes = _payload_nbytes(value)
+        prof = _profiler.is_running()
+        with _comms_span(prof, "KVStore::AllReduce",
+                         {"bytes": nbytes, "type": self._kind}):
+            self._do_push(key, value, priority)
+            self._do_pull(key, out if out is not None else value,
+                          priority, True)
+        if prof:
+            _profiler.record_bytes("kvstore:allreduce_bytes", nbytes)
+        _feed_bytes("allreduce", nbytes)
 
     def _do_push(self, key, value, priority: int = 0) -> None:
         keys, values = _key_value(key, value)
@@ -263,8 +296,15 @@ class KVStore:
                              "reference)")
         keys, outs = _key_value(key, out)
         rows = _row_ids_per_key(keys, row_ids)
-        self._do_row_sparse_pull(keys, outs, rows)
-        _feed_bytes("row_sparse_pull", _rsp_pull_wire_nbytes(outs, rows))
+        nbytes = _rsp_pull_wire_nbytes(outs, rows)
+        prof = _profiler.is_running()
+        with _comms_span(prof, "KVStore::PullRowSparse",
+                         {"bytes": nbytes, "type": self._kind}):
+            self._do_row_sparse_pull(keys, outs, rows)
+        if prof:
+            _profiler.record_bytes("kvstore:row_sparse_pull_bytes",
+                                   nbytes)
+        _feed_bytes("row_sparse_pull", nbytes)
 
     def _do_row_sparse_pull(self, keys, outs, rows_per_key) -> None:
         """In process: a gather of the requested rows on the stored
@@ -401,6 +441,9 @@ class KVStoreDist(KVStore):
             reg["recovery"] = int(os.environ.get("DMLC_WORKER_ID", "0"))
         resp = sched.request(reg)
         self._rank = resp["rank"]
+        # per-rank trace dumps (profile_rank{K}.json, pid=rank) key off
+        # the scheduler-assigned rank, not the launcher env
+        _profiler.set_rank(self._rank, _ps.env_cluster()[3])
         self._barrier_skip = resp.get("barrier_gen", 0) \
             if self._recovery else 0
         self._server_addrs = [tuple(a) for a in resp["servers"]]

@@ -10,9 +10,14 @@ manager, exact resume, chaos ``kill`` / ``nan_grad`` injection and the
 per-step divergence guard on the port's ``checkpoint``, ``chaos`` and
 ``diagnostics``.  Not ported yet, and refused when turned on rather
 than ignored: the SDC fingerprint vote (``MXNET_SDC_CHECK_EVERY_N``) and
-the ``bitflip_param`` / ``bitflip_grad`` chaos kinds (ROADMAP A11).  The
-profiler spans and per-step metrics of the JAX package's loop wait for
-A11 too; the checkpoint RNG state and elastic resume for A10.
+the ``bitflip_param`` / ``bitflip_grad`` chaos kinds (ROADMAP A11b).
+The periodic checkpoints go through the asynchronous writer
+(``MXNET_CKPT_ASYNC``); the SIGTERM preemption hook drains it
+(``wait(timeout=60)``) before the exit 83, and the fit's end waits for
+it.  While the profiler runs, a bulk fit steps per batch so that every
+step gets its ``Backward`` / ``Module::update`` / comms spans.  The
+JAX package's per-step training metrics (``record_step``) are not
+ported.
 """
 from __future__ import annotations
 
@@ -275,17 +280,21 @@ class BaseModule:
         # bulk fit: an explicit engine.set_bulk_size(K) groups K batches
         # into one host-sync-free run when the module supports it
         # (Module does; a monitor forces per-batch so its taps see every
-        # step).  ref: the engine's bulk segments,
-        # MXNET_EXEC_BULK_EXEC_TRAIN (threaded_engine.h:386-458) — here
-        # the segment is K whole steps.
+        # step, and a running profiler does too: the telemetry layer
+        # needs per-step Forward/Backward/update/comms spans).  ref: the
+        # engine's bulk segments, MXNET_EXEC_BULK_EXEC_TRAIN
+        # (threaded_engine.h:386-458) — here the segment is K whole
+        # steps.
         from .. import diagnostics as _diag
         from .. import engine as _engine
+        from .. import profiler as _profiler
 
         # chaos injection (kill/nan_grad at an exact global step) needs
         # per-batch stepping: a K-step group has no mid-group injection
         # point
         chaos_on = _chaos.enabled()
-        per_batch = monitor is not None or chaos_on
+        per_batch = monitor is not None or _profiler.is_running() \
+            or chaos_on
         bulk_k = 1 if per_batch else max(1, _engine.fit_bulk_size())
         can_bulk = bulk_k > 1 and hasattr(self, "_bulk_fit_steps")
 
@@ -295,9 +304,9 @@ class BaseModule:
         progress = {"step": global_step, "epoch": begin_epoch,
                     "nbatch": resume_skip}
 
-        def _save_checkpoint() -> None:
-            # writes are synchronous in the port (the JAX package's
-            # background writer is queued with the checkpoint layer)
+        def _save_checkpoint(blocking=None) -> None:
+            # blocking=None lets MXNET_CKPT_ASYNC decide (the periodic
+            # saves); the preemption hook forces True — it runs last
             st = self.get_checkpoint_state()
             manager.save(progress["step"],
                          params=st["arg_params"],
@@ -312,17 +321,32 @@ class BaseModule:
                              # different world size can re-derive the
                              # global sample position exactly
                              "batch_size": getattr(train_data,
-                                                   "batch_size", None)})
+                                                   "batch_size", None)},
+                         blocking=blocking)
 
         def _preempt_save() -> None:
             # a preemption landing right after a periodic boundary
             # save must NOT re-write that step's shard: the bytes
             # would differ (iterator position moved) while the step's
             # assembled manifest still records the boundary digests —
-            # the resume would then reject the step as corrupt
+            # the resume would then reject the step as corrupt.  The
+            # boundary save may still be in flight on the writer
+            # thread (last_save is set when the write is queued):
+            # wait it out, and skip only once the shard really landed;
+            # a write that errored or never finishes falls through to
+            # a blocking re-save (the manifest re-assembles its
+            # digest).  Either way the writer drains before the exit.
             if progress["step"] == progress.get("last_save", -1):
-                return
-            _save_checkpoint()
+                try:
+                    if manager.wait(timeout=60):
+                        return
+                except Exception:
+                    pass
+            _save_checkpoint(blocking=True)
+            try:
+                manager.wait(timeout=60)
+            except Exception:
+                pass
 
         hook_key = None
         if manager is not None:
@@ -338,8 +362,14 @@ class BaseModule:
                 progress, resume_skip, manager, every_n,
                 _save_checkpoint)
         finally:
-            if hook_key is not None:
-                _diag.unregister_preemption_hook(hook_key)
+            try:
+                # the writes land while the preemption hook still
+                # covers them
+                if manager is not None:
+                    manager.wait()
+            finally:
+                if hook_key is not None:
+                    _diag.unregister_preemption_hook(hook_key)
 
     def _fit_epochs(self, train_data, eval_data, eval_metric,
                     validation_metric, epoch_end_callback,
@@ -351,6 +381,7 @@ class BaseModule:
         checkpoint hook registration wraps it in one try/finally)."""
         from .. import chaos as _chaos
         from .. import diagnostics as _diag
+        from .. import profiler as _profiler
 
         progress["last_save"] = progress["step"]
 
@@ -447,10 +478,15 @@ class BaseModule:
                     if not pending or (len(pending) < bulk_k and not end):
                         continue
                     group, pending = pending, []
-                    outs = self._bulk_fit_steps(group) if can_bulk \
-                        else None
+                    # a profiler started mid-fit (e.g. from a
+                    # batch_end_callback skipping warmup) forces this
+                    # group per-batch without disabling bulk for good
+                    profiling = _profiler.is_running()
+                    outs = self._bulk_fit_steps(group) \
+                        if can_bulk and not profiling else None
                     if outs is None:
-                        can_bulk = False  # permanent per-batch fallback
+                        if can_bulk and not profiling:
+                            can_bulk = False  # permanent fallback
                         for b in group:
                             self.forward_backward(b)
                             self.update()

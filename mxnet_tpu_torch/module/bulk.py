@@ -30,6 +30,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from .. import traceview as _traceview
 from ..ndarray import NDArray
 
 _log = logging.getLogger(__name__)
@@ -126,18 +127,23 @@ class BulkTrainLoop:
         out = []
         try:
             opt.lr_scheduler, opt.lr = None, lr
-            for k in range(len(batches)):
-                for name in io_names:
-                    cell = ex.arg_dict[name]
-                    rows = stacked[name][k] if mod._dp is None \
-                        else mod._dp.local(stacked[name][k])
-                    cell._data = rows.to(cell._data.dtype)
-                outs = mod._run_train_step()
-                # the output cells are refilled by the next step: keep
-                # this step's values in cells of their own
-                out.append([NDArray.from_raw(o._data.clone(), ex._ctx)
-                            for o in outs])
-                mod.update()
+            with _traceview.step_window(
+                    "Module.bulk_fit", k=len(batches),
+                    device=ex._ctx.torch_device()) as tvw:
+                for k in range(len(batches)):
+                    for name in io_names:
+                        cell = ex.arg_dict[name]
+                        rows = stacked[name][k] if mod._dp is None \
+                            else mod._dp.local(stacked[name][k])
+                        cell._data = rows.to(cell._data.dtype)
+                    outs = mod._run_train_step()
+                    # the output cells are refilled by the next step:
+                    # keep this step's values in cells of their own
+                    out.append([NDArray.from_raw(o._data.clone(), ex._ctx)
+                                for o in outs])
+                    mod.update()
+                if tvw is not None:
+                    tvw.block()
         finally:
             opt.lr_scheduler, opt.lr = saved
         self.groups += 1

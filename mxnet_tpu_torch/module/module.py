@@ -338,7 +338,10 @@ class Module(BaseModule):
     def update(self):
         """ref: module.py:629 update → kvstore push/pull or local updater."""
         assert self.binded and self.params_initialized and self.optimizer_initialized
-        self._do_update()
+        from .. import profiler as _profiler
+
+        with _profiler.span("Module::update", cat="optimizer"):
+            self._do_update()
 
     def _do_update(self):
         from .. import env as _env
@@ -464,8 +467,12 @@ class Module(BaseModule):
                 if kv.rank == 0:
                     # bounded: a preemption hook must not wait out the
                     # full PS request timeout
+                    from .. import env as _env
+
+                    bound = max(_env.get_float("MXNET_CKPT_DRAIN_S"),
+                                5.0)
                     opt_states = kv.get_optimizer_states_bytes(
-                        dump_optimizer=True, timeout=5.0)
+                        dump_optimizer=True, timeout=bound)
             else:
                 updater = self._active_updater()
                 if updater is not None:

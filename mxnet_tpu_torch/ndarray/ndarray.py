@@ -31,6 +31,7 @@ import numpy as _np
 import torch
 
 from .. import autograd
+from .. import profiler as _profiler
 from .. import remat as _remat
 from ..base import (MXNetError, as_shape, dtype_name, np_dtype, storage_id,
                     torch_dtype)
@@ -558,6 +559,12 @@ def invoke(op: Union[str, _op_registry.Op], inputs: Sequence[NDArray],
 
     recording = (autograd.is_recording() and not op.nondiff
                  and any(t.requires_grad for t in raw))
+    # the per-op span: one flag read while the profiler is stopped
+    if _profiler._active:
+        _prof, _prof_sync = _profiler.profiling_state()
+        _prof_start = _profiler._now_us()
+    else:
+        _prof = False
     fn = op.bound(**params)
     if op.rng:
         # the device's generator stands where the JAX package passes a
@@ -576,6 +583,12 @@ def invoke(op: Union[str, _op_registry.Op], inputs: Sequence[NDArray],
         # (parallel.tensor.dispatch)
         thunk = _OP_HOOKS[-1](op, fn, raw) if _OP_HOOKS else None
         outs = fn(*raw) if thunk is None else thunk()
+        if _prof:
+            if _prof_sync:  # the op's device time, not its enqueue
+                _profiler.sync_device(
+                    outs if isinstance(outs, tuple) else (outs,))
+            _profiler.record_span(op.name, _prof_start,
+                                  _profiler._now_us() - _prof_start)
         tupled = _owned(outs if isinstance(outs, tuple) else (outs,), raw)
         if ctx is not None and raw:
             dev = ctx.torch_device()

@@ -354,8 +354,14 @@ class Updater:
             # promotes a bf16 run to float32 for good
             self.states[index] = _state_like(self.states[index], weight)
             self.states_synced[index] = True
-        self.optimizer.update_multi_precision(index, weight, grad,
-                                              self.states[index])
+        from . import profiler as _profiler
+
+        # one optimizer span per parameter update, aggregated per
+        # optimizer class; record_span no-ops when stopped
+        with _profiler.span(type(self.optimizer).__name__ + "::update",
+                            cat="optimizer"):
+            self.optimizer.update_multi_precision(index, weight, grad,
+                                                  self.states[index])
 
     def get_states(self, dump_optimizer=False) -> bytes:
         states = {k: _state_to_np(v) for k, v in self.states.items()}

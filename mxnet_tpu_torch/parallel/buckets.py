@@ -18,8 +18,13 @@ in the JAX package.  On NCCL the algorithm is NCCL's own (it picks ring
 or tree per message), so the port accepts the three names and runs the
 backend's all-reduce for each.  ``MXNET_KVSTORE_BUCKET_CHAIN`` is
 reported only: a process group runs its collectives in issue order.
-Tuned caps (``MXNET_AUTOTUNE_PLAN`` / ``_DIR``) and ``stamp_profiler``
-are queued (ROADMAP A11) and raise or are absent.
+Each bucket's pack and collective run under the ``mxbkt%03d`` trace
+scope (a ``traceview.annotation``): the channel by which a device
+trace tells a bucket's all-reduce from sync BatchNorm's, which run the
+same NCCL kernel.  :func:`stamp_profiler` stamps one comms span per
+bucket and the cumulative byte counters (the issue schedule) while the
+profiler runs.  Tuned caps (``MXNET_AUTOTUNE_PLAN`` / ``_DIR``) are
+queued (ROADMAP A11c) and raise.
 """
 from __future__ import annotations
 
@@ -29,13 +34,14 @@ from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, \
 import torch
 
 from .. import env as _env
+from .. import traceview as _traceview
 
 __all__ = ["DEFAULT_BUCKET_BYTES", "Bucket", "bucket_cap_bytes",
            "chain_enabled", "impl_name", "dtype_name", "itemsize",
            "partition", "plan_with_tuning", "plan_for_arrays",
            "host_local_count", "pack_flats", "scale_", "unpack",
            "bucketed_reduce", "OverlappedReduce", "accounting",
-           "plan_meta"]
+           "plan_meta", "stamp_profiler"]
 
 DEFAULT_BUCKET_BYTES = 4 * 1024 * 1024
 _IMPLS = ("psum", "ring", "hierarchical")
@@ -234,12 +240,13 @@ def bucketed_reduce(grads: Mapping, plan: Sequence[Bucket], mesh, *,
     n, group = _axis_group(mesh, axis)
     out: Dict = {}
     for i, bucket in enumerate(plan):
-        flat = flats[i] if flats is not None else \
-            _flat_copy([grads[k] for k in bucket.keys])
-        if n > 1:
-            dist.all_reduce(flat, group=group)
-            if mean:
-                scale_(flat, n)
+        with _traceview.annotation("mxbkt%03d" % i):
+            flat = flats[i] if flats is not None else \
+                _flat_copy([grads[k] for k in bucket.keys])
+            if n > 1:
+                dist.all_reduce(flat, group=group)
+                if mean:
+                    scale_(flat, n)
         out.update(unpack(flat, bucket.keys, grads))
     return out
 
@@ -325,6 +332,10 @@ class OverlappedReduce:
             self._issue(i)
 
     def _issue(self, i: int) -> None:
+        with _traceview.annotation("mxbkt%03d" % i):
+            self._issue_scoped(i)
+
+    def _issue_scoped(self, i: int) -> None:
         import torch.distributed as dist
 
         b = self.plan[i]
@@ -379,13 +390,14 @@ class OverlappedReduce:
         backward's stream runs on."""
         chain, self._chain = self._chain, []
         for i, flat, shard, pre in chain:
-            if flat.is_cuda:
-                if self._side is None:
-                    self._side = torch.cuda.Stream(device=flat.device)
-                with torch.cuda.stream(self._side):
+            with _traceview.annotation("mxbkt%03d" % i):
+                if flat.is_cuda:
+                    if self._side is None:
+                        self._side = torch.cuda.Stream(device=flat.device)
+                    with torch.cuda.stream(self._side):
+                        self._work[i] = self._post(flat, shard, pre)
+                else:
                     self._work[i] = self._post(flat, shard, pre)
-            else:
-                self._work[i] = self._post(flat, shard, pre)
 
     def finish(self) -> List[torch.Tensor]:
         """Issue what backward left, wait for everything; the reduced
@@ -432,3 +444,37 @@ def plan_meta(plan: Optional[Sequence[Bucket]],
         "chained": chain_enabled(),
         "buckets": accounting(plan),
     }
+
+
+def stamp_profiler(plan: Sequence[Bucket], *, impl: Optional[str] = None,
+                   store_type: str = "tpu") -> None:
+    """One comms span per bucket and the cumulative byte counters
+    through the profiler, at dispatch time: the issue schedule (bucket
+    order, payload bytes); the device trace (traceview) holds the
+    collectives themselves.  The ``mxnet_kvstore_bytes_total
+    {op=bucket_reduce}`` counter is fed whether or not the profiler
+    runs.  Never raises."""
+    try:
+        from .. import diagnostics as _diag
+        from .. import profiler as _profiler
+
+        if impl is None:
+            impl = impl_name()
+        _diag.feed_kvstore_bytes("bucket_reduce",
+                                 sum(int(b.nbytes) for b in plan))
+        if not _profiler.is_running():
+            return
+        total = 0
+        for i, b in enumerate(plan):
+            with _profiler.span("KVStore::AllReduceBucket", cat="comms",
+                                args={"bucket": i,
+                                      "bytes": int(b.nbytes),
+                                      "n_grads": len(b.keys),
+                                      "impl": impl, "type": store_type,
+                                      "in_graph": True}):
+                pass
+            total += int(b.nbytes)
+        _profiler.record_bytes("kvstore:bucket_allreduce_bytes", total)
+        _profiler.record_bytes("kvstore:bucket_allreduce_count", len(plan))
+    except Exception:
+        pass

@@ -69,6 +69,8 @@ import numpy as _np
 import torch
 
 from .. import autograd, env as _env
+from .. import profiler as _profiler
+from .. import traceview as _traceview
 from ..base import MXNetError, torch_dtype
 from ..context import current_context
 from ..ndarray import NDArray
@@ -428,8 +430,13 @@ class DataParallelRunner:
         if plan is None:
             plan = self._plans[key] = _buckets.plan_for_arrays(
                 live, self._cap)
+            from .. import diagnostics as _diag
+
+            _diag.set_bucket_plan(_buckets.plan_meta(plan, self._cap),
+                                  owner=id(self))
         out = _buckets.bucketed_reduce(live, plan, self.mesh, mean=False,
                                        impl="psum")
+        _buckets.stamp_profiler(plan, impl="psum", store_type="tpu")
         for k, v in out.items():
             grad_dict[k]._data = v
 
@@ -585,6 +592,13 @@ class FusedTrainStep:
         else:
             self._moms = [torch.zeros_like(self._value(i).detach())
                           for i in range(len(self._cells))]
+        from .. import diagnostics as _diag
+
+        # the plan traceview matches this step's collectives against; a
+        # monolithic rebuild clears only its own stale plan
+        _diag.set_bucket_plan(
+            _buckets.plan_meta(self._plan, self._bucket_bytes)
+            if self._bucketed else None, owner=id(self))
         self._built = True
 
     def _shard_params(self) -> Dict[int, object]:
@@ -672,7 +686,8 @@ class FusedTrainStep:
                 loss = self._loss_fn(out, NDArray.from_raw(y, ctx))
             return loss._data.mean(), out._data
 
-        return _remat.maybe_checkpoint(fwd)(x, y)
+        with _traceview.annotation("mxnet-fwd"):
+            return _remat.maybe_checkpoint(fwd)(x, y)
 
     def _microbatches(self, data: torch.Tensor, label: torch.Tensor):
         """This rank's batch in ``accum_steps`` equal slices."""
@@ -701,6 +716,9 @@ class FusedTrainStep:
         with torch.no_grad():
             for i in self._diff:
                 self._cells[i].data()._set_data(new_p[i].detach())
+        if self._bucketed:
+            # per-bucket comms spans + byte counters: the issue schedule
+            _buckets.stamp_profiler(self._plan)
         return loss, out
 
     @staticmethod
@@ -718,7 +736,8 @@ class FusedTrainStep:
         acc, losses, outs = None, [], []
         for x, y in micro:
             loss, out = self._forward(x, y)
-            got = torch.autograd.grad(loss, diff, allow_unused=True)
+            with _traceview.annotation("mxnet-bwd"):
+                got = torch.autograd.grad(loss, diff, allow_unused=True)
             got = [torch.zeros_like(p) if g is None else g
                    for p, g in zip(diff, got)]
             acc = got if acc is None else [a + g for a, g in zip(acc, got)]
@@ -728,7 +747,7 @@ class FusedTrainStep:
         if a > 1:
             acc = [g * torch.tensor(1.0 / a, dtype=g.dtype) for g in acc]
         grads = dict(zip(self._diff, acc))
-        with torch.no_grad():
+        with torch.no_grad(), _traceview.annotation("mxnet-opt"):
             new_p, new_m = self._update(params, grads)
             for i in self._diff:
                 self._moms[i] = new_m[i]
@@ -757,16 +776,18 @@ class FusedTrainStep:
                     if self._arms(k):
                         red.arm(by_key, prescale=len(micro))
                     loss, out = self._forward(x, y)
-                    loss.backward()
+                    with _traceview.annotation("mxnet-bwd"):
+                        loss.backward()
                     losses.append(loss.detach())
                     outs.append(out.detach())
-            flats = red.finish()
+            with _traceview.annotation("mxnet-bwd"):
+                flats = red.finish()
         finally:
             red.disarm()
             for p in by_key.values():
                 p.grad = None
         n = mesh.size
-        with torch.no_grad():
+        with torch.no_grad(), _traceview.annotation("mxnet-opt"):
             if self._zero1:
                 new_p, self._moms = zero1_bucketed_update(
                     None, by_key, self._moms, self._plan, mesh,
@@ -821,7 +842,9 @@ class FusedTrainStep:
                         params[i] = cell.shard.detach()
                     _tensor.live_value(cell, params[i])
                 loss, out = self._forward(x, y)
-                got = torch.autograd.grad(loss, diff, allow_unused=True)
+                with _traceview.annotation("mxnet-bwd"):
+                    got = torch.autograd.grad(loss, diff,
+                                              allow_unused=True)
                 got = [torch.zeros_like(p) if g is None else g
                        for p, g in zip(diff, got)]
                 acc = got if acc is None else \
@@ -833,7 +856,7 @@ class FusedTrainStep:
             acc = [g * torch.tensor(1.0 / a, dtype=g.dtype) for g in acc]
         grads = dict(zip(self._diff, acc))
         n_dp = mesh.axis_size("dp")
-        with torch.no_grad():
+        with torch.no_grad(), _traceview.annotation("mxnet-opt"):
             if n_dp > 1:
                 red = _buckets.bucketed_reduce(grads, self._plan, mesh,
                                                mean=True, axis="dp")
@@ -884,8 +907,22 @@ class FusedTrainStep:
         if not self._built:
             self._build(NDArray.from_raw(self._local(batches[0][0]),
                                          self._ctx))
-        losses: List[torch.Tensor] = [self._step(x, y)[0]
-                                      for x, y in batches]
+        k = len(batches)
+        prof = _profiler.is_running()
+        if prof:
+            t0 = _profiler._now_us()
+        with _traceview.step_window("FusedTrainStep", k=k,
+                                    device=self._device) as tvw:
+            losses: List[torch.Tensor] = [self._step(x, y)[0]
+                                          for x, y in batches]
+            if tvw is not None:
+                tvw.block()
+        if prof:
+            # the span is the K steps' device wall time
+            _profiler.sync_device(losses)
+            _profiler.record_span("FusedTrainStep.run_steps[k=%d]" % k,
+                                  t0, _profiler._now_us() - t0,
+                                  cat="step")
         return NDArray.from_raw(torch.stack(losses), self._ctx)
 
     def __call__(self, data, label):
@@ -894,6 +931,10 @@ class FusedTrainStep:
         d, lab = self._as_tensor(data), self._as_tensor(label)
         if not self._built:
             self._build(NDArray.from_raw(self._local(d), self._ctx))
-        loss, logits = self._step(d, lab)
+        with _traceview.step_window("FusedTrainStep",
+                                    device=self._device) as tvw:
+            loss, logits = self._step(d, lab)
+            if tvw is not None:
+                tvw.block()
         return (NDArray.from_raw(loss, self._ctx),
                 NDArray.from_raw(self._gather_rows(logits), self._ctx))

@@ -9,9 +9,11 @@ the generation tier (:meth:`~ModelServer.add_generator` /
 :meth:`~ModelServer.submit_generation`, the continuous-batching engine
 loop), live reload + canary + rollback, the SIGTERM drain hook, the
 probes and the ``mxnet_serve_*`` metrics, with the JAX package's names
-and label sets.  Left out: the JAX package's ``traceview.step_window``
-around each predictor dispatch (the port's device-timeline capture is
-queued, ROADMAP A11).
+and label sets.  Each predictor dispatch runs in a
+``traceview.step_window`` (``serving.dispatch``), as in the JAX package;
+the port also makes each generation engine tick with work a window
+(``serving.generate``), so a device trace of the generation tier shows
+its prefill and decode launches by tick.
 
 Threads and the card: the dispatch/engine worker of a model and its
 reload thread are the only threads that issue device work; each binds
@@ -47,6 +49,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from .. import traceview as _traceview
 from .._device import bind_device
 from . import reqtrace as _reqtrace
 from .batching import Request, RequestQueue
@@ -612,7 +615,18 @@ class ModelServer:
         accounting split _dispatch applies to predictor batches."""
         name = sm.runtime.name
         t0 = time.monotonic()
-        rep = rt.engine.step(is_canary=is_canary)
+        eng = rt.engine
+        if eng.waiting or eng.active:
+            # a tick with work is a dispatch window of the device trace
+            # (an idle tick launches nothing and is not one)
+            with _traceview.step_window(
+                    "serving.generate",
+                    device=getattr(rt, "device", None) or "cpu") as tvw:
+                rep = eng.step(is_canary=is_canary)
+                if tvw is not None:
+                    tvw.block()
+        else:
+            rep = eng.step(is_canary=is_canary)
         tick_s = time.monotonic() - t0
         for req, outcome, _err in rep["outcomes"]:
             self._count_outcome(name, outcome, rt.version)
@@ -679,7 +693,13 @@ class ModelServer:
         from .. import chaos as _chaos
 
         def _exec(rt_, data_):
-            return rt_.execute(data_)
+            with _traceview.step_window(
+                    "serving.dispatch",
+                    device=getattr(rt_, "device", None) or "cpu") as tvw:
+                out_ = rt_.execute(data_)
+                if tvw is not None:
+                    tvw.block()
+            return out_
 
         name = sm.runtime.name
         total = sum(r.n for r in live)

@@ -38,8 +38,16 @@ in ``optimizer_states`` with ``zero_stage``, ``dp``, ``n_buckets`` and
 checkpoint of either package resumes in the other, and a ZeRO-1
 checkpoint restages across dp sizes and stages.
 
+Each ``step`` / ``run_steps`` is a ``traceview.step_window``, its
+forward, backward and update under the ``mxnet-fwd`` / ``mxnet-bwd`` /
+``mxnet-opt`` trace scopes (and each bucket's collective under its
+``mxbkt`` scope), so an ``MXNET_TRACE_DIR`` capture attributes its
+device time by phase.
+
 ``fit`` rides the robustness stack: checkpoints every N steps
-(``checkpoint.CheckpointManager``: every rank writes its shard), exact
+(``checkpoint.CheckpointManager``: every rank writes its shard, on the
+asynchronous writer unless ``MXNET_CKPT_ASYNC=0``; the fit's end waits
+for it), exact
 resume (the iterator fast-forwards with ``skip_batches``; a resumed run
 equals the uninterrupted one bit for bit at the same world size; across
 world sizes the skip is ``checkpoint.scale_resume_skip``'s), the
@@ -60,6 +68,7 @@ import numpy as np
 import torch
 
 from .. import env as _env
+from .. import traceview as _traceview
 from .._device import resolve_device
 from ..remat import remat_policy
 from . import model as _model
@@ -189,6 +198,10 @@ class TransformerTrainStep:
         meta["workload"] = "transformer_lm"
         meta["zero_stage"] = 1 if self._zero1 else 0
         self._plan_meta = meta
+        if self.mesh is not None:
+            from .. import diagnostics as _diag
+
+            _diag.set_bucket_plan(meta, owner=id(self))
         if self._zero1:
             self._moms = zero1_momentum_buffers(plan, self.n_dp,
                                                 self.device)
@@ -264,20 +277,25 @@ class TransformerTrainStep:
             # each bucket's collective is issued from backward
             self._reducer.arm(params)
             try:
-                loss = _model.lm_loss(_model.apply(
-                    params, tokens, self.cfg, attn_fn=self._attn_fn,
-                    pos_offset=offset, remat=self._policy), labels)
-                loss.backward()
-                flats = self._reducer.finish()
+                with _traceview.annotation("mxnet-fwd"):
+                    loss = _model.lm_loss(_model.apply(
+                        params, tokens, self.cfg, attn_fn=self._attn_fn,
+                        pos_offset=offset, remat=self._policy), labels)
+                with _traceview.annotation("mxnet-bwd"):
+                    loss.backward()
+                    flats = self._reducer.finish()
             finally:
                 self._reducer.disarm()
-            with torch.no_grad():
+            with torch.no_grad(), _traceview.annotation("mxnet-opt"):
                 return self._dp_update(params, flats, loss)
-        logits = _model.apply(params, tokens, self.cfg,
-                              attn_fn=self._attn_fn, remat=self._policy)
-        loss = _model.lm_loss(logits, labels)
-        grads = torch.autograd.grad(loss, [params[k] for k in names])
-        with torch.no_grad():
+        with _traceview.annotation("mxnet-fwd"):
+            logits = _model.apply(params, tokens, self.cfg,
+                                  attn_fn=self._attn_fn,
+                                  remat=self._policy)
+            loss = _model.lm_loss(logits, labels)
+        with _traceview.annotation("mxnet-bwd"):
+            grads = torch.autograd.grad(loss, [params[k] for k in names])
+        with torch.no_grad(), _traceview.annotation("mxnet-opt"):
             # ONE multi-tensor update per dtype group, as the JAX
             # package's replicated step
             new_p, new_m = _opt.fused_sgd_mom_grouped(
@@ -322,7 +340,14 @@ class TransformerTrainStep:
         ranks) as a tensor on the device, not synchronised."""
         if not self._built:
             self._build()
-        return self._step(self._put(tokens), self._put(labels))
+        tokens, labels = self._put(tokens), self._put(labels)
+        with _traceview.step_window("TransformerTrainStep",
+                                    device=self.device) as tvw:
+            loss = self._step(tokens, labels)
+            if tvw is not None:
+                tvw.block()
+        self._stamp_telemetry()
+        return loss
 
     def run_steps(self, tokens, labels, steps: int):
         """``steps`` optimizer steps on the same batch; returns the
@@ -330,8 +355,23 @@ class TransformerTrainStep:
         if not self._built:
             self._build()
         tokens, labels = self._put(tokens), self._put(labels)
-        return torch.stack([self._step(tokens, labels)
-                            for _ in range(int(steps))])
+        k = int(steps)
+        with _traceview.step_window("TransformerTrainStep", k=k,
+                                    device=self.device) as tvw:
+            losses = []
+            for _ in range(k):
+                losses.append(self._step(tokens, labels))
+                self._stamp_telemetry()
+            if tvw is not None:
+                tvw.block()
+        return torch.stack(losses)
+
+    def _stamp_telemetry(self) -> None:
+        if self.mesh is not None:
+            from ..parallel import buckets as _buckets
+
+            _buckets.stamp_profiler(self._bucket_plan,
+                                    store_type="transformer")
 
     # -- checkpoint state ----------------------------------------------
     def optimizer_states_bytes(self) -> bytes:
@@ -556,6 +596,8 @@ class TransformerTrainStep:
                              "batch_size": self._rank_batch(train_iter)},
                          extra={"workload": "transformer_lm",
                                 "replay": self._replay_spec(train_iter)})
+        if mgr is not None:
+            mgr.wait()
         return losses
 
     def _rank_batch(self, train_iter) -> Optional[int]:

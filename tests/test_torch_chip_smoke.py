@@ -6,8 +6,10 @@ transformer phases, the head-scaled error of the backward rows, the
 backward's bound, the step's FLOP count and the profile's kernel groups;
 for the symbolic phases, the symbol ``fit`` trains (the JAX package's
 ``bench._sym_resnet50``, byte for byte), the phase order, and the
-``fit_numerics`` checks on the CPU.  The script itself needs a card and
-refuses to run without one."""
+``fit_numerics`` checks on the CPU; for the observability phases, their
+place in ``main`` and the smoke's own reading of a torch.profiler trace
+(launches and busy ms a step window) against ``traceview.parse``.  The
+script itself needs a card and refuses to run without one."""
 import subprocess
 import sys
 import time
@@ -688,3 +690,76 @@ def test_the_recommender_numerics_pass_clean_and_read_each_fault():
     assert train.ShardedEmbeddingTable.push_rows.__name__ == "push_rows"
     assert train.ShardedEmbeddingTable.push_rows.__qualname__ == \
         "ShardedEmbeddingTable.push_rows"
+
+
+# ---------------------------------------------------------------------------
+# the observability tier
+# ---------------------------------------------------------------------------
+def test_the_observability_phases_follow_the_recommender_phases():
+    src = (REPO / "chip_smoke.py").read_text()
+    main = src[src.index("def main()"):]
+    order = [main.index(p) for p in ("phase_recommender_numerics()",
+                                     "phase_profiler()",
+                                     "phase_traceview(lm)",
+                                     "phase_ckpt_async()",
+                                     '"phase": "kernels"')]
+    assert order == sorted(order)
+    assert main.count("for k, v in obs_counts.items()") == 3
+
+
+def _kineto_fixture():
+    import json
+
+    with open(REPO / "mxnet_tpu_torch" / "traceview" /
+              "fixture_kineto.json") as f:
+        return json.load(f)
+
+
+def test_the_trace_counting_helpers_agree_with_traceview_parse():
+    """chip_smoke's own reading of a kineto trace (launches by name and
+    device-busy ms a step window) against traceview.parse on the port's
+    kineto-shaped fixture."""
+    from mxnet_tpu_torch.traceview import parse
+
+    fx = _kineto_fixture()
+    wins = cs.trace_windows(fx["trace"])
+    summ = parse.attribute(fx["trace"], plan_meta=fx["plan_meta"])
+    counts = parse.device_op_counts(fx["trace"])
+    assert len(wins) == summ["steps"]["n"] == 2
+    names = set().union(*(w["launches"] for w in wins))
+    assert names == set(counts)
+    for name in names:
+        mean = sum(w["launches"].get(name, 0) for w in wins) / len(wins)
+        assert mean == counts[name]["count"], name
+    busy = sum(v["mean_s"] for v in summ["phases"].values()) * 1e3
+    assert [w["busy_ms"] for w in wins] == pytest.approx([busy, busy])
+    assert cs._busy_ms(summ) == pytest.approx(busy)
+    assert [w["wall_ms"] for w in wins] == pytest.approx([1.0, 1.0])
+    flash = cs.flash_launches(wins[0]["launches"])
+    assert flash == {"fwd": 0, "bwd": 1, "bwd_dq": 1, "all_wgmma": True}
+    nccl = cs.collective_launches(wins[0]["launches"])
+    assert sum(nccl.values()) == 4
+    assert sum(v["count"] for k, v in counts.items()
+               if parse.classify_op(k) == "comm") == 4
+
+
+def test_flash_launches_see_a_launch_off_the_wgmma_route():
+    counts = {"void flash_fwd_wgmma<64>(CUtensorMap)": 12,
+              "void flash_fwd_kernel<__nv_bfloat16, 64>(...)": 1,
+              "void flash_bwd_dkv_wgmma<64>(...)": 12,
+              "void flash_bwd_dq_wgmma<64>(...)": 12}
+    got = cs.flash_launches(counts)
+    assert got == {"fwd": 13, "bwd": 12, "bwd_dq": 12, "all_wgmma": False}
+
+
+def test_trace_armed_sets_and_restores_the_tracer_env(monkeypatch):
+    import os
+
+    monkeypatch.setenv("MXNET_TRACE_STEPS", "7")
+    monkeypatch.delenv("MXNET_TRACE_DIR", raising=False)
+    with cs._trace_armed("/nonexistent/tv", 2) as capture:
+        assert os.environ["MXNET_TRACE_DIR"] == "/nonexistent/tv"
+        assert os.environ["MXNET_TRACE_STEPS"] == "2"
+        assert capture.enabled()
+    assert "MXNET_TRACE_DIR" not in os.environ
+    assert os.environ["MXNET_TRACE_STEPS"] == "7"

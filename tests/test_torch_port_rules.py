@@ -52,6 +52,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import mxnet_tpu_torch.gradient_compression\n"
         "import mxnet_tpu_torch.ndarray.sparse, mxnet_tpu_torch.ops.extra\n"
         "import mxnet_tpu_torch.recommender\n"
+        "import mxnet_tpu_torch.profiler, mxnet_tpu_torch.traceview\n"
+        "import mxnet_tpu_torch.traceview.__main__\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mxnet_tpu', 'ml_dtypes'))\n"
         # kernels are built at first launch, never at import; NVRTC and
@@ -91,7 +93,8 @@ def test_no_package_file_imports_jax_or_the_jax_package():
                                     "tools/torch_kernel_ab.py",
                                     "tools/torch_nd_profile.py",
                                     "tools/torch_serve_profile.py",
-                                    "tools/torch_train_profile.py"])
+                                    "tools/torch_train_profile.py",
+                                    "tools/torch_trace_loss.py"])
 def test_card_scripts_import_no_jax(script):
     # the scripts run on the machine with the card, which has no JAX
     tree = ast.parse((REPO / script).read_text(), filename=script)
@@ -343,3 +346,29 @@ def test_a_dp_mesh_larger_than_the_group_raises():
     for n in (2, 8):
         with pytest.raises(ValueError, match="needs %d ranks" % n):
             mesh.data_parallel_mesh(n)
+
+
+def test_observability_entry_points_default_to_cuda_and_raise_without_it(
+        tmp_path):
+    """The device trace records the card unless the caller names the
+    CPU; without a card it raises (the profiler's ``profile_xla`` path
+    and the step tracer go through it)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.traceview import capture
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        capture.start_device_trace(str(tmp_path))
+    profiler.set_config(profile_xla=True,
+                        xla_trace_dir=str(tmp_path / "x"))
+    try:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            profiler.set_state("run")
+        assert not profiler.is_running()
+    finally:
+        profiler.set_config()
+    capture.start_device_trace(str(tmp_path), device="cpu")
+    path = capture.stop_device_trace()
+    assert path == str(tmp_path / "trace_rank0.pt.trace.json")
+    assert capture.stop_device_trace() is None
