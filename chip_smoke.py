@@ -373,6 +373,20 @@ Phases:
            a SIGTERM to a child ``Module.fit`` (this script,
            ``--ckpt-child``) while its writer holds a ``.tmp`` shard:
            exit 83, every step verified, no ``.tmp`` left
+  tuning   ``parallel.scaling.sweep((1, 2))``: ResNet-18 at 8 classes,
+           two gloo ranks on cuda:0, the trajectory against one rank
+           and the collectives a step by verb; the ``dp`` cell at batch
+           32 on a one-rank NCCL group (a ``dist.launch`` child), one
+           traced window a run, the summary tuned (``autotune.tune``, the
+           link bandwidth explicit, with its source), the plan saved,
+           the step re-run under ``MXNET_AUTOTUNE_PLAN`` and under
+           ``MXNET_AUTOTUNE_DIR``: ``mxbkt`` scopes in each trace = the
+           tuned plan's buckets, ``plan_meta``'s ``autotune`` block,
+           losses bitwise the untuned run's; ``audit_recorded_steps()``
+           over ``train_lm``, ``FusedTrainStep`` and the bulk fit (and
+           the NCCL step in the child); ``python -m
+           mxnet_tpu_torch.analysis --self-test`` and ``autotune
+           --self-test``; the sweep and the child run beside the audit
   kernels  every kernel and its status
 """
 from __future__ import annotations
@@ -386,6 +400,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -7293,6 +7308,326 @@ def phase_ckpt_async():
     return row
 
 
+# the tuning phase: the sweep, the autotuner on the dp cell, the auditor
+TUNE = dict(sweep_counts=(1, 2), sweep_steps=3, sweep_batch=8,
+            sweep_image=32, sweep_classes=8, dp_batch=32, windows=1,
+            chips=8, fit_batches=2, budget_s=60.0)
+#: the link a tuned plan is scored for: NVLink between H100 SXM cards.
+#: One card measures no collective, so the figure is given, with its
+#: source; tools/torch_autotune_scale.py measures NCCL over it
+TUNE_LINK_GBPS = 450.0
+TUNE_LINK_SOURCE = ("NVIDIA H100 SXM datasheet: NVLink 900 GB/s total "
+                    "bandwidth a card, 450 GB/s each way (explicit, not "
+                    "measured here)")
+
+
+def _bucket_scopes(trace_path):
+    """The distinct ``mxbkt`` annotations of a trace."""
+    with open(trace_path) as f:
+        return sorted({e["name"] for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "user_annotation"
+                       and str(e.get("name", "")).startswith("mxbkt")})
+
+
+def _tuning_dp_rank(tmp):
+    """The ``dp`` cell at TUNE["dp_batch"] on this rank: untuned (traced,
+    audited), tuned from its summary, then under the plan file and the
+    plan directory (one traced window each, three in all); each run
+    from the same weights and batch."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autotune, dist, gluon
+    from mxnet_tpu_torch.analysis import auditor
+    from mxnet_tpu_torch.autotune import plan as aplan
+    from mxnet_tpu_torch.autotune import search, timing
+    from mxnet_tpu_torch.parallel import scaling
+    from mxnet_tpu_torch.parallel.dp import FusedTrainStep
+    from mxnet_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    # bitwise across runs: the same convolution algorithms every time
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    tmp = Path(tmp)
+    mesh = data_parallel_mesh()
+    ctx = mx.gpu(dist.device().index)
+    data, label = train_batch(TUNE["dp_batch"] * mesh.size, ctx)
+    knobs = ("MXNET_AUTOTUNE_PLAN", "MXNET_AUTOTUNE_DIR")
+
+    def run(tag, env, audit=False):
+        saved = {k: os.environ.pop(k, None) for k in knobs}
+        os.environ.update(env)
+        try:
+            step = FusedTrainStep(resnet50(ctx),
+                                  gluon.loss.SoftmaxCrossEntropyLoss(),
+                                  mesh=mesh, learning_rate=TRAIN_LR,
+                                  momentum=TRAIN_MOMENTUM,
+                                  dtype="bfloat16")
+            with _trace_armed(tmp / tag, TUNE["windows"]) as capture:
+                losses = [float(step(data, label)[0].asnumpy())
+                          for _ in range(TUNE["windows"] + 1)]
+                summ, _wins = _captured(capture, "tuning " + tag)
+            out = {"losses": [float(v) for v in losses],
+                   "loss_bits": [np.float32(v).tobytes().hex()
+                                 for v in losses],
+                   "summary": summ,
+                   "scopes": _bucket_scopes(summ["capture"]["trace_path"]),
+                   "plan_meta": step.bucket_plan_meta(),
+                   "entries": step.grad_entries()}
+            if audit:
+                rep = auditor.audit_recorded_steps()
+                out["audit"] = {"sites": rep.sites,
+                                "new": [f.fingerprint()
+                                        for f in rep.findings]}
+            return out
+        finally:
+            for k in knobs:
+                os.environ.pop(k, None)
+                if saved[k] is not None:
+                    os.environ[k] = saved[k]
+
+    base = run("untuned", {}, audit=True)
+    from_summary = timing.from_trace(base["summary"])
+    # the tuned model: the summary's measured step time (and overlap,
+    # where a collective ran) over the step's own gradient leaves, so
+    # the scored plan is the one buckets.partition builds
+    leaves = list(reversed(base["entries"]))
+    model = timing.TimingModel(
+        [(b, dt) for b, (_k, _s, dt) in zip(
+            scaling.grad_leaf_bytes(leaves), leaves)], "leaf",
+        step_time_s=from_summary.step_time_s,
+        source=dict(from_summary.source, granularity="leaf"))
+    model.measured_overlap_frac = from_summary.measured_overlap_frac
+    kw = dict(chips=TUNE["chips"], ici_GBps=TUNE_LINK_GBPS)
+    tuned_summary = search.tune(from_summary, **kw)
+    tuned = search.tune(model, **kw)
+    path = aplan.save_plan(tuned, str(tmp / "plan.json"))
+    planned = run("plan", {"MXNET_AUTOTUNE_PLAN": path})
+    pdir = tmp / "plans"
+    dir_path = aplan.save_plan(tuned, aplan.default_plan_path(
+        tuned, str(pdir)))
+    dirrun = run("dir", {"MXNET_AUTOTUNE_DIR": str(pdir)})
+    assert autotune.load_plan(dir_path)["cap_bytes"] == tuned["cap_bytes"]
+
+    def brief(r):
+        s = r["summary"]
+        return {"losses": r["losses"], "loss_bits": r["loss_bits"],
+                "scopes": len(r["scopes"]),
+                "n_buckets": r["plan_meta"]["n_buckets"],
+                "autotune": r["plan_meta"].get("autotune"),
+                "step_ms": s["steps"]["mean_s"] * 1e3,
+                "busy_ms": _busy_ms(s), "plan_match": s["plan_match"],
+                "lost_launches": s["capture"]["lost_launches"]}
+
+    return {"untuned": dict(brief(base), audit=base["audit"]),
+            "plan": dict(brief(planned), plan_path=path),
+            "dir": dict(brief(dirrun), plan_path=dir_path),
+            "tuned": {k: tuned[k] for k in ("cap_bytes", "first_cap_bytes",
+                                            "last_cap_bytes", "n_buckets",
+                                            "score", "assumptions")},
+            "tuned_from_summary": {
+                k: tuned_summary[k] for k in ("cap_bytes",
+                                              "first_cap_bytes",
+                                              "last_cap_bytes",
+                                              "n_buckets")},
+            "summary_model": {"n_units": from_summary.n_units,
+                              "step_time_s": from_summary.step_time_s,
+                              "measured_GBps": from_summary.measured_GBps,
+                              "granularity": from_summary.granularity}}
+
+
+def _tuning_audit_steps():
+    """The steps the audit reads, built and run once on the card in this
+    process: ``train_lm`` (GPT-2-small width, bf16), ResNet-50 bf16
+    ``FusedTrainStep`` at batch 32 on one device, and the symbolic
+    ResNet-50's bulk fit (K = TUNE["fit_batches"]).  Returned to keep
+    them alive (the recorded-step list holds them weakly)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import engine, gluon
+    from mxnet_tpu_torch.parallel.dp import FusedTrainStep
+    from mxnet_tpu_torch.transformer import TransformerTrainStep
+
+    ctx = mx.gpu(0)
+    cfg = lm_config()
+    lm = TransformerTrainStep(cfg, learning_rate=LM["lr"],
+                              momentum=LM["momentum"], remat=LM["remat"],
+                              seed=0)
+    b = lm_iter(cfg, LM["batch"], LM["seq"], LM_SEQUENCES).next()
+    lm.step(b.data[0], b.label[0]).item()
+    rn = FusedTrainStep(resnet50(ctx), gluon.loss.SoftmaxCrossEntropyLoss(),
+                        learning_rate=TRAIN_LR, momentum=TRAIN_MOMENTUM,
+                        dtype="bfloat16")
+    data, label = train_batch(TUNE["dp_batch"], ctx)
+    rn(data, label)[0].asnumpy()
+    X, y = _fit_data(FIT["batch"], FIT["image"], FIT["classes"],
+                     TUNE["fit_batches"])
+    it = mx.io.NDArrayIter(X, y, batch_size=FIT["batch"],
+                           label_name="softmax_label")
+    mod = mx.mod.Module(sym_resnet50(FIT["classes"]), context=ctx)
+    np.random.seed(0)
+    prev = engine.set_bulk_size(TUNE["fit_batches"])
+    try:
+        mod.fit(it, num_epoch=1, optimizer="sgd",
+                optimizer_params=(("learning_rate", FIT["lr"]),
+                                  ("momentum", FIT["momentum"])),
+                initializer=mx.init.Xavier())
+    finally:
+        engine.set_bulk_size(prev)
+    torch.cuda.synchronize()
+    return lm, rn, mod
+
+
+def phase_tuning():
+    """The tuning and analysis tier on the card: the rank sweep, the
+    autotuner's loop on the ``dp`` cell (a one-rank NCCL child), the
+    auditor over the steps built here, and both self-tests (run as
+    subprocesses beside the rest)."""
+    from mxnet_tpu_torch import diagnostics, dist
+    from mxnet_tpu_torch.analysis import auditor
+    from mxnet_tpu_torch.parallel import scaling
+
+    t_phase = time.perf_counter()
+    selftests = {name: subprocess.Popen(
+        [sys.executable, "-m", "mxnet_tpu_torch.%s" % name, "--self-test"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in ("analysis", "autotune")}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    got, took = {}, {}
+
+    def background(name, fn):
+        # the sweep's ranks and the dp child run in processes of their
+        # own, beside this process's audit: the phase's wall is theirs
+        def run():
+            t0 = time.perf_counter()
+            try:
+                got[name] = fn()
+            except BaseException as exc:     # re-raised below
+                got[name] = exc
+            took[name] = time.perf_counter() - t0
+        th = threading.Thread(target=run, name="tuning-" + name)
+        th.start()
+        return th
+
+    try:
+        _reset_kernel_counts()
+        threads = [
+            background("sweep", lambda: scaling.sweep(
+                TUNE["sweep_counts"], steps=TUNE["sweep_steps"],
+                batch=TUNE["sweep_batch"], device="cuda:0", backend="gloo",
+                model="resnet18_v1", classes=TUNE["sweep_classes"],
+                image=TUNE["sweep_image"], timeout=300)),
+            background("dp", lambda: dist.launch(
+                _tuning_dp_rank, 1, (tmp,), backend="nccl",
+                timeout_s=300)[0])]
+        t0 = time.perf_counter()
+        diagnostics.reset_recompile_stats()
+        keep = _tuning_audit_steps()
+        report = auditor.audit_recorded_steps()
+        del keep
+        audit_s = time.perf_counter() - t0
+        launches = _kernel_counts()
+        for th in threads:
+            th.join()
+        for name in ("sweep", "dp"):
+            if isinstance(got.get(name), BaseException):
+                raise got[name]
+        sw, dp = got["sweep"], got["dp"]
+        sweep_s, dp_s = took["sweep"], took["dp"]
+        tests = {}
+        for name, proc in selftests.items():
+            out, _ = proc.communicate(timeout=120)
+            tests[name] = {"rc": proc.returncode,
+                           "last": out.strip().splitlines()[-1][:200]
+                           if out.strip() else ""}
+    finally:
+        for proc in selftests.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    points = {r["n"]: r for r in sw["sweep"]}
+    row = {"phase": "tuning",
+           "sweep": {"model": "resnet18_v1", "classes": TUNE["sweep_classes"],
+                     "global_batch": TUNE["sweep_batch"],
+                     "steps": TUNE["sweep_steps"],
+                     "backend": "gloo on cuda:0",
+                     "losses": {n: r["losses"] for n, r in points.items()},
+                     "first_step_rel_err": {
+                         n: r.get("first_step_rel_err")
+                         for n, r in points.items() if n != 1},
+                     "consistent": {n: r.get("numerically_consistent")
+                                    for n, r in points.items() if n != 1},
+                     "collectives_per_step": {
+                         n: {v: {k: x for k, x in c.items()
+                                 if x is not None}
+                             for v, c in r["collectives"].items()}
+                         for n, r in points.items()},
+                     "buckets": {n: len(r["buckets"] or [])
+                                 for n, r in points.items()},
+                     "wall_s": sweep_s},
+           "link_GBps": TUNE_LINK_GBPS, "link_source": TUNE_LINK_SOURCE,
+           "dp": dict(dp, wall_s=dp_s),
+           "audit": {"sites": {k: {"findings_by_check":
+                                   v.get("findings_by_check"),
+                                   "n_ops": v.get("n_eqns"),
+                                   "n_collectives": v.get("n_collectives"),
+                                   "peak_live_bytes":
+                                       v.get("peak_live_bytes"),
+                                   "device_peak_bytes":
+                                       v.get("device_peak_bytes"),
+                                   "donation": v.get("donation"),
+                                   "audit_error": v.get("audit_error")}
+                               for k, v in report.sites.items()},
+                     "new_findings": [[f.fingerprint(), f.message[:160]]
+                                      for f in report.findings],
+                     "suppressed": [f.fingerprint()
+                                    for f in report.suppressed],
+                     "wall_s": audit_s},
+           "self_tests": tests, "kernel_launches": launches,
+           "budget_s": TUNE["budget_s"],
+           "wall_s": time.perf_counter() - t_phase}
+    emit(row)
+    bad = [n for n, ok in row["sweep"]["consistent"].items() if not ok]
+    if bad or set(points) != set(TUNE["sweep_counts"]):
+        raise RuntimeError("tuning: the sweep's trajectories disagree at "
+                           "%r ranks: %r" % (bad, row["sweep"]))
+    un = dp["untuned"]
+    for tag in ("untuned", "plan", "dir"):
+        r = dp[tag]
+        if r["scopes"] != r["n_buckets"] or any(r["lost_launches"]):
+            raise RuntimeError("tuning: %s run: %d mxbkt scopes in the "
+                               "trace for %d buckets (lost %r)"
+                               % (tag, r["scopes"], r["n_buckets"],
+                                  r["lost_launches"]))
+        if tag == "untuned":
+            continue
+        if r["n_buckets"] != dp["tuned"]["n_buckets"] or \
+                not r["autotune"] or \
+                r["autotune"]["plan_path"] != r["plan_path"]:
+            raise RuntimeError("tuning: the %s run did not apply the tuned "
+                               "plan: %r" % (tag, r))
+        if r["loss_bits"] != un["loss_bits"]:
+            raise RuntimeError("tuning: the %s run's losses are not the "
+                               "untuned run's bitwise: %r vs %r"
+                               % (tag, r["losses"], un["losses"]))
+    sites = row["audit"]["sites"]
+    want = ("TransformerTrainStep.step", "FusedTrainStep.step",
+            "Module.bulk_fit")
+    errors = {k: v["audit_error"] for k, v in sites.items()
+              if v["audit_error"]}
+    errors.update({k: v["audit_error"] for k, v in
+                   un["audit"]["sites"].items() if v.get("audit_error")})
+    if errors or not all(k in sites for k in want):
+        raise RuntimeError("tuning: the audit failed: %r (sites %r)"
+                           % (errors, sorted(sites)))
+    if not any(v.get("n_collectives") for v in
+               un["audit"]["sites"].values()):
+        raise RuntimeError("tuning: the NCCL step's op log holds no c10d "
+                           "collective: %r" % (un["audit"],))
+    failed = {k: v for k, v in tests.items() if v["rc"] != 0}
+    if failed:
+        raise RuntimeError("tuning: self-test failed: %r" % (failed,))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -7349,10 +7684,12 @@ def main() -> int:
     tv = phase_traceview(lm)
     ckpt = phase_ckpt_async()
     obs_s = time.perf_counter() - t_obs
+    tuning = phase_tuning()
     obs_counts = {"profiler": prof["kernel_launches"],
                   "traceview_train_lm": tv["train_lm"]["kernel_launches"],
                   "traceview_serve": tv["serve"]["kernel_launches"],
-                  "ckpt_async": ckpt["kernel_launches"]}
+                  "ckpt_async": ckpt["kernel_launches"],
+                  "tuning": tuning["kernel_launches"]}
     sp_counts = {
         "train_lm_sp_%s_per_step_rank%d" % (impl, r): c
         for impl, v in lm_sp["per_impl"].items()
@@ -7491,7 +7828,7 @@ def main() -> int:
         "shape": add_row["shape"], "dtype": add_row["dtype"],
     }]
     emit({"phase": "wall", "wall_s": time.perf_counter() - t_start,
-          "observability_s": obs_s})
+          "observability_s": obs_s, "tuning_s": tuning["wall_s"]})
     emit({"phase": "kernels",
           "kernels": {k["name"]: "checked" for k in kernels}})
     emit({"kernels": kernels})

@@ -26,10 +26,22 @@ without the collective flight recorder and its watchdog, which are
 queued (ROADMAP A11b), so the
 signal handlers here run the hooks only: SIGUSR1 runs the dump hooks;
 SIGTERM runs the dump hooks, then the preemption hooks, and exits 83
-when one ran.  Recompile
-tracking (``instrument_jit`` / ``recompile_stats``) is queued: eager
-PyTorch compiles nothing, and its ``torch.compile`` counterpart is not
-written yet.
+when one ran.
+
+Recompile tracking (:func:`instrument_jit`, :func:`recompile_stats`,
+:func:`recorded_steps`) keeps the JAX package's names and surface.
+Eager PyTorch compiles no program, so a "recompile" here is a call of
+a step under an input signature (shapes, dtypes, devices) the step has
+not run before: that is where cuDNN plans its algorithms anew, the
+caching allocator grows and the port's own per-shape caches (the
+kernels' launch plans, the bucket flats) fill — the eager counterpart
+of a retrace, and what shape churn costs.  More than
+``MXNET_RECOMPILE_WARN_N`` such calls of one step name log one
+RECOMPILATION STORM warning with the recent signatures.  Each wrapper
+records its step ``(callable, specs, meta)`` for the static auditor
+(``mxnet_tpu_torch.analysis``) the first time it sees a signature; the
+port holds the step weakly (a step its caller dropped leaves the list,
+where the JAX package pins it until :func:`reset_recompile_stats`).
 """
 from __future__ import annotations
 
@@ -51,7 +63,8 @@ __all__ = [
     "feed_io_bytes", "feed_io_queue_depth", "feed_io_decode_seconds",
     "feed_io_worker_death", "set_dead_peers", "dead_peers",
     "feed_kvstore_bytes", "set_bucket_plan", "bucket_plan",
-    "feed_phase_seconds",
+    "feed_phase_seconds", "instrument_jit", "recompile_stats",
+    "reset_recompile_stats", "recorded_steps", "TensorSpec",
 ]
 
 _log = logging.getLogger(__name__)
@@ -847,3 +860,238 @@ def feed_io_worker_death() -> None:
                         ).inc()
     except Exception:
         pass
+
+
+# ---------------------------------------------------------------------------
+# recompile tracking
+# ---------------------------------------------------------------------------
+_recompile_lock = threading.RLock()
+_recompile: Dict[str, dict] = {}
+_recompile_warned: Dict[str, bool] = {}
+# name -> (reference to the step callable, arg specs, meta): the static
+# auditor's work list, captured on the calls that saw a new signature
+_recorded_steps: Dict[str, Tuple[Any, tuple, dict]] = {}
+
+
+class TensorSpec(tuple):
+    """``(shape, dtype, device)`` of one tensor argument: what a
+    recorded step is called with again (``materialize``), without
+    holding the tensor."""
+
+    __slots__ = ()
+
+    def __new__(cls, shape, dtype, device):
+        return tuple.__new__(cls, (tuple(int(d) for d in shape), dtype,
+                                   str(device)))
+
+    @property
+    def shape(self):
+        return self[0]
+
+    @property
+    def dtype(self):
+        return self[1]
+
+    @property
+    def device(self):
+        return self[2]
+
+    def materialize(self):
+        """A zero tensor of this spec (zeros are valid class ids and
+        token ids, so a train step runs on them)."""
+        import torch
+
+        return torch.zeros(self.shape, dtype=self.dtype, device=self.device)
+
+
+def _tensor_of(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x
+    data = getattr(x, "_data", None)      # an NDArray
+    return data if isinstance(data, torch.Tensor) else None
+
+
+def _arg_specs(args) -> tuple:
+    """Each tensor (or NDArray) argument replaced by its
+    :class:`TensorSpec`, recursively through lists, tuples and dicts."""
+    def spec(x):
+        t = _tensor_of(x)
+        if t is not None:
+            return TensorSpec(t.shape, t.dtype, t.device)
+        if isinstance(x, (list, tuple)):
+            return type(x)(spec(y) for y in x) if type(x) in (list, tuple) \
+                else tuple(spec(y) for y in x)
+        if isinstance(x, dict):
+            return {k: spec(v) for k, v in x.items()}
+        return x
+
+    return tuple(spec(a) for a in args)
+
+
+def _signature(args) -> tuple:
+    """The hashable (shape, dtype, device) signature of a call's tensor
+    arguments: the churn axis the storm warning reports."""
+    sig = []
+
+    def visit(x):
+        t = _tensor_of(x)
+        if t is not None:
+            sig.append((tuple(t.shape), str(t.dtype).replace("torch.", ""),
+                        str(t.device)))
+        elif isinstance(x, (list, tuple)):
+            for y in x:
+                visit(y)
+        elif isinstance(x, dict):
+            for y in x.values():
+                visit(y)
+
+    for a in args:
+        visit(a)
+    return tuple(sig)
+
+
+def _warn_threshold() -> int:
+    from . import env as _envmod
+
+    return _envmod.get_int("MXNET_RECOMPILE_WARN_N")
+
+
+def _weak(fn):
+    """A callable returning ``fn``, or None once its owner is gone (a
+    bound method is held weakly; anything else strongly)."""
+    import weakref
+
+    if getattr(fn, "__self__", None) is not None and \
+            hasattr(fn, "__func__"):
+        try:
+            return weakref.WeakMethod(fn)
+        except TypeError:
+            pass
+    return lambda: fn
+
+
+class _InstrumentedStep:
+    """Transparent wrapper of one step callable: the calls under a
+    signature it has not seen are its "compiles" (timed, counted in the
+    registry and the metrics, stamped as ``compile`` spans while the
+    profiler runs, recorded for the auditor), and past
+    ``MXNET_RECOMPILE_WARN_N`` of them one warning fires a name."""
+
+    def __init__(self, name: str, fn, meta: Optional[dict] = None):
+        self._name = name
+        # held as the registry holds it: a step keeping its own wrapper
+        # makes no reference cycle
+        self._ref = _weak(fn)
+        self._meta = dict(meta) if meta else {}
+        self._seen: set = set()
+        with _recompile_lock:
+            _recompile.setdefault(name, {
+                "count": 0, "total_ms": 0.0, "max_ms": 0.0,
+                "avals": [], "last_ms": 0.0})
+
+    def __call__(self, *args, **kwargs):
+        sig = _signature(args)
+        fresh = sig not in self._seen
+        fn = self._ref()
+        if fn is None:
+            raise ReferenceError("the step %r wrapped for recompile "
+                                 "tracking no longer exists" % self._name)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if fresh:
+            self._seen.add(sig)
+            self._record_compile(sig, (time.perf_counter() - t0) * 1e3)
+            try:
+                with _recompile_lock:
+                    _recorded_steps[self._name] = (
+                        self._ref, _arg_specs(args), self._meta)
+            except Exception:
+                pass  # the audit hook never fails a step
+        return out
+
+    def _record_compile(self, sig, dur_ms: float) -> None:
+        with _recompile_lock:
+            st = _recompile.setdefault(self._name, {
+                "count": 0, "total_ms": 0.0, "max_ms": 0.0,
+                "avals": [], "last_ms": 0.0})
+            st["count"] += 1
+            st["total_ms"] += dur_ms
+            st["last_ms"] = dur_ms
+            st["max_ms"] = max(st["max_ms"], dur_ms)
+            st["avals"].append([list(s) + [d, dev]
+                                for s, d, dev in sig[:8]])
+            st["avals"] = st["avals"][-8:]
+            count = st["count"]
+            recent = st["avals"]
+            warned = _recompile_warned.get(self._name, False)
+        try:
+            from . import profiler as _profiler
+
+            if _profiler.is_running():
+                now = _profiler._now_us()
+                _profiler.record_span("jit_compile::" + self._name,
+                                      now - dur_ms * 1e3, dur_ms * 1e3,
+                                      cat="compile",
+                                      args={"n_compiles": count})
+        except Exception:
+            pass
+        try:
+            metrics.counter("mxnet_jit_compiles_total",
+                            help="new-signature calls of instrumented step "
+                                 "functions").inc()
+            metrics.gauge("mxnet_jit_compile_ms_last").set(dur_ms)
+        except Exception:
+            pass
+        if count > _warn_threshold() and not warned:
+            with _recompile_lock:
+                _recompile_warned[self._name] = True
+            _log.warning(
+                "RECOMPILATION STORM: step function %r ran cold %d times "
+                "(a new input signature, or a new step built under the "
+                "name) — shape/dtype churn makes every new shape pay "
+                "cuDNN planning, allocator growth and cold per-shape "
+                "caches. Recent signatures (shape + dtype + device per "
+                "tensor arg): %s. Pad/bucketize inputs to a fixed set of "
+                "shapes or pin the dtype to stop the churn.",
+                self._name, count, recent)
+
+
+def instrument_jit(name: str, fn, meta: Optional[dict] = None):
+    """Wrap one step callable for recompile tracking (the JAX package's
+    name: ``FusedTrainStep.step``, ``Module.bulk_fit``, ...).  Idempotent
+    on the name: a rebuilt step keeps accumulating into the same stats
+    row.  ``meta`` (``compute_dtype``, ``bucket_plan``,
+    ``remat_policy``, ``state``, ...) rides into :func:`recorded_steps`
+    for the auditor."""
+    return _InstrumentedStep(name, fn, meta)
+
+
+def recompile_stats() -> Dict[str, dict]:
+    """``{name: {count, total_ms, max_ms, last_ms, avals}}`` for every
+    instrumented step (``avals``: the recent signatures)."""
+    with _recompile_lock:
+        return {k: dict(v) for k, v in _recompile.items()}
+
+
+def reset_recompile_stats() -> None:
+    """Clear the stats, the warnings and the recorded steps."""
+    with _recompile_lock:
+        _recompile.clear()
+        _recompile_warned.clear()
+        _recorded_steps.clear()
+
+
+def recorded_steps() -> Dict[str, Tuple[Any, tuple, dict]]:
+    """``{name: (callable, specs, meta)}`` for every instrumented step
+    that has run and is still alive: the auditor's work list.  ``specs``
+    are the call's arguments with each tensor a :class:`TensorSpec`."""
+    out = {}
+    with _recompile_lock:
+        items = list(_recorded_steps.items())
+    for name, (ref, specs, meta) in items:
+        fn = ref()
+        if fn is not None:
+            out[name] = (fn, specs, meta)
+    return out

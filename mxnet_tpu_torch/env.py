@@ -155,6 +155,9 @@ register("MXNET_METRICS_INTERVAL_S", "float", 30.0,
 register("MXNET_ELASTIC_HEARTBEAT_DIR", "str", None,
          "Directory of per-rank heartbeat files (hb_rank{K}) an "
          "elastic supervisor watches; touched by the serving workers.")
+register("MXNET_RECOMPILE_WARN_N", "int", 1,
+         "Warn RECOMPILATION STORM when one step function is called "
+         "under more than N input signatures (shape, dtype, device).")
 # module/module.py
 register("MXNET_SKIP_NONFINITE_GRADS", "bool", False,
          "Check gradients for NaN/Inf before the kvstore push/update "
@@ -273,11 +276,12 @@ register("MXNET_KVSTORE_BUCKET_IMPL", "str", "psum",
          "or 'hierarchical'.  The port accepts the three names and runs "
          "the backend's own all-reduce (NCCL picks its algorithm).")
 register("MXNET_AUTOTUNE_PLAN", "str", None,
-         "A tuned bucket plan of the JAX package's autotuner; not ported "
-         "(ROADMAP A11): setting it raises at the train step's build.")
+         "A tuned bucket plan file (mxnet_tpu_torch.autotune), applied "
+         "at the train step's build whatever its fingerprint; an "
+         "unreadable or invalid file raises.")
 register("MXNET_AUTOTUNE_DIR", "str", None,
-         "A directory of tuned bucket plans; not ported (ROADMAP A11): "
-         "setting it raises at the train step's build.")
+         "A directory of tuned bucket plans: the first whose fingerprint "
+         "matches the step's gradient exchange applies.")
 register("MXNET_SDC_CHECK_EVERY_N", "int", 0,
          "Cross-rank SDC fingerprint-vote cadence; not ported (ROADMAP "
          "A11): a nonzero value raises at the train step's build.")

@@ -48,6 +48,7 @@ class BulkTrainLoop:
         self._checked = False
         self._pinned: Dict[str, torch.Tensor] = {}
         self._copied = None   # event: the last group's copies are done
+        self._call = None     # the instrumented group (recompile tracking)
         self.groups = 0
         self.steps = 0
 
@@ -124,28 +125,56 @@ class BulkTrainLoop:
         lr = opt.lr_scheduler(opt.num_update) if opt.lr_scheduler \
             else opt.lr
         saved = (opt.lr_scheduler, opt.lr)
-        out = []
+        if self._call is None:
+            from .. import diagnostics as _diag
+            from ..remat import remat_policy
+
+            self._call = _diag.instrument_jit(
+                "Module.bulk_fit", self._run_group,
+                meta={"remat_policy": remat_policy(),
+                      "compute_dtype": str(next(iter(
+                          ex.arg_dict.values()))._data.dtype).replace(
+                          "torch.", "")})
         try:
             opt.lr_scheduler, opt.lr = None, lr
             with _traceview.step_window(
                     "Module.bulk_fit", k=len(batches),
                     device=ex._ctx.torch_device()) as tvw:
-                for k in range(len(batches)):
-                    for name in io_names:
-                        cell = ex.arg_dict[name]
-                        rows = stacked[name][k] if mod._dp is None \
-                            else mod._dp.local(stacked[name][k])
-                        cell._data = rows.to(cell._data.dtype)
-                    outs = mod._run_train_step()
-                    # the output cells are refilled by the next step:
-                    # keep this step's values in cells of their own
-                    out.append([NDArray.from_raw(o._data.clone(), ex._ctx)
-                                for o in outs])
-                    mod.update()
+                out = self._call(stacked)
                 if tvw is not None:
                     tvw.block()
         finally:
             opt.lr_scheduler, opt.lr = saved
         self.groups += 1
         self.steps += len(batches)
+        return out
+
+    def _run_group(self, stacked) -> List[List[NDArray]]:
+        """The train steps of one group (``stacked``: one stack per
+        input, the group's batches along the leading axis); each step's
+        outputs."""
+        mod = self._mod
+        ex = mod._exec
+        out = []
+        for k in range(int(next(iter(stacked.values())).shape[0])):
+            for name, stack in stacked.items():
+                cell = ex.arg_dict[name]
+                rows = stack[k] if mod._dp is None \
+                    else mod._dp.local(stack[k])
+                cell._data = rows.to(cell._data.dtype)
+            outs = mod._run_train_step()
+            # the output cells are refilled by the next step: keep this
+            # step's values in cells of their own
+            out.append([NDArray.from_raw(o._data.clone(), ex._ctx)
+                        for o in outs])
+            mod.update()
+        return out
+
+    def audit_state(self):
+        """The parameter and auxiliary cells a step updates (the
+        auditor's donation check compares their storage across one)."""
+        ex = self._mod._exec
+        out = {"param:" + k: ex.arg_dict[k]._data
+               for k in self._mod._param_names if k in ex.arg_dict}
+        out.update(("aux:" + k, v._data) for k, v in ex.aux_dict.items())
         return out

@@ -23,8 +23,11 @@ scope (a ``traceview.annotation``): the channel by which a device
 trace tells a bucket's all-reduce from sync BatchNorm's, which run the
 same NCCL kernel.  :func:`stamp_profiler` stamps one comms span per
 bucket and the cumulative byte counters (the issue schedule) while the
-profiler runs.  Tuned caps (``MXNET_AUTOTUNE_PLAN`` / ``_DIR``) are
-queued (ROADMAP A11c) and raise.
+profiler runs.  Tuned caps (``MXNET_AUTOTUNE_PLAN`` / ``_DIR``, the
+port's ``autotune`` package) set the first, middle and last caps of
+:func:`partition` through :func:`plan_with_tuning`; they move only the
+bucket boundaries, and :func:`plan_meta` records them under
+``autotune``.
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ __all__ = ["DEFAULT_BUCKET_BYTES", "Bucket", "bucket_cap_bytes",
 DEFAULT_BUCKET_BYTES = 4 * 1024 * 1024
 _IMPLS = ("psum", "ring", "hierarchical")
 _ITEMSIZE = {"float64": 8, "float32": 4, "bfloat16": 2, "float16": 2,
-             "int64": 8, "int32": 4}
+             "int64": 8, "int32": 4, "int8": 1, "uint8": 1}
 
 
 class Bucket(NamedTuple):
@@ -97,17 +100,25 @@ def _nbytes(shape, dtype) -> int:
     return n * itemsize(dtype)
 
 
-def partition(entries: Sequence[Tuple], cap_bytes: Optional[int] = None
-              ) -> List[Bucket]:
+def partition(entries: Sequence[Tuple], cap_bytes: Optional[int] = None,
+              *, first_cap_bytes: Optional[int] = None,
+              last_cap_bytes: Optional[int] = None) -> List[Bucket]:
     """Partition ``entries`` — ``(key, shape, dtype)`` in layer order —
     into reverse-layer-order buckets, the JAX package's greedy fill: a
-    bucket closes when the next gradient would exceed the cap or change
+    bucket closes when the next gradient would exceed its cap or change
     dtype; a gradient larger than the cap gets a bucket of its own.
-    (The JAX package's separate first/last caps come from tuned plans,
-    which are not ported.)"""
+
+    The tuned plans' asymmetry, as the JAX package has it:
+    ``first_cap_bytes`` caps bucket 0 on its own (a small first bucket
+    puts the first collective on the wire early in backward);
+    ``last_cap_bytes`` (> cap) folds trailing buckets together (the
+    tail's collectives issue after backward, so fewer launches cost no
+    overlap).  Folding never touches bucket 0 and never mixes dtypes."""
     if cap_bytes is None:
         cap_bytes = bucket_cap_bytes()
     cap = max(int(cap_bytes), 1)
+    first_cap = cap if first_cap_bytes is None \
+        else max(int(first_cap_bytes), 1)
     buckets: List[Bucket] = []
     cur_keys: List = []
     cur_bytes = 0
@@ -122,32 +133,48 @@ def partition(entries: Sequence[Tuple], cap_bytes: Optional[int] = None
     for key, shape, dtype in reversed(list(entries)):
         nb = _nbytes(shape, dtype)
         dt = dtype_name(dtype)
-        if cur_keys and (cur_dtype != dt or cur_bytes + nb > cap):
+        active = first_cap if not buckets else cap
+        if cur_keys and (cur_dtype != dt or cur_bytes + nb > active):
             flush()
         cur_keys.append(key)
         cur_bytes += nb
         cur_dtype = dt
     flush()
+    if last_cap_bytes is not None and int(last_cap_bytes) > cap:
+        lcap = int(last_cap_bytes)
+        while len(buckets) > 2 and \
+                buckets[-2].dtype == buckets[-1].dtype and \
+                buckets[-2].nbytes + buckets[-1].nbytes <= lcap:
+            tail = buckets.pop()
+            prev = buckets.pop()
+            buckets.append(Bucket(prev.keys + tail.keys,
+                                  prev.nbytes + tail.nbytes, prev.dtype))
     return buckets
 
 
 def plan_with_tuning(entries: Sequence[Tuple],
                      cap_bytes: Optional[int] = None
                      ) -> Tuple[List[Bucket], Optional[Dict]]:
-    """``(plan, None)``, the JAX package's ``(plan, tuning_meta)`` on its
-    untuned path: an explicit ``cap_bytes`` partitions at that cap,
-    otherwise at ``MXNET_KVSTORE_BUCKET_BYTES``.  A tuned plan
-    (``MXNET_AUTOTUNE_PLAN`` / ``MXNET_AUTOTUNE_DIR``) raises: the
-    autotuner is not ported (ROADMAP A11), and silently ignoring the
-    knob would train under caps other than the ones asked for."""
+    """``(plan, tuning_meta)``: the partition under the tuned caps when
+    a tuned plan applies (``MXNET_AUTOTUNE_PLAN``, or a fingerprint
+    match in ``MXNET_AUTOTUNE_DIR``: ``autotune.plan.resolve_caps``),
+    else under ``MXNET_KVSTORE_BUCKET_BYTES`` with ``tuning_meta``
+    None.  An explicit ``cap_bytes`` bypasses tuning: a caller pinning
+    a cap means it."""
     if cap_bytes is not None:
         return partition(entries, cap_bytes), None
-    for knob in ("MXNET_AUTOTUNE_PLAN", "MXNET_AUTOTUNE_DIR"):
-        if _env.get_str(knob):
-            raise ValueError(
-                "%s: tuned bucket plans are not ported to mxnet_tpu_torch "
-                "yet (ROADMAP A11); unset it or pin bucket_bytes" % knob)
-    return partition(list(entries), None), None
+    entry_list = list(entries)
+    total = sum(_nbytes(shape, dtype) for _k, shape, dtype in entry_list)
+    from ..autotune import plan as _aplan  # lazy: no import cycle
+
+    caps, _path = _aplan.resolve_caps(total_bytes=total,
+                                      n_grads=len(entry_list))
+    if caps is None:
+        return partition(entry_list, None), None
+    plan = partition(entry_list, caps["cap_bytes"],
+                     first_cap_bytes=caps.get("first_cap_bytes"),
+                     last_cap_bytes=caps.get("last_cap_bytes"))
+    return plan, dict(caps)
 
 
 def plan_for_arrays(named: Mapping, cap_bytes: Optional[int] = None
@@ -429,13 +456,15 @@ def accounting(plan: Sequence[Bucket]) -> List[Dict]:
 
 
 def plan_meta(plan: Optional[Sequence[Bucket]],
-              cap_bytes: Optional[int] = None) -> Dict:
+              cap_bytes: Optional[int] = None,
+              tuning: Optional[Dict] = None) -> Dict:
     """The self-describing summary of a plan, in the JAX package's
     format: bucket count, bytes, cap, the schedule's name and chaining,
-    per-bucket rows.  No ``autotune`` block: tuned plans are not
-    ported."""
+    per-bucket rows, and with ``tuning`` (:func:`plan_with_tuning`'s
+    meta) the ``autotune`` block naming the caps and the plan file they
+    came from.  It rides into the traceview summary."""
     plan = list(plan or ())
-    return {
+    out = {
         "n_buckets": len(plan),
         "total_bytes": sum(int(b.nbytes) for b in plan),
         "cap_bytes": bucket_cap_bytes() if cap_bytes is None
@@ -444,6 +473,15 @@ def plan_meta(plan: Optional[Sequence[Bucket]],
         "chained": chain_enabled(),
         "buckets": accounting(plan),
     }
+    if tuning is not None:
+        out["autotune"] = {
+            "plan_path": tuning.get("plan_path"),
+            "cap_bytes": tuning.get("cap_bytes"),
+            "first_cap_bytes": tuning.get("first_cap_bytes"),
+            "last_cap_bytes": tuning.get("last_cap_bytes"),
+            "score": tuning.get("score"),
+        }
+    return out
 
 
 def stamp_profiler(plan: Sequence[Bucket], *, impl: Optional[str] = None,

@@ -519,6 +519,7 @@ class FusedTrainStep:
         self._accum_steps = accum_steps
         self._bucketed = False
         self._zero1 = False
+        self._tuning = None
         self._built = False
 
     @property
@@ -572,7 +573,10 @@ class FusedTrainStep:
             # JAX package (its gradients are not pure dp replicas)
             self._bucketed = cap != 0 and not self._tp
             if self._bucketed:
-                self._plan, _ = _buckets.plan_with_tuning(
+                # a tuned plan (MXNET_AUTOTUNE_PLAN / _DIR) moves only
+                # the bucket boundaries; an explicit bucket_bytes pins
+                # the cap and bypasses it
+                self._plan, self._tuning = _buckets.plan_with_tuning(
                     entries, self._bucket_bytes)
             else:
                 # monolithic: one all-reduce per dtype run, after backward
@@ -596,9 +600,25 @@ class FusedTrainStep:
 
         # the plan traceview matches this step's collectives against; a
         # monolithic rebuild clears only its own stale plan
-        _diag.set_bucket_plan(
-            _buckets.plan_meta(self._plan, self._bucket_bytes)
-            if self._bucketed else None, owner=id(self))
+        self._plan_meta = _buckets.plan_meta(
+            self._plan, self._tuning["cap_bytes"] if self._tuning
+            else self._bucket_bytes, tuning=self._tuning) \
+            if self._bucketed else None
+        _diag.set_bucket_plan(self._plan_meta, owner=id(self))
+        # recompile tracking and the auditor's work list, under the JAX
+        # package's site names
+        self._site_meta = {
+            "compute_dtype": _buckets.dtype_name(self._compute_dtype),
+            "bucket_plan": self._plan_meta,
+            "remat_policy": _remat.remat_policy(),
+            "grad_accum_steps": self._grad_accum,
+            "n_ranks": mesh.size if mesh is not None else 1}
+        self._step_call = _diag.instrument_jit(
+            "FusedTrainStep.step", self._step, meta=self._site_meta)
+        self._multi_call = _diag.instrument_jit(
+            "FusedTrainStep.multi_step", self._run_multi,
+            meta=self._site_meta)
+        self._same_calls: Dict[int, object] = {}
         self._built = True
 
     def _shard_params(self) -> Dict[int, object]:
@@ -649,6 +669,27 @@ class FusedTrainStep:
         if not self.bucketed:
             return None
         return _buckets.accounting(self._plan)
+
+    def grad_entries(self) -> List[tuple]:
+        """``(key, shape, dtype)`` of every gradient the exchange
+        carries, in layer order: what ``buckets.partition`` and a
+        tuned plan's fingerprint see (empty before the build)."""
+        if not self._built:
+            return []
+        return [(i, tuple(self._value(i).shape),
+                 _buckets.dtype_name(self._value(i).dtype))
+                for i in self._diff]
+
+    def bucket_tuning(self):
+        """The autotune meta the plan was built under (the caps and the
+        plan file); None under the env default or off the bucketed
+        path."""
+        return self._tuning if self.bucketed else None
+
+    def bucket_plan_meta(self):
+        """``buckets.plan_meta`` of this step's plan (None off the
+        bucketed path)."""
+        return self._plan_meta if self.bucketed else None
 
     def _as_tensor(self, x) -> torch.Tensor:
         t = x._data.detach() if isinstance(x, NDArray) else \
@@ -894,27 +935,53 @@ class FusedTrainStep:
                                     group=self.mesh.axis_group("dp"))
         return full
 
+    def _run_multi(self, data, label) -> List[torch.Tensor]:
+        """One step per leading index of ``data`` / ``label``; the
+        losses."""
+        return [self._step(x, y)[0] for x, y in zip(data, label)]
+
+    def _run_same(self, data, label, k: int) -> List[torch.Tensor]:
+        """``k`` steps of one batch; the losses."""
+        return [self._step(data, label)[0] for _ in range(int(k))]
+
+    def audit_state(self) -> Dict[str, torch.Tensor]:
+        """The parameter and optimizer-state tensors a step updates (the
+        auditor's donation check compares their storage across one)."""
+        out = {"param:%s" % self._cells[i].name: self._value(i)
+               for i in self._diff}
+        out.update(("momentum:%d" % i, m) for i, m in enumerate(self._moms)
+                   if isinstance(m, torch.Tensor))
+        return out
+
     def run_steps(self, data, label, steps=None) -> NDArray:
         """Run K optimizer steps.  ``data`` / ``label`` carry a leading K
         dim (one global batch per step), or, with ``steps``, are one
         batch used for every step.  Returns the per-step losses, shape
         (K,)."""
         d, lab = self._as_tensor(data), self._as_tensor(label)
-        if steps is None:
-            batches = list(zip(d, lab))
-        else:
-            batches = [(d, lab)] * int(steps)
+        k = int(d.shape[0]) if steps is None else int(steps)
         if not self._built:
-            self._build(NDArray.from_raw(self._local(batches[0][0]),
-                                         self._ctx))
-        k = len(batches)
+            self._build(NDArray.from_raw(
+                self._local(d[0] if steps is None else d), self._ctx))
+        if steps is None:
+            run, args = self._multi_call, (d, lab)
+        else:
+            run = self._same_calls.get(k)
+            if run is None:
+                from .. import diagnostics as _diag
+
+                # k in the name: each K is its own site, whose first
+                # call is expected, not churn
+                run = self._same_calls[k] = _diag.instrument_jit(
+                    "FusedTrainStep.multi_step_same[k=%d]" % k,
+                    self._run_same, meta=self._site_meta)
+            args = (d, lab, k)
         prof = _profiler.is_running()
         if prof:
             t0 = _profiler._now_us()
         with _traceview.step_window("FusedTrainStep", k=k,
                                     device=self._device) as tvw:
-            losses: List[torch.Tensor] = [self._step(x, y)[0]
-                                          for x, y in batches]
+            losses: List[torch.Tensor] = run(*args)
             if tvw is not None:
                 tvw.block()
         if prof:
@@ -933,7 +1000,7 @@ class FusedTrainStep:
             self._build(NDArray.from_raw(self._local(d), self._ctx))
         with _traceview.step_window("FusedTrainStep",
                                     device=self._device) as tvw:
-            loss, logits = self._step(d, lab)
+            loss, logits = self._step_call(d, lab)
             if tvw is not None:
                 tvw.block()
         return (NDArray.from_raw(loss, self._ctx),

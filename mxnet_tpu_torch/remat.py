@@ -65,7 +65,8 @@ __all__ = ["mirror_enabled", "maybe_checkpoint",
            "mirror_sequence", "REMAT_POLICIES", "CONV_SCOPES",
            "remat_policy", "checkpoint_scope", "checkpoint_block_call",
            "hybrid_block_call", "grad_accum_steps", "checkpoint",
-           "recomputing", "block_trace", "in_block_trace", "mirror_scope"]
+           "recomputing", "block_trace", "in_block_trace", "mirror_scope",
+           "regions_entered"]
 
 REMAT_POLICIES = ("none", "block", "attention", "stage", "conv_block")
 # conv-tier scopes: the gluon Block.__call__ hook and the symbolic
@@ -166,11 +167,23 @@ class _Recompute:
         autograd.set_recording(self._prev[0])
 
 
+#: checkpoint regions entered in this process (forward calls of
+#: :func:`checkpoint`): the static auditor's remat-effectiveness check
+#: counts a step's regions by this
+_REGIONS = [0]
+
+
+def regions_entered() -> int:
+    """Checkpoint regions entered in this process so far."""
+    return _REGIONS[0]
+
+
 def checkpoint(fn, *args):
     """``fn(*args)`` under non-reentrant ``torch.utils.checkpoint``; the
     recompute replays the random and thread state of this call."""
     from torch.utils.checkpoint import checkpoint as _checkpoint
 
+    _REGIONS[0] += 1
     from . import autograd
     from . import random as _random
     from .context import current_context

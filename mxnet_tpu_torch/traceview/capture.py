@@ -83,10 +83,13 @@ def _activities(device):
     return acts
 
 
-def start_device_trace(trace_dir: str, device=None) -> None:
+def start_device_trace(trace_dir: str, device=None,
+                       record_shapes: bool = False) -> None:
     """Start the torch.profiler capture that :func:`stop_device_trace`
     exports as ``trace_dir/trace_rank{K}.pt.trace.json``.  ``device``:
-    the device whose activity is recorded (default the card)."""
+    the device whose activity is recorded (default the card);
+    ``record_shapes``: the host ops carry their input shapes and dtypes
+    (``parallel.scaling`` sizes gloo's collectives from them)."""
     global _prof, _prof_path
     from torch.profiler import profile
 
@@ -98,7 +101,7 @@ def start_device_trace(trace_dir: str, device=None) -> None:
             raise RuntimeError("traceview: a device trace is already "
                                "running")
         os.makedirs(trace_dir, exist_ok=True)
-        prof = profile(activities=acts)
+        prof = profile(activities=acts, record_shapes=record_shapes)
         prof.start()
         _prof, _prof_path = prof, os.path.join(
             trace_dir, "trace_rank%d.pt.trace.json"

@@ -54,8 +54,9 @@ world sizes the skip is ``checkpoint.scale_resume_skip``'s), the
 loss-spike divergence guard, the heartbeat, the tokens/s gauge and the
 chaos ``kill`` / delay hooks.
 
-Not ported (raise with the ROADMAP item): the SDC fingerprint vote,
-``bitflip_param`` chaos and tuned bucket plans (A11).  ZeRO stage 1 on
+Not ported (raise with the ROADMAP item): the SDC fingerprint vote and
+``bitflip_param`` chaos (A11b).  Tuned bucket plans
+(``MXNET_AUTOTUNE_PLAN`` / ``_DIR``) apply at the build.  ZeRO stage 1 on
 one device warns and stays replicated, as in the JAX package.
 """
 from __future__ import annotations
@@ -184,17 +185,23 @@ class TransformerTrainStep:
                    for k, v in self._params.items()]
         cap = self._bucket_bytes if self._bucket_bytes is not None \
             else _buckets.bucket_cap_bytes()
+        tuning = None
         if cap == 0:
             plan = _buckets.partition(entries, 1 << 62)
         else:
-            plan, _ = _buckets.plan_with_tuning(entries, self._bucket_bytes)
+            plan, tuning = _buckets.plan_with_tuning(entries,
+                                                     self._bucket_bytes)
+            if tuning is not None:
+                cap = tuning["cap_bytes"]
         self._bucket_plan = plan
+        self._bucket_tuning = tuning
         stage = zero1_stage(self._zero_stage)
         self._zero1 = stage == 1 and self.mesh is not None
         if stage == 1 and not self._zero1:
             _log.warning("MXNET_ZERO_STAGE=1 needs a multi-device dp axis "
                          "— momenta stay replicated")
-        meta = _buckets.plan_meta(plan, cap if cap else None)
+        meta = _buckets.plan_meta(plan, cap if cap else None,
+                                  tuning=tuning)
         meta["workload"] = "transformer_lm"
         meta["zero_stage"] = 1 if self._zero1 else 0
         self._plan_meta = meta
@@ -212,6 +219,18 @@ class TransformerTrainStep:
         # partial gradients of one replica), then all-reduced over dp,
         # or reduce-scattered under ZeRO-1 (the same sums in the same
         # order, so the two agree bit for bit)
+        # recompile tracking and the auditor's work list, under the JAX
+        # package's site names
+        from .. import diagnostics as _diag
+        from ..parallel.buckets import dtype_name
+
+        self._site_meta = {"compute_dtype": dtype_name(cfg.dtype),
+                           "bucket_plan": meta,
+                           "remat_policy": self._policy,
+                           "n_ranks": self._n_total}
+        self._step_call = _diag.instrument_jit(
+            "TransformerTrainStep.step", self._step, meta=self._site_meta)
+        self._same_calls: Dict[int, object] = {}
         self._reducer = None if self.mesh is None else \
             _buckets.OverlappedReduce(plan, self.mesh, scatter=self._zero1,
                                       axis="dp", pre_axis=self._sp_axis)
@@ -234,6 +253,13 @@ class TransformerTrainStep:
         if not self._built:
             self._build()
         return self._plan_meta
+
+    def bucket_tuning(self):
+        """The autotune meta the bucket plan was built under (None under
+        the env default)."""
+        if not self._built:
+            self._build()
+        return self._bucket_tuning
 
     def optimizer_state_bytes_per_rank(self) -> Optional[int]:
         """Momenta bytes resident on this rank's device, from the live
@@ -343,7 +369,7 @@ class TransformerTrainStep:
         tokens, labels = self._put(tokens), self._put(labels)
         with _traceview.step_window("TransformerTrainStep",
                                     device=self.device) as tvw:
-            loss = self._step(tokens, labels)
+            loss = self._step_call(tokens, labels)
             if tvw is not None:
                 tvw.block()
         self._stamp_telemetry()
@@ -356,15 +382,37 @@ class TransformerTrainStep:
             self._build()
         tokens, labels = self._put(tokens), self._put(labels)
         k = int(steps)
+        run = self._same_calls.get(k)
+        if run is None:
+            from .. import diagnostics as _diag
+
+            # k in the name: each K is its own site
+            run = self._same_calls[k] = _diag.instrument_jit(
+                "TransformerTrainStep.multi_step_same[k=%d]" % k,
+                self._run_same, meta=self._site_meta)
         with _traceview.step_window("TransformerTrainStep", k=k,
                                     device=self.device) as tvw:
-            losses = []
-            for _ in range(k):
-                losses.append(self._step(tokens, labels))
-                self._stamp_telemetry()
+            losses = run(tokens, labels, k)
             if tvw is not None:
                 tvw.block()
         return torch.stack(losses)
+
+    def _run_same(self, tokens, labels, k: int) -> List[torch.Tensor]:
+        """``k`` steps of one batch; the losses."""
+        losses = []
+        for _ in range(int(k)):
+            losses.append(self._step(tokens, labels))
+            self._stamp_telemetry()
+        return losses
+
+    def audit_state(self) -> Dict[str, torch.Tensor]:
+        """The parameter and momentum tensors a step updates (the
+        auditor's donation check compares their storage across one)."""
+        out = {"param:" + k: v for k, v in self._params.items()}
+        moms = self._moms.items() if isinstance(self._moms, dict) \
+            else enumerate(self._moms)
+        out.update(("momentum:%s" % k, v) for k, v in moms)
+        return out
 
     def _stamp_telemetry(self) -> None:
         if self.mesh is not None:

@@ -54,6 +54,11 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import mxnet_tpu_torch.recommender\n"
         "import mxnet_tpu_torch.profiler, mxnet_tpu_torch.traceview\n"
         "import mxnet_tpu_torch.traceview.__main__\n"
+        "import mxnet_tpu_torch.autotune, mxnet_tpu_torch.analysis\n"
+        "import mxnet_tpu_torch.autotune.__main__\n"
+        "import mxnet_tpu_torch.analysis.__main__\n"
+        "import mxnet_tpu_torch.parallel.scaling\n"
+        "import mxnet_tpu_torch.parallel.overlap\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mxnet_tpu', 'ml_dtypes'))\n"
         # kernels are built at first launch, never at import; NVRTC and
@@ -94,7 +99,8 @@ def test_no_package_file_imports_jax_or_the_jax_package():
                                     "tools/torch_nd_profile.py",
                                     "tools/torch_serve_profile.py",
                                     "tools/torch_train_profile.py",
-                                    "tools/torch_trace_loss.py"])
+                                    "tools/torch_trace_loss.py",
+                                    "tools/torch_autotune_scale.py"])
 def test_card_scripts_import_no_jax(script):
     # the scripts run on the machine with the card, which has no JAX
     tree = ast.parse((REPO / script).read_text(), filename=script)
@@ -372,3 +378,18 @@ def test_observability_entry_points_default_to_cuda_and_raise_without_it(
     path = capture.stop_device_trace()
     assert path == str(tmp_path / "trace_rank0.pt.trace.json")
     assert capture.stop_device_trace() is None
+
+
+def test_tuning_entry_points_default_to_cuda_and_raise_without_it():
+    """The rank sweep and the overlap measurement start their ranks on
+    the card unless the caller names the CPU; without a card they raise
+    before starting any."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from mxnet_tpu_torch.parallel import overlap, scaling
+
+    for call in (lambda: scaling.sweep((1,)),
+                 lambda: scaling.control_sweep((1,)),
+                 lambda: overlap.measure_overlap()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

@@ -285,10 +285,15 @@ def test_one_device_refusals(jax_run, monkeypatch, caplog):
         with pytest.raises(exc, match=match):
             s.load_state({"params": p0,
                           "optimizer_states": pickle.dumps(state)})
-    for knob, value, item in (("MXNET_SDC_CHECK_EVERY_N", "2", "A11"),
-                              ("MXNET_AUTOTUNE_PLAN", "plan.json", "A11")):
+    # the SDC vote is not ported and raises; the autotuner is, and a
+    # tuned plan file that cannot be read raises instead of training
+    # under caps other than the ones asked for
+    for knob, value, exc, match in (
+            ("MXNET_SDC_CHECK_EVERY_N", "2", ValueError, "ROADMAP A11"),
+            ("MXNET_AUTOTUNE_PLAN", "no-such-plan.json", OSError,
+             "no-such-plan")):
         monkeypatch.setenv(knob, value)
-        with pytest.raises(ValueError, match="ROADMAP " + item):
+        with pytest.raises(exc, match=match):
             ttr.TransformerTrainStep(cfg, device="cpu")._build()
         monkeypatch.delenv(knob)
     # the conv tier's scope is a no-op for the LM (scopes never nest):

@@ -392,3 +392,17 @@ def module_cases(spec) -> dict:
     cases.append(("conv_bn_fault", lambda s: module_fit(
         s, "conv_bn", fault="grad_not_reduced")))
     return run_cases(cases, spec)
+
+
+def sweep_net(classes):
+    """The port's tiny BatchNorm conv net of the scaling sweep's parity
+    test (``parallel.scaling.sweep(model="torch_dp_cases:sweep_net")``)."""
+    import mxnet_tpu_torch as mx
+
+    nn = mx.gluon.nn
+    net = nn.HybridSequential(prefix="sweep_")
+    with net.name_scope():
+        net.add(nn.Conv2D(4, 3, padding=1), nn.BatchNorm(),
+                nn.Activation("relu"), nn.GlobalAvgPool2D(),
+                nn.Dense(classes))
+    return net
