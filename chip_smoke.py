@@ -27,17 +27,21 @@ recommender tier at full width on the local store and over
 ``dist_sync``, held against its dense control, the CPU and one worker,
 with planted faults.  After the first ResNet phases it trains ResNet-50 fed from
 records through the input tier (the decode pool and the pinned,
-stream-ordered device stage).  Last come the observability tier's
+stream-ordered device stage).  Then come the observability tier's
 phases: ``mx.profiler``'s spans and counters, ``traceview``'s device
 traces of the training and serving windows, and the asynchronous
-checkpoint writer.
+checkpoint writer; the tuning tier; and last the recurrent tier:
+BASELINE config 3 (the bucketing LSTM language model) trained three
+ways at full width, and the ``RNN`` op, the sequence ops and
+``BucketingModule`` in float64 against the CPU, with planted faults.
 
     python3 chip_smoke.py
 
 Each phase prints one JSON line; any failure raises and the script exits
-non-zero.  The line before the last is ``{"kernels": [...]}`` (per
-kernel: launches on its path, error, times, bound); the last
-line is ``{"ok": true, "device": {...}}``.  Needs a CUDA device, the
+non-zero.  Before the kernel lines, ``{"phase": "phase_seconds", ...}``
+gives every phase's wall seconds.  The line before the last is
+``{"kernels": [...]}`` (per kernel: launches on its path, error, times,
+bound); the last line is ``{"ok": true, "device": {...}}``.  Needs a CUDA device, the
 CUDA toolkit (``nvcc``) and the rest of this repository beside it; it
 imports nothing of JAX.
 
@@ -105,12 +109,12 @@ Phases:
            p50/p99 (server side, as ``serve``; and at the streaming
            client) beside the ``serve`` phase's
   loadgen  ``gen_tokens_at_slo`` on the same generator (p99 TPOT SLO
-           200 ms, bench.py:835; 4 req/s doubling to 64, 1.5 s
+           200 ms, bench.py:835; 4 req/s doubling to 64, 1 s
            windows): tokens/s at the SLO, TTFT p50/p99 there, the p99
            attribution of the ramp's slowest requests; then the
            continuous vs whole-batch A/B of bench.py:866-892 (16
            requests, every 8th at 32 new tokens, the rest 4-8) against
-           a ``continuous=False`` twin sharing the weights, best of 3
+           a ``continuous=False`` twin sharing the weights, best of 2
   reload   the predictor under ``BackgroundLoad`` (300 req/s): weights
            of step 2 saved with ``checkpoint.save_checkpoint`` and
            reloaded (canary 50 %, 8 batches) must promote with zero
@@ -137,7 +141,7 @@ Phases:
            224x224, Xavier from numpy seed 0, SoftmaxCrossEntropyLoss,
            SGD lr 0.05 momentum 0.9) through ``FusedTrainStep.run_steps``
            in bf16 at batch 32 and at batch 128: 3 warm-up steps, then
-           10 timed steps (synchronized); images/s, step ms, first and
+           5 timed steps (synchronized); images/s, step ms, first and
            last losses (finite), peak memory, achieved TFLOP/s (3
            forwards of 2 x 4.09 G multiply-adds an image against the
            989 TFLOP/s bf16 peak); one float32
@@ -166,7 +170,7 @@ Phases:
            slot memory (``h2d_GBps``); the card's first 4 batches, two
            pool runs and a stream resumed at batch 3 held bitwise
            (digests); ResNet-50 v1 bf16 batch 128 through
-           ``FusedTrainStep`` fed by ``InputPipeline`` (3 epochs, the
+           ``FusedTrainStep`` fed by ``InputPipeline`` (2 epochs, the
            first discarded: ``e2e_ips``, ``feed_efficiency`` over the
            ``train`` phase's img/s, the idle share of 6 traced steps);
            cores, W, slot bytes, the size of ``/dev/shm``, ``codec``
@@ -320,7 +324,7 @@ Phases:
   recommender
            bench.py:1121's row at RecommenderConfig's full width (8
            fields of 65536 x 16, MLP (64, 32), batch 128, 4 shards a
-           table) on the local store on the card: 20 timed steps of the
+           table) on the local store on the card: 10 timed steps of the
            sparse tier, then of the dense control (SGD lr 0.05,
            clickstream seed 7): samples/s, speedup, mean unique rows,
            the pulled bytes and their ratio (<= 2x the ideal); the lr 0
@@ -328,9 +332,9 @@ Phases:
            side by side (bitwise or not: reported); 5 sparse steps under
            torch.profiler (device busy, idle share) and the host syncs a
            step; then dist_sync, 2 workers on cuda:0 and 2 servers, each
-           worker on its part of the stream: 8 steps (samples/s a
+           worker on its part of the stream: 4 steps (samples/s a
            worker, row-sparse bytes a step against the formula, the
-           shard keys on both servers), then 4 under 2-bit compression
+           shard keys on both servers), then 2 under 2-bit compression
            (push bytes = ``rows_wire_nbytes``)
   recommender_numerics
            tests/test_sparse.py:485-524's configuration (3 fields,
@@ -387,11 +391,44 @@ Phases:
            the NCCL step in the child); ``python -m
            mxnet_tpu_torch.analysis --self-test`` and ``autotune
            --self-test``; the sweep and the child run beside the audit
+  rnn      BASELINE config 3, example/rnn/bucketing/lstm_bucketing.py's
+           defaults: 2 LSTM layers of 200, embed 200, vocabulary 10000
+           (PTB's), batch 32, buckets 10-60, invalid label 0, SGD lr
+           0.01, wd 1e-5, float32, on a seeded synthetic corpus (a Zipf
+           draw, half the words followed by their successor) that fills
+           every bucket: (a) the unrolled ``mx.rnn.LSTMCell`` stack and
+           (b) ``FusedRNNCell`` (the ``RNN`` op, cuDNN) through
+           ``BucketingModule.fit``, two batches a bucket; (c)
+           ``gluon.rnn.LSTM(200, num_layers=2, dropout=0.2)`` between
+           ``Embedding`` and ``Dense``, bptt 35, 20 ``Trainer`` SGD
+           steps with the global norm clipped.  Each: tokens/s, step
+           ms, held-out perplexity before and after (must fall), the
+           RNN op's calls by route and dtype (all cudnn in b and c; one
+           fused pass a layer under c's dropout), 3 traced windows
+           (traceview: device-busy ms, idle share, device launches a
+           step); (a) and (b): all six buckets visited, every bucket's
+           executor on the same parameter storage
+  rnn_numerics
+           float64 on the card against the port on the CPU (1e-10): the
+           RNN op on its route and on the scan, every mode, 1 and 2
+           layers, one and two directions, without state outputs, and
+           under the state clip (the scan route), forward and
+           gradients; one call each in float32 / float64 / bfloat16
+           with the CUDA kernels it ran; the sequence ops with lengths;
+           three batches of ``BucketingModule.fit`` over two buckets,
+           unrolled and fused; planted faults: the i and f gates
+           swapped in the cuDNN route's weights, the scan's reverse
+           direction left unflipped, a bucket bound to its own copy of
+           the parameters
+  phase_seconds
+           every phase's wall seconds; the two recurrent phases' sum
+           and the whole run against their budgets (90 s, 850 s)
   kernels  every kernel and its status
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import re
@@ -423,7 +460,7 @@ N_REQUESTS = 16
 # the repo's headline training row (bench.py:111 batch 32, :132 batch 128;
 # bench_model at bench.py:283-305)
 RESNET_BATCHES = (32, 128)
-TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+TRAIN_WARMUP, TRAIN_STEPS = 3, 5
 TRAIN_LR, TRAIN_MOMENTUM = 0.05, 0.9
 # ResNet-50 v1 does 4.09 G multiply-adds a 224x224 forward (He et al.
 # 2015, table 1; bench.py:185 lists them as GFLOP): 2 FLOP each
@@ -1541,12 +1578,13 @@ def phase_serve_http(rt, prompts, serve_row):
 
 LOAD_SLO_TPOT_MS = 200.0     # bench.py:835 bench_generation's default
 LOAD_MAX_QPS = 64.0          # the ramp's cap: 4, 8, 16, 32, 64
-AB_REPEATS = 3
+LOAD_WINDOW_S = 1.0          # a rate's window (1.5 s before PR 19)
+AB_REPEATS = 2
 
 
 def phase_loadgen(rt):
     """``gen_tokens_at_slo`` over the full-width generator (p99 TPOT SLO
-    200 ms, from 4 req/s doubling to the cap, 1.5 s windows), then the
+    200 ms, from 4 req/s doubling to the cap, 1 s windows), then the
     continuous vs whole-batch A/B of bench.py:866-892 on its
     mixed-length work list through a ``continuous=False`` twin that
     shares the weights."""
@@ -1562,7 +1600,7 @@ def phase_loadgen(rt):
     t0 = time.perf_counter()
     rep = serving.gen_tokens_at_slo(
         srv, rt.name, slo_p99_tpot_ms=LOAD_SLO_TPOT_MS, start_qps=4.0,
-        max_qps=LOAD_MAX_QPS, window_s=1.5)
+        max_qps=LOAD_MAX_QPS, window_s=LOAD_WINDOW_S)
     ramp_s = time.perf_counter() - t0
     launches, by_route = _flash_counts()
     slowest = reqtrace.top_slowest()
@@ -1716,16 +1754,11 @@ def phase_serve_cli():
 
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
     cmd = [sys.executable, "-m", "mxnet_tpu_torch.serving"]
+    # the self-test and the server run side by side (each its own
+    # process on the card)
     t0 = time.perf_counter()
-    res = subprocess.run(cmd + ["--self-test"], capture_output=True,
-                         text=True, env=env, timeout=300)
-    self_test_s = time.perf_counter() - t0
-    try:
-        payload = json.loads(res.stdout.strip().splitlines()[-1])
-    except (ValueError, IndexError):
-        payload = {}
-    failed = sorted(k for k, v in payload.get("checks", {}).items()
-                    if not v)
+    selftest = subprocess.Popen(cmd + ["--self-test"], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, env=env)
     proc = subprocess.Popen(cmd + ["--serve", "--port", "0"],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, env=env)
@@ -1736,11 +1769,22 @@ def phase_serve_cli():
                              {"prompt": [5, 9, 2], "max_new": 6}, 120)
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=120)
+        st_out, st_err = selftest.communicate(timeout=300)
+        self_test_s = time.perf_counter() - t0
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        for p in (proc, selftest):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     err = proc.stderr.read()
+    res = subprocess.CompletedProcess(selftest.args, selftest.returncode,
+                                      st_out, st_err)
+    try:
+        payload = json.loads(res.stdout.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        payload = {}
+    failed = sorted(k for k, v in payload.get("checks", {}).items()
+                    if not v)
     row = {"phase": "serve_cli", "self_test_rc": res.returncode,
            "self_test_ok": payload.get("self_test_ok"),
            "self_test_checks": len(payload.get("checks", {})),
@@ -2018,7 +2062,7 @@ def phase_train():
 INPUT_RECORDS = 1024
 INPUT_JPEG_SIDE, INPUT_JPEG_QUALITY = 256, 90
 INPUT_SIDE, INPUT_BATCH = 224, 128
-INPUT_EPOCHS = 3            # the first is discarded
+INPUT_EPOCHS = 2            # the first is discarded
 INPUT_CHECK_BATCHES = 4     # card batches held bitwise to host batches
 INPUT_RESUME_AT = 3         # the resumed stream skips this many batches
 INPUT_H2D_REPS = 10
@@ -2544,7 +2588,7 @@ def phase_train_numerics():
 LM = dict(batch=8, seq=1024, lr=0.01, momentum=0.9, remat="none")
 LM_SEQUENCES = 256          # 32 batches: every run below stays in epoch 1
 LM_WARMUP = 3
-LM_WINDOWS, LM_WINDOW_STEPS = 5, 4
+LM_WINDOWS, LM_WINDOW_STEPS = 3, 4
 LM_PROFILE_STEPS = 2
 LM_FIT_STEPS, LM_CKPT_STEP = 20, 10
 # train_lm_numerics: 2 layers, d_model 128, 2 heads (head_dim 64), d_ff
@@ -2894,10 +2938,10 @@ def phase_train_lm_numerics():
 # ---------------------------------------------------------------------
 # bench_fit_loop (bench.py:1254-1298): batch 32, 224x224, 1000 classes,
 # float32 (TF32 off), NDArrayIter over 8 batches from numpy seed 0, Xavier,
-# SGD lr 0.05 momentum 0.9, engine.set_bulk_size(8), 3 epochs; images/s
-# from the fastest later epoch (the first pays one-time costs)
+# SGD lr 0.05 momentum 0.9, engine.set_bulk_size(8), 2 epochs; images/s
+# from the later epoch (the first pays one-time costs)
 FIT = dict(batch=32, image=224, classes=1000, n_batches=8, bulk_k=8,
-           epochs=3, lr=0.05, momentum=0.9)
+           epochs=2, lr=0.05, momentum=0.9)
 FIT_FUSED_WARMUP, FIT_FUSED_WINDOWS = 3, 2
 # fit_numerics: the same symbol cut to batch 4, 64x64, 10 classes; two
 # Module.fit steps in float64 on the card against the port on the CPU:
@@ -3240,7 +3284,7 @@ def phase_export():
 # DP["rounds"] windows taken in turns (a window: DP["warmup"] steps,
 # then DP["steps"] timed), so that drift of the host or the card's
 # clocks falls on every variant alike
-DP = dict(batch=128, warmup=2, steps=5, rounds=2, profile_steps=2)
+DP = dict(batch=128, warmup=2, steps=3, rounds=1, profile_steps=2)
 DP_VARIANTS = (("one_device", None), ("bucketed", {}),
                ("zero1", {"zero_stage": 1}),
                ("monolithic", {"bucket_bytes": 0}))
@@ -3284,6 +3328,18 @@ def _rank_setup():
     """A rank's process: TF32 off, as phase_device sets the parent."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def side_by_side(*fns):
+    """Every zero-argument ``fn`` at once, each on its own thread; their
+    results in order (the first error raised).  For numerics only (a
+    phase, or a ``dist.launch`` of ranks that share the card): nothing
+    run this way is timed."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(fns)) as pool:
+        futures = [pool.submit(fn) for fn in fns]
+        return [f.result() for f in futures]
 
 
 def _nccl_stats(prof_events, steps, kinds=None):
@@ -3712,10 +3768,16 @@ def phase_dp_numerics():
             arrays.update({"%s%d/%s" % (tag, i, k): v for k, v in p.items()})
     np.savez(ref_path, **arrays)
     try:
+        # two launches of two ranks at once, each its half of the runs
+        # (every comparison between runs stays within a half); a rank's
+        # results are the union of its halves
         t0 = time.perf_counter()
-        out = dist.launch(_dp_numerics_rank, 2,
-                          (ref_path, aux, data, label, runs),
-                          backend="gloo", device="cuda:0", timeout_s=300)
+        halves = side_by_side(*[
+            lambda half=half: dist.launch(
+                _dp_numerics_rank, 2, (ref_path, aux, data, label, half),
+                backend="gloo", device="cuda:0", timeout_s=300)
+            for half in (runs[:5], runs[5:])])
+        out = [dict(a, **b) for a, b in zip(*halves)]
         gloo_s = time.perf_counter() - t0
         row = {"phase": "dp_numerics", "model": "resnet50_v1", "cut": DP_NUM,
                "global_batch": gb, "dtype": "float64",
@@ -4012,15 +4074,15 @@ def phase_train_lm_dp_numerics():
 # bytes over the timed steps (reset after the warm-up)
 REMAT_RUNS = (("none", "none", False), ("stage", "stage", False),
               ("conv_block", "conv_block", False), ("mirror", "none", True))
-REMAT_BATCH, REMAT_STEPS = 128, 5
+REMAT_BATCH, REMAT_STEPS = 128, 3
 # memory_remat: bench.py:1325 bench_memory_remat / :1366 _memory_probe,
 # ResNet-18 v1 at batch 16, 128x128, bf16, the mirror off and on
-MEMORY_REMAT = dict(model="resnet18_v1", batch=16, image=128, steps=10)
+MEMORY_REMAT = dict(model="resnet18_v1", batch=16, image=128, steps=5)
 # large_batch_remat: bench.py:1421 bench_large_batch_remat / :1455
 # _large_batch_probe, ResNet-50 v1 at an effective batch of 128 in 4
 # microbatches of 32, 224x224, bf16, MXNET_REMAT_POLICY=stage, beside
 # its policy-none twin at the same accumulation
-LARGE_BATCH_REMAT = dict(batch=128, accum=4, steps=5)
+LARGE_BATCH_REMAT = dict(batch=128, accum=4, steps=3)
 # remat_numerics: a marked conv net (2 stages of 2 units of conv, BN,
 # relu, and a Dropout in stage 0's units; global-avg pool; dense) at
 # batch 8, 32x32, 10 classes, float64, SGD lr 0.05 momentum 0.9, 2
@@ -4513,7 +4575,7 @@ def phase_remat_numerics():
 # Ulysses: LM_SP["warmup"] steps, then LM_SP["steps"] timed; the first
 # loss (the mean over the ranks) within BF16_LOSS_RTOL of the one-device
 # step's at the same global batch and parameters
-LM_SP = dict(batch=2, seq=8192, sp=2, warmup=1, steps=3)
+LM_SP = dict(batch=2, seq=8192, sp=2, warmup=1, steps=2)
 # after the timed steps each rank runs ring and Ulysses attention once at
 # the path's shapes (bf16, (B, T/sp, H, D) = (2, 4096, 12, 64) a rank,
 # causal: rank 1's ring holds a block without a mask and the diagonal)
@@ -4918,12 +4980,12 @@ def phase_train_lm_sp_numerics():
     t0 = time.perf_counter()
     try:
         torch.cuda.empty_cache()
-        sp2 = dist.launch(_lm_sp_numerics_rank, 2,
-                          (w0, ref, ref_p, (1, 2), None), backend="gloo",
-                          device="cuda:0", timeout_s=300)
-        dpsp = dist.launch(_lm_sp_numerics_rank, 4,
-                           (w0, ref, ref_p, (2, 2), ckdir), backend="gloo",
-                           device="cuda:0", timeout_s=300)
+        sp2, dpsp = side_by_side(*[
+            lambda shape=shape, d=d: dist.launch(
+                _lm_sp_numerics_rank, shape[0] * shape[1],
+                (w0, ref, ref_p, shape, d), backend="gloo",
+                device="cuda:0", timeout_s=300)
+            for shape, d in (((1, 2), None), ((2, 2), ckdir))])
         # dp=2 x sp=2 -> one device: resume the ZeRO-1 checkpoint
         s = TransformerTrainStep(cfg32, learning_rate=LM_NUM_LR,
                                  momentum=0.9, device="cuda", zero_stage=1)
@@ -5163,7 +5225,7 @@ def phase_module_dp_numerics():
 # ---------------------------------------------------------------------------
 # tensor parallelism (parallel/tensor.py) and the parameter server
 # ---------------------------------------------------------------------------
-TP = dict(batch=128, warmup=1, steps=2, mp=2)
+TP = dict(batch=128, warmup=1, steps=1, mp=2)
 TP_NUM = dict(batch=4, image=8, classes=5, steps=2, lr=0.1, momentum=0.9,
               wd=1e-4)
 TP_NUM_TOL = 1e-10
@@ -5388,11 +5450,16 @@ def phase_tp_numerics():
            "reference": "one device on the card, float64, global batch",
            "reference_losses": ref.tolist()}
     t0 = time.perf_counter()
-    for shape in ((1, 2), (2, 2)):
-        faults = TP_FAULTS if shape[0] > 1 else TP_FAULTS[:1]
-        ranks = dist.launch(_tp_num_rank, shape[0] * shape[1],
-                            (w0, data, label, shape, faults),
-                            backend="gloo", device="cuda:0", timeout_s=300)
+    shapes = ((1, 2), (2, 2))
+    faults_of = {s: TP_FAULTS if s[0] > 1 else TP_FAULTS[:1] for s in shapes}
+    launched = side_by_side(*[
+        lambda s=s: dist.launch(_tp_num_rank, s[0] * s[1],
+                                (w0, data, label, s, faults_of[s]),
+                                backend="gloo", device="cuda:0",
+                                timeout_s=300)
+        for s in shapes])
+    for shape, ranks in zip(shapes, launched):
+        faults = faults_of[shape]
         tag = "dp%d_mp%d" % shape
         good = [_update_err(r["clean"]["params"], ref_p, w0) for r in ranks]
         loss = max(float(np.abs(np.array(r["clean"]["losses"]) - ref).max()
@@ -5422,7 +5489,7 @@ def phase_tp_numerics():
     return row
 
 
-DIST = dict(batch=32, warmup=1, steps=2, workers=2, servers=1)
+DIST = dict(batch=32, warmup=1, steps=1, workers=2, servers=1)
 DIST_NUM = dict(batch=8, image=8, classes=10, steps=3, lr=0.125,
                 momentum=0.9, wd=1e-3, async_pushes=5)
 DIST_NUM_TOL = 1e-10
@@ -5786,9 +5853,9 @@ SPARSE = dict(rows=8192, features=2 ** 20, nnz=(8, 56), batch=512, dim=16,
               seed=11)
 SPARSE_RTOL = 1e-5
 # bench.py:1110's batch and shards at RecommenderConfig's own width
-REC = dict(batch=128, shards=4, warmup=2, steps=20, lr=0.05, seed=7,
-           lr0_steps=4, profile_steps=5, sync_steps=2, dist_steps=8,
-           dist_2bit_steps=4, workers=2, servers=2)
+REC = dict(batch=128, shards=4, warmup=2, steps=10, lr=0.05, seed=7,
+           lr0_steps=4, profile_steps=5, sync_steps=2, dist_steps=4,
+           dist_2bit_steps=2, workers=2, servers=2)
 # tests/test_sparse.py:485-524's configuration
 REC_NUM = dict(cfg=dict(n_fields=3, vocab=500, embed_dim=4,
                         mlp_hidden=(8,)),
@@ -7628,6 +7695,706 @@ def phase_tuning():
     return row
 
 
+# ---------------------------------------------------------------------------
+# the recurrent tier: BASELINE config 3 (the bucketing LSTM LM)
+# ---------------------------------------------------------------------------
+# example/rnn/bucketing/lstm_bucketing.py's defaults (PTB's vocabulary)
+RNN_LM = dict(vocab=10000, num_hidden=200, num_embed=200, num_layers=2,
+              batch=32, buckets=(10, 20, 30, 40, 50, 60), invalid_label=0,
+              lr=0.01, momentum=0.0, wd=1e-5)
+RNN_TRAIN_BATCHES = 2       # a bucket, for variants (a) and (b)
+RNN_GLUON = dict(bptt=35, steps=20, warmup=2, dropout=0.2, lr=20.0,
+                 clip=0.25)
+RNN_TRACE_STEPS = 3
+RNN_NUM_TOL = 1e-10         # float64, card against the CPU
+RNN_FAULT_MIN = 1e-3        # a planted fault must move a check this far
+# one call in float32 (TF32 off) and bf16 against the CPU in float64,
+# relative to the output's largest magnitude: the roundings of each type
+# over 7 steps of 2 layers in two directions (measured on the H100:
+# float32 1.0e-5, bf16 3.5e-3)
+RNN_F32_TOL, RNN_BF16_TOL = 1e-4, 5e-2
+
+
+def rnn_words(n, rng, vocab=RNN_LM["vocab"]):
+    """``n`` word ids in [1, vocab): a Zipf unigram draw, half of them
+    followed by their successor id, so an LM has something to learn."""
+    ranks = np.arange(1, vocab, dtype=np.float64)
+    p = 1.0 / ranks
+    p /= p.sum()
+    out = rng.choice(np.arange(1, vocab), size=n, p=p)
+    follow = rng.rand(n) < 0.5
+    for t in range(1, n):
+        if follow[t]:
+            out[t] = out[t - 1] % (vocab - 1) + 1
+    return out
+
+
+def rnn_corpus(per_bucket, seed, buckets=RNN_LM["buckets"]):
+    """``per_bucket`` sentences a bucket, lengths uniform over each
+    bucket's range, so every bucket fills."""
+    rng = np.random.RandomState(seed)
+    sents, lo = [], 1
+    for b in buckets:
+        for _ in range(per_bucket):
+            n = rng.randint(lo + 1, b + 1)
+            sents.append([int(w) for w in rnn_words(n, rng)])
+        lo = b
+    rng.shuffle(sents)
+    return sents
+
+
+def rnn_lm_sym_gen(mx, fused, cfg=RNN_LM):
+    """lstm_bucketing.py's ``sym_gen``: the unrolled ``LSTMCell`` stack
+    or the same model as one ``FusedRNNCell`` (the ``RNN`` op)."""
+    H = cfg["num_hidden"]
+    if fused:
+        stack = mx.rnn.FusedRNNCell(H, num_layers=cfg["num_layers"],
+                                    prefix="lstm_")
+    else:
+        stack = mx.rnn.SequentialRNNCell()
+        for i in range(cfg["num_layers"]):
+            stack.add(mx.rnn.LSTMCell(num_hidden=H, prefix="lstm_l%d_" % i))
+
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        embed = mx.sym.Embedding(data=data, input_dim=cfg["vocab"],
+                                 output_dim=cfg["num_embed"], name="embed")
+        stack.reset()
+        outputs, _ = stack.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = mx.sym.Reshape(outputs, shape=(-1, H))
+        pred = mx.sym.FullyConnected(data=pred, num_hidden=cfg["vocab"],
+                                     name="pred")
+        label = mx.sym.Reshape(label, shape=(-1,))
+        pred = mx.sym.SoftmaxOutput(data=pred, label=label, name="softmax")
+        return pred, ("data",), ("softmax_label",)
+
+    return sym_gen
+
+
+def rnn_lm_init(mx):
+    """lstm_bucketing.py's Xavier; the fused blob is 1-D, which Xavier
+    refuses (the reference gives it a FusedRNN initializer, which
+    neither package has), so it draws from a uniform."""
+    return mx.init.Mixed([".*parameters", ".*"],
+                         [mx.init.Uniform(0.07),
+                          mx.init.Xavier(factor_type="in", magnitude=2.34)])
+
+
+def _shares_parameters(mod) -> bool:
+    """Every bucket's executor holds the default bucket's parameter
+    storage."""
+    mods = list(mod._buckets.values())
+    names = mods[0]._param_names
+    return all(len({m._exec.arg_dict[n]._data.data_ptr() for m in mods}) == 1
+               for n in names)
+
+
+def _rnn_trace(name, step, dev):
+    """``RNN_TRACE_STEPS`` windows of ``step`` (after the tracer's
+    warm-up dispatch) through traceview: device-busy ms, idle share and
+    device launches a step."""
+    tdir = tempfile.mkdtemp(prefix="chip_smoke_rnn_trace_")
+    try:
+        with _trace_armed(tdir, RNN_TRACE_STEPS) as capture:
+            for _ in range(RNN_TRACE_STEPS + 1):
+                with capture.step_window(name, device=dev) as w:
+                    step()
+                    if w:
+                        w.block()
+            summ, _ = _captured(capture, name, timeout_s=30.0)
+        busy = _busy_ms(summ)
+        wall = summ["steps"]["mean_s"] * 1e3
+        return {"steps": summ["steps"]["n"], "step_ms_traced": wall,
+                "device_busy_ms_per_step": busy,
+                "idle_share": 1.0 - busy / wall,
+                "device_launches_per_step":
+                    summ["n_device_events"] / summ["steps"]["n"],
+                "lost_launches": summ["capture"].get("lost_launches")}
+    finally:
+        from mxnet_tpu_torch.traceview import capture as _cap
+
+        _cap.reset()
+        shutil.rmtree(tdir, ignore_errors=True)
+
+
+def _rnn_bucketing_variant(fused, train, held_out):
+    """Variants (a) and (b): ``BucketingModule.fit`` over every bucket,
+    ``RNN_TRAIN_BATCHES`` batches each, at lstm_bucketing.py's
+    settings; perplexity on the held-out batches before and after."""
+    import random
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import rnn as trnn
+
+    cfg = RNN_LM
+    ctx = mx.gpu(0)
+    kw = dict(batch_size=cfg["batch"], buckets=list(cfg["buckets"]),
+              invalid_label=cfg["invalid_label"])
+    random.seed(0)
+    np.random.seed(0)
+    it = mx.rnn.BucketSentenceIter(train, **kw)
+    ev = mx.rnn.BucketSentenceIter(held_out, **kw)
+    mod = mx.mod.BucketingModule(rnn_lm_sym_gen(mx, fused),
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=ctx)
+    mod.bind(it.provide_data, it.provide_label)
+    np.random.seed(1)
+    mod.init_params(rnn_lm_init(mx))
+    ppl0 = dict(mod.score(ev, mx.metric.Perplexity(cfg["invalid_label"])))
+    trnn.reset_counts()
+    _reset_kernel_counts()
+    steps = []
+    last = [0.0]
+
+    def stamp(param):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        b = mod._curr_bucket_key
+        steps.append((b, now - last[0]))
+        last[0] = now
+
+    torch.cuda.synchronize()
+    last[0] = time.perf_counter()
+    mod.fit(it, num_epoch=1, kvstore="local", optimizer="sgd",
+            optimizer_params={"learning_rate": cfg["lr"],
+                              "momentum": cfg["momentum"], "wd": cfg["wd"]},
+            eval_metric=mx.metric.Perplexity(cfg["invalid_label"]),
+            batch_end_callback=stamp)
+    routes = trnn.route_counts()
+    calls = trnn.calls()
+    counts = _kernel_counts()
+    ppl1 = dict(mod.score(ev, mx.metric.Perplexity(cfg["invalid_label"])))
+    seen, steady = set(), []
+    for b, s in steps:
+        if b in seen:
+            steady.append((b, s))
+        seen.add(b)
+    tokens = sum(cfg["batch"] * b for b, _ in steady)
+    wall = sum(s for _, s in steady)
+    shares = _shares_parameters(mod)
+    # a traced window: the longest bucket, one batch again and again
+    ev.reset()
+    batch = next(b for b in ev if b.bucket_key == max(cfg["buckets"]))
+    n_before = trnn.route_counts()["cudnn"]
+
+    def one_step():
+        mod.forward_backward(batch)
+        mod.update()
+
+    trace = _rnn_trace("BucketingModule[%s]" % ("fused" if fused
+                                                else "unrolled"),
+                       one_step, torch.device("cuda", 0))
+    row = {
+        "cell": "FusedRNNCell" if fused else "LSTMCell stack",
+        "batches": len(steps), "buckets_visited": sorted(seen),
+        "steady_batches": len(steady),
+        "tokens_per_s": tokens / wall,
+        "step_ms": wall * 1e3 / len(steady),
+        "step_ms_by_bucket": {
+            b: 1e3 * statistics.mean(s for k, s in steady if k == b)
+            for b in sorted({k for k, _ in steady})},
+        "perplexity_start": ppl0["perplexity"],
+        "perplexity_end": ppl1["perplexity"],
+        "rnn_op_routes": routes, "rnn_op_calls": calls,
+        "rnn_op_calls_per_traced_step":
+            (trnn.route_counts()["cudnn"] - n_before)
+            / (RNN_TRACE_STEPS + 1),
+        "shares_parameters": shares, "trace": trace,
+        "kernel_launches": counts,
+    }
+    bad = []
+    if sorted(seen) != list(cfg["buckets"]):
+        bad.append("buckets visited %s" % sorted(seen))
+    if not shares:
+        bad.append("a bucket holds its own parameters")
+    if not row["perplexity_end"] < row["perplexity_start"]:
+        bad.append("perplexity did not fall")
+    if fused and (routes["scan"] or not routes["cudnn"]):
+        bad.append("RNN op routes %s" % routes)
+    if not fused and (routes["scan"] or routes["cudnn"]):
+        bad.append("the unrolled stack ran the RNN op: %s" % routes)
+    return row, bad
+
+
+def _gluon_lm(mx, cfg=RNN_LM):
+    """gluon/word_language_model's model at config 3's widths:
+    Embedding, a 2-layer LSTM with dropout between its layers, a Dense
+    decoder over the vocabulary."""
+    gluon = mx.gluon
+
+    class LM(gluon.Block):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.embedding = gluon.nn.Embedding(cfg["vocab"],
+                                                    cfg["num_embed"])
+                self.rnn = gluon.rnn.LSTM(
+                    cfg["num_hidden"], num_layers=cfg["num_layers"],
+                    dropout=RNN_GLUON["dropout"],
+                    input_size=cfg["num_embed"])
+                self.decoder = gluon.nn.Dense(cfg["vocab"],
+                                              in_units=cfg["num_hidden"])
+
+        def forward(self, x, hidden):
+            out, hidden = self.rnn(self.embedding(x), hidden)
+            return self.decoder(out.reshape((-1, cfg["num_hidden"]))), hidden
+
+        def begin_state(self, *args, **kw):
+            return self.rnn.begin_state(*args, **kw)
+
+    return LM(prefix="lm_")
+
+
+def _clip_global_norm(grads, max_norm):
+    """The reference's ``gluon.utils.clip_global_norm`` (not ported yet):
+    scale every gradient by min(1, max_norm / global norm)."""
+    total = sum(float((g * g).sum().asscalar()) for g in grads) ** 0.5
+    scale = max_norm / (total + 1e-8)
+    if scale < 1.0:
+        for g in grads:
+            g *= scale
+    return total
+
+
+def _rnn_gluon_variant():
+    """Variant (c): ``gluon.rnn.LSTM(200, num_layers=2, dropout=0.2)``
+    between ``Embedding(10000, 200)`` and ``Dense(10000)``, bptt 35,
+    batch 32, ``Trainer`` SGD with the global norm clipped."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import rnn as trnn
+
+    cfg, g = RNN_LM, RNN_GLUON
+    ctx = mx.gpu(0)
+    B, T = cfg["batch"], g["bptt"]
+    rng = np.random.RandomState(11)
+    n_rows = (g["steps"] + g["warmup"] + 3) * T + 1
+    stream = rnn_words(n_rows * B, rng).reshape(B, n_rows).T  # (rows, B)
+    eval_rows = stream[-(3 * T + 1):]
+    net = _gluon_lm(mx)
+    np.random.seed(2)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": g["lr"]})
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+
+    def chunk(rows, i):
+        x = mx.nd.array(rows[i * T:(i + 1) * T], ctx=ctx, dtype="float32")
+        y = mx.nd.array(rows[i * T + 1:(i + 1) * T + 1], ctx=ctx,
+                        dtype="float32")
+        return x, y.reshape((-1,))
+
+    def perplexity():
+        hidden = net.begin_state(batch_size=B, ctx=ctx)
+        total, n = 0.0, 0
+        for i in range(3):
+            x, y = chunk(eval_rows, i)
+            out, hidden = net(x, hidden)
+            total += float(loss_fn(out, y).sum().asscalar())
+            n += y.shape[0]
+        return float(np.exp(total / n))
+
+    state = [net.begin_state(batch_size=B, ctx=ctx)]
+
+    def step(i):
+        x, y = chunk(stream, i % (g["steps"] + g["warmup"]))
+        hidden = [h.detach() for h in state[0]]
+        with mx.autograd.record():
+            out, hidden = net(x, hidden)
+            loss = loss_fn(out, y)
+        loss.backward()
+        _clip_global_norm([p.grad(ctx) for p in params],
+                          g["clip"] * T * B)
+        trainer.step(T * B)
+        state[0] = hidden
+        return loss
+
+    ppl0 = perplexity()
+    for i in range(g["warmup"]):
+        step(i)
+    trnn.reset_counts()
+    _reset_kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(g["warmup"], g["warmup"] + g["steps"]):
+        step(i)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    routes, calls = trnn.route_counts(), trnn.calls()
+    passes = trnn.passes()
+    counts = _kernel_counts()
+    ppl1 = perplexity()
+    n_before = trnn.route_counts()["cudnn"]
+    k = [0]
+
+    def traced():
+        step(k[0])
+        k[0] += 1
+
+    trace = _rnn_trace("gluon.rnn.LSTM", traced, torch.device("cuda", 0))
+    row = {"bptt": T, "batch": B, "steps": g["steps"],
+           "tokens_per_s": g["steps"] * T * B / wall,
+           "step_ms": wall * 1e3 / g["steps"],
+           "perplexity_start": ppl0, "perplexity_end": ppl1,
+           "rnn_op_routes": routes, "rnn_op_calls": calls,
+           "rnn_op_passes": passes,
+           "rnn_op_calls_per_traced_step":
+               (trnn.route_counts()["cudnn"] - n_before)
+               / (RNN_TRACE_STEPS + 1),
+           "trace": trace, "kernel_launches": counts}
+    bad = []
+    if not ppl1 < ppl0:
+        bad.append("perplexity did not fall")
+    # one op call a step; dropout between the layers: one fused pass a
+    # layer
+    if routes != {"cudnn": g["steps"], "scan": 0} or \
+            passes != {"cudnn": g["steps"] * cfg["num_layers"], "scan": 0}:
+        bad.append("RNN op routes %s, passes %s" % (routes, passes))
+    return row, bad
+
+
+def phase_rnn():
+    """BASELINE config 3 at full width on the card, three ways."""
+    cfg = RNN_LM
+    t0 = time.perf_counter()
+    train = rnn_corpus(RNN_TRAIN_BATCHES * cfg["batch"], seed=3)
+    held_out = rnn_corpus(cfg["batch"], seed=4)
+    rows, bad = {}, []
+    for name, fused in (("a_unrolled", False), ("b_fused", True)):
+        rows[name], b = _rnn_bucketing_variant(fused, train, held_out)
+        bad += ["%s: %s" % (name, m) for m in b]
+    rows["c_gluon"], b = _rnn_gluon_variant()
+    bad += ["c_gluon: %s" % m for m in b]
+    counts = {k: sum(r["kernel_launches"][k] for r in rows.values())
+              for k in ("flash_attention_fwd", "flash_attention_bwd",
+                        "rtc_add")}
+    row = {"phase": "rnn",
+           "config": {k: list(v) if isinstance(v, tuple) else v
+                      for k, v in cfg.items()},
+           "corpus_sentences": {"train": len(train),
+                                "held_out": len(held_out)},
+           "variants": rows, "kernel_launches": counts,
+           "wall_s": time.perf_counter() - t0}
+    emit(row)
+    if bad:
+        raise RuntimeError("rnn: %s" % "; ".join(bad))
+    return row
+
+
+# -- rnn_numerics ------------------------------------------------------------
+RNN_NUM_SHAPE = dict(T=7, N=3, I=5, H=8)
+RNN_MODES = ("lstm", "gru", "rnn_tanh", "rnn_relu")
+
+
+def _rnn_num_inputs(mode, layers, bidir, seed=0):
+    s = RNN_NUM_SHAPE
+    from mxnet_tpu_torch.ops.rnn import rnn_param_size
+
+    rng = np.random.RandomState(seed)
+    nd_ = 2 if bidir else 1
+    arrays = [rng.uniform(-1, 1, (s["T"], s["N"], s["I"])),
+              rng.uniform(-0.5, 0.5, (rnn_param_size(
+                  layers, s["I"], s["H"], bidir, mode),)),
+              rng.uniform(-0.5, 0.5, (layers * nd_, s["N"], s["H"]))]
+    if mode == "lstm":
+        arrays.append(rng.uniform(-0.5, 0.5, arrays[2].shape))
+    outs = [(s["T"], s["N"], s["H"] * nd_)] + [arrays[2].shape] * (
+        2 if mode == "lstm" else 1)
+    return arrays, [rng.uniform(-1, 1, o) for o in outs]
+
+
+def _rnn_num_run(device, route, mode, layers, bidir, clip=None,
+                 state_outputs=True):
+    """The RNN op on ``device``: through the op (which chooses ``cudnn``
+    on the card, or ``scan`` under a clip) or, for ``route="scan"`` on
+    the card, its scan; outputs and input gradients in float64."""
+    from mxnet_tpu_torch.ops import registry
+    from mxnet_tpu_torch.ops import rnn as trnn
+
+    arrays, cots = _rnn_num_inputs(mode, layers, bidir)
+    xs = [torch.tensor(a, device=device, requires_grad=True)
+          for a in arrays]
+    kw = dict(state_size=RNN_NUM_SHAPE["H"], num_layers=layers,
+              bidirectional=bidir, mode=mode, state_outputs=state_outputs)
+    gen = torch.Generator(device=device)
+    if route == "op":
+        if clip is not None:
+            kw.update(lstm_state_clip_min=clip[0],
+                      lstm_state_clip_max=clip[1])
+        outs = registry.get("RNN").fn(gen, *xs, **kw)
+    else:
+        outs = trnn.rnn_forward(
+            route, gen, xs[0], xs[1], xs[2], xs[3] if mode == "lstm"
+            else None, clip_min=clip and clip[0], clip_max=clip and clip[1],
+            **kw)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    grads = torch.autograd.grad(
+        outs, xs, [torch.tensor(c, device=device)
+                   for c in cots[:len(outs)]])
+    return [t.detach().cpu().numpy() for t in list(outs) + list(grads)]
+
+
+def _rnn_num_err(got, want):
+    return max(float(np.abs(g - w).max()) / max(float(np.abs(w).max()),
+                                                1e-30)
+               for g, w in zip(got, want))
+
+
+def _rnn_op_checks(cases=None):
+    """The card (the op's route, and the scan) against the scan on the
+    CPU; the worst error over every case and the routes the op took."""
+    from mxnet_tpu_torch.ops import rnn as trnn
+
+    cuda = torch.device("cuda", 0)
+    cpu = torch.device("cpu")
+    cases = cases or [(m, l, b, None, True) for m in RNN_MODES
+                      for l in (1, 2) for b in (False, True)] + [
+        ("lstm", 2, True, (-0.2, 0.25), True),
+        ("gru", 2, True, None, False), ("lstm", 1, False, None, False)]
+    worst = {"op": 0.0, "scan": 0.0}
+    trnn.reset_counts()
+    for mode, layers, bidir, clip, so in cases:
+        want = _rnn_num_run(cpu, "scan", mode, layers, bidir, clip, so)
+        for route in ("op", "scan"):
+            got = _rnn_num_run(cuda, route, mode, layers, bidir, clip, so)
+            worst[route] = max(worst[route], _rnn_num_err(got, want))
+    return worst, trnn.calls()
+
+
+def _rnn_dtype_probe():
+    """One call of the op on the card in each dtype (LSTM, 2 layers,
+    bidirectional): its recorded route, the CUDA kernels torch's fused
+    RNN ran (from torch.profiler: whether cuDNN's), and its error against
+    the CPU scan in float64.  A dtype torch's fused RNN refuses is
+    reported with its error, not run another way."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.ops import registry
+    from mxnet_tpu_torch.ops import rnn as trnn
+
+    arrays, _ = _rnn_num_inputs("lstm", 2, True)
+    kw = dict(state_size=RNN_NUM_SHAPE["H"], num_layers=2,
+              bidirectional=True, mode="lstm")
+    fn = registry.get("RNN").fn
+    want = fn(torch.Generator(), *[torch.tensor(a) for a in arrays],
+              **kw).numpy()
+    out = {}
+    for dt in (torch.float32, torch.float64, torch.bfloat16):
+        xs = [torch.tensor(a, device="cuda", dtype=dt) for a in arrays]
+        trnn.reset_counts()
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                # a capture in a long-lived process can lose its first
+                # few dozen device records: tiny kernels take the loss
+                # (traceview's primer)
+                primer = torch.zeros(1, device="cuda")
+                for _ in range(256):
+                    primer.add_(1.0)
+                torch.cuda.synchronize()
+                got = fn(torch.Generator(device="cuda"), *xs, **kw)
+                torch.cuda.synchronize()
+        except RuntimeError as e:
+            out[str(dt)[6:]] = {"calls": trnn.calls(), "error": str(e)}
+            continue
+        names = sorted({ev.name for ev in prof.events()
+                        if ev.device_type == DeviceType.CUDA
+                        and "add" not in ev.name.lower()
+                        and "fill" not in ev.name.lower()})
+        err = float(np.abs(got.double().cpu().numpy() - want).max()
+                    / np.abs(want).max())
+        out[str(dt)[6:]] = {
+            "calls": trnn.calls(), "max_rel_err": err,
+            "cudnn_kernels": sum("cudnn" in n.lower() or "rnn" in n.lower()
+                                 for n in names),
+            "kernels": names[:16]}
+    return out
+
+
+def _seq_checks():
+    """The sequence ops with lengths, card against CPU, forward and the
+    gradient, float64."""
+    from mxnet_tpu_torch.ops import registry
+
+    rng = np.random.RandomState(5)
+    data = rng.uniform(-1, 1, (9, 4, 3))
+    cot = {}
+    worst = 0.0
+    for op, kw in (("SequenceMask", dict(value=-1.5)),
+                   ("SequenceMask", dict(axis=1)),
+                   ("SequenceLast", dict()), ("SequenceLast", dict(axis=1)),
+                   ("SequenceReverse", dict())):
+        axis = kw.get("axis", 0)
+        lengths = rng.randint(1, data.shape[axis] + 1,
+                              data.shape[1 - axis]).astype(np.float64)
+        res = []
+        for dev in ("cpu", "cuda"):
+            x = torch.tensor(data, device=dev, requires_grad=True)
+            ln = torch.tensor(lengths, device=dev)
+            out = registry.get(op).fn(x, ln, use_sequence_length=True, **kw)
+            c = cot.setdefault((op, out.shape), rng.uniform(-1, 1,
+                                                            out.shape))
+            (g,) = torch.autograd.grad(out, x, torch.tensor(c, device=dev))
+            res.append([out.detach().cpu().numpy(), g.cpu().numpy()])
+        worst = max(worst, _rnn_num_err(res[1], res[0]))
+    return worst
+
+
+def rnn_bucket_fit(ctx, fused, H=16, vocab=24):
+    """Three batches of ``BucketingModule.fit`` over buckets 4 and 6 (two,
+    then one) of a small LSTM LM in float64 on ``ctx``: the start and
+    end parameters, the buckets in order and whether every bucket holds
+    the same parameter storage."""
+    import random
+
+    import mxnet_tpu_torch as mx
+
+    cfg = dict(RNN_LM, vocab=vocab, num_hidden=H, num_embed=H // 2)
+    sents = ([[1 + (i + t) % (vocab - 1) for t in range(3 + i % 2)]
+              for i in range(8)]
+             + [[1 + (2 * i + t) % (vocab - 1) for t in range(6)]
+                for i in range(4)])
+    random.seed(0)
+    np.random.seed(0)
+    it = mx.rnn.BucketSentenceIter(sents, 4, buckets=[4, 6],
+                                   invalid_label=0)
+    mod = mx.mod.BucketingModule(rnn_lm_sym_gen(mx, fused, cfg),
+                                 default_bucket_key=6, context=ctx)
+    mod.bind(it.provide_data, it.provide_label)
+    np.random.seed(7)
+    mod.init_params(rnn_lm_init(mx))
+    mod.switch_bucket(4, [mx.io.DataDesc("data", (4, 4))],
+                      [mx.io.DataDesc("softmax_label", (4, 4))])
+    for m in mod._buckets.values():
+        _cast_module(m, torch.float64)
+    mod.switch_bucket(6, None, None)
+    start = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    keys = []
+    mod.fit(it, num_epoch=1, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.125, "momentum": 0.5,
+                              "wd": 1e-5},
+            eval_metric=mx.metric.Perplexity(0),
+            batch_end_callback=lambda p: keys.append(mod._curr_bucket_key))
+    end = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    return start, end, keys, _shares_parameters(mod)
+
+
+def _bucket_err(got, want, start):
+    """The largest parameter error, relative to max(1, |w|), and over
+    the size of the update."""
+    return (max(float(np.abs(got[k] - want[k]).max())
+                / max(1.0, float(np.abs(want[k]).max())) for k in want),
+            max(float(np.abs(got[k] - want[k]).max())
+                / max(float(np.abs(want[k] - start[k]).max()), 1e-30)
+                for k in want))
+
+
+def phase_rnn_numerics():
+    """The recurrent tier in float64 on the card against the port on the
+    CPU, with three planted faults."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.module import bucketing_module
+    from mxnet_tpu_torch.ops import rnn as trnn
+
+    t0 = time.perf_counter()
+    _reset_kernel_counts()
+    op_err, calls = _rnn_op_checks()
+    dtypes = _rnn_dtype_probe()
+    seq_err = _seq_checks()
+    fit = {}
+    for name, fused in (("unrolled", False), ("fused", True)):
+        s_gpu, e_gpu, k_gpu, share_gpu = rnn_bucket_fit(mx.gpu(0), fused)
+        s_cpu, e_cpu, k_cpu, share_cpu = rnn_bucket_fit(mx.cpu(), fused)
+        fit[name] = {"start_err": _rnn_num_err(
+                         [s_gpu[k] for k in s_cpu], list(s_cpu.values())),
+                     "param_err": _bucket_err(e_gpu, e_cpu, s_cpu)[0],
+                     "update_err": _bucket_err(e_gpu, e_cpu, s_cpu)[1],
+                     "buckets": k_gpu, "same_buckets": k_gpu == k_cpu,
+                     "shares_parameters": share_gpu and share_cpu}
+    counts = _kernel_counts()
+    # planted faults: each must move its check past RNN_FAULT_MIN
+    lstm_bi = [("lstm", 2, True, None, True)]
+    faults = {}
+    for fault in ("cudnn_swap_if", "scan_reverse_unflipped"):
+        trnn.FAULTS.add(fault)
+        try:
+            faults[fault] = _rnn_op_checks(lstm_bi)[0]["op"]
+        finally:
+            trnn.FAULTS.discard(fault)
+    s_cpu, e_cpu = rnn_bucket_fit(mx.cpu(), True)[:2]
+    bucketing_module.FAULTS.add("bucket_own_params")
+    try:
+        _, e_gpu, _, share = rnn_bucket_fit(mx.gpu(0), True)
+    finally:
+        bucketing_module.FAULTS.discard("bucket_own_params")
+    faults["bucket_own_params"] = {
+        "param_err": _bucket_err(e_gpu, e_cpu, s_cpu)[0],
+        "shares_parameters": share}
+    row = {"phase": "rnn_numerics", "dtype": "float64",
+           "shape": RNN_NUM_SHAPE, "op_err": op_err, "op_calls": calls,
+           "dtypes_on_the_card": dtypes,
+           "sequence_err": seq_err, "fit": fit, "tolerance": RNN_NUM_TOL,
+           "fault_err": faults, "kernel_launches": counts,
+           "wall_s": time.perf_counter() - t0}
+    emit(row)
+    bad = []
+    if max(op_err.values()) > RNN_NUM_TOL:
+        bad.append("RNN op error %s" % op_err)
+    if not any(k.startswith("cudnn/float64") for k in calls) or \
+            not any(k.startswith("scan/float64/lstm") for k in calls):
+        bad.append("routes %s" % calls)
+    for dt, tol in (("float32", RNN_F32_TOL), ("float64", RNN_NUM_TOL)):
+        if not dtypes[dt].get("max_rel_err", 1.0) <= tol:
+            bad.append("%s on the card: %s" % (dt, dtypes[dt]))
+    if "max_rel_err" in dtypes["bfloat16"] and \
+            not dtypes["bfloat16"]["max_rel_err"] <= RNN_BF16_TOL:
+        bad.append("bfloat16 on the card: %s" % dtypes["bfloat16"])
+    if seq_err > RNN_NUM_TOL:
+        bad.append("sequence ops error %g" % seq_err)
+    for name, f in fit.items():
+        if f["param_err"] > RNN_NUM_TOL or f["start_err"] or \
+                not f["same_buckets"] or not f["shares_parameters"] or \
+                sorted(set(f["buckets"])) != [4, 6]:
+            bad.append("fit %s: %s" % (name, f))
+    for fault in ("cudnn_swap_if", "scan_reverse_unflipped"):
+        if not faults[fault] > RNN_FAULT_MIN:
+            bad.append("fault %s not caught (%g)" % (fault, faults[fault]))
+    f = faults["bucket_own_params"]
+    if f["shares_parameters"] or not f["param_err"] > RNN_FAULT_MIN:
+        bad.append("fault bucket_own_params not caught: %s" % f)
+    if bad:
+        raise RuntimeError("rnn_numerics: %s" % "; ".join(bad))
+    return row
+
+
+#: wall seconds of each phase of this run, from its call to its return
+PHASE_S = {}
+
+
+def _timed(fn):
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            name = fn.__name__[len("phase_"):]
+            PHASE_S[name] = round(time.perf_counter() - t0, 3)
+            # as it ends, on stderr: a run cut short still shows them
+            print("[phase_seconds] %s %.3f" % (name, PHASE_S[name]),
+                  file=sys.stderr, flush=True)
+
+    return run
+
+
+for _name, _fn in list(globals().items()):
+    if _name.startswith("phase_") and callable(_fn):
+        globals()[_name] = _timed(_fn)
+del _name, _fn
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -7667,8 +8434,10 @@ def main() -> int:
     lm_dp = phase_train_lm_dp(lm)
     lm_dp_num = phase_train_lm_dp_numerics()
     lm_sp = phase_train_lm_sp()
-    lm_sp_num = phase_train_lm_sp_numerics()
-    phase_module_dp_numerics()
+    # two numerics phases side by side: each spawns its own gloo ranks on
+    # cuda:0, and neither is timed
+    lm_sp_num, _ = side_by_side(lambda: phase_train_lm_sp_numerics(),
+                                lambda: phase_module_dp_numerics())
     # both paths run in their ranks' and workers' processes, which count
     # their own launches
     tp_counts = phase_tp()["ranks"][0]["kernel_launches"]
@@ -7685,6 +8454,10 @@ def main() -> int:
     ckpt = phase_ckpt_async()
     obs_s = time.perf_counter() - t_obs
     tuning = phase_tuning()
+    rnn = phase_rnn()
+    rnn_num = phase_rnn_numerics()
+    rnn_counts = {"rnn": rnn["kernel_launches"],
+                  "rnn_numerics": rnn_num["kernel_launches"]}
     obs_counts = {"profiler": prof["kernel_launches"],
                   "traceview_train_lm": tv["train_lm"]["kernel_launches"],
                   "traceview_serve": tv["serve"]["kernel_launches"],
@@ -7742,7 +8515,9 @@ def main() -> int:
                              **{k: v["flash_attention_fwd"]
                                 for k, v in sparse_counts.items()},
                              **{k: v["flash_attention_fwd"]
-                                for k, v in obs_counts.items()}},
+                                for k, v in obs_counts.items()},
+                             **{k: v["flash_attention_fwd"]
+                                for k, v in rnn_counts.items()}},
         "max_abs_err": max(r["max_err"] for r in rows),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -7792,7 +8567,9 @@ def main() -> int:
                              **{k: v["flash_attention_bwd"]
                                 for k, v in sparse_counts.items()},
                              **{k: v["flash_attention_bwd"]
-                                for k, v in obs_counts.items()}},
+                                for k, v in obs_counts.items()},
+                             **{k: v["flash_attention_bwd"]
+                                for k, v in rnn_counts.items()}},
         "max_abs_err": max(r["max_err"] for r in bwd_rows),
         "ms": bwd_row["kernel_ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
@@ -7819,7 +8596,9 @@ def main() -> int:
                              **{k: v["rtc_add"]
                                 for k, v in sparse_counts.items()},
                              **{k: v["rtc_add"]
-                                for k, v in obs_counts.items()}},
+                                for k, v in obs_counts.items()},
+                             **{k: v["rtc_add"]
+                                for k, v in rnn_counts.items()}},
         "max_abs_err": max(r["max_err"] for r in add_rows),
         "ms": add_row["kernel_ms"], "plain_ms": add_row["plain_ms"],
         "bound_ms": add_row["bound_ms"], "bound_by": add_row["bound_by"],
@@ -7827,8 +8606,13 @@ def main() -> int:
         "single_call_ms": add_row["single_call_ms"],
         "shape": add_row["shape"], "dtype": add_row["dtype"],
     }]
-    emit({"phase": "wall", "wall_s": time.perf_counter() - t_start,
+    wall = time.perf_counter() - t_start
+    emit({"phase": "wall", "wall_s": wall,
           "observability_s": obs_s, "tuning_s": tuning["wall_s"]})
+    rnn_s = PHASE_S["rnn"] + PHASE_S["rnn_numerics"]
+    emit({"phase": "phase_seconds", "seconds": PHASE_S, "wall_s": wall,
+          "rnn_phases_s": rnn_s, "rnn_phases_within_90_s": rnn_s <= 90.0,
+          "wall_within_850_s": wall <= 850.0})
     emit({"phase": "kernels",
           "kernels": {k["name"]: "checked" for k in kernels}})
     emit({"kernels": kernels})

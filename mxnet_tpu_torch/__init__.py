@@ -47,7 +47,11 @@ Ported so far:
   stamped across the nd, executor, optimizer, kvstore and io paths) and
   ``traceview`` (torch.profiler device traces of the training and
   serving dispatch windows, attributed into step phases and buckets);
-  ``checkpoint`` writes its shards on a background thread.
+  ``checkpoint`` writes its shards on a background thread;
+* the recurrent tier — the ``RNN`` op (cuDNN on the card, a plain scan
+  beside it) and the ``Sequence*`` ops, ``rnn`` (``mx.rnn``: symbolic
+  cells, ``BucketSentenceIter``, checkpoint helpers) and
+  ``gluon.rnn``.
 """
 from . import base, context, convert, env, parallel, serving, transformer
 from . import autograd, engine, ndarray, rtc
@@ -66,6 +70,7 @@ from . import symbol as sym
 from . import metric, lr_scheduler, callback, monitor, model
 from . import module
 from . import module as mod
+from . import rnn
 from . import profiler, traceview
 from .attribute import AttrScope
 from .base import MXNetError
@@ -82,6 +87,6 @@ __all__ = ["convert", "env", "parallel", "serving", "transformer", "io",
            "random", "initializer", "init", "optimizer", "kvstore", "kv",
            "gluon", "name", "attribute", "symbol", "sym", "executor",
            "metric", "lr_scheduler", "callback", "monitor", "model",
-           "module", "mod", "profiler", "traceview", "AttrScope",
+           "module", "mod", "rnn", "profiler", "traceview", "AttrScope",
            "Context", "cpu", "cpu_pinned", "gpu", "tpu",
            "current_context", "num_gpus", "NDArray", "MXNetError"]

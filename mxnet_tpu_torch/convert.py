@@ -6,7 +6,12 @@ conversion is a per-array copy: nothing is transposed or renamed.
 A Gluon block's parameters cross by their names in
 ``collect_params()`` (:func:`load_block_params`), a ``Module``'s by the
 names of its symbol's arguments and aux states
-(:func:`module_params_from_jax`).  Arrays cross as
+(:func:`module_params_from_jax`) — the recurrent tier's included: a
+``FusedRNNCell``'s flat ``<prefix>parameters`` blob (cuDNN's layout in
+both packages), the unrolled cells' ``<prefix>{i2h,h2h}_{weight,bias}``
+and a Gluon ``RNN`` / ``LSTM`` / ``GRU`` layer's
+``l{i}_{i2h,h2h}_{weight,bias}`` (``r{i}_...`` for the reverse
+direction), each in its own dtype.  Arrays cross as
 numpy (``np.asarray`` of a JAX array), which keeps the port free of any
 JAX import.
 """

@@ -1,7 +1,8 @@
 """BucketingModule — shape-specialised executors sharing one parameter set
 (ref: python/mxnet/module/bucketing_module.py:35).
 
-Counterpart: ``mxnet_tpu/module/bucketing_module.py``, a copy.  The
+Counterpart: ``mxnet_tpu/module/bucketing_module.py``, a copy (plus
+one planted fault, :data:`FAULTS`, for the checks).  The
 reference binds one GraphExecutor per bucket length, sharing memory
 pools via ``shared_exec`` (src/executor/graph_executor.cc:913,1572).
 Here each bucket gets a Module whose executor runs eagerly at its shapes,
@@ -17,7 +18,12 @@ from ..initializer import Uniform
 from .base_module import BaseModule
 from .module import Module
 
-__all__ = ["BucketingModule"]
+__all__ = ["BucketingModule", "FAULTS"]
+
+#: planted faults for the checks that must catch them:
+#: ``bucket_own_params`` binds each new bucket to its own copy of the
+#: parameters instead of the default bucket's cells
+FAULTS: set = set()
 
 
 class BucketingModule(BaseModule):
@@ -153,14 +159,20 @@ class BucketingModule(BaseModule):
                             work_load_list=self._work_load_list,
                             fixed_param_names=self._fixed_param_names,
                             state_names=self._state_names)
+            default = self._buckets[self._default_bucket_key]
+            own = "bucket_own_params" in FAULTS
             module.bind(data_shapes, label_shapes, self.for_training,
                         self.inputs_need_grad,
                         force_rebind=False,
-                        shared_module=self._buckets[self._default_bucket_key])
+                        shared_module=None if own else default)
             if self._monitor is not None:
                 module.install_monitor(self._monitor)
             self._buckets[bucket_key] = module
             if self.params_initialized:
+                if own:
+                    arg, aux = default.get_params()
+                    module.init_params(arg_params=arg, aux_params=aux,
+                                       allow_missing=True)
                 module.params_initialized = True
                 module.binded = True
             if self.optimizer_initialized:

@@ -3,8 +3,8 @@
 Counterpart: ``mxnet_tpu/ops/``.  Importing this package registers every
 ported operator: the core modules (elementwise, reduce, matrix, init),
 ``nn`` up to ``Pad``, three samplers of ``random_ops``, the SGD, Adam
-and AdaGrad updates of ``optimizer_ops`` (dense and lazy), and the
-sparse ops of ``extra``.
+and AdaGrad updates of ``optimizer_ops`` (dense and lazy), the
+sparse ops of ``extra``, the ``Sequence*`` ops and the fused ``RNN``.
 """
 from . import registry
 from .registry import Op, get, list_ops, register
@@ -18,5 +18,7 @@ from . import nn  # noqa: F401
 from . import random_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import extra  # noqa: F401
+from . import sequence  # noqa: F401
+from . import rnn  # noqa: F401
 
 __all__ = ["Op", "get", "list_ops", "register", "registry"]

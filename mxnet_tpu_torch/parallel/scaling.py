@@ -28,8 +28,9 @@ Counterpart: ``mxnet_tpu/parallel/scaling.py``.  Three pieces:
    ranks share) has no default here; the caller passes a measured or
    stated figure, else these raise.
 
-:func:`mp_placement_sweep` (the JAX package's model-parallel LSTM) needs
-the ``RNN`` op, which is not ported (ROADMAP A12.4): it raises.
+:func:`mp_placement_sweep` (the JAX package's model-parallel LSTM) runs
+the reference's ``example/model-parallel/lstm/lstm.py``, which is not in
+this repository (ROADMAP A12.4): it raises.
 """
 from __future__ import annotations
 
@@ -478,12 +479,14 @@ def control_sweep(device_counts: Sequence[int] = (1, 2, 8), steps: int = 4,
 
 
 def mp_placement_sweep(timeout: int = 1200) -> Dict:
-    """The JAX package's model-parallel LSTM placement sweep (its
-    ``example/model-parallel/lstm``): not ported — it needs the ``RNN``
-    op and ``rnn/``, ROADMAP A12.4.  Raises."""
+    """The JAX package's model-parallel LSTM placement sweep: it trains
+    the reference's ``example/model-parallel/lstm/lstm.py``, read from a
+    reference checkout outside the repository.  Not ported until that
+    file is in the repository (ROADMAP A12.4).  Raises."""
     raise NotImplementedError(
-        "scaling.mp_placement_sweep trains the model-parallel LSTM, which "
-        "needs the RNN op and rnn/ (ROADMAP A12.4), not ported yet")
+        "scaling.mp_placement_sweep trains the reference's "
+        "example/model-parallel/lstm/lstm.py, which waits to be in the "
+        "repository (ROADMAP A12.4)")
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,9 @@ tensors (shapes, no data), where the JAX package traces it with
 data shapes, the one direction a forward run cannot recover (weight
 shape from data shape), which the reference encodes in each op's
 FInferShape.  A body that reads values (``.item()``, numpy) cannot run
-on meta tensors: such an op needs a rule.  The rules of ``Custom``, the
-Caffe/Torch plugins, ``WarpCTC`` and ``RNN`` come with their ops
-(ROADMAP A12).
+on meta tensors: such an op needs a rule.  ``RNN``'s rule derives its
+blob and state shapes from the data's; the rules of ``Custom``, the
+Caffe/Torch plugins and ``WarpCTC`` come with their ops (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -115,6 +115,26 @@ def _regression_rule(p, s):
     return {"label": tuple(data)}
 
 
+def _rnn_rule(p, s):
+    """The fused blob and state shapes from (T, N, I) data (ref: the
+    reference's RNN FInferShape, src/operator/rnn-inl.h)."""
+    data = s.get("data")
+    if data is None or len(data) != 3:
+        return {}
+    from ..ops.rnn import rnn_param_size
+
+    H = int(p.get("state_size", 0))
+    L = int(p.get("num_layers", 1))
+    bidir = bool(p.get("bidirectional", False))
+    mode = p.get("mode", "lstm")
+    state = (L * (2 if bidir else 1), data[1], H)
+    return {
+        "parameters": (rnn_param_size(L, data[2], H, bidir, mode),),
+        "state": state,
+        "state_cell": state,
+    }
+
+
 PARAM_SHAPE_RULES = {
     "FullyConnected": _fc_rule,
     "Convolution": _conv_rule,
@@ -131,6 +151,7 @@ PARAM_SHAPE_RULES = {
     "LinearRegressionOutput": _regression_rule,
     "LogisticRegressionOutput": _regression_rule,
     "MAERegressionOutput": _regression_rule,
+    "RNN": _rnn_rule,
 }
 
 # inputs that are integer-typed by nature (indices / labels stay float in

@@ -763,3 +763,105 @@ def test_trace_armed_sets_and_restores_the_tracer_env(monkeypatch):
         assert capture.enabled()
     assert "MXNET_TRACE_DIR" not in os.environ
     assert os.environ["MXNET_TRACE_STEPS"] == "7"
+
+
+# ---------------------------------------------------------------------------
+# the recurrent tier and the phase timings
+# ---------------------------------------------------------------------------
+def test_the_rnn_phases_follow_tuning_and_precede_the_kernel_line():
+    src = (REPO / "chip_smoke.py").read_text()
+    main = src[src.index("def main()"):]
+    order = [main.index(p) for p in ("phase_tuning()", "phase_rnn()",
+                                     "phase_rnn_numerics()",
+                                     '"phase": "phase_seconds"',
+                                     '"phase": "kernels"')]
+    assert order == sorted(order)
+    # every kernel's launches_by_path reads both recurrent phases
+    assert main.count("for k, v in rnn_counts.items()") == 3
+
+
+def test_every_phase_is_timed():
+    phases = [n for n in dir(cs) if n.startswith("phase_")]
+    assert {"phase_rnn", "phase_rnn_numerics", "phase_device"} <= set(phases)
+    for name in phases:
+        assert hasattr(getattr(cs, name), "__wrapped__"), name
+
+    def phase_demo():
+        return 3
+
+    assert cs._timed(phase_demo)() == 3
+    assert cs.PHASE_S.pop("demo") >= 0.0
+
+
+def test_the_rnn_corpus_fills_every_bucket():
+    import random
+
+    import mxnet_tpu_torch as mx
+
+    buckets = list(cs.RNN_LM["buckets"])
+    sents = cs.rnn_corpus(32, seed=3)
+    assert len(sents) == 32 * len(buckets)
+    words = np.concatenate([np.asarray(s) for s in sents])
+    assert words.min() >= 1 and words.max() < cs.RNN_LM["vocab"]
+    random.seed(0)
+    np.random.seed(0)
+    it = mx.rnn.BucketSentenceIter(sents, 32, buckets=buckets,
+                                   invalid_label=0)
+    assert sorted(b.bucket_key for b in it) == buckets
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_the_rnn_lm_symbol_has_config_3s_widths(fused):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops.rnn import rnn_param_size
+
+    sym, data, label = cs.rnn_lm_sym_gen(mx, fused)(60)
+    assert data == ("data",) and label == ("softmax_label",)
+    args, outs, _ = sym.infer_shape(data=(32, 60), softmax_label=(32, 60))
+    shapes = dict(zip(sym.list_arguments(), args))
+    assert shapes["embed_weight"] == (10000, 200)
+    assert shapes["pred_weight"] == (10000, 200)
+    assert outs == [(32 * 60, 10000)]
+    if fused:
+        assert shapes["lstm_parameters"] == (rnn_param_size(2, 200, 200),)
+    else:
+        assert shapes["lstm_l1_h2h_weight"] == (800, 200)
+
+
+def test_rnn_bucket_fit_repeats_on_the_cpu_and_reads_the_planted_fault():
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.module import bucketing_module
+
+    start, end, keys, shares = cs.rnn_bucket_fit(mx.cpu(), True)
+    assert sorted(set(keys)) == [4, 6] and len(keys) == 3 and shares
+    _, again, keys2, _ = cs.rnn_bucket_fit(mx.cpu(), True)
+    assert keys2 == keys
+    assert cs._bucket_err(again, end, start) == (0.0, 0.0)
+    bucketing_module.FAULTS.add("bucket_own_params")
+    try:
+        _, faulty, _, shares = cs.rnn_bucket_fit(mx.cpu(), True)
+    finally:
+        bucketing_module.FAULTS.discard("bucket_own_params")
+    assert not shares
+    assert cs._bucket_err(faulty, end, start)[0] > cs.RNN_FAULT_MIN
+
+
+def test_side_by_side_returns_in_order_and_raises():
+    import threading
+
+    seen = set()
+
+    def job(i):
+        seen.add(threading.get_ident())
+        time.sleep(0.05)
+        return i
+
+    assert cs.side_by_side(*[lambda i=i: job(i) for i in range(3)]) == \
+        [0, 1, 2]
+    assert len(seen) == 3
+
+    def bad():
+        raise ValueError("planted")
+
+    with pytest.raises(ValueError, match="planted"):
+        cs.side_by_side(lambda: 1, bad)

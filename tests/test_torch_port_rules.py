@@ -59,6 +59,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import mxnet_tpu_torch.analysis.__main__\n"
         "import mxnet_tpu_torch.parallel.scaling\n"
         "import mxnet_tpu_torch.parallel.overlap\n"
+        "import mxnet_tpu_torch.rnn, mxnet_tpu_torch.gluon.rnn\n"
+        "import mxnet_tpu_torch.ops.rnn, mxnet_tpu_torch.ops.sequence\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mxnet_tpu', 'ml_dtypes'))\n"
         # kernels are built at first launch, never at import; NVRTC and
@@ -100,7 +102,8 @@ def test_no_package_file_imports_jax_or_the_jax_package():
                                     "tools/torch_serve_profile.py",
                                     "tools/torch_train_profile.py",
                                     "tools/torch_trace_loss.py",
-                                    "tools/torch_autotune_scale.py"])
+                                    "tools/torch_autotune_scale.py",
+                                    "tools/torch_rnn_smoke.py"])
 def test_card_scripts_import_no_jax(script):
     # the scripts run on the machine with the card, which has no JAX
     tree = ast.parse((REPO / script).read_text(), filename=script)
@@ -273,6 +276,54 @@ def test_symbolic_entry_points_default_to_cuda_and_raise_without_it(
     with pytest.raises(mx.MXNetError, match=cpu_msg):
         mx.gluon.SymbolBlock.imports(path + "-symbol.json", ["data"],
                                      path + "-0000.params")
+
+
+def test_recurrent_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+
+    cpu_msg = r"ctx=mx\.cpu\(\)"
+    layer = mx.gluon.rnn.LSTM(4, num_layers=2, input_size=3)
+    with pytest.raises(mx.MXNetError, match=cpu_msg):
+        layer.initialize()
+    with pytest.raises(mx.MXNetError, match=cpu_msg):
+        mx.gluon.rnn.GRUCell(4, input_size=3).initialize()
+    with pytest.raises(mx.MXNetError, match=cpu_msg):
+        mx.nd.RNN(np.zeros((2, 1, 3)), np.zeros((
+            mx.ops.rnn.rnn_param_size(1, 3, 4, mode="gru"),)),
+            np.zeros((1, 1, 4)), state_size=4, mode="gru")
+
+    def sym_gen(seq_len):
+        cell = mx.rnn.LSTMCell(4, prefix="l_")
+        out, _ = cell.unroll(seq_len, mx.sym.Embedding(
+            mx.sym.Variable("data"), input_dim=8, output_dim=3, name="e"),
+            merge_outputs=True)
+        pred = mx.sym.FullyConnected(mx.sym.Reshape(out, shape=(-1, 4)),
+                                     num_hidden=8, name="pred")
+        return (mx.sym.SoftmaxOutput(pred, mx.sym.Reshape(
+            mx.sym.Variable("softmax_label"), shape=(-1,)), name="softmax"),
+            ("data",), ("softmax_label",))
+
+    it = mx.rnn.BucketSentenceIter([[1, 2, 3]] * 4 + [[1, 2, 3, 4, 5]] * 4,
+                                   batch_size=2, buckets=[3, 5],
+                                   invalid_label=0)
+    # the iterator's batches are host data whatever the current context
+    assert it.next().data[0].context == mx.cpu()
+    with pytest.raises(mx.MXNetError, match=cpu_msg):
+        mx.mod.BucketingModule(sym_gen, default_bucket_key=5).bind(
+            it.provide_data, it.provide_label)
+    mod = mx.mod.BucketingModule(sym_gen, default_bucket_key=5,
+                                 context=mx.cpu())
+    mod.bind(it.provide_data, it.provide_label)
+    assert mod._curr_module._exec.arg_dict["l_i2h_weight"].context == \
+        mx.cpu()
+    with mx.cpu():
+        layer.initialize()
+        out = layer(mx.nd.zeros((2, 1, 3)))
+    assert out.context == mx.cpu() and out.shape == (2, 1, 4)
 
 
 def test_dist_initialize_picks_nccl_on_a_card_and_raises_without_one(

@@ -1,0 +1,45 @@
+"""The recurrent tier's smoke phases alone, on one GPU.
+
+    python3 tools/torch_rnn_smoke.py
+
+Runs ``chip_smoke.py``'s ``device``, ``rnn`` (BASELINE config 3 at full
+width: the unrolled ``LSTMCell`` stack and ``FusedRNNCell`` through
+``BucketingModule.fit``, ``gluon.rnn.LSTM`` through ``Trainer``) and
+``rnn_numerics`` (float64 on the card against the CPU, with planted
+faults) in a fresh process, each phase's JSON line as the smoke prints
+it, then one line with every phase's wall seconds.  Exits non-zero if
+a phase fails; needs a CUDA device; imports no JAX.
+"""
+import json
+import os
+import sys
+import time
+import traceback
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_rnn_smoke: no CUDA device available")
+    t0 = time.perf_counter()
+    cs.phase_device()
+    ok = True
+    for phase in (cs.phase_rnn, cs.phase_rnn_numerics):
+        try:
+            phase()
+        except Exception:  # report every phase, then fail the run
+            traceback.print_exc()
+            ok = False
+    print(json.dumps({"phase_seconds": cs.PHASE_S,
+                      "wall_s": time.perf_counter() - t0}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
