@@ -33,7 +33,11 @@ traces of the training and serving windows, and the asynchronous
 checkpoint writer; the tuning tier; and last the recurrent tier:
 BASELINE config 3 (the bucketing LSTM language model) trained three
 ways at full width, and the ``RNN`` op, the sequence ops and
-``BucketingModule`` in float64 against the CPU, with planted faults.
+``BucketingModule`` in float64 against the CPU, with planted faults;
+then the detection tier: BASELINE config 4 (SSD-512 on ResNet-50)
+trained at full width from records, detection through the NMS kernel
+and the example SSD's learning check, and every detection op in
+float64 against the CPU, with planted faults.
 
     python3 chip_smoke.py
 
@@ -420,9 +424,35 @@ Phases:
            swapped in the cuDNN route's weights, the scan's reverse
            direction left unflipped, a bucket bound to its own copy of
            the parameters
+  ssd      BASELINE config 4, example/ssd's ``--network resnet50
+           --data-shape 512``: (a) SSD-512 on the port's
+           ``resnet50_v1`` (features[6] and [7], four extra layers, six
+           heads, 6,132 anchors, 20 classes), Xavier, SGD lr 0.004,
+           momentum 0.9, wd 5e-4, batch 32, float32, from seeded JPEG
+           records through ``ImageDetRecordIter`` (force-resized to
+           512²): images/s and step ms on device-resident batches, the
+           iterator's rate, peak memory, a torch.profiler window (idle
+           share, launches a step, MultiBoxTarget's device ms), the
+           loss on one fixed batch over the first 10 steps from Xavier,
+           its targets taken at the first (must fall), then
+           MultiBoxDetection (0.01, NMS 0.45, top 400) on 32 held-out
+           images: its ms at (32, 6132), rows kept, the VOC07 mAP
+           (printed, not judged), the NMS kernel (``csrc/box_nms.cu``)
+           against its plain version at the detection's shapes; (b) the
+           example's SSDNet through tests/test_ssd_e2e.py's learning
+           check and bars (4 epochs, batch 16, lr 0.06, 40²)
+  ssd_numerics
+           float64 on the card against the port on the CPU (1e-10;
+           fft / ifft 1e-5): every op of DET_CASES (the 42 names of the
+           detection tier) forward and backward; box_nms at (32, 6132)
+           (keep sets equal; the kernel against its plain version); one
+           step of examples/rcnn/mini_rcnn.py's network; planted
+           faults: priors half a cell off, NMS across classes, the
+           encoder's variances swapped
   phase_seconds
-           every phase's wall seconds; the two recurrent phases' sum
-           and the whole run against their budgets (90 s, 850 s)
+           every phase's wall seconds; the recurrent and the detection
+           phases' sums and the whole run against their budgets (90 s,
+           60 s, 850 s)
   kernels  every kernel and its status
 """
 from __future__ import annotations
@@ -441,6 +471,7 @@ import threading
 import time
 import warnings
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -1956,6 +1987,7 @@ def train_tflops(batch, step_s):
 
 def _kernel_counts():
     from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.ops import contrib
     from mxnet_tpu_torch.parallel.attention import (flash_attention_bwd,
                                                     flash_attention_fwd)
 
@@ -1965,14 +1997,17 @@ def _kernel_counts():
             "flash_attention_bwd": flash_attention_bwd.launches,
             "flash_attention_bwd_by_route":
                 dict(flash_attention_bwd.launches_by_route),
-            "rtc_add": sum(rtc.launches.values())}
+            "rtc_add": sum(rtc.launches.values()),
+            "box_nms": contrib.nms_keep.launches}
 
 
 def _reset_kernel_counts():
     from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.ops import contrib
     from mxnet_tpu_torch.parallel.attention import (flash_attention_bwd,
                                                     flash_attention_fwd)
 
+    contrib.nms_keep.launches = 0
     flash_attention_fwd.launches = 0
     flash_attention_fwd.launches_by_route = {"wgmma": 0, "simt": 0}
     flash_attention_bwd.launches = 0
@@ -8069,7 +8104,7 @@ def phase_rnn():
     bad += ["c_gluon: %s" % m for m in b]
     counts = {k: sum(r["kernel_launches"][k] for r in rows.values())
               for k in ("flash_attention_fwd", "flash_attention_bwd",
-                        "rtc_add")}
+                        "rtc_add", "box_nms")}
     row = {"phase": "rnn",
            "config": {k: list(v) if isinstance(v, tuple) else v
                       for k, v in cfg.items()},
@@ -8369,6 +8404,1335 @@ def phase_rnn_numerics():
     return row
 
 
+# ---------------------------------------------------------------------------
+# the detection tier: BASELINE config 4 (SSD, example/ssd)
+# ---------------------------------------------------------------------------
+# example/ssd/symbol/symbol_factory.py's entry ``resnet50`` at
+# ``--data-shape 512``: the last units of stages 3 and 4 (``_plus12``,
+# ``_plus15``: features[6] and features[7] of the port's ResNetV1,
+# strides 16 and 32), four extra layers, six heads, no normalisation
+# layer, priors without steps or clip: 4, 6, 6, 6, 4, 4 anchors a cell
+# on maps of 32, 16, 8, 4, 2, 1 = 6,132 anchors
+SSD_LAYOUT = dict(
+    from_layers=(6, 7), num_filters=(512, 256, 256, 128),
+    sizes=((.1, .141), (.2, .272), (.37, .447), (.54, .619), (.71, .79),
+           (.88, .961)),
+    ratios=((1, 2, .5),) + ((1, 2, .5, 3, 1. / 3),) * 3 + ((1, 2, .5),) * 2)
+SSD_ANCHORS = 6132
+SSD_MAPS = (32, 16, 8, 4, 2, 1)   # the six maps' sides at 512²
+SSD = dict(classes=20, image=512, batch=32, lr=0.004, momentum=0.9,
+           wd=5e-4, overlap_threshold=0.5, negative_mining_ratio=3.0,
+           negative_mining_thresh=0.5, variances=(0.1, 0.1, 0.2, 0.2),
+           max_objects=3, record_size=160, train_batches=3, warmup=1,
+           fixed_steps=10, trace_steps=3, eval_images=32,
+           mean=(123.68, 116.78, 103.94),
+           detection=dict(threshold=0.01, nms_threshold=0.45,
+                          nms_topk=400))
+# tests/test_ssd_e2e.py:26-28: the example's SSDNet and its three bars
+SSD_EXAMPLE = dict(classes=("square", "disk", "cross"), max_objects=3,
+                   epochs=4, batch=16, lr=0.06, image=40, train_n=128,
+                   val_n=48, seed=3)
+SSD_NUM_TOL = 1e-10
+SSD_FFT_TOL = 1e-5          # fft / ifft transform in float32 inside
+# outside the tensor cores, by element size (H100 SXM data sheet:
+# float32 67 TFLOP/s, float64 34)
+PEAK_VECTOR_FLOPS = {4: 67e12, 8: 34e12}
+NMS_PAIR_OPS = 12           # operations of one IoU test (contrib.py)
+
+
+def ssd_net(pkg, backbone, layout=SSD_LAYOUT, classes=SSD["classes"],
+            prefix="ssd_"):
+    """The SSD of ``example/ssd`` on ``backbone`` (a gluon ResNetV1 of
+    either package: its ``features`` up to ``layout["from_layers"]``):
+    the extra layers (a 1x1 conv of max(128, f // 2) + ReLU, a 3x3 conv
+    of f, stride 2, pad 1, + ReLU), a 3x3 class conv (anchors x
+    (classes + 1)) and box conv (anchors x 4) on each map, and the
+    maps' MultiBoxPrior anchors.  ``net(x)`` returns cls (B, classes + 1,
+    N), loc (B, N * 4) and anchors (1, N, 4)."""
+    gluon = pkg.gluon
+    nn = gluon.nn
+    nc = classes + 1
+    per_cell = [len(s) + len(r) - 1 for s, r in zip(layout["sizes"],
+                                                     layout["ratios"])]
+
+    class SSD512(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__(prefix=prefix)
+            with self.name_scope():
+                self.backbone = backbone
+                # the backbone's classifier is not on the path
+                for p in backbone.output.collect_params().values():
+                    p.grad_req = "null"
+                self.extras = nn.HybridSequential(prefix="extra_")
+                for f in layout["num_filters"]:
+                    blk = nn.HybridSequential(prefix="")
+                    blk.add(nn.Conv2D(max(128, f // 2), 1),
+                            nn.Activation("relu"),
+                            nn.Conv2D(f, 3, strides=2, padding=1),
+                            nn.Activation("relu"))
+                    self.extras.add(blk)
+                self.cls_heads = nn.HybridSequential(prefix="cls_")
+                self.loc_heads = nn.HybridSequential(prefix="loc_")
+                for a in per_cell:
+                    self.cls_heads.add(nn.Conv2D(a * nc, 3, padding=1))
+                    self.loc_heads.add(nn.Conv2D(a * 4, 3, padding=1))
+
+        def hybrid_forward(self, F, x):
+            maps = []
+            for i in range(max(layout["from_layers"]) + 1):
+                x = self.backbone.features[i](x)
+                if i in layout["from_layers"]:
+                    maps.append(x)
+            for blk in self.extras:
+                x = blk(x)
+                maps.append(x)
+            cls, loc, anchors = [], [], []
+            for fm, ch, lh, s, r in zip(maps, self.cls_heads, self.loc_heads,
+                                        layout["sizes"], layout["ratios"]):
+                c = F.transpose(ch(fm), axes=(0, 2, 3, 1))
+                cls.append(c.reshape((c.shape[0], -1, nc)))
+                b = F.transpose(lh(fm), axes=(0, 2, 3, 1))
+                loc.append(b.reshape((b.shape[0], -1)))
+                anchors.append(F.contrib.MultiBoxPrior(fm, sizes=s,
+                                                       ratios=r))
+            cls = F.transpose(F.concat(*cls, dim=1), axes=(0, 2, 1))
+            return cls, F.concat(*loc, dim=1), F.concat(*anchors, dim=1)
+
+    return SSD512()
+
+
+def ssd_targets(nd, cls_prob, anchors, labels, mining_thresh=0.3,
+                variances=(0.1, 0.1, 0.2, 0.2)):
+    """MultiBoxTarget as ``examples/ssd/train_ssd.py:134`` calls it:
+    overlap 0.5, hard negative mining at ratio 3 above
+    ``mining_thresh``."""
+    return nd.contrib.MultiBoxTarget(
+        anchors, labels, cls_prob, overlap_threshold=0.5,
+        negative_mining_ratio=3.0, negative_mining_thresh=mining_thresh,
+        variances=variances)
+
+
+def ssd_loss(nd, cls, loc, anchors, labels, mining_thresh=0.3,
+             variances=(0.1, 0.1, 0.2, 0.2), target_scope=None,
+             targets=None):
+    """``examples/ssd/train_ssd.py:134``'s composition on ``nd`` (either
+    package's): :func:`ssd_targets`, then the cross-entropy over the
+    matched and mined anchors plus smooth-L1 over the matched boxes,
+    each over its count.  ``target_scope()``, when given, is entered
+    around MultiBoxTarget (a profiler's range); ``targets`` (its three
+    outputs), when given, stand in for it."""
+    cls_prob = nd.softmax(cls, axis=1)
+    if targets is None:
+        with (target_scope() if target_scope
+              else contextlib.nullcontext()):
+            targets = ssd_targets(nd, cls_prob, anchors, labels,
+                                  mining_thresh, variances)
+    loc_t, loc_m, cls_t = targets
+    mask = (cls_t >= 0)
+    picked = nd.pick(cls_prob, nd.maximum(cls_t, 0), axis=1)
+    ce = -(nd.log(nd.maximum(picked, 1e-12)) * mask).sum() / \
+        nd.maximum(mask.sum(), 1)
+    sl1 = nd.smooth_l1(loc * loc_m - loc_t, scalar=1.0).sum() / \
+        nd.maximum(loc_m.sum(), 1)
+    return ce + sl1
+
+
+def _iou_matrix(boxes, gts):
+    """IoU between (n, 4) detections and (m, 4) ground truths."""
+    if len(boxes) == 0 or len(gts) == 0:
+        return np.zeros((len(boxes), len(gts)), np.float64)
+    lt = np.maximum(boxes[:, None, :2], gts[None, :, :2])
+    rb = np.minimum(boxes[:, None, 2:], gts[None, :, 2:])
+    wh = np.clip(rb - lt, 0, None)
+    inter = wh[..., 0] * wh[..., 1]
+    a = np.prod(np.clip(boxes[:, 2:] - boxes[:, :2], 0, None), axis=1)
+    b = np.prod(np.clip(gts[:, 2:] - gts[:, :2], 0, None), axis=1)
+    union = a[:, None] + b[None, :] - inter
+    return np.where(union > 0, inter / union, 0.0)
+
+
+def map_metrics():
+    """``(MApMetric, VOC07MApMetric)``: the port's copy of
+    ``examples/ssd/eval_metric.py`` on the port's ``metric.EvalMetric``
+    (per class, score-ranked detections matched greedily at an IoU
+    threshold; AP as the area under the monotonised precision-recall
+    curve, or VOC07's 11-point interpolation)."""
+    from mxnet_tpu_torch.metric import EvalMetric
+    from mxnet_tpu_torch.ndarray import NDArray
+
+    class MApMetric(EvalMetric):
+        def __init__(self, iou_thresh=0.5, class_names=None,
+                     ovp_thresh=None, use_voc07=False, name="mAP"):
+            super().__init__(name)
+            self.iou_thresh = float(ovp_thresh if ovp_thresh is not None
+                                    else iou_thresh)
+            self.class_names = class_names
+            self.use_voc07 = use_voc07
+            self.reset()
+
+        def reset(self):
+            self._records, self._gt_counts = {}, {}
+            self.num_inst = 0
+            self.sum_metric = 0.0
+
+        def update(self, labels, preds):
+            def np_of(x):
+                return x.asnumpy() if isinstance(x, NDArray) \
+                    else np.asarray(x)
+
+            for label, det in zip(labels, preds):
+                label, det = np_of(label), np_of(det)
+                for b in range(label.shape[0]):
+                    self._update_one(label[b], det[b])
+
+        def _update_one(self, gts, dets):
+            gts = gts[gts[:, 0] >= 0]
+            dets = dets[dets[:, 0] >= 0]
+            classes = set(gts[:, 0].astype(int)) | \
+                set(dets[:, 0].astype(int))
+            for c in classes:
+                gt_c = gts[gts[:, 0].astype(int) == c][:, 1:5]
+                dt_c = dets[dets[:, 0].astype(int) == c]
+                self._gt_counts[c] = self._gt_counts.get(c, 0) + len(gt_c)
+                if len(dt_c) == 0:
+                    continue
+                dt_c = dt_c[np.argsort(-dt_c[:, 1])]
+                iou = _iou_matrix(dt_c[:, 2:6], gt_c)
+                taken = np.zeros(len(gt_c), bool)
+                rec = self._records.setdefault(c, [])
+                for i in range(len(dt_c)):
+                    tp = 0
+                    if len(gt_c):
+                        j = int(np.argmax(iou[i]))
+                        if iou[i, j] >= self.iou_thresh and not taken[j]:
+                            taken[j] = True
+                            tp = 1
+                    rec.append((float(dt_c[i, 1]), tp))
+
+        def _ap(self, c):
+            npos = self._gt_counts.get(c, 0)
+            rec = self._records.get(c, [])
+            if npos == 0:
+                return None
+            if not rec:
+                return 0.0
+            rec = sorted(rec, key=lambda r: -r[0])
+            tps = np.array([r[1] for r in rec], np.float64)
+            tp_cum = np.cumsum(tps)
+            fp_cum = np.cumsum(1.0 - tps)
+            recall = tp_cum / npos
+            precision = tp_cum / np.maximum(tp_cum + fp_cum, 1e-12)
+            if self.use_voc07:
+                return sum((precision[recall >= t].max()
+                            if (recall >= t).any() else 0.0) / 11.0
+                           for t in np.linspace(0, 1, 11))
+            for i in range(len(precision) - 2, -1, -1):
+                precision[i] = max(precision[i], precision[i + 1])
+            idx = np.concatenate(([0], np.where(recall[1:] != recall[:-1])[0]
+                                  + 1))
+            return float(np.sum((recall[idx] - np.concatenate(
+                ([0.0], recall[idx][:-1]))) * precision[idx]))
+
+        def get(self):
+            aps = [self._ap(c) for c in sorted(self._gt_counts)]
+            aps = [a for a in aps if a is not None]
+            return self.name, float(np.mean(aps)) if aps else 0.0
+
+    class VOC07MApMetric(MApMetric):
+        def __init__(self, **kwargs):
+            kwargs.setdefault("name", "VOC07mAP")
+            super().__init__(use_voc07=True, **kwargs)
+
+    return MApMetric, VOC07MApMetric
+
+
+# -- the example's SSD (examples/ssd/train_ssd.py), for the learning check --
+class ShapesDetDataset:
+    """``examples/ssd/train_ssd.py``'s synthetic detection set: squares,
+    disks and crosses on noise; items (1, H, W) float32 images and
+    (max_objects, 5) rows [cls, x0, y0, x1, y1] (relative), -1 padded."""
+
+    def __init__(self, n, size=64, seed=0):
+        self.n, self.size, self.seed = n, size, seed
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        rng = np.random.RandomState(self.seed * 100003 + i)
+        size, max_obj = self.size, SSD_EXAMPLE["max_objects"]
+        img = rng.uniform(0, 0.15, (1, size, size)).astype(np.float32)
+        label = np.full((max_obj, 5), -1, np.float32)
+        for k in range(rng.randint(1, max_obj + 1)):
+            cls = rng.randint(0, len(SSD_EXAMPLE["classes"]))
+            s = rng.randint(size // 6, size // 3)
+            x0 = rng.randint(0, size - s)
+            y0 = rng.randint(0, size - s)
+            patch = img[0, y0:y0 + s, x0:x0 + s]
+            yy, xx = np.mgrid[0:s, 0:s]
+            if cls == 0:
+                patch[:] = 1.0
+            elif cls == 1:
+                r = s / 2.0
+                patch[(yy - r + .5) ** 2 + (xx - r + .5) ** 2 <= r * r] = 1.0
+            else:
+                w = max(1, s // 4)
+                patch[:, s // 2 - w // 2: s // 2 + (w + 1) // 2] = 1.0
+                patch[s // 2 - w // 2: s // 2 + (w + 1) // 2, :] = 1.0
+            label[k] = [cls, x0 / size, y0 / size,
+                        (x0 + s) / size, (y0 + s) / size]
+        return img, label
+
+
+def example_ssd_net(pkg, num_classes=3, num_anchors=2):
+    """``examples/ssd/train_ssd.py:73``'s ``SSDNet`` on either package's
+    gluon: four conv / BatchNorm / ReLU / max-pool stages, heads on the
+    stride-8 and stride-16 maps."""
+    gluon = pkg.gluon
+    nn = gluon.nn
+
+    class SSDNet(gluon.HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self.num_classes = num_classes
+            na, nc = num_anchors, num_classes + 1
+            with self.name_scope():
+                def stage(c):
+                    s = nn.HybridSequential(prefix="")
+                    s.add(nn.Conv2D(c, 3, padding=1), nn.BatchNorm(),
+                          nn.Activation("relu"), nn.MaxPool2D(2))
+                    return s
+
+                self.s1, self.s2 = stage(16), stage(32)
+                self.s3, self.s4 = stage(64), stage(64)
+                self.cls_a = nn.Conv2D(na * nc, 3, padding=1)
+                self.loc_a = nn.Conv2D(na * 4, 3, padding=1)
+                self.cls_b = nn.Conv2D(na * nc, 3, padding=1)
+                self.loc_b = nn.Conv2D(na * 4, 3, padding=1)
+
+        def hybrid_forward(self, F, x):
+            fa = self.s3(self.s2(self.s1(x)))
+            fb = self.s4(fa)
+            nc = self.num_classes + 1
+
+            def head(fm, cls_conv, loc_conv):
+                c = cls_conv(fm)
+                lo = loc_conv(fm)
+                B = c.shape[0]
+                c = F.transpose(c, axes=(0, 2, 3, 1)).reshape((B, -1, nc))
+                lo = F.transpose(lo, axes=(0, 2, 3, 1)).reshape((B, -1))
+                return c, lo
+
+            ca, la = head(fa, self.cls_a, self.loc_a)
+            cb, lb = head(fb, self.cls_b, self.loc_b)
+            cls = F.transpose(F.concat(ca, cb, dim=1), axes=(0, 2, 1))
+            return cls, F.concat(la, lb, dim=1)
+
+    return SSDNet()
+
+
+def example_anchors(nd, net, image_size, ctx=None):
+    """``build_anchors``: MultiBoxPrior over each head's map, in the
+    heads' order (in the dtype of the net's parameters)."""
+    dtype = next(iter(net.collect_params().values())).dtype
+    x = nd.zeros((1, 1, image_size, image_size), ctx=ctx, dtype=dtype)
+    fa = net.s3(net.s2(net.s1(x)))
+    fb = net.s4(fa)
+    aa = nd.contrib.MultiBoxPrior(fa, sizes=(0.2, 0.35), ratios=(1.0,))
+    ab = nd.contrib.MultiBoxPrior(fb, sizes=(0.5, 0.7), ratios=(1.0,))
+    return nd.concat(aa, ab, dim=1)
+
+
+def example_train(mx, ctx, cfg=SSD_EXAMPLE):
+    """``train_ssd.train`` at ``cfg`` on the port, batches moved to
+    ``ctx``: SGD (momentum 0.9, wd 1e-4), MultiBoxDetection (threshold
+    0.25, NMS 0.45) into the mAP each epoch.  Returns [(mean loss,
+    mAP)] an epoch."""
+    from mxnet_tpu_torch import autograd, gluon
+
+    nd = mx.nd
+    mx.random.seed(cfg["seed"])
+    np.random.seed(cfg["seed"])
+    net = example_ssd_net(mx, len(cfg["classes"]))
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    anchors = example_anchors(nd, net, cfg["image"], ctx=ctx)
+    train_loader = gluon.data.DataLoader(
+        ShapesDetDataset(cfg["train_n"], cfg["image"], seed=1),
+        batch_size=cfg["batch"], shuffle=True, last_batch="discard")
+    val_loader = gluon.data.DataLoader(
+        ShapesDetDataset(cfg["val_n"], cfg["image"], seed=2),
+        batch_size=cfg["batch"])
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": cfg["lr"], "momentum": 0.9,
+                             "wd": 1e-4})
+    MApMetric, _ = map_metrics()
+    metric = MApMetric(iou_thresh=0.5, class_names=cfg["classes"])
+    history = []
+    for _ in range(cfg["epochs"]):
+        total, nb = 0.0, 0
+        for img, label in train_loader:
+            img, label = img.as_in_context(ctx), label.as_in_context(ctx)
+            with autograd.record():
+                cls, loc = net(img)
+                loss = ssd_loss(nd, cls, loc, anchors, label)
+            loss.backward()
+            trainer.step(1)
+            total += float(loss.asnumpy())
+            nb += 1
+        metric.reset()
+        for img, label in val_loader:
+            cls, loc = net(img.as_in_context(ctx))
+            dets = nd.contrib.MultiBoxDetection(
+                nd.softmax(cls, axis=1), loc, anchors, threshold=0.25,
+                nms_threshold=0.45)
+            metric.update([label], [dets])
+        history.append((total / max(nb, 1), metric.get()[1]))
+    return history
+
+
+def example_bars(history):
+    """``tests/test_ssd_e2e.py``'s bars: the last loss under 0.6x the
+    first, the last mAP above 0.05 and at least 0.8x the first."""
+    losses = [h[0] for h in history]
+    maps = [h[1] for h in history]
+    return {"loss_falls": losses[-1] < 0.6 * losses[0],
+            "map_above_0.05": maps[-1] > 0.05,
+            "map_holds": maps[-1] >= 0.8 * maps[0]}
+
+
+# -- SSD-512 records and batches --------------------------------------------
+def write_ssd_records(path, n, seed, classes=SSD["classes"],
+                      size=SSD["record_size"], max_objects=SSD["max_objects"]):
+    """``n`` seeded detection records in ``tests/test_reference_scripts.py:
+    251``'s format (JPEG through ``recordio.pack_img``, header label [2,
+    6, then cls, x1, y1, x2, y2, difficult an object]): dark noise with
+    1 to ``max_objects`` bright blocks, class k tinting channel k % 3."""
+    from mxnet_tpu_torch import recordio
+
+    rng = np.random.RandomState(seed)
+    w = recordio.MXRecordIO(path, "w")
+    try:
+        for i in range(n):
+            img = rng.randint(0, 60, (size, size, 3), dtype=np.uint8)
+            lab = [2.0, 6.0]
+            for _ in range(rng.randint(1, max_objects + 1)):
+                cls = int(rng.randint(0, classes))
+                x1, y1 = rng.uniform(0.0, 0.6, 2)
+                bw, bh = rng.uniform(0.15, 0.4, 2)
+                x2, y2 = min(0.98, x1 + bw), min(0.98, y1 + bh)
+                px = (np.array([x1, y1, x2, y2]) * size).astype(int)
+                img[px[1]:px[3], px[0]:px[2], cls % 3] = 120 + 6 * cls
+                lab += [float(cls), x1, y1, x2, y2, 0.0]
+            w.write(recordio.pack_img(
+                recordio.IRHeader(0, np.array(lab, np.float32), i, 0),
+                img, quality=95))
+    finally:
+        w.close()
+
+
+def det_labels_from_batch(label, max_objects=SSD["max_objects"]):
+    """``ImageDetRecordIter``'s label rows ([c, h, w, len, then the raw
+    label: header width, object width, header..., objects]) as (B,
+    max_objects, 5) [cls, x1, y1, x2, y2] rows, -1 padded."""
+    label = np.asarray(label)
+    out = np.full((label.shape[0], max_objects, 5), -1.0, np.float32)
+    for b, row in enumerate(label):
+        raw = row[4:4 + int(row[3])]
+        hw, ow = int(raw[0]), int(raw[1])
+        objs = raw[hw:].reshape(-1, ow)[:max_objects, :5]
+        out[b, :len(objs)] = objs
+    return out
+
+
+def ssd_input(tmp, ctx):
+    """The records of the train and held-out images through the port's
+    ``ImageDetRecordIter`` (force-resized to 512², mean subtracted):
+    device-resident (data, labels) batches and the iterator's rate."""
+    import mxnet_tpu_torch as mx
+
+    cfg = SSD
+    n_train = cfg["train_batches"] * cfg["batch"]
+    out = {}
+    for name, n, seed in (("train", n_train, 11),
+                          ("held_out", cfg["eval_images"], 12)):
+        path = os.path.join(tmp, name + ".rec")
+        write_ssd_records(path, n, seed)
+        it = mx.io.ImageDetRecordIter(
+            path_imgrec=path, batch_size=cfg["batch"],
+            data_shape=(3, cfg["image"], cfg["image"]), resize_mode="force",
+            mean_r=cfg["mean"][0], mean_g=cfg["mean"][1],
+            mean_b=cfg["mean"][2], preprocess_threads=4)
+        t0 = time.perf_counter()
+        host = [(b.data[0].asnumpy(), b.label[0].asnumpy()) for b in it]
+        out[name + "_iter_ips"] = n / (time.perf_counter() - t0)
+        out[name] = [(mx.nd.array(d, ctx=ctx),
+                      mx.nd.array(det_labels_from_batch(lab), ctx=ctx))
+                     for d, lab in host]
+    return out
+
+
+def _ssd_profile(step, steps, scope_name):
+    """torch.profiler over ``steps`` calls of ``step`` (after one
+    untraced): device-busy ms, idle share and device launches a step,
+    and the device ms a step of the kernels launched inside
+    ``scope_name``'s ranges."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    events = prof.events()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    scoped = sum(e.device_time_total for e in events
+                 if e.name == scope_name) / 1e3 / steps
+    return {"steps": steps, "step_ms_traced": wall_ms,
+            "device_busy_ms_per_step": busy, "idle_share": 1.0 - busy / wall_ms,
+            "device_launches_per_step": len(kernels) / steps,
+            "multibox_target_device_ms_per_step": scoped}
+
+
+def nms_bound(class_counts, n_boxes, dtype_bytes):
+    """``(bound_ms, bound_by)`` of one ``nms_keep`` call with class ids
+    on the card: the boxes, ids and valid flags read once and the keep
+    mask written once (``n_boxes`` rows an image) over 3.35 TB/s, against
+    what greedy NMS needs over the type's vector peak: NMS_PAIR_OPS
+    operations for each pair of valid boxes of one class (only they can
+    suppress each other) and one compare of ids for each pair of valid
+    boxes.  ``class_counts`` holds one list an image: its valid boxes'
+    count for each class."""
+    peak_flops = PEAK_VECTOR_FLOPS[dtype_bytes]
+    byts = len(class_counts) * n_boxes * (5 * dtype_bytes + 2)
+    ops = 0
+    for counts in class_counts:
+        v = sum(counts)
+        ops += (NMS_PAIR_OPS * sum(c * (c - 1) // 2 for c in counts)
+                + v * (v - 1) // 2)
+    t_bytes, t_ops = byts / PEAK_BYTES_S * 1e3, ops / peak_flops * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def nms_class_counts(valid, ids):
+    """Per image, the valid boxes' count of each class present:
+    :func:`nms_bound`'s input, read from this run's data."""
+    valid, ids = valid.cpu(), ids.cpu()
+    return [torch.unique(ids[b][valid[b]], return_counts=True)[1].tolist()
+            for b in range(valid.shape[0])]
+
+
+def _nms_row(rows_dev, params):
+    """The NMS kernel (``nms_keep`` on the card) against its plain
+    version on the same card inputs: keep masks equal, times, bound."""
+    from mxnet_tpu_torch.ops import contrib
+
+    B, N = rows_dev.shape[:2]
+    scores = rows_dev[..., 1]
+    valid = scores > 0.0
+    order = torch.sort(-torch.where(valid, scores, torch.full(
+        (), -float("inf"), dtype=scores.dtype, device=scores.device)),
+        dim=1, stable=True)[1]
+    n = min(params["topk"], N) if params.get("topk", -1) > 0 else N
+    order = order[:, :n]
+    boxes = torch.gather(rows_dev[..., 2:6], 1,
+                         order[:, :, None].expand(B, n, 4)).contiguous()
+    svalid = torch.gather(valid, 1, order)
+    ids = torch.gather(rows_dev[..., 0], 1, order)
+    thresh = params["overlap_thresh"]
+    launches = contrib.nms_keep.launches
+    keep = contrib.nms_keep(boxes, svalid, ids, thresh)
+    # the plain version once (its N host steps make it seconds at full
+    # size), timed with events around the call itself
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    plain = contrib.nms_keep_plain(boxes, svalid, ids, thresh)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    n_valid = svalid.sum(dim=1).tolist()
+    per_class = nms_class_counts(svalid, ids)
+    bound, by = nms_bound(per_class, n, rows_dev.element_size())
+    ms = time_ms(lambda: contrib.nms_keep(boxes, svalid, ids, thresh),
+                 iters=10, warmup=2)
+    # the check's calls are no launches of the path
+    contrib.nms_keep.launches = launches
+    return {"shape": [B, n], "dtype": str(rows_dev.dtype).split(".")[-1],
+            "valid_per_image": n_valid[:4],
+            "largest_class_per_image": [max(c, default=0)
+                                        for c in per_class[:4]],
+            "kept": int(keep.sum()),
+            "mismatches": int((keep != plain).sum()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
+def phase_ssd():
+    """BASELINE config 4 at full width on the card: (a) SSD-512 on
+    ResNet-50 trained at batch 32 from records, then detection and the
+    VOC07 mAP on held-out images; (b) the example's SSDNet through
+    its learning check."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.ops import contrib
+
+    cfg = SSD
+    ctx = mx.gpu(0)
+    nd = mx.nd
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ssd_")
+    try:
+        feed = ssd_input(tmp, ctx)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the main path's counts: from here to the end of (b)
+    _reset_kernel_counts()
+    contrib.nms_keep.calls.update(cuda=0, plain=0)
+
+    np.random.seed(0)
+    mx.random.seed(0)
+    backbone = gluon.model_zoo.vision.resnet50_v1()
+    net = ssd_net(mx, backbone)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": cfg["lr"],
+                             "momentum": cfg["momentum"], "wd": cfg["wd"]})
+    train = feed["train"]
+
+    def step(batch, scope=None, targets=None):
+        x, y = batch
+        with autograd.record():
+            cls, loc, anchors = net(x)
+            loss = ssd_loss(nd, cls, loc, anchors, y,
+                            mining_thresh=cfg["negative_mining_thresh"],
+                            variances=cfg["variances"], target_scope=scope,
+                            targets=targets)
+        loss.backward()
+        trainer.step(1)
+        return loss
+
+    # the loss on one fixed batch over the first steps from Xavier: its
+    # targets (the matching and the mined negatives) taken once, at the
+    # first step, so that every step's loss is of one objective; the
+    # mined set otherwise moves from step to step with the predictions
+    with autograd.pause(train_mode=True):
+        cls, _, anchors = net(train[0][0])
+        fixed_targets = ssd_targets(nd, nd.softmax(cls, axis=1), anchors,
+                                    train[0][1],
+                                    cfg["negative_mining_thresh"],
+                                    cfg["variances"])
+    if anchors.shape != (1, SSD_ANCHORS, 4):
+        raise RuntimeError("ssd: %s anchors, want (1, %d, 4)"
+                           % (anchors.shape, SSD_ANCHORS))
+    fixed = [float(step(train[0], targets=fixed_targets).asnumpy())
+             for _ in range(cfg["fixed_steps"])]
+    for k in range(cfg["warmup"]):
+        step(train[k % len(train)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for batch in train:
+        step(batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / len(train)
+    peak = torch.cuda.max_memory_allocated()
+    cycle = iter(range(10 ** 6))
+    trace = _ssd_profile(
+        lambda: step(train[next(cycle) % len(train)],
+                     lambda: torch.profiler.record_function(
+                         "MultiBoxTarget")),
+        cfg["trace_steps"], "MultiBoxTarget")
+
+    # detection on the held-out images
+    x, y = feed["held_out"][0]
+    with autograd.pause():
+        cls, loc, anchors = net(x)
+        prob = nd.softmax(cls, axis=1)
+    det_kw = dict(cfg["detection"])
+    launches0 = contrib.nms_keep.launches
+    dets = nd.contrib.MultiBoxDetection(prob, loc, anchors, **det_kw)
+    det_launches = contrib.nms_keep.launches - launches0
+    _, VOC07MApMetric = map_metrics()
+    metric = VOC07MApMetric(iou_thresh=0.5)
+    metric.update([y], [dets])
+    kept = int((dets.asnumpy()[..., 0] >= 0).sum())
+
+    # (b) the example's SSDNet through its learning check
+    t_b = time.perf_counter()
+    history = example_train(mx, ctx)
+    bars = example_bars(history)
+    b_wall = time.perf_counter() - t_b
+    counts = _kernel_counts()
+    routes = dict(contrib.nms_keep.calls)
+
+    # timings and the kernel against its plain version, uncounted
+    det_ms = time_ms(lambda: nd.contrib.MultiBoxDetection(
+        prob, loc, anchors, **det_kw).wait_to_read(), iters=5, warmup=1)
+    rows = contrib.detection_rows(prob._data, loc._data, anchors._data,
+                                  threshold=det_kw["threshold"])
+    kernel_row = _nms_row(rows, dict(overlap_thresh=det_kw["nms_threshold"],
+                                     topk=det_kw["nms_topk"]))
+    target_ms = time_ms(lambda: nd.contrib.MultiBoxTarget(
+        anchors, y, prob, overlap_threshold=cfg["overlap_threshold"],
+        negative_mining_ratio=cfg["negative_mining_ratio"],
+        negative_mining_thresh=cfg["negative_mining_thresh"],
+        variances=cfg["variances"])[2].wait_to_read(), iters=5, warmup=1)
+
+    b = cfg["batch"]
+    row = {"phase": "ssd", "config": dict(
+               cfg, layout={k: [list(v) if isinstance(v, tuple) else v
+                                for v in vals] if isinstance(vals, tuple)
+                            else vals for k, vals in SSD_LAYOUT.items()},
+               anchors=SSD_ANCHORS, backbone="resnet50_v1"),
+           "a_ssd512": {
+               "images_per_s": b / step_ms * 1e3, "step_ms": step_ms,
+               "iter_ips": {"train": feed["train_iter_ips"],
+                            "held_out": feed["held_out_iter_ips"]},
+               "peak_mem_bytes": peak, "trace": trace,
+               "fixed_batch_loss": fixed,
+               "multibox_target_ms": target_ms,
+               "detection": {"shape": [b, SSD_ANCHORS], "ms": det_ms,
+                             "rows_kept": kept, "nms_launches": det_launches,
+                             "voc07_map": metric.get()[1]},
+               "nms_routes": routes},
+           "b_example": {"history": history, "bars": bars,
+                         "wall_s": b_wall},
+           "kernel_launches": counts,
+           "box_nms_kernel": kernel_row,
+           "wall_s": time.perf_counter() - t_phase}
+    emit(row)
+    bad = []
+    if not fixed[-1] < fixed[0]:
+        bad.append("the fixed batch's loss did not fall: %r" % fixed)
+    if not all(np.isfinite(fixed)):
+        bad.append("a loss is not finite")
+    if not all(bars.values()):
+        bad.append("the example's bars: %r, history %r" % (bars, history))
+    if counts["box_nms"] < 1 or det_launches < 1 or routes["plain"]:
+        bad.append("NMS routes %r, kernel launches %d" % (routes,
+                                                          counts["box_nms"]))
+    if kernel_row["mismatches"]:
+        bad.append("the NMS kernel's keep mask differs from the plain "
+                   "version's in %d places" % kernel_row["mismatches"])
+    if bad:
+        raise RuntimeError("ssd: %s" % "; ".join(bad))
+    return row
+
+
+# -- ssd_numerics ------------------------------------------------------------
+class DetCase(NamedTuple):
+    """One case of the detection tier's checks: the op, its input makers
+    (numpy RandomState -> array), params, the inputs whose gradient is
+    compared, and the outputs (k) or their last-axis columns ((k, col))
+    held equal."""
+    op: str
+    inputs: list
+    params: dict = {}
+    diff: tuple = ()
+    exact: tuple = ()
+
+
+def _u(*shape, lo=-2.0, hi=2.0):
+    return lambda r: r.uniform(lo, hi, shape)
+
+
+def det_boxes(*lead, lo=0.0, hi=1.0, min_wh=0.05, max_wh=0.5):
+    """Corner boxes (..., 4) inside [lo, hi]."""
+    def make(r):
+        wh = r.uniform(min_wh, max_wh, lead + (2,)) * (hi - lo)
+        tl = lo + r.uniform(0, 1, lead + (2,)) * (hi - lo - wh)
+        return np.concatenate([tl, tl + wh], axis=-1)
+    return make
+
+
+def nms_rows(B, N, classes=3, ties=True):
+    """(B, N, 6) rows [id, score, x1, y1, x2, y2] clustered so that
+    boxes overlap, with repeated scores (ties) and some below 0."""
+    def make(r):
+        centres = r.uniform(0.2, 0.8, (B, 4, 2))
+        pick = r.randint(0, 4, (B, N))
+        c = np.take_along_axis(centres, pick[..., None], axis=1) + \
+            r.normal(0, 0.04, (B, N, 2))
+        wh = r.uniform(0.1, 0.3, (B, N, 2))
+        score = r.uniform(-0.2, 1.0, (B, N))
+        if ties:
+            score[:, ::3] = score[:, :1]
+            score[:, 1::5] = 0.5
+        ids = r.randint(0, classes, (B, N)).astype(np.float64)
+        return np.concatenate([ids[..., None], score[..., None],
+                               c - wh / 2, c + wh / 2], axis=-1)
+    return make
+
+
+def softmax_probs(B, C, N, ties=True):
+    """(B, C, N) class probabilities, every 4th anchor's the same."""
+    def make(r):
+        x = r.normal(0, 1.5, (B, C, N))
+        if ties:
+            x[:, :, ::4] = x[:, :, :1]
+        e = np.exp(x - x.max(1, keepdims=True))
+        return e / e.sum(1, keepdims=True)
+    return make
+
+
+def priors(h, w, sizes=(0.2, 0.35), ratios=(1.0, 2.0)):
+    """The (1, h*w*A, 4) anchors of an (h, w) map (the port's
+    MultiBoxPrior on the CPU, float64)."""
+    def make(r):
+        from mxnet_tpu_torch.ops import registry
+
+        return registry.get("MultiBoxPrior").fn(
+            torch.zeros((1, 1, h, w), dtype=torch.float64), sizes=sizes,
+            ratios=ratios).numpy()
+    return make
+
+
+def det_labels(B, O, classes=3):
+    """(B, O, 5) gt rows [cls, x1, y1, x2, y2], -1 padded, at least one
+    object an image."""
+    def make(r):
+        lab = np.full((B, O, 5), -1.0)
+        for b in range(B):
+            for o in range(r.randint(1, O + 1)):
+                lab[b, o, 0] = r.randint(0, classes)
+                lab[b, o, 1:] = det_boxes(min_wh=0.15, max_wh=0.6)(r)
+        return lab
+    return make
+
+
+def det_rois(R, B, size, scale=1.0):
+    """(R, 5) rois [batch, x1, y1, x2, y2] in image coordinates, every
+    other one's corners on halves (round half to even)."""
+    def make(r):
+        b = r.randint(0, B, (R, 1)).astype(np.float64)
+        bx = det_boxes(R, lo=0.0, hi=size / scale - 1, min_wh=0.2,
+                       max_wh=0.8)(r)
+        bx[::2] = np.round(bx[::2] * 2) / 2
+        return np.concatenate([b, bx], axis=1)
+    return make
+
+
+def _const(a):
+    return lambda r: np.asarray(a, np.float64)
+
+
+def ctc_labels(B, L, A, blank_last=False):
+    def make(r):
+        lab = np.full((B, L), -1.0 if blank_last else 0.0)
+        lo, hi = (0, A - 1) if blank_last else (1, A)
+        for b in range(B):
+            n = r.randint(1, L + 1)
+            lab[b, :n] = r.randint(lo, hi, n)
+        return lab
+    return make
+
+
+C = DetCase
+#: every op of the detection tier, each name at least once (the tests
+#: hold the port to the JAX package on them; ``ssd_numerics`` holds the
+#: card to the CPU)
+DET_CASES = [
+    # box ops
+    C("_contrib_box_iou", [det_boxes(3, 2), det_boxes(4)]),
+    C("box_iou", [det_boxes(2, 4), det_boxes(3)], dict(format="center")),
+    C("_contrib_box_nms", [nms_rows(3, 40)],
+      dict(overlap_thresh=0.45, id_index=0), exact=(0,)),
+    C("box_nms", [nms_rows(2, 30)],
+      dict(overlap_thresh=0.3, topk=12, valid_thresh=0.1), exact=(0,)),
+    C("box_nms", [nms_rows(1, 25)],
+      dict(overlap_thresh=0.5, id_index=0, force_suppress=True,
+           in_format="center"), exact=(0,)),
+    C("box_nms", [lambda r: nms_rows(1, 20)(r)[0]],
+      dict(overlap_thresh=0.5), exact=(0,)),
+    # SSD
+    C("_contrib_MultiBoxPrior", [_u(1, 3, 4, 5)],
+      dict(sizes=(0.3, 0.5), ratios=(1.0, 2.0, 0.5))),
+    C("MultiBoxPrior", [_u(2, 1, 3, 3)],
+      dict(sizes=(0.9,), ratios=(1.0, 3.0), clip=True, steps=(0.4, 0.3),
+           offsets=(0.2, 0.7))),
+    C("_contrib_MultiBoxTarget",
+      [priors(4, 4), det_labels(3, 3), softmax_probs(3, 4, 48)],
+      dict(overlap_threshold=0.5), exact=(1, 2)),
+    C("MultiBoxTarget",
+      [priors(4, 4), det_labels(4, 2), softmax_probs(4, 4, 48)],
+      dict(overlap_threshold=0.4, negative_mining_ratio=3.0,
+           negative_mining_thresh=0.3, minimum_negative_samples=2,
+           variances=(0.1, 0.1, 0.2, 0.2)), exact=(1, 2)),
+    C("MultiBoxTarget",
+      [priors(3, 3), det_labels(2, 3), softmax_probs(2, 3, 27)],
+      dict(negative_mining_ratio=1.0, negative_mining_thresh=0.2,
+           ignore_label=-2.0, variances=(0.2, 0.1, 0.3, 0.25)),
+      exact=(1, 2)),
+    C("_contrib_MultiBoxDetection",
+      [softmax_probs(2, 4, 48), _u(2, 192, lo=-0.5, hi=0.5), priors(4, 4)],
+      dict(threshold=0.2, nms_threshold=0.45), exact=((0, 0),)),
+    C("MultiBoxDetection",
+      [softmax_probs(3, 3, 27), _u(3, 108, lo=-0.5, hi=0.5), priors(3, 3)],
+      dict(threshold=0.01, nms_threshold=0.3, nms_topk=10, clip=False,
+           force_suppress=True), exact=((0, 0),)),
+    C("MultiBoxDetection",
+      [softmax_probs(1, 4, 48), _u(1, 192, lo=-0.5, hi=0.5), priors(4, 4)],
+      dict(background_id=1, variances=(0.2, 0.2, 0.1, 0.1)),
+      exact=((0, 0),)),
+    # the RPN
+    C("_contrib_Proposal",
+      [lambda r: r.rand(1, 24, 4, 4), _u(1, 48, 4, 4, lo=-0.1, hi=0.1),
+       _const([[64, 64, 1.0]])],
+      dict(rpn_pre_nms_top_n=50, rpn_post_nms_top_n=10, rpn_min_size=1),
+      exact=((0, 0),)),
+    C("Proposal",
+      [lambda r: r.rand(1, 6, 5, 4), _u(1, 12, 5, 4, lo=-0.3, hi=0.3),
+       _const([[40, 32, 1.5]])],
+      dict(rpn_pre_nms_top_n=40, rpn_post_nms_top_n=30, threshold=0.5,
+           rpn_min_size=4, scales=(2.0, 4.0, 8.0), ratios=(1.0,),
+           feature_stride=8, output_score=True), exact=((0, 0),)),
+    C("Proposal",
+      [lambda r: r.rand(1, 6, 3, 3), _u(1, 12, 3, 3), _const([[48, 48, 1.0]])],
+      dict(rpn_pre_nms_top_n=-1, rpn_post_nms_top_n=8, rpn_min_size=1,
+           scales=(2.0, 4.0, 8.0), ratios=(1.0,), feature_stride=8,
+           iou_loss=True), exact=((0, 0),)),
+    C("_contrib_MultiProposal",
+      [lambda r: r.rand(2, 24, 3, 3), _u(2, 48, 3, 3, lo=-0.1, hi=0.1),
+       _const([[48, 48, 1.0], [40, 44, 1.0]])],
+      dict(rpn_pre_nms_top_n=30, rpn_post_nms_top_n=5, rpn_min_size=1,
+           output_score=True), exact=((0, 0),)),
+    # R-FCN, DCN
+    C("_contrib_PSROIPooling", [_u(2, 8, 9, 9), det_rois(5, 2, 9)],
+      dict(spatial_scale=1.0, output_dim=2, pooled_size=2), (0,)),
+    C("PSROIPooling", [_u(1, 18, 8, 10), det_rois(4, 1, 16, 0.5)],
+      dict(spatial_scale=0.5, output_dim=2, pooled_size=3, group_size=3),
+      (0,)),
+    C("_contrib_DeformableConvolution",
+      [_u(2, 4, 6, 6), _u(2, 18, 4, 4, lo=-1.3, hi=1.3), _u(6, 4, 3, 3),
+       _u(6)], dict(kernel=(3, 3), num_filter=6), (0, 1, 2, 3)),
+    C("DeformableConvolution",
+      [_u(1, 4, 7, 6), _u(1, 36, 4, 3, lo=-2.5, hi=2.5), _u(4, 2, 3, 3)],
+      dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), num_filter=4,
+           num_group=2, num_deformable_group=2, no_bias=True), (0, 1, 2)),
+    C("_contrib_DeformablePSROIPooling",
+      [_u(2, 8, 8, 8), det_rois(3, 2, 8), _u(3, 2, 2, 2, lo=-1, hi=1)],
+      dict(spatial_scale=1.0, output_dim=2, group_size=2, pooled_size=2,
+           sample_per_part=2, trans_std=0.1), (0, 2)),
+    C("DeformablePSROIPooling",
+      [_u(1, 8, 7, 7), det_rois(2, 1, 7), _u(2, 4, 1, 1, lo=-1, hi=1)],
+      dict(spatial_scale=1.0, output_dim=2, group_size=2, pooled_size=2,
+           part_size=1, sample_per_part=1, trans_std=0.2), (0, 2)),
+    C("DeformablePSROIPooling", [_u(1, 4, 6, 6), det_rois(2, 1, 6)],
+      dict(spatial_scale=1.0, output_dim=1, group_size=2, pooled_size=2,
+           sample_per_part=2, no_trans=True), (0,)),
+    # CTC
+    C("_contrib_CTCLoss", [_u(6, 3, 5), ctc_labels(3, 3, 5)], {}, (0,)),
+    C("ctc_loss",
+      [_u(7, 2, 4), ctc_labels(2, 3, 4), _const([7, 5]), _const([3, 1])],
+      dict(use_data_lengths=True, use_label_lengths=True), (0,)),
+    C("CTCLoss", [_u(5, 2, 4), ctc_labels(2, 2, 4, blank_last=True)],
+      dict(blank_label="last"), (0,)),
+    # FFT
+    C("_contrib_fft", [_u(3, 8)], {}, (0,)),
+    C("fft", [_u(2, 3, 6)], dict(compute_size=64), (0,)),
+    C("_contrib_ifft", [_u(3, 16)], {}, (0,)),
+    C("ifft", [_u(2, 10)], {}, (0,)),
+    # quantisation, count sketch
+    C("_contrib_quantize",
+      [_u(3, 5, lo=-1, hi=3), _const([-1.0]), _const([3.0])], exact=(0,)),
+    C("quantize", [_u(4, 4), _const([-2.0]), _const([2.0])],
+      dict(out_type="int8"), exact=(0,)),
+    C("_contrib_dequantize",
+      [lambda r: r.randint(0, 256, (3, 4)).astype(np.uint8),
+       _const([-1.0]), _const([3.0])]),
+    C("dequantize",
+      [lambda r: r.randint(-127, 128, (3, 4)).astype(np.int8),
+       _const([-2.0]), _const([2.0])]),
+    C("_contrib_count_sketch",
+      [_u(4, 6), lambda r: r.randint(0, 3, 6).astype(np.float64),
+       lambda r: r.choice([-1.0, 1.0], 6)], dict(out_dim=3)),
+    C("count_sketch",
+      [_u(2, 5), lambda r: r.randint(0, 4, (1, 7)).astype(np.float64),
+       lambda r: r.choice([-1.0, 1.0], (1, 7))], dict(out_dim=4)),
+    # the spatial tail of ops/nn.py
+    C("UpSampling", [_u(2, 3, 3, 4)],
+      dict(scale=2, sample_type="nearest", num_args=1), (0,)),
+    C("UpSampling", [_u(1, 2, 4, 4), _u(1, 3, 2, 2)],
+      dict(scale=2, sample_type="nearest", num_args=2,
+           multi_input_mode="concat"), (0, 1)),
+    C("UpSampling", [_u(2, 2, 3, 5)],
+      dict(scale=2, sample_type="bilinear", num_args=1), (0,)),
+    C("UpSampling", [_u(1, 2, 4, 3)],
+      dict(scale=3, sample_type="bilinear", num_args=1), (0,)),
+    C("BilinearSampler", [_u(2, 3, 5, 6), _u(2, 2, 4, 3, lo=-1.2, hi=1.2)],
+      {}, (0, 1)),
+    C("GridGenerator", [_u(2, 6)],
+      dict(transform_type="affine", target_shape=(4, 5)), (0,)),
+    C("GridGenerator", [_u(2, 2, 3, 4)],
+      dict(transform_type="warp", target_shape=(3, 4)), (0,)),
+    C("SpatialTransformer",
+      [_u(2, 3, 6, 5), lambda r: np.tile([0.9, 0.1, 0.05, -0.1, 0.8, -0.05],
+                                         (2, 1)) + r.uniform(-0.1, 0.1,
+                                                             (2, 6))],
+      dict(target_shape=(4, 4)), (0, 1)),
+    C("ROIPooling", [_u(2, 3, 8, 9), det_rois(6, 2, 8)],
+      dict(pooled_size=(2, 3), spatial_scale=1.0), (0,)),
+    C("ROIPooling", [_u(1, 2, 10, 10), det_rois(4, 1, 20, 0.5)],
+      dict(pooled_size=(3, 3), spatial_scale=0.5), (0,)),
+    C("Crop", [_u(2, 3, 7, 8)], dict(offset=(1, 2), h_w=(4, 5)), (0,)),
+    C("Crop", [_u(1, 2, 7, 8), _u(1, 1, 4, 4)],
+      dict(num_args=2, center_crop=True), (0,)),
+    C("CuDNNBatchNorm",
+      [_u(4, 3, 2, 2), _u(3, lo=0.5, hi=2), _u(3), _u(3), _u(3, lo=0.5, hi=2)],
+      dict(fix_gamma=False, eps=1e-3, _training=True), (0, 1, 2)),
+    # bipartite matching: ties, thresholds, ascending, topk
+    C("_contrib_bipartite_matching",
+      [lambda r: np.round(r.uniform(0, 1, (2, 5, 4)), 1)],
+      dict(threshold=0.2), exact=(0, 1)),
+    C("bipartite_matching", [_u(6, 3, lo=0, hi=1)],
+      dict(is_ascend=True, threshold=0.8, topk=1), exact=(0, 1)),
+    C("bipartite_matching", [_u(3, 7, lo=0, hi=1)], {}, exact=(0, 1)),
+]
+del C
+
+
+def det_case_id(case):
+    return case.op + "-" + "-".join("%s=%s" % kv for kv in
+                                    sorted(case.params.items()))[:70]
+
+
+def det_case_inputs(case, dtype=np.float64, seed=0):
+    """The case's inputs (float ones cast to ``dtype``) and the numpy
+    RandomState that made them, for the cotangent next."""
+    rng = np.random.RandomState(seed)
+    ins = []
+    for f in case.inputs:
+        a = np.asarray(f(rng))
+        ins.append(a.astype(dtype) if a.dtype.kind == "f" else a)
+    return ins, rng
+
+
+def det_case_err(got, want, case, k):
+    """The error of output ``k`` against ``want`` as the case holds it:
+    for an exact output (or column) the count of unequal entries,
+    otherwise the largest difference over the largest magnitude (at
+    least 1)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        return float("inf")
+    if k in case.exact:
+        return float((got != want).sum())
+    cols = [e[1] for e in case.exact if isinstance(e, tuple) and e[0] == k]
+    if cols and (got[..., cols] != want[..., cols]).any():
+        return float("inf")
+    if not want.size:
+        return 0.0
+    return float(np.abs(got - want).max()) / max(float(np.abs(want).max()),
+                                                 1.0)
+
+
+def run_det_case(case, device, ins, cot_rng=None):
+    """The port's op of ``case`` on ``device``: its outputs, and with
+    ``cot_rng`` the gradients of output 0 under a seeded cotangent with
+    respect to the case's ``diff`` inputs (as numpy)."""
+    from mxnet_tpu_torch.ops import registry
+
+    fn = registry.get(case.op).bound(**case.params)
+    tins = [torch.tensor(a, device=device,
+                         requires_grad=i in case.diff and cot_rng is not None)
+            for i, a in enumerate(ins)]
+    outs = fn(*tins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    grads = []
+    if cot_rng is not None and case.diff:
+        cot = cot_rng.standard_normal(tuple(outs[0].shape))
+        gs = torch.autograd.grad(outs[0], [tins[i] for i in case.diff],
+                                 torch.tensor(cot, dtype=outs[0].dtype,
+                                              device=device),
+                                 allow_unused=True)
+        grads = [np.zeros(ins[i].shape) if g is None else
+                 g.detach().cpu().numpy() for i, g in zip(case.diff, gs)]
+    return [o.detach().cpu().numpy() for o in outs], grads
+
+
+def _det_card_vs_cpu():
+    """Every detection case in float64 on the card against the CPU:
+    the worst error a name, forward and gradient."""
+    worst = {}
+    for case in DET_CASES:
+        ins, rng = det_case_inputs(case)
+        state = rng.get_state()
+        cpu, cpu_g = run_det_case(case, "cpu", ins, rng)
+        rng.set_state(state)
+        card, card_g = run_det_case(case, "cuda", ins, rng)
+        tol = SSD_FFT_TOL if case.op.endswith("fft") else SSD_NUM_TOL
+        errs = [det_case_err(c, w, case, k)
+                for k, (c, w) in enumerate(zip(card, cpu))]
+        errs += [det_case_err(c, w, DetCase(case.op, ()), -1)
+                 for c, w in zip(card_g, cpu_g)]
+        err = max(errs)
+        prev = worst.get(case.op, (0.0, tol))
+        worst[case.op] = (max(prev[0], err), tol)
+    return worst
+
+
+def ssd512_priors(device="cpu"):
+    """The SSD-512 layout's (1, 6132, 4) float64 priors on ``device``."""
+    from mxnet_tpu_torch.ops import registry
+
+    fn = registry.get("MultiBoxPrior").fn
+    return torch.cat([
+        fn(torch.zeros((1, 1, m, m), dtype=torch.float64, device=device),
+           sizes=s, ratios=r)
+        for m, s, r in zip(SSD_MAPS, SSD_LAYOUT["sizes"],
+                           SSD_LAYOUT["ratios"])], dim=1)
+
+
+def _nms_full_rows(seed=21):
+    """(32, 6132) float64 detection rows at the SSD-512 layout: its
+    priors decoded from seeded offsets, 21-way softmax scores
+    (MultiBoxDetection's rows before its NMS, on the CPU)."""
+    from mxnet_tpu_torch.ops import contrib
+
+    rng = np.random.RandomState(seed)
+    anchors = ssd512_priors()
+    B, N = SSD["batch"], anchors.shape[1]
+    prob = torch.tensor(softmax_probs(B, SSD["classes"] + 1, N)(rng))
+    loc = torch.tensor(rng.normal(0, 0.5, (B, N * 4)))
+    return contrib.detection_rows(prob, loc, anchors,
+                                  threshold=SSD["detection"]["threshold"])
+
+
+def _mini_rcnn_step(mx, ctx, seed=0):
+    """One float64 step of ``examples/rcnn/mini_rcnn.py``'s network
+    (conv features, RPN, MultiProposal, ROIPooling, a head) on ``ctx``:
+    the loss and every parameter's gradient."""
+    from mxnet_tpu_torch import autograd, gluon
+
+    nd = mx.nd
+    np.random.seed(seed)
+    mx.random.seed(seed)
+    net = mini_rcnn_net(mx)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    with autograd.pause():
+        net(nd.zeros((2, 3, MINI_RCNN["image"], MINI_RCNN["image"]), ctx=ctx))
+    net.cast("float64")
+    rng = np.random.RandomState(seed)
+    imgs, boxes, cls = mini_rcnn_batch(rng, 4)
+    x = nd.array(imgs, ctx=ctx, dtype="float64")
+    y = nd.array(cls.astype(np.float64), ctx=ctx, dtype="float64")
+    ce = gluon.loss.SoftmaxCrossEntropyLoss(axis=1)
+    with autograd.record():
+        score, delta, rois, logits = net(x)
+        loss = (-(nd.log_softmax(score.reshape((4, 2, -1)), axis=1)[:, 1, :])
+                .mean() + ce(logits, y).mean() + (delta ** 2).mean())
+    loss.backward()
+    grads = {i: p.grad().asnumpy() for i, p in
+             enumerate(net.collect_params().values())}
+    return float(loss.asnumpy()), grads, rois.asnumpy()
+
+
+MINI_RCNN = dict(image=64, stride=8, scales=(2.0, 4.0, 8.0), ratios=(1.0,))
+
+
+def mini_rcnn_batch(rng, n):
+    """``mini_rcnn.make_batch``: one bright rectangle an image, its
+    colour the class."""
+    size = MINI_RCNN["image"]
+    imgs = np.zeros((n, 3, size, size), np.float32)
+    boxes = np.zeros((n, 4), np.float32)
+    cls = rng.randint(0, 3, n)
+    for i in range(n):
+        w, h = rng.randint(16, 33, 2)
+        x0 = rng.randint(0, size - w)
+        y0 = rng.randint(0, size - h)
+        imgs[i, cls[i], y0:y0 + h, x0:x0 + w] = 1.0
+        boxes[i] = (x0, y0, x0 + w, y0 + h)
+    return imgs, boxes, cls
+
+
+def mini_rcnn_net(pkg):
+    """``examples/rcnn/mini_rcnn.py``'s ``MiniRCNN`` on either package:
+    three strided convs, the RPN's score and box convs, MultiProposal
+    (8 rois an image), ROIPooling to 4x4, a Dense head averaged over
+    each image's rois."""
+    gluon, nd = pkg.gluon, pkg.nd
+    cfg = MINI_RCNN
+    n_anchor = len(cfg["scales"]) * len(cfg["ratios"])
+
+    class MiniRCNN(gluon.Block):
+        def __init__(self):
+            super().__init__()
+            self.backbone = gluon.nn.Sequential()
+            for c in (16, 32, 64):
+                self.backbone.add(gluon.nn.Conv2D(c, 3, strides=2, padding=1,
+                                                  activation="relu"))
+            self.rpn_cls = gluon.nn.Conv2D(2 * n_anchor, 1)
+            self.rpn_reg = gluon.nn.Conv2D(4 * n_anchor, 1)
+            self.head = gluon.nn.Sequential()
+            self.head.add(gluon.nn.Flatten(),
+                          gluon.nn.Dense(32, activation="relu"),
+                          gluon.nn.Dense(3))
+
+        def forward(self, x):
+            feat = self.backbone(x)
+            rpn_score = self.rpn_cls(feat)
+            rpn_delta = self.rpn_reg(feat)
+            n, _, fh, fw = rpn_score.shape
+            probs = nd.softmax(rpn_score.reshape((n, 2, -1)), axis=1)
+            probs = probs.reshape((n, 2 * n_anchor, fh, fw))
+            info = nd.array([[cfg["image"], cfg["image"], 1.0]] * n,
+                            ctx=x.context, dtype=x.dtype)
+            rois = nd.contrib.MultiProposal(
+                probs, rpn_delta, info, feature_stride=cfg["stride"],
+                scales=cfg["scales"], ratios=cfg["ratios"],
+                rpn_pre_nms_top_n=64, rpn_post_nms_top_n=8, threshold=0.7,
+                rpn_min_size=4)
+            pooled = nd.ROIPooling(feat, rois, pooled_size=(4, 4),
+                                   spatial_scale=1.0 / cfg["stride"])
+            logits = self.head(pooled).reshape((n, -1, 3)).mean(axis=1)
+            return rpn_score, rpn_delta, rois, logits
+
+    return MiniRCNN()
+
+
+DET_FAULTS = ("prior_half_cell", "nms_ignore_ids",
+              "encode_variances_swapped")
+
+
+class _IdsDropped:
+    """The NMS kernel's library with the class ids withheld from it."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def mxt_box_nms_keep(self, dtype, boxes, ids, *rest):
+        return self.lib.mxt_box_nms_keep(dtype, boxes, None, *rest)
+
+
+@contextlib.contextmanager
+def planted_det_fault(*faults):
+    """Plant faults of DET_FAULTS on the card path (CUDA tensors only)
+    for the body of the ``with``: ``prior_half_cell`` moves
+    MultiBoxPrior's centres half a cell, ``nms_ignore_ids`` lets the NMS
+    kernel suppress across classes, ``encode_variances_swapped`` swaps
+    MultiBoxTarget's x/y and w/h variances."""
+    from mxnet_tpu_torch.ops import contrib, registry
+
+    saved = []
+
+    def patch(obj, attr, new):
+        saved.append((obj, attr, getattr(obj, attr)))
+        setattr(obj, attr, new)
+
+    if "prior_half_cell" in faults:
+        op = registry.get("MultiBoxPrior")
+        prior = op.fn
+
+        def shifted(data, *args, offsets=(0.5, 0.5), **kw):
+            if data.is_cuda:
+                offsets = (offsets[0] + 0.5, offsets[1] + 0.5)
+            return prior(data, *args, offsets=offsets, **kw)
+        patch(op, "fn", shifted)
+    if "nms_ignore_ids" in faults:
+        lib = contrib._nms_lib
+        patch(contrib, "_nms_lib", lambda: _IdsDropped(lib()))
+    if "encode_variances_swapped" in faults:
+        encode = contrib._encode_box
+
+        def swapped(gt, anchor, variances):
+            if anchor.is_cuda:
+                variances = tuple(variances[2:]) + tuple(variances[:2])
+            return encode(gt, anchor, variances)
+        patch(contrib, "_encode_box", swapped)
+    try:
+        yield
+    finally:
+        for obj, attr, old in reversed(saved):
+            setattr(obj, attr, old)
+
+
+def phase_ssd_numerics():
+    """The detection tier in float64 on the card against the CPU: every
+    op of DET_CASES forward and backward, box_nms at (32, 6132), one
+    mini R-CNN step, and three planted faults the checks must read."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry
+
+    t0 = time.perf_counter()
+    _reset_kernel_counts()
+    worst = _det_card_vs_cpu()
+    bad = ["%s: %.3g > %g" % (n, e, tol) for n, (e, tol) in worst.items()
+           if not e <= tol]
+
+    # box_nms at the SSD-512 detection's full size, classes apart
+    rows = _nms_full_rows()
+    nms = registry.get("box_nms").fn
+    kw = dict(overlap_thresh=SSD["detection"]["nms_threshold"], id_index=0)
+    card_rows = nms(rows.cuda(), **kw).cpu()
+    cpu_rows = nms(rows, **kw)
+    nms_mismatch = int((card_rows[..., 0] != cpu_rows[..., 0]).sum())
+    nms_err = float((card_rows - cpu_rows).abs().max())
+    full_row = _nms_row(rows.cuda(), dict(kw, topk=-1))
+    if nms_mismatch or nms_err or full_row["mismatches"]:
+        bad.append("box_nms at %s: %d keep mismatches card vs CPU, %d "
+                   "kernel vs plain, error %g" % (list(rows.shape[:2]),
+                                                  nms_mismatch,
+                                                  full_row["mismatches"],
+                                                  nms_err))
+
+    # one mini R-CNN step (MultiProposal -> ROIPooling)
+    c_loss, c_grads, c_rois = _mini_rcnn_step(mx, mx.cpu())
+    g_loss, g_grads, g_rois = _mini_rcnn_step(mx, mx.gpu(0))
+    rcnn_err = max([abs(g_loss - c_loss) / max(abs(c_loss), 1.0),
+                    float(np.abs(g_rois - c_rois).max()) / 64.0]
+                   + [float(np.abs(g_grads[k] - c_grads[k]).max())
+                      / max(float(np.abs(c_grads[k]).max()), 1.0)
+                      for k in c_grads])
+    if not rcnn_err <= SSD_NUM_TOL:
+        bad.append("mini R-CNN step: %.3g" % rcnn_err)
+
+    # planted faults: each check must read its fault
+    faults = {}
+    for fault in DET_FAULTS:
+        with planted_det_fault(fault):
+            if fault == "prior_half_cell":
+                faults[fault] = float((ssd512_priors("cuda").cpu()
+                                       - ssd512_priors()).abs().max())
+            elif fault == "nms_ignore_ids":
+                faults[fault] = float((nms(rows.cuda(), **kw).cpu()[..., 0]
+                                       != cpu_rows[..., 0]).sum())
+            else:
+                case = next(c for c in DET_CASES
+                            if c.op == "_contrib_MultiBoxTarget")
+                ins, _ = det_case_inputs(case)
+                cpu, _ = run_det_case(case, "cpu", ins)
+                card, _ = run_det_case(case, "cuda", ins)
+                faults[fault] = det_case_err(card[0], cpu[0], case, 0)
+    clean_prior = float((ssd512_priors("cuda").cpu()
+                         - ssd512_priors()).abs().max())
+    missed = [f for f, e in faults.items() if not e > SSD_NUM_TOL]
+    if missed or clean_prior:
+        bad.append("planted faults not read: %r (clean priors %g)"
+                   % (missed, clean_prior))
+    counts = _kernel_counts()
+    row = {"phase": "ssd_numerics", "dtype": "float64",
+           "ops": {k: v[0] for k, v in worst.items()},
+           "cases": len(DET_CASES),
+           "box_nms_full": {"shape": list(rows.shape[:2]),
+                            "keep_mismatches_card_vs_cpu": nms_mismatch,
+                            "err": nms_err, "kernel": full_row},
+           "mini_rcnn_err": rcnn_err, "faults": faults,
+           "kernel_launches": counts,
+           "wall_s": time.perf_counter() - t0}
+    emit(row)
+    if bad:
+        raise RuntimeError("ssd_numerics: %s" % "; ".join(bad))
+    return row
+
+
 #: wall seconds of each phase of this run, from its call to its return
 PHASE_S = {}
 
@@ -8458,6 +9822,10 @@ def main() -> int:
     rnn_num = phase_rnn_numerics()
     rnn_counts = {"rnn": rnn["kernel_launches"],
                   "rnn_numerics": rnn_num["kernel_launches"]}
+    ssd = phase_ssd()
+    ssd_num = phase_ssd_numerics()
+    det_counts = {"ssd": ssd["kernel_launches"],
+                  "ssd_numerics": ssd_num["kernel_launches"]}
     obs_counts = {"profiler": prof["kernel_launches"],
                   "traceview_train_lm": tv["train_lm"]["kernel_launches"],
                   "traceview_serve": tv["serve"]["kernel_launches"],
@@ -8481,6 +9849,7 @@ def main() -> int:
     inp_counts = inp["kernel_launches"]
     main_row, bwd_row = rows[0], bwd_rows[0]
     add_row = next(r for r in add_rows if "kernel_ms" in r)
+    nms_row = ssd["box_nms_kernel"]
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "kernel_route": main_row["route"],
@@ -8517,7 +9886,9 @@ def main() -> int:
                              **{k: v["flash_attention_fwd"]
                                 for k, v in obs_counts.items()},
                              **{k: v["flash_attention_fwd"]
-                                for k, v in rnn_counts.items()}},
+                                for k, v in rnn_counts.items()},
+                             **{k: v["flash_attention_fwd"]
+                                for k, v in det_counts.items()}},
         "max_abs_err": max(r["max_err"] for r in rows),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -8569,7 +9940,9 @@ def main() -> int:
                              **{k: v["flash_attention_bwd"]
                                 for k, v in obs_counts.items()},
                              **{k: v["flash_attention_bwd"]
-                                for k, v in rnn_counts.items()}},
+                                for k, v in rnn_counts.items()},
+                             **{k: v["flash_attention_bwd"]
+                                for k, v in det_counts.items()}},
         "max_abs_err": max(r["max_err"] for r in bwd_rows),
         "ms": bwd_row["kernel_ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
@@ -8598,20 +9971,62 @@ def main() -> int:
                              **{k: v["rtc_add"]
                                 for k, v in obs_counts.items()},
                              **{k: v["rtc_add"]
-                                for k, v in rnn_counts.items()}},
+                                for k, v in rnn_counts.items()},
+                             **{k: v["rtc_add"]
+                                for k, v in det_counts.items()}},
         "max_abs_err": max(r["max_err"] for r in add_rows),
         "ms": add_row["kernel_ms"], "plain_ms": add_row["plain_ms"],
         "bound_ms": add_row["bound_ms"], "bound_by": add_row["bound_by"],
         "library_ms": add_row["library_ms"],
         "single_call_ms": add_row["single_call_ms"],
         "shape": add_row["shape"], "dtype": add_row["dtype"],
+    }, {
+        "name": "box_nms", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/box_nms.cu",
+        # not a Pallas kernel: the fori_loop of greedy NMS the JAX
+        # package keeps on the chip (MultiBoxDetection, the RPN)
+        "replaces": "mxnet_tpu/ops/contrib.py:41",
+        "launches": ssd["kernel_launches"]["box_nms"],
+        "launches_by_path": {"train_lm": lm["kernel_launches"]["box_nms"],
+                             "fit": fit["kernel_launches"]["box_nms"],
+                             "dp": dp_counts["box_nms"],
+                             "train_lm_dp": lm_dp_counts["box_nms"],
+                             "train_lm_dp_numerics": lm_dp_num[
+                                 "kernel_launches"]["box_nms"],
+                             # (train_lm_sp's per-step counts hold the
+                             # flash kernels only)
+                             **{k: v["box_nms"]
+                                for k, v in sp_num_counts.items()},
+                             **{k: v["box_nms"]
+                                for k, v in memory_counts.items()},
+                             "input": inp_counts["box_nms"],
+                             "tp": tp_counts["box_nms"],
+                             "dist": dist_counts["box_nms"],
+                             **{k: v["box_nms"]
+                                for k, v in sparse_counts.items()},
+                             **{k: v["box_nms"]
+                                for k, v in obs_counts.items()},
+                             **{k: v["box_nms"]
+                                for k, v in rnn_counts.items()},
+                             **{k: v["box_nms"]
+                                for k, v in det_counts.items()}},
+        "max_abs_err": float(nms_row["mismatches"]),
+        "ms": nms_row["ms"], "plain_ms": nms_row["plain_ms"],
+        "bound_ms": nms_row["bound_ms"], "bound_by": nms_row["bound_by"],
+        "library_ms": nms_row["library_ms"],
+        "shape": nms_row["shape"], "dtype": nms_row["dtype"],
+        "full_size": {k: ssd_num["box_nms_full"]["kernel"][k]
+                      for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "mismatches")},
     }]
     wall = time.perf_counter() - t_start
     emit({"phase": "wall", "wall_s": wall,
           "observability_s": obs_s, "tuning_s": tuning["wall_s"]})
     rnn_s = PHASE_S["rnn"] + PHASE_S["rnn_numerics"]
+    ssd_s = PHASE_S["ssd"] + PHASE_S["ssd_numerics"]
     emit({"phase": "phase_seconds", "seconds": PHASE_S, "wall_s": wall,
           "rnn_phases_s": rnn_s, "rnn_phases_within_90_s": rnn_s <= 90.0,
+          "ssd_phases_s": ssd_s, "ssd_phases_within_60_s": ssd_s <= 60.0,
           "wall_within_850_s": wall <= 850.0})
     emit({"phase": "kernels",
           "kernels": {k["name"]: "checked" for k in kernels}})

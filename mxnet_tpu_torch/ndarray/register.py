@@ -3,8 +3,9 @@
 Counterpart: ``mxnet_tpu/ndarray/register.py``.  ``mx.nd.<op>`` is built
 from the Python op registry: one wrapper per op that binds tensor inputs
 (positional, or by keyword in the body's declared order), forwards the
-params and ``out=``/``ctx=`` to :func:`invoke`.  The ``contrib``
-sub-namespace waits for the first ``_contrib_`` op to be ported.
+params and ``out=``/``ctx=`` to :func:`invoke`.  ``mx.nd.contrib``
+holds every ``_contrib_X`` op as ``X`` and under its snake_case
+aliases (``box_nms``, ``ctc_loss``, ...).
 """
 from __future__ import annotations
 
@@ -54,3 +55,22 @@ def populate(module_dict: Dict[str, Any]) -> None:
     for name, op in list(_registry._REGISTRY.items()):
         if name not in module_dict:
             module_dict[name] = _make_wrapper(op)
+    _populate_contrib(module_dict, _make_wrapper)
+
+
+def _populate_contrib(module_dict: Dict[str, Any], make_wrapper) -> None:
+    """Expose the ``_contrib_X`` ops as a ``contrib`` sub-namespace
+    (ref: python/mxnet/ndarray/contrib.py's generated namespace)."""
+    import types
+
+    contrib = module_dict.get("contrib")
+    if contrib is None:
+        contrib = types.SimpleNamespace()
+        module_dict["contrib"] = contrib
+    for name, op in list(_registry._REGISTRY.items()):
+        if name.startswith("_contrib_"):
+            shorts = [name[len("_contrib_"):]]
+            shorts += [a for a in op.aliases if not a.startswith("_")]
+            for short in shorts:
+                if not hasattr(contrib, short):
+                    setattr(contrib, short, make_wrapper(op))

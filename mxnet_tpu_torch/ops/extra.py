@@ -1,13 +1,15 @@
 """The sparse ops of the reference's op tail: ``cast_storage``,
 ``row_sparse_embedding_grad``, ``_contrib_SparseEmbedding`` and
-``_sparse_retain``.
+``_sparse_retain``; and ``bipartite_matching``.
 
-Counterpart: ``mxnet_tpu/ops/extra.py`` (:289-367).  The rest of that
-module (SVMOutput, Correlation, the loss and alias tail) is queued
+Counterpart: ``mxnet_tpu/ops/extra.py`` (:158, :289-367).  The rest of
+that module (SVMOutput, Correlation, the loss and alias tail) is queued
 (ROADMAP A12).  The JAX package's ``custom_vjp`` is a
 ``torch.autograd.Function`` here.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -98,3 +100,45 @@ def _sparse_retain_op(data, indices, **_):
     mask = mask.reshape((-1,) + (1,) * (data.dim() - 1))
     return torch.where(mask, data, torch.zeros((), dtype=data.dtype,
                                                device=data.device))
+
+
+@register("_contrib_bipartite_matching", aliases=("bipartite_matching",),
+          nondiff=True, num_outputs=2)
+def _bipartite_matching(data, threshold=None, is_ascend=False, topk=-1,
+                        **_):
+    """Greedy bipartite matching on a (..., N, M) score matrix ->
+    (row->col (..., N), col->row (..., M)), -1 where unmatched (ref:
+    contrib/bounding_box.cc).  Each round takes the best pair left (the
+    first on ties) if it passes ``threshold``; scores compare in float32,
+    as the JAX package's.  ``topk`` > 0 stops after topk + 1 matches (the
+    reference's post-increment break)."""
+    if threshold is None:
+        threshold = -math.inf if not is_ascend else math.inf
+    squeeze = data.dim() == 2
+    if squeeze:
+        data = data[None]
+    B, N, M = data.shape
+    dev = data.device
+    work = (-data if is_ascend else data).to(torch.float32)
+    limit = -threshold if is_ascend else threshold
+    rounds = min(N, M) if topk <= 0 else min(topk + 1, N, M)
+    rm = torch.full((B, N), -1, dtype=torch.int64, device=dev)
+    cm = torch.full((B, M), -1, dtype=torch.int64, device=dev)
+    rows = torch.arange(N, device=dev)
+    cols = torch.arange(M, device=dev)
+    bidx = torch.arange(B, device=dev)
+    neg_inf = torch.full((), -math.inf, dtype=torch.float32, device=dev)
+    for _ in range(rounds):
+        flat = work.reshape(B, -1).argmax(dim=1)
+        i, j = flat // M, flat % M
+        good = work[bidx, i, j] > limit
+        hit_r = (rows[None, :] == i[:, None]) & good[:, None]
+        hit_c = (cols[None, :] == j[:, None]) & good[:, None]
+        rm = torch.where(hit_r, j[:, None], rm)
+        cm = torch.where(hit_c, i[:, None], cm)
+        work = torch.where(hit_r[:, :, None] | hit_c[:, None, :], neg_inf,
+                           work)
+    rm, cm = rm.to(data.dtype), cm.to(data.dtype)
+    if squeeze:
+        return rm[0], cm[0]
+    return rm, cm

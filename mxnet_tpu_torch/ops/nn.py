@@ -4,8 +4,10 @@ Counterpart: ``mxnet_tpu/ops/nn.py`` lines 1-530 and ``Pad`` (:552):
 FullyConnected, Convolution, Deconvolution, Pooling, Activation,
 LeakyReLU, the softmax family, SoftmaxOutput, the regression outputs,
 BatchNorm, LayerNorm, InstanceNorm, LRN and Dropout, under the same
-names, aliases and flags.  ``UpSampling`` and the spatial ops after
-``Pad`` are queued.
+names, aliases and flags, and the spatial tail (:532-688):
+``UpSampling``, ``BilinearSampler``, ``GridGenerator``,
+``SpatialTransformer``, ``ROIPooling``, ``Crop``, with ``CuDNNBatchNorm``
+(an alias of ``BatchNorm``, ``mxnet_tpu/ops/extra.py:263``).
 
 Where the JAX package lowers to ``lax.conv_general_dilated`` /
 ``jnp.dot`` and leaves them to XLA, the port calls
@@ -38,7 +40,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .registry import register
+from .registry import alias, register
 
 # ---------------------------------------------------------------------------
 # cross-device batch semantics (sync BN / global-batch normalisation;
@@ -626,3 +628,164 @@ def _pad(data, mode="constant", pad_width=(), constant_value=0.0, **_):
         return F.pad(data, pads[:lead],
                      mode="replicate" if mode == "edge" else "reflect")
     raise ValueError("unknown pad mode %r" % mode)
+
+
+# ---------------------------------------------------------------------------
+# the spatial tail (ref: src/operator/upsampling.cc, bilinear_sampler.cc,
+# grid_generator.cc, spatial_transformer.cc, roi_pooling.cc, crop.cc;
+# mxnet_tpu/ops/nn.py:532-688)
+# ---------------------------------------------------------------------------
+alias("BatchNorm", "CuDNNBatchNorm")  # the cuDNN variant: the same math
+
+
+def _nearest_up(x, s):
+    return x.repeat_interleave(s, dim=2).repeat_interleave(s, dim=3)
+
+
+@register("UpSampling")
+def _upsampling(*args, scale=1, sample_type="nearest", num_args=1,
+                num_filter=0, multi_input_mode="concat", workspace=512, **_):
+    """``nearest`` repeats each pixel ``scale`` times a side (further
+    inputs scaled to the first's size and concatenated on channels);
+    ``bilinear`` resizes with half-pixel centres, edge pixels repeated
+    (``jax.image.resize``'s bilinear; the weight input is not read)."""
+    data = args[0]
+    scale = int(scale)
+    if sample_type == "nearest":
+        out = _nearest_up(data, scale)
+        if num_args > 1 and multi_input_mode == "concat":
+            outs = [out] + [_nearest_up(a, out.shape[2] // a.shape[2])
+                            for a in args[1:]]
+            return torch.cat(outs, dim=1)
+        return out
+    if sample_type == "bilinear":
+        n, c, h, w = data.shape
+        return F.interpolate(data, size=(h * scale, w * scale),
+                             mode="bilinear", align_corners=False)
+    raise ValueError("unknown sample_type %r" % sample_type)
+
+
+@register("BilinearSampler")
+def _bilinear_sampler(data, grid, **_):
+    """Sample ``data`` (n, c, h, w) at ``grid`` (n, 2, gh, gw) of (x, y)
+    in [-1, 1] (corners at -1 and 1), zero outside."""
+    n, c, h, w = data.shape
+    gx = (grid[:, 0] + 1.0) * (w - 1) / 2.0
+    gy = (grid[:, 1] + 1.0) * (h - 1) / 2.0
+    x0 = torch.floor(gx)
+    x1 = x0 + 1
+    y0 = torch.floor(gy)
+    y1 = y0 + 1
+    wx1 = gx - x0
+    wx0 = 1.0 - wx1
+    wy1 = gy - y0
+    wy0 = 1.0 - wy1
+    hwc = data.permute(0, 2, 3, 1)
+    bidx = torch.arange(n, device=data.device).reshape(n, 1, 1)
+
+    def gather(yy, xx):
+        yi = torch.clamp(yy, 0, h - 1).to(torch.int64)
+        xi = torch.clamp(xx, 0, w - 1).to(torch.int64)
+        vals = hwc[bidx, yi, xi]  # (n, gh, gw, c)
+        inb = ((yy >= 0) & (yy <= h - 1) & (xx >= 0)
+               & (xx <= w - 1)).to(data.dtype)
+        return vals * inb[..., None]
+
+    out = (gather(y0, x0) * (wy0 * wx0)[..., None]
+           + gather(y0, x1) * (wy0 * wx1)[..., None]
+           + gather(y1, x0) * (wy1 * wx0)[..., None]
+           + gather(y1, x1) * (wy1 * wx1)[..., None])
+    return out.permute(0, 3, 1, 2)
+
+
+@register("GridGenerator")
+def _grid_generator(data, transform_type="affine", target_shape=(0, 0), **_):
+    """``affine``: data (n, 6) maps the target's normalised (x, y, 1)
+    onto a sampling grid (n, 2, h, w); ``warp``: data (n, 2, h, w) pixel
+    flow added to each pixel's position, normalised."""
+    h, w = int(target_shape[0]), int(target_shape[1])
+    if transform_type == "affine":
+        n = data.shape[0]
+        theta = data.reshape(n, 2, 3)
+        kw = dict(dtype=data.dtype, device=data.device)
+        ys = torch.linspace(-1.0, 1.0, h, **kw)
+        xs = torch.linspace(-1.0, 1.0, w, **kw)
+        gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+        base = torch.stack([gx, gy, torch.ones_like(gx)],
+                           dim=0).reshape(3, -1)
+        out = torch.einsum("nij,jk->nik", theta, base)
+        return out.reshape(n, 2, h, w)
+    if transform_type == "warp":
+        flow = data
+        kw = dict(dtype=flow.dtype, device=flow.device)
+        ys = torch.arange(flow.shape[2], **kw)
+        xs = torch.arange(flow.shape[3], **kw)
+        gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+        nx = (gx + flow[:, 0]) * 2.0 / max(flow.shape[3] - 1, 1) - 1.0
+        ny = (gy + flow[:, 1]) * 2.0 / max(flow.shape[2] - 1, 1) - 1.0
+        return torch.stack([nx, ny], dim=1)
+    raise ValueError("unknown transform_type %r" % transform_type)
+
+
+@register("SpatialTransformer")
+def _spatial_transformer(data, loc, target_shape=(0, 0),
+                         transform_type="affine", sampler_type="bilinear",
+                         **_):
+    grid = _grid_generator(loc, transform_type="affine",
+                           target_shape=target_shape)
+    return _bilinear_sampler(data, grid)
+
+
+@register("ROIPooling")
+def _roi_pooling(data, rois, pooled_size=(0, 0), spatial_scale=1.0, **_):
+    """Max pooling of each roi (R, 5) [batch, x1, y1, x2, y2] into
+    (R, c, ph, pw) bins; the roi's corners scale and round half to even
+    (``jnp.round``), an empty bin is 0.  Ties share the gradient
+    equally, as JAX's ``max``."""
+    ph, pw = int(pooled_size[0]), int(pooled_size[1])
+    _, c, h, w = data.shape
+    dev = data.device
+    x1 = torch.round(rois[:, 1] * spatial_scale)
+    y1 = torch.round(rois[:, 2] * spatial_scale)
+    x2 = torch.round(rois[:, 3] * spatial_scale)
+    y2 = torch.round(rois[:, 4] * spatial_scale)
+    rh = torch.clamp(y2 - y1 + 1.0, min=1.0)
+    rw = torch.clamp(x2 - x1 + 1.0, min=1.0)
+    bin_h = rh / ph
+    bin_w = rw / pw
+    img = data[rois[:, 0].to(torch.int64)]  # (R, c, h, w)
+    ys = torch.arange(h, device=dev).to(data.dtype)
+    xs = torch.arange(w, device=dev).to(data.dtype)
+    neg_inf = torch.full((), -math.inf, dtype=data.dtype, device=dev)
+    zero = torch.zeros((), dtype=data.dtype, device=dev)
+    rows = []
+    for iy in range(ph):
+        my = ((ys >= torch.floor(y1 + iy * bin_h)[:, None])
+              & (ys < torch.ceil(y1 + (iy + 1) * bin_h)[:, None]))
+        cols = []
+        for ix in range(pw):
+            mx = ((xs >= torch.floor(x1 + ix * bin_w)[:, None])
+                  & (xs < torch.ceil(x1 + (ix + 1) * bin_w)[:, None]))
+            mask = (my[:, :, None] & mx[:, None, :])[:, None]
+            val = torch.where(mask, img, neg_inf).amax(dim=(2, 3))
+            cols.append(torch.where(torch.isfinite(val), val, zero))
+        rows.append(torch.stack(cols, dim=-1))
+    return torch.stack(rows, dim=-2)
+
+
+@register("Crop", nondiff=False)
+def _crop(*args, offset=(0, 0), h_w=(0, 0), num_args=1, center_crop=False,
+          **_):
+    """Crop to ``h_w``, or to the second input's spatial size (the
+    reference's creator fills ``num_args`` from the inputs)."""
+    data = args[0]
+    if len(args) > 1 or num_args > 1:
+        th, tw = args[1].shape[2], args[1].shape[3]
+    else:
+        th, tw = int(h_w[0]), int(h_w[1])
+    if center_crop:
+        oy = (data.shape[2] - th) // 2
+        ox = (data.shape[3] - tw) // 2
+    else:
+        oy, ox = int(offset[0]), int(offset[1])
+    return data[:, :, oy:oy + th, ox:ox + tw]

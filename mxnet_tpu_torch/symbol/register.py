@@ -2,7 +2,8 @@
 
 Counterpart: ``mxnet_tpu/symbol/register.py``.  ``mx.sym.<op>`` is one
 creator per name of the port's op registry (aliases included), as
-``ndarray/register.py`` builds ``mx.nd``.
+``ndarray/register.py`` builds ``mx.nd``, with the same ``contrib``
+sub-namespace.
 """
 from __future__ import annotations
 
@@ -28,3 +29,6 @@ def populate(module_dict: Dict[str, Any]) -> None:
     for reg_name, op in list(_registry._REGISTRY.items()):
         if reg_name not in module_dict:
             module_dict[reg_name] = _make_wrapper(op)
+    from ..ndarray.register import _populate_contrib
+
+    _populate_contrib(module_dict, _make_wrapper)

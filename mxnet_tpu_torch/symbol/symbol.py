@@ -413,12 +413,12 @@ def create(op_name: str, *args, name: Optional[str] = None, **kwargs) -> Symbol:
 def _lookup_op(op_name: str) -> _op_registry.Op:
     """The registered op, or an MXNetError naming the ROADMAP item that
     brings it (A12, the op tail: CustomOp, the Caffe/Torch plugins,
-    WarpCTC, linalg, contrib and the rest of ops/nn)."""
+    WarpCTC, linalg and the rest of ops/extra)."""
     if _op_registry.exists(op_name):
         return _op_registry.get(op_name)
     raise MXNetError("operator %r is not ported to mxnet_tpu_torch yet "
                      "(ROADMAP A12, the op tail: CustomOp, the Caffe/Torch "
-                     "plugins, linalg, contrib and the rest of ops/nn)"
+                     "plugins, linalg and the rest of ops/extra)"
                      % op_name)
 
 
@@ -450,6 +450,8 @@ def _static_num_outputs(op: _op_registry.Op, params: Dict[str, Any]) -> int:
         return 3 if params.get("output_mean_var") else 1
     if op.name == "topk":
         return 2 if params.get("ret_typ") == "both" else 1
+    if op.name in ("_contrib_Proposal", "_contrib_MultiProposal"):
+        return 2 if params.get("output_score") else 1
     if op.name == "RNN":
         if not params.get("state_outputs"):
             return 1

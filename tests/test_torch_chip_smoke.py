@@ -504,8 +504,10 @@ def test_the_sp_phases_follow_the_dp_phases_and_precede_the_kernel_line():
                                      "phase_module_dp_numerics()",
                                      '"phase": "kernels"')]
     assert order == sorted(order)
-    for path in ("sp_counts.items()", "sp_num_counts.items()"):
-        assert main.count(path) == 2
+    # the flash kernels' rows read both, the NMS kernel's row the
+    # numerics' (the per-step counts hold the flash kernels only)
+    assert main.count("sp_counts.items()") == 2
+    assert main.count("sp_num_counts.items()") == 3
 
 
 def test_the_planted_ring_faults_read_above_the_limit_and_undo_themselves():
@@ -581,7 +583,7 @@ def test_the_sparse_phases_follow_dist_and_report_launches():
                                      "phase_recommender_numerics()",
                                      '"phase": "kernels"')]
     assert order == sorted(order)
-    assert main.count("for k, v in sparse_counts.items()") == 3
+    assert main.count("for k, v in sparse_counts.items()") == 4
 
 
 def test_the_libsvm_writer_reads_back_at_the_phase_shape(tmp_path):
@@ -704,7 +706,7 @@ def test_the_observability_phases_follow_the_recommender_phases():
                                      "phase_ckpt_async()",
                                      '"phase": "kernels"')]
     assert order == sorted(order)
-    assert main.count("for k, v in obs_counts.items()") == 3
+    assert main.count("for k, v in obs_counts.items()") == 4
 
 
 def _kineto_fixture():
@@ -777,7 +779,7 @@ def test_the_rnn_phases_follow_tuning_and_precede_the_kernel_line():
                                      '"phase": "kernels"')]
     assert order == sorted(order)
     # every kernel's launches_by_path reads both recurrent phases
-    assert main.count("for k, v in rnn_counts.items()") == 3
+    assert main.count("for k, v in rnn_counts.items()") == 4
 
 
 def test_every_phase_is_timed():
@@ -865,3 +867,123 @@ def test_side_by_side_returns_in_order_and_raises():
 
     with pytest.raises(ValueError, match="planted"):
         cs.side_by_side(lambda: 1, bad)
+
+
+# ---------------------------------------------------------------------------
+# the detection tier
+# ---------------------------------------------------------------------------
+def test_the_ssd_phases_follow_the_rnn_phases_and_precede_the_kernel_line():
+    src = (REPO / "chip_smoke.py").read_text()
+    main = src[src.index("def main()"):]
+    order = [main.index(p) for p in ("phase_rnn_numerics()", "phase_ssd()",
+                                     "phase_ssd_numerics()",
+                                     '"phase": "phase_seconds"',
+                                     '"phase": "kernels"')]
+    assert order == sorted(order)
+    # every kernel's launches_by_path reads both detection phases
+    assert main.count("for k, v in det_counts.items()") == 4
+    assert {"phase_ssd", "phase_ssd_numerics"} <= {
+        n for n in dir(cs) if n.startswith("phase_")}
+
+
+def test_nms_bound_counts_the_pairs_among_valid_boxes():
+    # 2 images of 400 rows, float32: image 0 has 400 valid boxes in two
+    # classes (300 and 100), image 1 three of one class.  12 operations
+    # for each pair of one class and a compare of ids for each pair of
+    # valid boxes, over 67 TFLOP/s, against 400 * 22 bytes an image over
+    # 3.35 TB/s
+    ms, by = cs.nms_bound([[300, 100], [3]], 400, 4)
+    ops = 12 * (300 * 299 // 2 + 100 * 99 // 2 + 3) + 400 * 399 // 2 + 3
+    assert by == "operations"
+    assert ms == pytest.approx(ops / 67e12 * 1e3)
+    ms, by = cs.nms_bound([[1], [1]], 1000, 8)
+    assert by == "bytes"
+    assert ms == pytest.approx(2 * 1000 * 42 / 3.35e12 * 1e3)
+
+
+def test_nms_class_counts_read_each_images_valid_boxes_by_class():
+    valid = torch.tensor([[True, True, False, True], [False] * 4])
+    ids = torch.tensor([[2.0, 0.0, 2.0, 2.0], [1.0] * 4])
+    assert cs.nms_class_counts(valid, ids) == [[1, 2], []]
+    ms, _ = cs.nms_bound(cs.nms_class_counts(valid, ids), 4, 8)
+    assert ms > 0
+
+
+def test_det_labels_come_out_of_the_iterators_rows():
+    # [c, h, w, len, header width 2, object width 6, objects...], padded
+    row = [3, 512, 512, 14, 2, 6, 4, .1, .2, .3, .4, 0,
+           7, .5, .5, .9, .8, 0] + [-1.0] * 6
+    out = cs.det_labels_from_batch(np.array([row, row]), max_objects=3)
+    assert out.shape == (2, 3, 5)
+    np.testing.assert_allclose(out[0, :2], [[4, .1, .2, .3, .4],
+                                            [7, .5, .5, .9, .8]], rtol=1e-6)
+    assert (out[:, 2] == -1).all()
+
+
+def test_the_examples_bars():
+    good = [(5.0, 0.04), (2.0, 0.07), (1.5, 0.1), (1.0, 0.12)]
+    assert all(cs.example_bars(good).values())
+    bad = cs.example_bars([(5.0, 0.2), (4.0, 0.1), (3.5, 0.1), (3.2, 0.1)])
+    assert bad == {"loss_falls": False, "map_above_0.05": True,
+                   "map_holds": False}
+
+
+@pytest.mark.parametrize("case", cs.DET_CASES[:6] + cs.DET_CASES[8:12],
+                         ids=cs.det_case_id)
+def test_det_cases_agree_with_themselves_on_the_cpu(case):
+    # the card-vs-CPU check's plumbing: a rerun reads 0, and the planted
+    # faults touch CUDA tensors only
+    ins, rng = cs.det_case_inputs(case)
+    a, ga = cs.run_det_case(case, "cpu", ins, np.random.RandomState(1))
+    with cs.planted_det_fault(*cs.DET_FAULTS):
+        b, gb = cs.run_det_case(case, "cpu", ins, np.random.RandomState(1))
+    assert [cs.det_case_err(x, y, case, k)
+            for k, (x, y) in enumerate(zip(b, a))] == [0.0] * len(a)
+    assert len(ga) == len(gb) == len(case.diff)
+
+
+def test_planted_det_faults_are_taken_out_after_the_check():
+    # the faults live in the smoke: the ops module is left as it was,
+    # and the NMS fault withholds the ids from the kernel's library
+    from mxnet_tpu_torch.ops import contrib, registry
+
+    before = (registry.get("MultiBoxPrior").fn, contrib._nms_lib,
+              contrib._encode_box)
+    calls = []
+
+    class Lib:
+        def mxt_box_nms_keep(self, *args):
+            calls.append(args)
+            return 0
+
+    with cs.planted_det_fault(*cs.DET_FAULTS):
+        assert registry.get("_contrib_MultiBoxPrior").fn is not before[0]
+        assert contrib._encode_box is not before[2]
+        assert cs._IdsDropped(Lib()).mxt_box_nms_keep(0, 1, 2, 3) == 0
+    assert calls == [(0, 1, None, 3)]
+    assert (registry.get("MultiBoxPrior").fn, contrib._nms_lib,
+            contrib._encode_box) == before
+    assert not hasattr(contrib, "FAULTS")
+
+
+def test_det_case_err_reads_a_flipped_keep_and_a_moved_value():
+    case = cs.DetCase("box_nms", [], {}, exact=((0, 0),))
+    want = np.array([[[0, 0.9, 0, 0, 1, 1], [-1, -1, -1, -1, -1, -1]]])
+    got = want.copy()
+    got[0, 1, 0] = 1
+    assert cs.det_case_err(got, want, case, 0) == float("inf")
+    got = want.copy()
+    got[0, 0, 3] += 1e-9
+    assert cs.det_case_err(got, want, case, 0) == pytest.approx(1e-9)
+    exact = cs.DetCase("quantize", [], {}, exact=(0,))
+    assert cs.det_case_err(np.array([1, 2, 3]), np.array([1, 2, 4]),
+                           exact, 0) == 1.0
+
+
+def test_the_full_size_nms_rows_follow_the_ssd512_layout():
+    rows = cs._nms_full_rows()
+    assert tuple(rows.shape) == (32, cs.SSD_ANCHORS, 6)
+    assert rows.dtype == torch.float64
+    valid = rows[..., 0] >= 0
+    assert valid.float().mean() > 0.5   # scores above 0.01 mostly
+    assert ((rows[..., 2:] >= 0) & (rows[..., 2:] <= 1)).all()

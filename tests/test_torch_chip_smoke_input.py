@@ -64,7 +64,8 @@ def test_input_phase_runs_after_train_and_reports_launches():
                                      "phase_input(train)",
                                      '"phase": "kernels"')]
     assert order == sorted(order)
-    assert main.count('"input": inp_counts[') == 3
+    # the three kernels of the earlier slices and the NMS kernel
+    assert main.count('"input": inp_counts[') == 4
 
 
 def test_host_census_counts_threads_and_children():

@@ -360,13 +360,19 @@ def test_free_functions_and_namespace():
 
 
 def test_engine_bulk_api():
-    prev = mx.engine.set_bulk_size(30)
-    assert mx.engine.set_bulk_size(prev) == 30
-    with mx.engine.bulk(5):
-        assert mx.engine.current_bulk_size() == 5
-        x = mx.nd.ones((4,), ctx=mx.cpu()) + 1
-    assert float(x.sum().asnumpy()) == 8.0
-    assert mx.engine.current_bulk_size() == prev
+    # set_bulk_size leaves the size explicit, which would turn every
+    # later Module.fit of this process into a bulk fit: restore it
+    saved = mx.engine._bulk_size, mx.engine._bulk_explicit
+    try:
+        prev = mx.engine.set_bulk_size(30)
+        assert mx.engine.set_bulk_size(prev) == 30
+        with mx.engine.bulk(5):
+            assert mx.engine.current_bulk_size() == 5
+            x = mx.nd.ones((4,), ctx=mx.cpu()) + 1
+        assert float(x.sum().asnumpy()) == 8.0
+        assert mx.engine.current_bulk_size() == prev
+    finally:
+        mx.engine._bulk_size, mx.engine._bulk_explicit = saved
 
 
 # ------------------------------------------------------------ save / load

@@ -1,8 +1,9 @@
 """Parity of the port's neural-network ops (``mxnet_tpu_torch.ops.nn``,
 ``random_ops``, ``optimizer_ops``) with the JAX package's.
 
-Every op that ``mxnet_tpu/ops/nn.py`` registers up to ``Dropout`` (and
-``Pad``) runs on the same seeded float64 numpy inputs through the JAX
+Every op that ``mxnet_tpu/ops/nn.py`` registers (``FullyConnected``
+through ``Dropout``, ``Pad`` and the spatial tail up to ``Crop``) runs
+on the same seeded float64 numpy inputs through the JAX
 op body and the port's.  The first output gets a seeded cotangent and
 both packages' gradients of it with respect to every float input are
 compared (``jax.vjp`` against ``torch.autograd.grad``); every output
@@ -196,15 +197,39 @@ CASES = [
          dict(mode="edge", pad_width=(0, 0, 0, 0, 1, 2, 2, 1))),
     Case("Pad", [U(1, 2, 3, 4)],
          dict(mode="reflect", pad_width=(0, 0, 0, 0, 2, 1, 1, 2))),
+    # the spatial tail (:532-688)
+    Case("UpSampling", [U(2, 3, 3, 4)],
+         dict(scale=2, sample_type="nearest", num_args=1)),
+    Case("UpSampling", [U(1, 2, 4, 4), U(1, 3, 2, 2)],
+         dict(scale=2, sample_type="nearest", num_args=2), (0, 1)),
+    Case("UpSampling", [U(2, 2, 3, 5)],
+         dict(scale=2, sample_type="bilinear", num_args=1)),
+    Case("BilinearSampler", [U(2, 3, 5, 6), U(2, 2, 4, 3, lo=-1.2, hi=1.2)],
+         {}, (0, 1)),
+    Case("GridGenerator", [U(2, 6)],
+         dict(transform_type="affine", target_shape=(4, 5))),
+    Case("GridGenerator", [U(2, 2, 3, 4)],
+         dict(transform_type="warp", target_shape=(3, 4))),
+    Case("SpatialTransformer",
+         [U(2, 3, 6, 5), lambda r: np.tile([0.9, 0.1, 0.05, -0.1, 0.8,
+                                            -0.05], (2, 1))
+          + r.uniform(-0.1, 0.1, (2, 6))],
+         dict(target_shape=(4, 4)), (0, 1)),
+    Case("ROIPooling",
+         [U(2, 3, 8, 9), lambda r: np.array([[0, 0.5, 1.0, 6.5, 5.0],
+                                             [1, 2.0, 0.0, 8.0, 7.5],
+                                             [0, 3.3, 2.5, 4.1, 3.9]])],
+         dict(pooled_size=(2, 3), spatial_scale=1.0)),
+    Case("Crop", [U(2, 3, 7, 8)], dict(offset=(1, 2), h_w=(4, 5))),
+    Case("Crop", [U(1, 2, 7, 8), U(1, 1, 4, 4)],
+         dict(num_args=2, center_crop=True)),
 ]
 
-# every name of the JAX module up to Dropout, and Pad, has a case
-# (names registered there, not aliases other modules add)
+# every name of the JAX module has a case (names registered there, not
+# aliases other modules add)
 _NN = {n for n, op in jreg._REGISTRY.items()
        if op.fn.__module__ == "mxnet_tpu.ops.nn"
        and n in (op.name, *op.aliases)}
-_LATER = {"UpSampling", "BilinearSampler", "GridGenerator",
-          "SpatialTransformer", "ROIPooling", "Crop"}
 
 
 def _id(case):
@@ -213,7 +238,7 @@ def _id(case):
 
 
 def test_every_nn_op_up_to_pad_is_ported_with_its_flags():
-    want = {n for n in _NN if jreg.get(n).name not in _LATER}
+    want = _NN
     assert want <= set(treg._REGISTRY)
     for n in want:
         j, t = jreg.get(n), treg.get(n)

@@ -61,6 +61,7 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import mxnet_tpu_torch.parallel.overlap\n"
         "import mxnet_tpu_torch.rnn, mxnet_tpu_torch.gluon.rnn\n"
         "import mxnet_tpu_torch.ops.rnn, mxnet_tpu_torch.ops.sequence\n"
+        "import mxnet_tpu_torch.ops.contrib, mxnet_tpu_torch.ops.extra\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mxnet_tpu', 'ml_dtypes'))\n"
         # kernels are built at first launch, never at import; NVRTC and
@@ -103,7 +104,8 @@ def test_no_package_file_imports_jax_or_the_jax_package():
                                     "tools/torch_train_profile.py",
                                     "tools/torch_trace_loss.py",
                                     "tools/torch_autotune_scale.py",
-                                    "tools/torch_rnn_smoke.py"])
+                                    "tools/torch_rnn_smoke.py",
+                                    "tools/torch_ssd_smoke.py"])
 def test_card_scripts_import_no_jax(script):
     # the scripts run on the machine with the card, which has no JAX
     tree = ast.parse((REPO / script).read_text(), filename=script)
@@ -444,3 +446,37 @@ def test_tuning_entry_points_default_to_cuda_and_raise_without_it():
                  lambda: overlap.measure_overlap()):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+def test_detection_entry_points_default_to_cuda_and_raise_without_it():
+    """The detection tier's ops, the SSD programs and ``nd.contrib`` run
+    on the card unless the caller names the CPU; without a card they
+    raise.  On CPU tensors NMS takes its plain route, never the kernel."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import contrib
+
+    import chip_smoke as cs
+
+    calls = (
+        lambda: mx.nd.contrib.MultiBoxPrior(mx.nd.zeros((1, 3, 4, 4)),
+                                            sizes=(0.5,)),
+        lambda: mx.nd.contrib.box_nms(mx.nd.zeros((1, 4, 6))),
+        lambda: mx.nd.ROIPooling(mx.nd.zeros((1, 2, 4, 4)),
+                                 mx.nd.zeros((1, 5)), pooled_size=(2, 2)),
+        lambda: cs.ssd_net(mx, mx.gluon.model_zoo.vision.resnet18_v1())
+        .initialize(mx.init.Xavier()),
+        lambda: cs.mini_rcnn_net(mx).initialize(mx.init.Xavier()))
+    for call in calls:
+        with pytest.raises(mx.MXNetError, match=r"ctx=mx\.cpu\(\)"):
+            call()
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cs.main()
+    before = dict(contrib.nms_keep.calls)
+    with mx.cpu():
+        out = mx.nd.contrib.box_nms(mx.nd.zeros((1, 4, 6)))
+    assert out.context == mx.cpu()
+    assert contrib.nms_keep.calls["plain"] == before["plain"] + 1
+    assert contrib.nms_keep.calls["cuda"] == before["cuda"]
+    assert not contrib.nms_keep.launches

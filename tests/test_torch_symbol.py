@@ -195,9 +195,9 @@ def test_ops_the_port_lacks_raise_and_name_their_item():
                               transpose_a=True).list_arguments() == ["a", "b"]
     # a JAX-package graph with such an op names the item on load
     with jmx.name.NameManager():
-        g = jmx.sym.UpSampling(jmx.sym.Variable("d"), scale=2,
-                               sample_type="nearest", num_args=1)
-    with pytest.raises(MXNetError, match="UpSampling.*A12"):
+        g = jmx.sym.Correlation(jmx.sym.Variable("a"),
+                                jmx.sym.Variable("b"), max_displacement=1)
+    with pytest.raises(MXNetError, match="Correlation.*A12"):
         tmx.sym.load_json(g.tojson())
 
 
