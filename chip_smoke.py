@@ -445,7 +445,9 @@ Phases:
            float64 on the card against the port on the CPU (1e-10;
            fft / ifft 1e-5): every op of DET_CASES (the 42 names of the
            detection tier) forward and backward; box_nms at (32, 6132)
-           (keep sets equal; the kernel against its plain version); one
+           (keep sets equal; the kernel against its plain version); the
+           RPN's NMS at MultiProposal's defaults, (2, 6000) float32
+           without ids, the kernel against its plain version; one
            step of examples/rcnn/mini_rcnn.py's network; planted
            faults: priors half a cell off, NMS across classes, the
            encoder's variances swapped
@@ -8899,39 +8901,50 @@ def _ssd_profile(step, steps, scope_name):
             "multibox_target_device_ms_per_step": scoped}
 
 
-def nms_bound(class_counts, n_boxes, dtype_bytes):
-    """``(bound_ms, bound_by)`` of one ``nms_keep`` call with class ids
-    on the card: the boxes, ids and valid flags read once and the keep
-    mask written once (``n_boxes`` rows an image) over 3.35 TB/s, against
-    what greedy NMS needs over the type's vector peak: NMS_PAIR_OPS
-    operations for each pair of valid boxes of one class (only they can
-    suppress each other) and one compare of ids for each pair of valid
-    boxes.  ``class_counts`` holds one list an image: its valid boxes'
-    count for each class."""
+def nms_bound(class_counts, n_boxes, dtype_bytes, ids=True):
+    """``(bound_ms, bound_by)`` of one ``nms_keep`` call on the card: the
+    boxes, the ids (where there are, ``ids`` true) and the valid flags
+    read once and the keep mask written once (``n_boxes`` rows an image)
+    over 3.35 TB/s, against what greedy NMS needs over the type's vector
+    peak: NMS_PAIR_OPS operations for each pair of valid boxes of one
+    class (only they can suppress each other) and, with ids, one compare
+    of ids for each pair of valid boxes.  ``class_counts`` holds one list
+    an image: its valid boxes' count for each class (one class without
+    ids, ``ids=None``)."""
     peak_flops = PEAK_VECTOR_FLOPS[dtype_bytes]
-    byts = len(class_counts) * n_boxes * (5 * dtype_bytes + 2)
+    per_row = (5 if ids is not None else 4) * dtype_bytes + 2
+    byts = len(class_counts) * n_boxes * per_row
     ops = 0
     for counts in class_counts:
         v = sum(counts)
-        ops += (NMS_PAIR_OPS * sum(c * (c - 1) // 2 for c in counts)
-                + v * (v - 1) // 2)
+        ops += NMS_PAIR_OPS * sum(c * (c - 1) // 2 for c in counts)
+        if ids is not None:
+            ops += v * (v - 1) // 2
     t_bytes, t_ops = byts / PEAK_BYTES_S * 1e3, ops / peak_flops * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
-def nms_class_counts(valid, ids):
-    """Per image, the valid boxes' count of each class present:
-    :func:`nms_bound`'s input, read from this run's data."""
-    valid, ids = valid.cpu(), ids.cpu()
+def nms_class_counts(valid, ids=None):
+    """Per image, the valid boxes' count of each class present (all one
+    class without ``ids``): :func:`nms_bound`'s input, read from this
+    run's data."""
+    valid = valid.cpu()
+    if ids is None:
+        return [[int(v)] if v else [] for v in valid.sum(dim=1).tolist()]
+    ids = ids.cpu()
     return [torch.unique(ids[b][valid[b]], return_counts=True)[1].tolist()
             for b in range(valid.shape[0])]
 
 
-def _nms_row(rows_dev, params):
-    """The NMS kernel (``nms_keep`` on the card) against its plain
-    version on the same card inputs: keep masks equal, times, bound."""
-    from mxnet_tpu_torch.ops import contrib
+#: the keys of an NMS row the kernels line carries for each shape
+NMS_ROW_KEYS = ("shape", "dtype", "ids", "ms", "graph_ms", "plain_ms",
+                "bound_ms", "bound_by", "mismatches")
 
+
+def _nms_sorted(rows_dev, params):
+    """``(boxes, valid, ids, thresh)`` that ``box_nms`` gives ``nms_keep``
+    for detection rows [id, score, x1, y1, x2, y2] on the card: the rows
+    in score order, the first ``topk``."""
     B, N = rows_dev.shape[:2]
     scores = rows_dev[..., 1]
     valid = scores > 0.0
@@ -8944,7 +8957,17 @@ def _nms_row(rows_dev, params):
                          order[:, :, None].expand(B, n, 4)).contiguous()
     svalid = torch.gather(valid, 1, order)
     ids = torch.gather(rows_dev[..., 0], 1, order)
-    thresh = params["overlap_thresh"]
+    return boxes, svalid, ids, params["overlap_thresh"]
+
+
+def _nms_row(boxes, svalid, ids, thresh):
+    """The NMS kernel (``nms_keep`` on the card) against its plain
+    version on the same card inputs: keep masks equal, the bound, and
+    times: ``ms`` of a call with its host work (10 calls), ``graph_ms``
+    of a call's device work alone (5 calls in a CUDA graph)."""
+    from mxnet_tpu_torch.ops import contrib
+
+    B, n = svalid.shape
     launches = contrib.nms_keep.launches
     keep = contrib.nms_keep(boxes, svalid, ids, thresh)
     # the plain version once (its N host steps make it seconds at full
@@ -8958,19 +8981,64 @@ def _nms_row(rows_dev, params):
     plain_ms = start.elapsed_time(end)
     n_valid = svalid.sum(dim=1).tolist()
     per_class = nms_class_counts(svalid, ids)
-    bound, by = nms_bound(per_class, n, rows_dev.element_size())
-    ms = time_ms(lambda: contrib.nms_keep(boxes, svalid, ids, thresh),
-                 iters=10, warmup=2)
+    bound, by = nms_bound(per_class, n, boxes.element_size(), ids=ids)
+    call = lambda: contrib.nms_keep(boxes, svalid, ids, thresh)  # noqa
+    ms = time_ms(call, iters=10, warmup=2)
+    dev_ms = graph_ms(call, inner=5)
     # the check's calls are no launches of the path
     contrib.nms_keep.launches = launches
-    return {"shape": [B, n], "dtype": str(rows_dev.dtype).split(".")[-1],
+    return {"shape": [B, n], "dtype": str(boxes.dtype).split(".")[-1],
+            "ids": ids is not None,
             "valid_per_image": n_valid[:4],
             "largest_class_per_image": [max(c, default=0)
                                         for c in per_class[:4]],
             "kept": int(keep.sum()),
             "mismatches": int((keep != plain).sum()), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None}
+            "graph_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None}
+
+
+# the RPN's NMS at the op's defaults: MultiProposal at batch 2 on the
+# reference Faster R-CNN's 600 x 800 image (short side 600), stride 16,
+# the 12 default anchors; rpn_pre_nms_top_n=6000, threshold 0.7
+RPN = dict(batch=2, anchors=12, height=38, width=50, stride=16,
+           im_info=(600.0, 800.0, 1.0))
+
+
+def rpn_nms_inputs(seed=0, device="cuda"):
+    """``(boxes, valid, ids, thresh)`` that ``MultiProposal`` at its
+    defaults gives ``nms_keep`` (on the card by default), at RPN's
+    shapes from seeded scores and deltas (float32): recorded from the
+    op's own call."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import contrib
+
+    rng = np.random.RandomState(seed)
+    B, A, H, W = (RPN[k] for k in ("batch", "anchors", "height", "width"))
+    fg = rng.uniform(0.0, 1.0, (B, A, H, W))
+    prob = np.concatenate([1.0 - fg, fg], axis=1).astype(np.float32)
+    delta = rng.normal(0.0, 0.2, (B, 4 * A, H, W)).astype(np.float32)
+    info = np.tile(np.array(RPN["im_info"], np.float32), (B, 1))
+    ctx = mx.gpu(0) if device == "cuda" else mx.cpu()
+    real = contrib.nms_keep
+
+    class Seen(Exception):
+        pass
+
+    def record(boxes, valid, ids=None, thresh=0.5):
+        # the op stops here: its inputs are all this needs
+        raise Seen(boxes, valid, ids, thresh)
+
+    contrib.nms_keep = record
+    try:
+        mx.nd.contrib.MultiProposal(
+            mx.nd.array(prob, ctx=ctx), mx.nd.array(delta, ctx=ctx),
+            mx.nd.array(info, ctx=ctx), feature_stride=RPN["stride"])
+    except Seen as seen:
+        return seen.args
+    finally:
+        contrib.nms_keep = real
+    raise RuntimeError("MultiProposal did not reach nms_keep")
 
 
 def phase_ssd():
@@ -8994,6 +9062,7 @@ def phase_ssd():
     # the main path's counts: from here to the end of (b)
     _reset_kernel_counts()
     contrib.nms_keep.calls.update(cuda=0, plain=0)
+    contrib.nms_keep.calls_by_route.update(fused=0, tiled=0)
 
     np.random.seed(0)
     mx.random.seed(0)
@@ -9070,14 +9139,16 @@ def phase_ssd():
     b_wall = time.perf_counter() - t_b
     counts = _kernel_counts()
     routes = dict(contrib.nms_keep.calls)
+    kernel_routes = dict(contrib.nms_keep.calls_by_route)
 
     # timings and the kernel against its plain version, uncounted
     det_ms = time_ms(lambda: nd.contrib.MultiBoxDetection(
         prob, loc, anchors, **det_kw).wait_to_read(), iters=5, warmup=1)
     rows = contrib.detection_rows(prob._data, loc._data, anchors._data,
                                   threshold=det_kw["threshold"])
-    kernel_row = _nms_row(rows, dict(overlap_thresh=det_kw["nms_threshold"],
-                                     topk=det_kw["nms_topk"]))
+    kernel_row = _nms_row(*_nms_sorted(
+        rows, dict(overlap_thresh=det_kw["nms_threshold"],
+                   topk=det_kw["nms_topk"])))
     target_ms = time_ms(lambda: nd.contrib.MultiBoxTarget(
         anchors, y, prob, overlap_threshold=cfg["overlap_threshold"],
         negative_mining_ratio=cfg["negative_mining_ratio"],
@@ -9100,7 +9171,7 @@ def phase_ssd():
                "detection": {"shape": [b, SSD_ANCHORS], "ms": det_ms,
                              "rows_kept": kept, "nms_launches": det_launches,
                              "voc07_map": metric.get()[1]},
-               "nms_routes": routes},
+               "nms_routes": routes, "nms_kernel_routes": kernel_routes},
            "b_example": {"history": history, "bars": bars,
                          "wall_s": b_wall},
            "kernel_launches": counts,
@@ -9114,9 +9185,14 @@ def phase_ssd():
         bad.append("a loss is not finite")
     if not all(bars.values()):
         bad.append("the example's bars: %r, history %r" % (bars, history))
-    if counts["box_nms"] < 1 or det_launches < 1 or routes["plain"]:
-        bad.append("NMS routes %r, kernel launches %d" % (routes,
-                                                          counts["box_nms"]))
+    # every kernel route's launches add up to the count (the detection
+    # and the example's evaluation run N <= 1024: the fused route)
+    by_route = sum(contrib.NMS_ROUTE_LAUNCHES[r] * c
+                   for r, c in kernel_routes.items())
+    if counts["box_nms"] < 1 or det_launches < 1 or routes["plain"] or \
+            by_route != counts["box_nms"]:
+        bad.append("NMS routes %r / %r, kernel launches %d" % (
+            routes, kernel_routes, counts["box_nms"]))
     if kernel_row["mismatches"]:
         bad.append("the NMS kernel's keep mask differs from the plain "
                    "version's in %d places" % kernel_row["mismatches"])
@@ -9608,6 +9684,9 @@ class _IdsDropped:
     def __init__(self, lib):
         self.lib = lib
 
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
     def mxt_box_nms_keep(self, dtype, boxes, ids, *rest):
         return self.lib.mxt_box_nms_keep(dtype, boxes, None, *rest)
 
@@ -9656,8 +9735,9 @@ def planted_det_fault(*faults):
 
 def phase_ssd_numerics():
     """The detection tier in float64 on the card against the CPU: every
-    op of DET_CASES forward and backward, box_nms at (32, 6132), one
-    mini R-CNN step, and three planted faults the checks must read."""
+    op of DET_CASES forward and backward, box_nms at (32, 6132), the
+    RPN's NMS at (2, 6000) (float32, no ids: ``box_nms_rpn``), one mini
+    R-CNN step, and three planted faults the checks must read."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import registry
 
@@ -9675,13 +9755,18 @@ def phase_ssd_numerics():
     cpu_rows = nms(rows, **kw)
     nms_mismatch = int((card_rows[..., 0] != cpu_rows[..., 0]).sum())
     nms_err = float((card_rows - cpu_rows).abs().max())
-    full_row = _nms_row(rows.cuda(), dict(kw, topk=-1))
+    full_row = _nms_row(*_nms_sorted(rows.cuda(), dict(kw, topk=-1)))
     if nms_mismatch or nms_err or full_row["mismatches"]:
         bad.append("box_nms at %s: %d keep mismatches card vs CPU, %d "
                    "kernel vs plain, error %g" % (list(rows.shape[:2]),
                                                   nms_mismatch,
                                                   full_row["mismatches"],
                                                   nms_err))
+    # the RPN's NMS at MultiProposal's defaults: one class, no ids
+    rpn_row = _nms_row(*rpn_nms_inputs())
+    if rpn_row["mismatches"] or rpn_row["shape"] != [RPN["batch"], 6000]:
+        bad.append("box_nms_rpn at %s: %d keep mismatches kernel vs plain"
+                   % (rpn_row["shape"], rpn_row["mismatches"]))
 
     # one mini R-CNN step (MultiProposal -> ROIPooling)
     c_loss, c_grads, c_rois = _mini_rcnn_step(mx, mx.cpu())
@@ -9724,6 +9809,7 @@ def phase_ssd_numerics():
            "box_nms_full": {"shape": list(rows.shape[:2]),
                             "keep_mismatches_card_vs_cpu": nms_mismatch,
                             "err": nms_err, "kernel": full_row},
+           "box_nms_rpn": rpn_row,
            "mini_rcnn_err": rcnn_err, "faults": faults,
            "kernel_launches": counts,
            "wall_s": time.perf_counter() - t0}
@@ -10010,14 +10096,20 @@ def main() -> int:
                                 for k, v in rnn_counts.items()},
                              **{k: v["box_nms"]
                                 for k, v in det_counts.items()}},
-        "max_abs_err": float(nms_row["mismatches"]),
+        # keep-mask mismatches against the plain loop, every shape
+        "max_abs_err": float(max(nms_row["mismatches"],
+                                 ssd_num["box_nms_full"]["kernel"][
+                                     "mismatches"],
+                                 ssd_num["box_nms_rpn"]["mismatches"])),
         "ms": nms_row["ms"], "plain_ms": nms_row["plain_ms"],
         "bound_ms": nms_row["bound_ms"], "bound_by": nms_row["bound_by"],
         "library_ms": nms_row["library_ms"],
+        "graph_ms": nms_row["graph_ms"],
         "shape": nms_row["shape"], "dtype": nms_row["dtype"],
+        "calls_by_route": ssd["a_ssd512"]["nms_kernel_routes"],
         "full_size": {k: ssd_num["box_nms_full"]["kernel"][k]
-                      for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                "bound_by", "mismatches")},
+                      for k in NMS_ROW_KEYS},
+        "rpn": {k: ssd_num["box_nms_rpn"][k] for k in NMS_ROW_KEYS},
     }]
     wall = time.perf_counter() - t_start
     emit({"phase": "wall", "wall_s": wall,

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd.cu): TMA copies through
-// 4-D tensor maps, `mbarrier` waits that trap instead of hanging,
+// (csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd.cu) and the NMS sweep
+// (csrc/box_nms.cu): TMA copies through 4-D tensor maps and 1-D bulk
+// copies, `mbarrier` waits that trap instead of hanging,
 // `wgmma` shared-memory descriptors for 128-byte-swizzled tiles, the
 // `wgmma` products the kernels use, and the host-side helpers (the
 // tensor-map encoder fetched from the driver, the shared-memory limit,
@@ -118,6 +119,18 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
       "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
       "[%0, {%2, %3, %4, %5}], [%1];" ::"l"((uint64_t)map),
       "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A 1-D bulk copy (no tensor map): `bytes` contiguous bytes from device
+// memory to shared memory, completion counted on `bar`.  Both addresses
+// 16-byte aligned, `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"((uint64_t)src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -1194,8 +1194,11 @@ def _self_test(device: str = "cuda") -> tuple:
     checks["close_unlinks_segments"] = _leaked_segments(token) == []
 
     # 2) worker death: kill one worker mid-stream; the stream finishes
-    # identically (inline adoption), nothing hangs
-    pipe = InputPipeline(fn, num_workers=2, device=False)
+    # identically (inline adoption), nothing hangs.  One slot a worker:
+    # worker 1 can have delivered at most the batch the stream took from
+    # it plus one, 2 of its 6, so the kill lands before its end message
+    pipe = InputPipeline(fn, num_workers=2, device=False,
+                         slots_per_worker=1)
     try:
         got = [pipe.next() for _ in range(2)]
         ids = [int(v) for b in got

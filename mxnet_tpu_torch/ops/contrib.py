@@ -17,10 +17,12 @@ runs on ``meta`` tensors too (shape inference).  Sorts are stable
 (``jnp.argsort``), and ``argmax`` takes the first maximum, as JAX's.
 
 Greedy NMS is :func:`nms_keep`: a CUDA tensor launches the hand-written
-kernel of ``csrc/box_nms.cu`` (two launches: the suppression bit matrix
-and a one-warp sweep an image), a CPU tensor runs the plain greedy loop
-:func:`nms_keep_plain`.  The JAX package's ``fori_loop`` of N steps has
-no counterpart on the card that is not N host iterations.
+kernel of ``csrc/box_nms.cu`` on the route :func:`nms_route` picks from
+N (``fused``, one launch, up to :data:`NMS_FUSED_MAX` rows an image;
+``tiled``, three: the rows grouped by class, the bit matrix of each
+group, a block-wise sweep a group), a CPU tensor runs the plain greedy
+loop :func:`nms_keep_plain`.  The JAX package's ``fori_loop`` of N
+steps has no counterpart on the card that is not N host iterations.
 """
 from __future__ import annotations
 
@@ -110,19 +112,40 @@ def _nms_lib():
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p]
+        lib.mxt_box_nms_scratch_bytes.restype = ctypes.c_longlong
+        lib.mxt_box_nms_scratch_bytes.argtypes = [ctypes.c_int] * 3
+        lib.mxt_box_nms_fused_max.restype = ctypes.c_int
+        lib.mxt_box_nms_fused_max.argtypes = []
     return lib
 
 
 _NMS_DTYPES = {torch.float32: 0, torch.float64: 1}
+#: the most rows an image the kernel's fused route takes
+#: (``csrc/box_nms.cu`` kFusedMax)
+NMS_FUSED_MAX = 1024
+#: device kernels a CUDA call launches on each route
+NMS_ROUTE_LAUNCHES = {"fused": 1, "tiled": 3}
+
+
+def nms_route(n):
+    """The kernel's route for ``n`` rows an image: ``fused`` (a cluster
+    of 4 blocks an image, the bit matrix in shared memory, one launch) up to
+    :data:`NMS_FUSED_MAX`, else ``tiled`` (the rows grouped by class,
+    each group's bit matrix in device memory, a sweep a group: three
+    launches).  N alone decides: the same for every dtype, with or
+    without ids, whatever the data."""
+    return "fused" if n <= NMS_FUSED_MAX else "tiled"
 
 
 def nms_keep(boxes, valid, ids=None, thresh=0.5):
     """:func:`nms_keep_plain`'s function.  CPU tensors run it; CUDA
     tensors launch ``csrc/box_nms.cu`` on the current stream (float32
-    or float64 boxes; its scratch is a (B, N, ceil(N/64)) bit matrix),
-    or raise; ``meta`` tensors (shape inference) get the mask's shape.
-    ``nms_keep.calls`` counts calls by route, ``nms_keep.launches`` the
-    device kernels launched (two a CUDA call: the mask and the sweep)."""
+    or float64 boxes) on :func:`nms_route`'s route, or raise; ``meta``
+    tensors (shape inference) get the mask's shape.  ``nms_keep.calls``
+    counts calls by device route (``cuda``, ``plain``),
+    ``nms_keep.calls_by_route`` the CUDA calls by kernel route, and
+    ``nms_keep.launches`` the device kernels launched
+    (:data:`NMS_ROUTE_LAUNCHES` a CUDA call)."""
     dev = boxes.device
     if dev.type == "meta":
         return valid.clone()
@@ -142,26 +165,36 @@ def nms_keep(boxes, valid, ids=None, thresh=0.5):
                             None if ids is None else tuple(ids.shape)))
     boxes = boxes.contiguous()
     ids = None if ids is None else ids.to(boxes.dtype).contiguous()
-    valid8 = valid.to(torch.uint8).contiguous()
-    words = (N + 63) // 64
-    mask = torch.empty((B, N, words), dtype=torch.int64, device=dev)
-    keep = torch.empty((B, N), dtype=torch.uint8, device=dev)
+    # bool tensors are bytes of 0 / 1: the kernel reads and writes them
+    valid = (valid if valid.dtype == torch.bool else valid != 0).contiguous()
+    keep = torch.empty((B, N), dtype=torch.bool, device=dev)
+    lib = _nms_lib()
+    code = _NMS_DTYPES[boxes.dtype]
+    route = nms_route(N)
+    scratch = None  # the tiled route's grouped rows and bit matrix
+    if route == "tiled" and B:
+        scratch = torch.empty(lib.mxt_box_nms_scratch_bytes(code, B, N),
+                              dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _nms_lib().mxt_box_nms_keep(
-        _NMS_DTYPES[boxes.dtype], boxes.data_ptr(),
-        None if ids is None else ids.data_ptr(), valid8.data_ptr(), B, N,
-        float(thresh), mask.data_ptr(), keep.data_ptr(), stream)
+    err = lib.mxt_box_nms_keep(
+        code, boxes.data_ptr(), None if ids is None else ids.data_ptr(),
+        valid.data_ptr(), B, N, float(thresh),
+        None if scratch is None else scratch.data_ptr(), keep.data_ptr(),
+        stream)
     if err != 0:
         raise RuntimeError("nms_keep: box_nms kernel launch failed with "
                            "CUDA error %d" % err)
-    nms_keep.launches += 2
+    if B and N:
+        nms_keep.launches += NMS_ROUTE_LAUNCHES[route]
+        nms_keep.calls_by_route[route] += 1
     nms_keep.calls["cuda"] += 1
-    return keep.bool()
+    return keep
 
 
 #: device kernel launches since the last reset, and calls by route
 nms_keep.launches = 0
 nms_keep.calls = {"cuda": 0, "plain": 0}
+nms_keep.calls_by_route = {"fused": 0, "tiled": 0}
 
 
 @register("_contrib_box_nms", aliases=("box_nms",), nondiff=True)

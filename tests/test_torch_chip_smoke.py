@@ -886,6 +886,44 @@ def test_the_ssd_phases_follow_the_rnn_phases_and_precede_the_kernel_line():
         n for n in dir(cs) if n.startswith("phase_")}
 
 
+def test_the_nms_kernel_entry_carries_every_shape():
+    # the kernels line's box_nms entry: the detection's (32, 400), the
+    # full (32, 6132) and the RPN's (2, 6000) rows, each with its kernel
+    # ms, device ms, plain ms, bound and mismatches; the routes the main
+    # path took
+    src = (REPO / "chip_smoke.py").read_text()
+    main = src[src.index("def main()"):]
+    entry = main[main.index('"name": "box_nms"'):]
+    for key in ('"full_size"', '"rpn"', '"calls_by_route"', '"graph_ms"'):
+        assert key in entry
+    assert {"ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+            "mismatches", "shape"} <= set(cs.NMS_ROW_KEYS)
+    num = src[src.index("def phase_ssd_numerics"):]
+    num = num[:num.index("\ndef ")]
+    assert "rpn_nms_inputs()" in num and '"box_nms_rpn"' in num
+
+
+def test_nms_sorted_rows_are_box_nms_inputs_in_score_order():
+    rows = torch.tensor(cs.nms_rows(2, 30)(np.random.RandomState(4)))
+    boxes, valid, ids, thresh = cs._nms_sorted(
+        rows, dict(overlap_thresh=0.45, topk=20))
+    assert tuple(boxes.shape) == (2, 20, 4) and thresh == 0.45
+    order = torch.sort(-torch.where(rows[..., 1] > 0, rows[..., 1],
+                                    torch.tensor(-np.inf, dtype=rows.dtype)),
+                       dim=1, stable=True)[1][:, :20]
+    assert torch.equal(ids, torch.gather(rows[..., 0], 1, order))
+    assert torch.equal(valid, torch.gather(rows[..., 1] > 0, 1, order))
+    assert torch.equal(boxes[..., 0], torch.gather(rows[..., 2], 1, order))
+
+
+def test_the_ids_fault_passes_the_rest_of_the_library_through():
+    class Lib:
+        def mxt_box_nms_scratch_bytes(self, *args):
+            return 123
+
+    assert cs._IdsDropped(Lib()).mxt_box_nms_scratch_bytes(0, 2, 3) == 123
+
+
 def test_nms_bound_counts_the_pairs_among_valid_boxes():
     # 2 images of 400 rows, float32: image 0 has 400 valid boxes in two
     # classes (300 and 100), image 1 three of one class.  12 operations

@@ -163,7 +163,14 @@ def test_killed_worker_is_adopted_with_the_stream_unchanged():
     deaths = diag.metrics.counter("mxnet_io_worker_deaths_total").value
     with tiop.InputPipeline(_fn(tiop), num_workers=2, device=False) as p:
         full = _stream(p)
-    with tiop.InputPipeline(_fn(tiop), num_workers=2, device="cpu") as p:
+    # the kill must land while worker 1 still has batches to deliver: it
+    # owns 6 of the 12 batches, and can have delivered at most the ones
+    # the stream took from it (the consumer's 2 head batches, the
+    # prefetch queue's 1 and the 1 the thread holds: worker 1's share is
+    # 2) plus the one slot it may fill: 3 < 6, so its end message
+    # cannot be queued yet and the stream must find it dead
+    with tiop.InputPipeline(_fn(tiop), num_workers=2, device="cpu",
+                            depth=1, slots_per_worker=1) as p:
         head = [p.next() for _ in range(2)]
         victim = p.pool._procs[1]
         victim.kill()

@@ -18,7 +18,9 @@ error over that head's largest gradient, float32 1e-4, bfloat16 1e-2
 products).  Every flash case asserts the route it took: bf16 with
 head_dim 64 or 128 on ``wgmma``, the rest on ``simt``.  The ``mx.rtc`` add kernel (``csrc/rtc/add.cu``,
 compiled by NVRTC) exactly: one IEEE add per element, rounded to
-nearest even in bfloat16 as PyTorch's add does.  ``mx.nd`` ops on
+nearest even in bfloat16 as PyTorch's add does.  The NMS kernel
+(``csrc/box_nms.cu``) exactly: its keep masks equal the plain greedy
+loop's on the same card inputs, on both routes.  ``mx.nd`` ops on
 ``gpu(0)`` against the same ops on ``cpu()``: exact for elementwise
 arithmetic and data movement, 1e-12 (float64) for sums and products,
 which the card takes in another order.
@@ -653,3 +655,128 @@ def test_model_runtime_bf16_on_the_card_matches_cpu_float32(cuda_device):
     clear = (top2[:, 1] - top2[:, 0]) > 2 * tol
     assert clear.sum() >= 10
     np.testing.assert_array_equal(cls[clear], want_cls[clear])
+
+
+# -- greedy NMS (csrc/box_nms.cu) ------------------------------------------
+def nms_inputs(B, N, dtype, classes, seed=0, layout="clusters"):
+    """Seeded score-ordered rows for ``nms_keep``: (boxes, valid, ids).
+    ``clusters``: boxes jittered around N/8 centres (many overlaps),
+    every 7th a copy of its image's first (ties), 10 % invalid with id
+    -1; ``same``: every box one box; ``apart``: a grid of disjoint
+    boxes.  ``classes`` None: no ids."""
+    rng = np.random.RandomState(seed)
+    if layout == "clusters":
+        cen = rng.uniform(0.1, 0.9, (B, max(1, N // 8), 2))
+        pick = rng.randint(0, cen.shape[1], (B, N))
+        ctr = cen[np.arange(B)[:, None], pick] + rng.normal(0, 0.02,
+                                                            (B, N, 2))
+        wh = rng.uniform(0.02, 0.2, (B, N, 2))
+        boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], axis=-1)
+        boxes[:, 7::7] = boxes[:, :1]
+        valid = rng.uniform(size=(B, N)) > 0.1
+    elif layout == "same":
+        boxes = np.tile([0.1, 0.2, 0.5, 0.6], (B, N, 1))
+        valid = np.ones((B, N), bool)
+    else:
+        side = int(np.ceil(np.sqrt(N)))
+        k = np.arange(N)
+        x, y = (k % side) / side, (k // side) / side
+        box = np.stack([x, y, x + 0.5 / side, y + 0.5 / side], axis=-1)
+        boxes = np.tile(box, (B, 1, 1))
+        valid = np.ones((B, N), bool)
+    ids = None
+    if classes is not None:
+        ids = rng.randint(0, classes, (B, N)).astype(np.float64)
+        ids[~valid] = -1.0
+        ids = torch.tensor(ids, dtype=dtype, device="cuda")
+    return (torch.tensor(boxes, dtype=dtype, device="cuda"),
+            torch.tensor(valid, device="cuda"), ids)
+
+
+# (B, N, dtype, classes): the detection's (32, 400), the RPN's (2, 6000),
+# MultiBoxDetection's (32, 6132), both sides of the fused route's limit,
+# one row, a ragged block, one class with ids, more classes than the
+# tiled route's 256 segment buckets, and one segment longer than the
+# sweep's ring of 96 tiles (the earliest rows' words read from device
+# memory)
+NMS_CASES = [
+    (32, 400, torch.float32, 21), (32, 400, torch.float64, None),
+    (2, 6000, torch.float32, None), (2, 6000, torch.float64, 21),
+    (32, 6132, torch.float64, 21), (32, 6132, torch.float32, None),
+    (4, 1024, torch.float32, 3), (4, 1025, torch.float64, 3),
+    (3, 1, torch.float32, 2), (5, 65, torch.float64, None),
+    (2, 2000, torch.float32, 1), (2, 3000, torch.float64, 300),
+    (1, 8000, torch.float32, None), (1, 7000, torch.float64, 1),
+]
+
+
+def _nms_id(case):
+    B, N, dtype, classes = case
+    return "B%dN%d%s%s" % (B, N, str(dtype)[-7:],
+                           "" if classes is None else "C%d" % classes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", NMS_CASES, ids=_nms_id)
+def test_nms_kernel_keeps_what_the_plain_loop_keeps(cuda_device, case):
+    from mxnet_tpu_torch.ops import contrib
+
+    B, N, dtype, classes = case
+    boxes, valid, ids = nms_inputs(B, N, dtype, classes)
+    route = contrib.nms_route(N)
+    launches = contrib.nms_keep.launches
+    calls = dict(contrib.nms_keep.calls_by_route)
+    keep = contrib.nms_keep(boxes, valid, ids, 0.45)
+    torch.cuda.synchronize()
+    assert contrib.nms_keep.launches - launches == \
+        contrib.NMS_ROUTE_LAUNCHES[route]
+    assert contrib.nms_keep.calls_by_route[route] == calls[route] + 1
+    want = contrib.nms_keep_plain(boxes, valid, ids, 0.45)
+    assert keep.dtype == torch.bool and keep.shape == (B, N)
+    assert int((keep != want).sum()) == 0
+    assert bool((keep & ~valid).sum() == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [400, 6000])
+@pytest.mark.parametrize("layout", ["same", "apart"])
+@pytest.mark.parametrize("classes", [None, 5])
+def test_nms_kernel_on_all_overlapping_and_disjoint_boxes(cuda_device, N,
+                                                          layout, classes):
+    from mxnet_tpu_torch.ops import contrib
+
+    boxes, valid, ids = nms_inputs(2, N, torch.float32, classes,
+                                   layout=layout)
+    keep = contrib.nms_keep(boxes, valid, ids, 0.5).cpu()
+    if layout == "apart":
+        assert bool(keep.all())
+    else:  # one survivor a class: each class's first row
+        want = torch.zeros_like(keep)
+        for b in range(2):
+            seen = set()
+            for j, c in enumerate(
+                    [0.0] * N if ids is None else ids[b].tolist()):
+                if c not in seen:
+                    seen.add(c)
+                    want[b, j] = True
+        assert torch.equal(keep, want)
+
+
+@pytest.mark.cuda
+def test_nms_kernel_route_limit_and_no_fallback(cuda_device, monkeypatch):
+    from mxnet_tpu_torch.ops import contrib
+
+    assert contrib._nms_lib().mxt_box_nms_fused_max() == \
+        contrib.NMS_FUSED_MAX
+    assert contrib._nms_lib().mxt_box_nms_scratch_bytes(
+        0, 2, contrib.NMS_FUSED_MAX) == 0
+
+    def plain(*args, **kw):
+        raise AssertionError("a CUDA tensor reached the plain loop")
+
+    monkeypatch.setattr(contrib, "nms_keep_plain", plain)
+    for N in (contrib.NMS_FUSED_MAX, contrib.NMS_FUSED_MAX + 1):
+        boxes, valid, ids = nms_inputs(2, N, torch.float32, 4)
+        contrib.nms_keep(boxes, valid, ids, 0.5)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        contrib.nms_keep(boxes.half(), valid, ids, 0.5)

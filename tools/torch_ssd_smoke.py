@@ -7,8 +7,9 @@ source: the NMS kernel ``csrc/box_nms.cu`` among them), ``ssd``
 (BASELINE config 4 at full width: SSD-512 on ResNet-50 trained at batch
 32 from records, detection through the NMS kernel, the VOC07 mAP; the
 example SSD's learning check) and ``ssd_numerics`` (every detection op
-in float64 on the card against the CPU, box_nms at (32, 6132), a mini
-R-CNN step, planted faults) in a fresh process, each phase's JSON line
+in float64 on the card against the CPU, box_nms at (32, 6132), the
+RPN's NMS at (2, 6000), a mini R-CNN step, planted faults) in a fresh
+process, each phase's JSON line
 as the smoke prints it, then one line with every phase's wall seconds.
 Exits non-zero if a phase fails; needs a CUDA device; imports no JAX.
 """
